@@ -1,0 +1,108 @@
+"""Ptychography / ptychotomography forward model, main-path subset of
+``adorym_tpu/models/ptychography.py``: a shared probe, no probe
+refinements, the plain delta_beta multislice branch with the detector
+propagation folded into it."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..config import ReconConfig
+from ..constants import wavelength_nm
+from ..ops import propagate as prop
+from .base import incoherent_mode_sum
+
+
+def complex_probe(probe):
+    """``[n_modes, py, px, 2]`` float -> ``[n_modes, py, px]`` complex64."""
+    return torch.complex(probe[..., 0].float(), probe[..., 1].float())
+
+
+def select_probe(params, batch):
+    """Per-angle probes (a 5D ``[n_theta, n_modes, py, px, 2]`` probe) are
+    indexed by the current angle."""
+    probe = params['probe']
+    if probe.dim() == 5:
+        probe = probe[batch['i_theta']]
+    return probe
+
+
+def prepare_probe(params: Dict, batch: Dict, cfg: ReconConfig):
+    """The complex probe ``[n_modes, py, px]``; probe defocus and position
+    offset refinement are ROADMAP A.11."""
+    if (cfg.refine.optimize_probe_defocusing
+            or cfg.refine.optimize_probe_pos_offset):
+        raise NotImplementedError('probe defocus / position-offset '
+                                  'refinement: ROADMAP A.11')
+    return complex_probe(select_probe(params, batch))
+
+
+def shifted_probes(probe, params: Dict, batch: Dict, cfg: ReconConfig):
+    """The shared probe for every spot (per-spot position correction is
+    ROADMAP A.11)."""
+    if cfg.refine.optimize_all_probe_pos:
+        raise NotImplementedError('probe position refinement: ROADMAP A.11')
+    return probe
+
+
+def predict_from_patches(params: Dict, batch: Dict, subobj, cfg: ReconConfig,
+                         return_wave: bool = False, prebinned_z: bool = False,
+                         zmajor: bool = False):
+    """Detected magnitudes ``[N, py, px]`` from pre-extracted object
+    patches ``[N, py, px, z, 2]`` — or, with ``zmajor=True``,
+    ``[zb, 2, N, py, px]``, the multislice kernel's operand layout.
+    ``prebinned_z``: the patches' z axis is already bin-summed."""
+    geo = cfg.geometry
+    if (geo.pure_projection or geo.slice_pos_cm_ls is not None
+            or cfg.train.unknown_type != 'delta_beta'):
+        raise NotImplementedError('pure-projection, sparse and real_imag '
+                                  'forward models: ROADMAP A.11')
+    if (cfg.refine.optimize_ctf_lg_kappa or cfg.refine.optimize_prj_pos_offset
+            or cfg.refine.optimize_free_prop):
+        raise NotImplementedError('kappa, projection-offset and '
+                                  'free-propagation refinement: ROADMAP A.11')
+    probe = shifted_probes(prepare_probe(params, batch, cfg), params, batch,
+                           cfg)
+    if cfg.train.run_bfloat16:
+        # bf16 storage of the packed patches (a no-op when they were
+        # extracted from the bf16 copy); delta/beta are views of it.
+        subobj = subobj.to(torch.bfloat16)
+    if zmajor:
+        delta = torch.movedim(subobj[:, 0], 0, -1)
+        beta = torch.movedim(subobj[:, 1], 0, -1)
+    else:
+        delta = subobj[..., 0]
+        beta = subobj[..., 1]
+    # The shared probe broadcast to the [n_modes, N, py, px] stack.
+    wave = probe[:, None].expand(probe.shape[0], delta.shape[0],
+                                 *probe.shape[-2:])
+    fused = {'auto': 'auto', 'on': True, 'off': False}[
+        cfg.train.fused_multislice]
+    final_prop = None
+    if cfg.train.fuse_farfield != 'off':
+        final_prop = {'free_prop_cm': geo.free_prop_cm,
+                      'normalize_fft': cfg.loss.normalize_fft}
+    out = prop.multislice_propagate(
+        delta, beta, wave, geo.energy_ev, geo.psize_cm,
+        slice_spacing_cm=geo.slice_spacing_cm, binning=geo.binning,
+        unknown_type=cfg.train.unknown_type,
+        fresnel_approx=geo.fresnel_approx,
+        sign_convention=geo.sign_convention,
+        scale_ri_by_k=geo.scale_ri_by_k, fused=fused,
+        prebinned=prebinned_z, final_prop=final_prop,
+        db_stack=None if zmajor else subobj,
+        db_zmajor=subobj if zmajor else None)
+    if final_prop is None:
+        dz_cm = (geo.psize_cm if geo.slice_spacing_cm is None
+                 else geo.slice_spacing_cm)
+        voxel_nm = (geo.psize_cm * 1e7, geo.psize_cm * 1e7, dz_cm * 1e7)
+        out = prop.free_space_propagate(
+            out, geo.free_prop_cm, wavelength_nm(geo.energy_ev), voxel_nm,
+            sign_convention=geo.sign_convention,
+            normalize_fft=cfg.loss.normalize_fft,
+            fresnel_approx=geo.fresnel_approx)
+    if return_wave:
+        return out
+    return incoherent_mode_sum(out)

@@ -1,0 +1,224 @@
+"""Multislice propagation through a delta/beta object with stored
+intermediates: the CUDA kernel pair ``csrc/multislice_db_stored.cu`` and
+its plain PyTorch version.
+
+Counterpart of ``adorym_tpu/ops/pallas_multislice.py``'s
+``multislice_db_stored_packed`` (``:1125``), whose forward and backward
+Pallas kernels (``_fwd_db_st_kernel`` ``:353``, ``_bwd_db_st_kernel``
+``:422``) the CUDA kernels replace.  The object arrives packed and z-major,
+``db[S, 2, N, ny, nx]`` (slot 0 delta, slot 1 beta, one binned slice per
+step), in f32 or bf16; the incident wave is ``[M, N, ny, nx]`` complex64
+(M probe modes).  Each step multiplies the wave by the slice transmission
+``t = exp(-k1 b) exp(-i s k1 d)`` and propagates it with the folded
+per-axis Fresnel matrices ``w <- Py w Px^T``; the last step applies the
+optional far-field matrices instead.
+
+:func:`multislice_db_stored_packed` routes by device: CUDA tensors go
+through the kernels (an autograd Function whose backward is the second
+kernel), CPU tensors through :func:`multislice_db_stored_plain`, the same
+math op by op with the gradient from autograd.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..utils.cuda_build import Kernel, ptr
+from .fourier import dft_matrix
+
+#: Dynamic shared memory one block may use on Hopper (227 KB).
+MAX_SMEM_BYTES = 232448
+
+_F = ctypes.c_float
+_I = ctypes.c_int
+_P = ctypes.c_void_p
+K1_FWD = Kernel('multislice_db_stored.cu', 'k1_fwd',
+                [_I] + [_P] * 8 + [_I] * 5 + [_F, _F])
+K1_BWD = Kernel('multislice_db_stored.cu', 'k1_bwd',
+                [_I] + [_P] * 9 + [_I] * 5 + [_F, _F, _F])
+
+
+def _fold_prop_mats(kernel):
+    """Per-axis folded propagation matrices ``P = G diag(h) F`` of a
+    separable (paraxial) transfer kernel ``H[y, x] = hy[y] hx[x]`` with
+    ``hy = H[:, 0] / H[0, 0]``, ``hx = H[0, :]``; complex64, ``P[out, in]``
+    orientation (``pallas_multislice._fold_prop_mats``)."""
+    h = kernel.to(torch.complex64)
+    ny, nx = h.shape
+    hy = h[:, 0] / h[0, 0]
+    hx = h[0, :]
+    dev = h.device
+
+    def mats(n):
+        return (torch.from_numpy(dft_matrix(n)).to(dev),
+                torch.from_numpy(dft_matrix(n, inverse=True)).to(dev))
+
+    fy, gy = mats(ny)
+    fx, gx = mats(nx)
+    return (gy * hy[None, :]) @ fy, (gx * hx[None, :]) @ fx
+
+
+def _modulator(db_z, k1, s):
+    """Slice transmission of one packed step ``[2, ...]``, in f32 whatever
+    the storage dtype."""
+    d = db_z[0].float()
+    b = db_z[1].float()
+    amp = torch.exp(-k1 * b)
+    ph = -s * k1 * d
+    return torch.complex(amp * torch.cos(ph), amp * torch.sin(ph))
+
+
+def _apply_prop(w, my, mx):
+    """``w <- my w mx^T`` over the last two axes: the x pass, then the y
+    pass (``pallas_multislice._apply_prop``)."""
+    return my @ (w @ mx.transpose(0, 1))
+
+
+def multislice_db_stored_plain(db, wave, kernel, k1, s, fay=None, fax=None):
+    """Plain PyTorch version of the kernel pair: the same steps op by op,
+    differentiable by autograd.  ``fay``/``fax``: optional far-field mats
+    applied at the last step as ``fay w fax^T``."""
+    py, px = _fold_prop_mats(kernel)
+    w = wave
+    n_steps = db.shape[0]
+    for z in range(n_steps):
+        w = w * _modulator(db[z], k1, s)
+        if z < n_steps - 1:
+            w = _apply_prop(w, py, px)
+        elif fay is not None:
+            w = _apply_prop(w, fay, fax)
+    return w
+
+
+def smem_bytes(n_modes, ny, nx):
+    """Dynamic shared memory of one kernel block: the M waves, one scratch
+    plane and the two per-axis matrices, complex64."""
+    return 8 * ((n_modes + 1) * ny * nx + ny * ny + nx * nx)
+
+
+def _dtype_code(dtype):
+    if dtype == torch.float32:
+        return 0
+    if dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f'db must be float32 or bfloat16, got {dtype}')
+
+
+class MultisliceDbStored(torch.autograd.Function):
+    """The CUDA kernel pair as one autograd Function.  ``mats`` holds the
+    step and far-field matrices in the orientations the kernels take:
+    forward ``Py, Px^T`` (far field ``Fy, Fx^T``), backward the transposes
+    ``Py^T, Px`` (``Fy^T, Fx``), as :func:`prop_mats` builds them.  Takes
+    contiguous CUDA operands (see :func:`multislice_db_stored_packed`)."""
+
+    @staticmethod
+    def forward(ctx, db, wave, mats, k1, s):
+        n_steps, _, n, ny, nx = db.shape
+        m = wave.shape[0]
+        out = torch.empty((m, n, ny, nx), dtype=torch.complex64,
+                          device=db.device)
+        rec = torch.empty((n_steps, m, n, ny, nx, 2), dtype=db.dtype,
+                          device=db.device)
+        K1_FWD(_dtype_code(db.dtype), ptr(db), ptr(wave),
+               ptr(mats['fwd_y']), ptr(mats['fwd_x']),
+               ptr(mats.get('ffwd_y')), ptr(mats.get('ffwd_x')),
+               ptr(out), ptr(rec), n_steps, m, n, ny, nx,
+               -k1, -s * k1)
+        ctx.save_for_backward(db, rec)
+        ctx.mats = mats
+        ctx.k1, ctx.s = k1, s
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        db, rec = ctx.saved_tensors
+        mats = ctx.mats
+        n_steps, _, n, ny, nx = db.shape
+        m = rec.shape[1]
+        g = grad_out.resolve_conj().contiguous()
+        gdb = torch.empty_like(db)
+        gw = torch.empty((m, n, ny, nx), dtype=torch.complex64,
+                         device=db.device)
+        k1, s = ctx.k1, ctx.s
+        K1_BWD(_dtype_code(db.dtype), ptr(db), ptr(rec), ptr(g),
+               ptr(mats['bwd_y']), ptr(mats['bwd_x']),
+               ptr(mats.get('fbwd_y')), ptr(mats.get('fbwd_x')),
+               ptr(gdb), ptr(gw), n_steps, m, n, ny, nx,
+               -k1, -s * k1, s * k1)
+        return gdb, gw, None, None, None
+
+
+def _check_cuda_operands(db, wave, kernel):
+    if db.dim() != 5 or db.shape[1] != 2:
+        raise ValueError(f'db must be [S, 2, N, ny, nx], got {tuple(db.shape)}')
+    _dtype_code(db.dtype)
+    n_steps, _, n, ny, nx = db.shape
+    if wave.dim() != 4 or tuple(wave.shape[1:]) != (n, ny, nx):
+        raise ValueError(f'wave must be [M, {n}, {ny}, {nx}], '
+                         f'got {tuple(wave.shape)}')
+    if wave.dtype != torch.complex64:
+        raise TypeError(f'wave must be complex64, got {wave.dtype}')
+    if tuple(kernel.shape) != (ny, nx):
+        raise ValueError(f'kernel must be [{ny}, {nx}]')
+    if not (wave.is_cuda and kernel.is_cuda):
+        raise ValueError('db, wave and kernel must share a CUDA device')
+    need = smem_bytes(wave.shape[0], ny, nx)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(
+            f'multislice kernel needs {need} bytes of shared memory for '
+            f'{wave.shape[0]} modes at {ny}x{nx}; the limit is '
+            f'{MAX_SMEM_BYTES}')
+
+
+def prop_mats(kernel, fay=None, fax=None):
+    """The matrices :class:`MultisliceDbStored` takes: the folded step
+    mats of ``kernel`` and the optional far-field mats, each in the
+    orientation of the kernel that reads it, on ``kernel``'s device."""
+    py, px = _fold_prop_mats(kernel)
+    mats = {'fwd_y': py.contiguous(), 'fwd_x': px.transpose(0, 1).contiguous(),
+            'bwd_y': py.transpose(0, 1).contiguous(), 'bwd_x': px.contiguous()}
+    if fay is not None:
+        fay = fay.to(device=kernel.device, dtype=torch.complex64)
+        fax = fax.to(device=kernel.device, dtype=torch.complex64)
+        mats.update(ffwd_y=fay.contiguous(),
+                    ffwd_x=fax.transpose(0, 1).contiguous(),
+                    fbwd_y=fay.transpose(0, 1).contiguous(),
+                    fbwd_x=fax.contiguous())
+    return mats
+
+
+def multislice_db_stored_packed(db, wave, kernel, k1, s, fay=None, fax=None):
+    """Exit (or, with ``fay``/``fax``, detector) wave ``[M, N, ny, nx]``
+    complex64 of the packed multislice; differentiable in ``db`` and
+    ``wave``.  CUDA tensors run the kernels; CPU tensors the plain version.
+    ``kernel``: the per-step Fresnel transfer function ``[ny, nx]``
+    (separable); ``k1``, ``s``: wavenumber scale and sign convention."""
+    if not db.is_cuda:
+        return multislice_db_stored_plain(db, wave, kernel, k1, s, fay, fax)
+    _check_cuda_operands(db, wave, kernel)
+    return MultisliceDbStored.apply(db.contiguous(), wave.contiguous(),
+                                    prop_mats(kernel, fay, fax), float(k1),
+                                    float(s))
+
+
+def flops(n_steps, n_modes, n, ny, nx, final=True):
+    """Real floating-point operations of one sweep in the three-multiply
+    complex-matmul form: 3 real GEMMs per complex pass, an x pass
+    (ny*nx*nx) and a y pass (ny*ny*nx) per propagation, ``n_steps - 1``
+    propagations plus the far field."""
+    n_prop = n_steps - 1 + (1 if final else 0)
+    return float(n_prop * n_modes * n * 3 * 2 * (ny * nx * nx + ny * ny * nx))
+
+
+def bytes_moved(n_steps, n_modes, n, ny, nx, itemsize, backward=False):
+    """Least device-memory bytes of one sweep: every input read once and
+    every output written once (db, records and waves)."""
+    plane = n * ny * nx
+    db = n_steps * 2 * plane * itemsize
+    rec = n_steps * n_modes * plane * 2 * itemsize
+    wave = n_modes * plane * 8
+    if backward:          # db, records, g in; gdb, gw out
+        return float(db + rec + wave + db + wave)
+    return float(db + wave + wave + rec)   # db, w0 in; out, records out

@@ -1,0 +1,317 @@
+"""Wave-optics propagation: Fresnel kernels, multislice, far field.
+
+Main-path subset of ``adorym_tpu/ops/propagate.py``.  Sign conventions as
+in the reference: ``sign_convention=1`` is the Goodman ``exp(ikz)``
+convention with ``n = 1 - delta + i*beta``.  Energies in eV, wavelengths
+and voxels in nm, distances in nm unless the name says ``_cm``.
+
+:func:`multislice_propagate` keeps two of the JAX package's branches: the
+plain FFT z scan, and the fused delta_beta dispatch, which on CUDA runs the
+multislice kernel of :mod:`.cuda_multislice` (its plain version on the
+CPU).  The remaining branches raise ``NotImplementedError`` naming their
+ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..constants import PI, wavelength_nm
+from ..utils.profiling import hbm_limit_bytes
+from .fourier import dft_matrix, fft2, fft2_and_shift, ifft2, ifft2_and_shift
+
+def _db_stored_max_bytes(device) -> float:
+    """Stored-intermediates switch of the fused delta_beta branch: above
+    this many bytes of per-chunk forward records the JAX package switches
+    to the invertible kernel (K4, not ported yet).  One eighth of the
+    device's memory (16e9 / 8 on the CPU, the JAX package's default)."""
+    return hbm_limit_bytes(device) / 8
+
+
+@functools.lru_cache(maxsize=64)
+def _freq_mesh_np(voxel_nm: tuple, shape: tuple):
+    """(u, v) spatial-frequency grids in cycles/nm, fftfreq-ordered: ``u``
+    varies along y scaled by 1/voxel_y, ``v`` along x."""
+    u = (np.fft.fftfreq(shape[0]) / voxel_nm[0]).astype(np.float32)
+    v = (np.fft.fftfreq(shape[1]) / voxel_nm[1]).astype(np.float32)
+    uu = np.ascontiguousarray(np.broadcast_to(u[:, None], shape))
+    vv = np.ascontiguousarray(np.broadcast_to(v[None, :], shape))
+    return uu, vv
+
+
+def fresnel_kernel(shape, voxel_nm, lmbda_nm, dist_nm, fresnel_approx=True,
+                   sign_convention=1, device='cpu'):
+    """Unshifted Fresnel transfer function H(u, v), complex64 on
+    ``device``; the non-paraxial form masks evanescent modes."""
+    uu, vv = _freq_mesh_np(tuple(float(v) for v in voxel_nm[:2]),
+                           tuple(int(s) for s in shape[:2]))
+    u = torch.from_numpy(uu).to(device)
+    v = torch.from_numpy(vv).to(device)
+    quad = u * u + v * v
+    if fresnel_approx:
+        phase = -sign_convention * PI * lmbda_nm * dist_nm * quad
+        return torch.polar(torch.ones_like(phase), phase)
+    q = 1.0 - lmbda_nm ** 2 * quad
+    mask = (q > 0).float()
+    phase = (sign_convention * 2.0 * PI * dist_nm / lmbda_nm
+             * torch.sqrt(torch.clamp(q, min=0.0)))
+    return torch.polar(mask, phase)
+
+
+def fresnel_propagate(wave, dist_nm, lmbda_nm, voxel_nm, fresnel_approx=True,
+                      sign_convention=1):
+    """Propagate a (batched) wave by ``dist_nm`` with the TF method."""
+    kernel = fresnel_kernel(wave.shape[-2:], voxel_nm, lmbda_nm, dist_nm,
+                            fresnel_approx=fresnel_approx,
+                            sign_convention=sign_convention,
+                            device=wave.device)
+    return ifft2(fft2(wave) * kernel)
+
+
+def final_prop_mats(shape, voxel_nm, lmbda_nm, free_prop_cm,
+                    sign_convention=1, normalize_fft=False,
+                    fresnel_approx=True, device='cpu'):
+    """Object-to-detector propagation as per-axis dense matrices
+    ``(ay, ax, ay_inv, ax_inv)``, complex64 on ``device``, such that
+    ``free_space_propagate(w) == ay @ w @ ax.T``; None when the
+    propagation is not a separable matrix pair (non-paraxial finite
+    distance).  The Fraunhofer pair is fftshift @ DFT per axis and is NOT
+    unitary when unnormalized, so its exact inverse is returned."""
+    ny, nx = int(shape[0]), int(shape[1])
+
+    def to_dev(*mats):
+        return tuple(torch.from_numpy(np.ascontiguousarray(m)).to(device)
+                     for m in mats)
+
+    if isinstance(free_prop_cm, str) and free_prop_cm == 'inf':
+        def axis(n):
+            shift_perm = np.fft.fftshift(np.eye(n, dtype=np.complex64),
+                                         axes=0)
+            f = dft_matrix(n)
+            g = dft_matrix(n, inverse=True)
+            if sign_convention == 1:
+                a, ai = shift_perm @ f, g @ shift_perm.T
+            else:
+                a, ai = shift_perm @ g, f @ shift_perm.T
+            if normalize_fft:          # 'ortho'
+                r = np.sqrt(np.float32(n))
+                if sign_convention == 1:
+                    a, ai = a / r, ai * r
+                else:
+                    a, ai = a * r, ai / r
+            return a, ai
+
+        ay, ayi = axis(ny)
+        ax, axi = axis(nx)
+        return to_dev(ay, ax, ayi, axi)
+    if not fresnel_approx:
+        return None
+    # Folded TF pair built in float64: the Fresnel phase reaches 1e3..1e6
+    # rad at detector distances, where f32 phase rounding shows.
+    dist_nm = float(free_prop_cm) * 1e7
+
+    def axis_tf(n, voxel):
+        u = np.fft.fftfreq(n) / voxel
+        h = np.exp(-1j * sign_convention * np.pi * lmbda_nm * dist_nm
+                   * u * u)
+        k = np.arange(n)
+        f = np.exp(-2j * np.pi * np.outer(k, k) / n)
+        g = np.conj(f) / n
+        a = (g * h[None, :]) @ f
+        ai = (g * np.conj(h)[None, :]) @ f
+        return a.astype(np.complex64), ai.astype(np.complex64)
+
+    ay, ayi = axis_tf(ny, float(voxel_nm[0]))
+    ax, axi = axis_tf(nx, float(voxel_nm[1]))
+    return to_dev(ay, ax, ayi, axi)
+
+
+def free_space_propagate(wave, free_prop_cm, lmbda_nm, voxel_nm,
+                         sign_convention=1, normalize_fft=False,
+                         fresnel_approx=True):
+    """Object-to-detector propagation: ``'inf'`` is the Fraunhofer far
+    field (fftshifted FFT2, IFFT2 for the opposite sign convention,
+    unnormalized unless ``normalize_fft``); a finite distance uses the
+    Fresnel TF method."""
+    if free_prop_cm is None or (isinstance(free_prop_cm, (int, float))
+                                and free_prop_cm == 0):
+        return wave
+    if isinstance(free_prop_cm, str) and free_prop_cm == 'inf':
+        norm = 'ortho' if normalize_fft else None
+        if sign_convention == 1:
+            return fft2_and_shift(wave, norm=norm)
+        return ifft2_and_shift(wave, norm=norm)
+    return fresnel_propagate(wave, float(free_prop_cm) * 1e7, lmbda_nm,
+                             voxel_nm, fresnel_approx=fresnel_approx,
+                             sign_convention=sign_convention)
+
+
+def slice_modulator(delta, beta, k1, unknown_type='delta_beta',
+                    sign_convention=1):
+    """Complex64 transmission of one (possibly binned) slice:
+    ``exp(-k1*beta) * exp(-i*sign*k1*delta)`` for delta_beta; the channels
+    themselves for real_imag."""
+    if unknown_type == 'delta_beta':
+        mag = torch.exp(-k1 * beta.float())
+        phase = -sign_convention * k1 * delta.float()
+        return torch.complex(mag * torch.cos(phase), mag * torch.sin(phase))
+    if unknown_type == 'real_imag':
+        return torch.complex(delta.float(), beta.float())
+    raise ValueError("unknown_type must be 'delta_beta' or 'real_imag'")
+
+
+def _pad_z_to_multiple(arr, binning, unknown_type):
+    """Pad the leading z axis (far end) up to a multiple of ``binning``
+    with the reduction identity (0 for sums, 1 for products)."""
+    pad = -arr.shape[0] % binning
+    if pad:
+        cval = 0.0 if unknown_type == 'delta_beta' else 1.0
+        fill = torch.full((pad,) + tuple(arr.shape[1:]), cval,
+                          dtype=arr.dtype, device=arr.device)
+        arr = torch.cat([arr, fill], 0)
+    return arr
+
+
+def bin_z_sum(arr, binning, axis):
+    """Zero-padded bin-sum along ``axis`` (the delta_beta binning: the
+    far-end pad joins the short tail bin)."""
+    if binning == 1:
+        return arr
+    axis = axis % arr.dim()
+    nz = arr.shape[axis]
+    pad = -nz % binning
+    if pad:
+        shape = list(arr.shape)
+        shape[axis] = pad
+        arr = torch.cat([arr, arr.new_zeros(shape)], axis)
+    shape = (tuple(arr.shape[:axis]) + ((nz + pad) // binning, binning)
+             + tuple(arr.shape[axis + 1:]))
+    return arr.reshape(shape).sum(axis + 1)
+
+
+def _bin_slices(arr, binning, unknown_type):
+    """Reduce the leading (pre-padded) z axis in bins of ``binning``."""
+    if binning == 1:
+        return arr
+    arr = arr.reshape((arr.shape[0] // binning, binning)
+                      + tuple(arr.shape[1:]))
+    if unknown_type == 'delta_beta':
+        return arr.sum(1)
+    return arr.prod(1)
+
+
+def multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
+                         slice_spacing_cm=None, binning=1,
+                         unknown_type='delta_beta', fresnel_approx=True,
+                         sign_convention=1, scale_ri_by_k=True,
+                         repeats=None, backprop=False, fused='auto',
+                         prebinned=False, final_prop=None, db_stack=None,
+                         db_zmajor=None):
+    """Multislice propagation through an object batch.
+
+    ``delta``, ``beta``: ``[..., y, x, nz]`` channels; ``wave``: complex
+    ``[..., y, x]``.  ``fused``: ``'auto'`` (the kernel when the wave is on
+    CUDA) | True (the kernel; its plain version on the CPU) | False (the
+    plain FFT scan).  ``final_prop``: optional ``{'free_prop_cm',
+    'normalize_fft'}``; the returned wave then includes the detector
+    propagation, folded into the kernel's last step where it is a
+    separable matrix pair.  ``db_stack`` ``[..., y, x, nz, 2]`` or
+    ``db_zmajor`` ``[nz, 2, ..., y, x]``: the packed channels the kernel
+    consumes.  ``prebinned``: the z axis is already bin-summed.  See
+    ``adorym_tpu.ops.propagate.multislice_propagate`` for the full
+    contract.
+    """
+    if repeats is not None:
+        raise NotImplementedError('multislice repeats: ROADMAP A.11')
+    if backprop:
+        raise NotImplementedError('multislice backprop: ROADMAP A.11')
+    lmbda_nm = wavelength_nm(energy_ev)
+    dz_cm = psize_cm if slice_spacing_cm is None else slice_spacing_cm
+    voxel_nm = (psize_cm * 1e7, psize_cm * 1e7, dz_cm * 1e7)
+    delta_nm = voxel_nm[2]
+    k1 = 2.0 * PI * delta_nm / lmbda_nm if scale_ri_by_k else 1.0
+    mod_sign = sign_convention
+
+    def to_det(out):
+        if final_prop is None:
+            return out
+        return free_space_propagate(
+            out, final_prop['free_prop_cm'], lmbda_nm, voxel_nm,
+            sign_convention=sign_convention,
+            normalize_fft=final_prop.get('normalize_fft', False),
+            fresnel_approx=fresnel_approx)
+
+    delta_z = torch.movedim(delta, -1, 0)
+    beta_z = torch.movedim(beta, -1, 0)
+    if not prebinned:
+        delta_z = _bin_slices(_pad_z_to_multiple(delta_z, binning,
+                                                 unknown_type),
+                              binning, unknown_type)
+        beta_z = _bin_slices(_pad_z_to_multiple(beta_z, binning,
+                                                unknown_type),
+                             binning, unknown_type)
+    n_steps = delta_z.shape[0]
+
+    db_z = None
+    if unknown_type == 'delta_beta':
+        if db_zmajor is not None:
+            db_z = db_zmajor
+        elif db_stack is not None:
+            db_z = torch.movedim(db_stack, (-2, -1), (0, 1))
+        if db_z is not None and not prebinned:
+            db_z = _bin_slices(_pad_z_to_multiple(db_z, binning,
+                                                  unknown_type),
+                               binning, unknown_type)
+
+    kernel = fresnel_kernel(wave.shape[-2:], voxel_nm, lmbda_nm,
+                            delta_nm * binning,
+                            fresnel_approx=fresnel_approx,
+                            sign_convention=sign_convention,
+                            device=wave.device)
+    if fused == 'auto':
+        fused = wave.is_cuda
+    fused = fused and wave.dim() == 4 and delta_z.dim() == 4
+
+    if (fused and n_steps > 1 and unknown_type == 'delta_beta'
+            and fresnel_approx):
+        from . import cuda_multislice as cm
+        inter_bytes = n_steps * wave.numel() * 8
+        if inter_bytes > _db_stored_max_bytes(wave.device):
+            raise NotImplementedError(
+                'K4 multislice_db_packed not yet ported')
+        if db_z is None:
+            db_z = torch.stack([delta_z, beta_z.to(delta_z.dtype)], 1)
+        if db_z.dtype not in (torch.float32, torch.bfloat16):
+            db_z = db_z.float()
+        fay = fax = None
+        folded = False
+        if final_prop is not None:
+            fp = final_prop['free_prop_cm']
+            if fp is None or (isinstance(fp, (int, float)) and fp == 0):
+                folded = True
+            else:
+                mats = final_prop_mats(
+                    wave.shape[-2:], voxel_nm, lmbda_nm, fp,
+                    sign_convention=sign_convention,
+                    normalize_fft=final_prop.get('normalize_fft', False),
+                    fresnel_approx=fresnel_approx, device=wave.device)
+                if mats is not None:
+                    fay, fax = mats[:2]
+                    folded = True
+        out = cm.multislice_db_stored_packed(
+            db_z, wave.to(torch.complex64), kernel, k1, mod_sign, fay, fax)
+        return out if folded else to_det(out)
+
+    if fused and n_steps > 1:
+        raise NotImplementedError(
+            'K5 multislice_fused (non-delta_beta or non-paraxial fused '
+            'multislice) not yet ported: ROADMAP B')
+
+    t_all = slice_modulator(delta_z, beta_z, k1, unknown_type, mod_sign)
+    wv = wave
+    for t in t_all[:-1]:
+        wv = ifft2(fft2(wv * t) * kernel)
+    return to_det(wv * t_all[-1])

@@ -1,0 +1,402 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits nonzero):
+  1. the card's name and power limit, torch and CUDA versions;
+  2. build every kernel of the main path from ``adorym_tpu_torch/csrc``
+     (one nvcc per source, all at once);
+  3. each kernel against its plain PyTorch version at the flagship shapes,
+     f32 and bf16 (forward and backward for the multislice pair), with
+     kernel, plain and library times and the bound of each;
+  4. the flagship epoch (256^3 object, 23x23 scan of 72^2 patterns at
+     stride 8, binning 8, Fraunhofer, Adam, per-angle updates with the
+     rotation out of the loop; 4 angles of random data) through
+     ``Reconstructor``, f32 and bf16: a warmup epoch and 3 timed epochs,
+     with each kernel's launch count read after the run, then one f32
+     epoch under torch.profiler for the device time by kernel;
+  5. a small configuration trained on CUDA and on the CPU: the per-epoch
+     losses must agree.
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+#: H100 SXM data sheet: HBM3 bandwidth and f32 rate outside tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+FLAGSHIP = dict(n_obj=256, n_probe=72, mb=23, binning=8, stride=8,
+                energy_ev=5000.0, psize_cm=1e-7, n_theta=4)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def time_ms(fn, reps):
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events,
+    after one warmup call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def rel_err(a, b):
+    a, b = a.detach(), b.detach()
+    a = torch.view_as_real(a) if a.is_complex() else a.float()
+    b = torch.view_as_real(b) if b.is_complex() else b.float()
+    return float((a - b).abs().max()), float((a - b).abs().max()
+                                             / b.abs().max())
+
+
+def flagship_positions():
+    xs = np.arange(23) * 8 - 4
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    return np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+
+
+# -- phase 3 -----------------------------------------------------------------
+
+def check_multislice(dtype, tol_fwd, tol_bwd):
+    """K1 forward and backward against the plain version at one flagship
+    gradient chunk: S=32 binned steps, M=1, N=529 patches of 72x72."""
+    from adorym_tpu_torch.ops import cuda_multislice as cm
+    from adorym_tpu_torch.ops import propagate as prop
+    S, M, N, n = 32, 1, 529, 72
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(0)
+    db = (torch.rand((S, 2, N, n, n), device=dev, generator=gen)
+          * 0.01).to(dtype)
+    wave = torch.randn((M, N, n, n), dtype=torch.complex64, device=dev,
+                       generator=gen)
+    g = torch.randn((M, N, n, n), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    lmbda = 1240.0 / FLAGSHIP['energy_ev']
+    voxel = (1.0, 1.0, 1.0)
+    k1 = 2 * np.pi * 1.0 / lmbda
+    h = prop.fresnel_kernel((n, n), voxel, lmbda, 8.0, device=dev)
+    fay, fax = prop.final_prop_mats((n, n), voxel, lmbda, 'inf',
+                                    device=dev)[:2]
+
+    def run(fn):
+        d = db.detach().requires_grad_()
+        w = wave.detach().requires_grad_()
+        out = fn(d, w, h, k1, 1.0, fay, fax)
+        gd, gw = torch.autograd.grad(out, (d, w), g, retain_graph=True)
+        return out, gd, gw, (lambda: torch.autograd.grad(
+            out, (d, w), g, retain_graph=True))
+
+    out_k, gd_k, gw_k, bwd_k = run(cm.multislice_db_stored_packed)
+    out_p, gd_p, gw_p, bwd_p = run(cm.multislice_db_stored_plain)
+    torch.cuda.synchronize()
+    e_fwd, r_fwd = rel_err(out_k, out_p)
+    e_gd, r_gd = rel_err(gd_k, gd_p)
+    e_gw, r_gw = rel_err(gw_k, gw_p)
+    tag = str(dtype).split('.')[-1]
+    log(f'K1 {tag}: fwd max_abs {e_fwd:.3e} rel {r_fwd:.3e} (tol {tol_fwd}); '
+        f'gdb max_abs {e_gd:.3e} rel {r_gd:.3e}; gw max_abs {e_gw:.3e} '
+        f'rel {r_gw:.3e} (tol {tol_bwd})')
+    if not (r_fwd < tol_fwd and r_gd < tol_bwd and r_gw < tol_bwd):
+        raise AssertionError(f'K1 {tag} kernel disagrees with its plain '
+                             'version')
+    mats = cm.prop_mats(h, fay, fax)
+    with torch.no_grad():
+        # The launch alone: the step and far-field mats are built once.
+        ms_f = time_ms(lambda: cm.MultisliceDbStored.apply(
+            db, wave, mats, k1, 1.0), 10)
+        plain_f = time_ms(lambda: cm.multislice_db_stored_plain(
+            db, wave, h, k1, 1.0, fay, fax), 5)
+    ms_b = time_ms(bwd_k, 10)
+    plain_b = time_ms(bwd_p, 5)
+    isz = db.element_size()
+    b_f, by_f = bound(cm.bytes_moved(S, M, N, n, n, isz),
+                      cm.flops(S, M, N, n, n))
+    b_b, by_b = bound(cm.bytes_moved(S, M, N, n, n, isz, backward=True),
+                      cm.flops(S, M, N, n, n))
+    src = 'adorym_tpu_torch/csrc/multislice_db_stored.cu'
+    return [
+        record(f'K1f multislice_db_stored forward ({tag})', src,
+               'adorym_tpu/ops/pallas_multislice.py:353', e_fwd, r_fwd,
+               tol_fwd, ms_f, plain_f, b_f, by_f, None, 'K1_FWD'),
+        record(f'K1b multislice_db_stored backward ({tag})', src,
+               'adorym_tpu/ops/pallas_multislice.py:422', max(e_gd, e_gw),
+               max(r_gd, r_gw), tol_bwd, ms_b, plain_b, b_b, by_b, None,
+               'K1_BWD'),
+    ]
+
+
+def record(name, source, replaces, err, rel, tol, ms, plain_ms, bound_ms,
+           bound_by, library_ms, counter):
+    """One kernel's entry of the JSON line.  ``ms`` and ``kernel_ms`` are
+    the same time; ``rel_err`` (max abs error over the plain version's
+    largest value) is what was held against ``tol``."""
+    return dict(name=name, route='cuda', source=source, replaces=replaces,
+                max_abs_err=err, rel_err=rel, tol=tol, ms=ms, kernel_ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, counter=counter)
+
+
+def check_grid_scatter(dtype):
+    """K2 against its plain version at the flagship chunk: 529 patch
+    cotangents on a 23x23 grid at stride 8, into the padded binned
+    accumulator [260, 260, 32, 2].  The cotangents come as the main path
+    gives them: the multislice kernel's z-major gradient [32, 2, 529, 72,
+    72] viewed as [529, 72, 72, 32, 2], which the kernel reads in place.
+    The patch-major layout (the view copied to contiguous memory) is
+    checked too, and timed with its copy: the route before the kernel read
+    the z-major layout."""
+    from adorym_tpu_torch.ops import cuda_scatter_grid as csg
+    dev = torch.device('cuda')
+    rows, s, n, zb = 23, 8, 72, 32
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cot_zm = torch.randn((zb, 2, rows * rows, n, n), device=dev,
+                         generator=gen).to(dtype)
+    cot = cot_zm.permute(2, 3, 4, 0, 1)
+    if not csg._channel_major(cot):
+        raise AssertionError('K2: the z-major view is not read in place')
+    cot_pm = cot.contiguous()
+    acc0 = torch.randn((260, 260, zb, 2), device=dev, generator=gen)
+    ref = csg.scatter_grid2d_add_plain(acc0.clone(), cot, 0, 0, s, rows)
+    got = csg.scatter_grid2d_add(acc0.clone(), cot, 0, 0, s, rows)
+    got_pm = csg.scatter_grid2d_add(acc0.clone(), cot_pm, 0, 0, s, rows)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    err_pm, rel_pm = rel_err(got_pm, ref)
+    tag = str(dtype).split('.')[-1]
+    # Both sum the same f32 values (bf16 upcast exactly), <= 81 terms, in
+    # other orders.
+    tol = 1e-5
+    log(f'K2 {tag}: z-major max_abs {err:.3e} rel {rel:.3e}; patch-major '
+        f'max_abs {err_pm:.3e} rel {rel_pm:.3e} (tol {tol})')
+    if not (rel < tol and rel_pm < tol):
+        raise AssertionError(f'K2 {tag} kernel disagrees with its plain '
+                             'version')
+    acc = acc0.clone()
+    ms = time_ms(lambda: csg.scatter_grid2d_add(acc, cot, 0, 0, s, rows), 20)
+    ms_pm = time_ms(lambda: csg.scatter_grid2d_add(acc, cot_pm, 0, 0, s,
+                                                   rows), 20)
+    ms_copy = time_ms(lambda: csg.scatter_grid2d_add(
+        acc, cot.contiguous(), 0, 0, s, rows), 20)
+    plain = time_ms(lambda: csg.scatter_grid2d_add_plain(acc, cot, 0, 0, s,
+                                                         rows), 5)
+    # torch.nn.functional.fold computes the same overlap-add (channels
+    # first); timed on a pre-permuted f32 input, never called by the port.
+    ty, tx = csg.tile_shape(cot.shape, s, rows)
+    cols_in = cot_zm.float().reshape(zb * 2, rows * rows, n * n).permute(
+        0, 2, 1).reshape(1, zb * 2 * n * n, rows * rows).contiguous()
+    lib = time_ms(lambda: torch.nn.functional.fold(
+        cols_in, (ty, tx), (n, n), stride=s), 20)
+    b, by = bound(csg.bytes_moved(cot.shape, s, rows, cot.element_size()),
+                  float(cot.numel()))
+    log(f'K2 {tag}: z-major in place {ms:.4f} ms; patch-major {ms_pm:.4f} '
+        f'ms; copy to patch-major + kernel {ms_copy:.4f} ms')
+    return [record(f'K2 grid_scatter ({tag})',
+                   'adorym_tpu_torch/csrc/grid_scatter.cu',
+                   'adorym_tpu/ops/pallas_scatter_grid.py:44', err, rel, tol,
+                   ms, plain, b, by, lib, 'K2')]
+
+
+# -- phase 4 -----------------------------------------------------------------
+
+def flagship_config(bf16):
+    import adorym_tpu_torch as pt
+    f = FLAGSHIP
+    return pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(f['n_obj'],) * 3,
+                             probe_size=(f['n_probe'],) * 2,
+                             energy_ev=f['energy_ev'], psize_cm=f['psize_cm'],
+                             free_prop_cm='inf', binning=f['binning']),
+        train=pt.TrainConfig(minibatch_size=f['mb'], learning_rate=1e-7,
+                             optimizer='adam', rotate_out_of_loop=True,
+                             update_scheme='per angle', run_bfloat16=bf16))
+
+
+def counters():
+    from adorym_tpu_torch.ops import cuda_multislice as cm
+    from adorym_tpu_torch.ops import cuda_scatter_grid as csg
+    return {'K1_FWD': cm.K1_FWD, 'K1_BWD': cm.K1_BWD, 'K2': csg.K2}
+
+
+def run_flagship(bf16, n_timed=3):
+    """Warmup + timed epochs of the flagship through Reconstructor on the
+    card; returns (median patterns/s, launches per counter)."""
+    import adorym_tpu_torch as pt
+    f = FLAGSHIP
+    pos = flagship_positions()
+    rng = np.random.default_rng(0)
+    data = rng.random((f['n_theta'], len(pos), f['n_probe'], f['n_probe']),
+                      dtype=np.float32)
+    theta = np.linspace(0, np.pi, f['n_theta'], endpoint=False)
+    obj0 = np.zeros((f['n_obj'],) * 3 + (2,), np.float32)
+    rec = pt.Reconstructor(flagship_config(bf16), data=data, probe_pos=pos,
+                           theta_ls=theta, obj_init=obj0)
+    if rec.device.type != 'cuda' or rec._grid_scatter_rows != 23:
+        raise AssertionError('flagship: not one whole-angle chunk on CUDA')
+    tag = 'bf16' if bf16 else 'f32'
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters().values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    losses = [rec.run_epoch(0)]
+    warm = time.perf_counter() - t0
+    walls = []
+    for ep in range(1, 1 + n_timed):
+        t0 = time.perf_counter()
+        losses.append(rec.run_epoch(ep))     # ends in a device->host fetch
+        walls.append(time.perf_counter() - t0)
+    launches = {k: c.launches for k, c in counters().items()}
+    n_epochs = 1 + n_timed
+    patterns = f['n_theta'] * len(pos)
+    rates = [patterns / w for w in walls]
+    log(f'flagship {tag}: losses {losses}; warmup {warm:.3f} s; epoch walls '
+        f'{[round(w, 4) for w in walls]} s; patterns/s {rates}; median '
+        f'{statistics.median(rates):.1f}; peak memory '
+        f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; '
+        f'launches {launches}')
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'flagship {tag}: non-finite loss {losses}')
+    want = n_epochs * f['n_theta']           # one of each per angle
+    if any(v != want for v in launches.values()):
+        raise AssertionError(f'flagship {tag}: launches {launches}, '
+                             f'expected {want} of each')
+    if not bf16:
+        profile_epoch(rec, n_epochs)
+    return statistics.median(rates), launches
+
+
+def profile_epoch(rec, i_epoch):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rec.run_epoch(i_epoch)
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, 'device_type', None) is not None
+              and str(e.device_type).endswith('CUDA')]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    log(f'profile: epoch wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms '
+        f'({100 * busy / (wall * 1e3):.1f}%)')
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f'  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x '
+            f'{e.key[:90]}')
+    # Host-side waits and copies: each blocking host-to-device copy drains
+    # the stream, so the device idles until the host queues more work.
+    for e in prof.key_averages():
+        if any(w in e.key for w in ('Memcpy', 'memcpy', 'Synchronize')):
+            log(f'  host {e.cpu_time_total / 1e3:9.3f} ms device '
+                f'{e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x '
+                f'{e.key[:80]}')
+
+
+# -- phase 5 -----------------------------------------------------------------
+
+def small_config_agrees():
+    """32^3 object, binning 2, 3 angles, a 4x4 grid of 16^2 patterns, GD:
+    2 epochs on CUDA (kernels) and on the CPU (plain FFT path)."""
+    import adorym_tpu_torch as pt
+    rng = np.random.default_rng(0)
+    xs = np.arange(4) * 4
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+    data = rng.random((3, 16, 16, 16)).astype(np.float32)
+    theta = np.linspace(0, np.pi, 3, endpoint=False)
+    obj0 = (rng.random((32, 32, 32, 2)) * 1e-3).astype(np.float32)
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(32, 32, 32), probe_size=(16, 16),
+                             energy_ev=5000., psize_cm=1e-7,
+                             free_prop_cm='inf', binning=2),
+        train=pt.TrainConfig(minibatch_size=4, learning_rate=1e-3,
+                             optimizer='gd', rotate_out_of_loop=True,
+                             update_scheme='per angle'))
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        rec = pt.Reconstructor(cfg, data=data, probe_pos=pos, theta_ls=theta,
+                               obj_init=obj0.copy(), device=dev)
+        out[dev] = [rec.run_epoch(e) for e in range(2)]
+    # Kernels (folded DFT matmuls) vs the CPU's FFTs: f32 noise only.
+    tol = 1e-4
+    rel = np.max(np.abs(np.subtract(out['cuda'], out['cpu']))
+                 / np.abs(out['cpu']))
+    log(f'small config losses cuda {out["cuda"]} cpu {out["cpu"]} rel '
+        f'{rel:.3e} (tol {tol})')
+    if not rel < tol:
+        raise AssertionError('small config: CUDA and CPU losses disagree')
+
+
+def main():
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f'python {sys.version.split()[0]} torch {torch.__version__} '
+        f'cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}')
+
+    from adorym_tpu_torch.utils import cuda_build
+    build_s = cuda_build.build(['multislice_db_stored.cu', 'grid_scatter.cu'])
+    log(f'kernels built in {build_s:.2f} s')
+
+    kernels = []
+    for dtype, tol_bwd in ((torch.float32, 1e-3), (torch.bfloat16, 3e-2)):
+        # f32: 32 steps of 72-deep sums in other orders than cuBLAS.  bf16:
+        # the kernel rounds its records and gdb to bf16, autograd does not.
+        kernels += check_multislice(dtype, 1e-4, tol_bwd)
+        kernels += check_grid_scatter(dtype)
+    for k in kernels:
+        lib = 'none' if k['library_ms'] is None else f"{k['library_ms']:.4f}"
+        log(f"{k['name']}: kernel_ms {k['kernel_ms']:.4f} plain_ms "
+            f"{k['plain_ms']:.4f} bound_ms {k['bound_ms']:.4f} "
+            f"({k['bound_by']}) library_ms {lib}")
+
+    for bf16 in (False, True):
+        rate, launches = run_flagship(bf16)
+        tag = '(bfloat16)' if bf16 else '(float32)'
+        for k in kernels:
+            if k['name'].endswith(tag):
+                k['launches'] = launches[k['counter']]
+    if not all(k.get('launches') for k in kernels):
+        raise AssertionError('a kernel has no launch count from the '
+                             'flagship run')
+
+    small_config_agrees()
+
+    for k in kernels:
+        del k['counter']
+    log(smi)
+    log(json.dumps({'kernels': kernels}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,156 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one.  The file
+imports no JAX, so it runs on a machine with the card alone:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from adorym_tpu_torch.ops import cuda_multislice as cm
+from adorym_tpu_torch.ops import cuda_scatter_grid as csg
+from adorym_tpu_torch.ops import propagate as prop
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    return torch.device('cuda')
+
+
+def _multislice_inputs(S, M, N, ny, nx, dtype, final, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    db = torch.from_numpy(rng.uniform(0, 0.02, (S, 2, N, ny, nx))
+                          .astype(np.float32)).to(dev, dtype)
+    w = (rng.normal(size=(M, N, ny, nx, 2)) * 0.5).astype(np.float32)
+    wave = torch.view_as_complex(torch.from_numpy(w)).to(dev)
+    h = prop.fresnel_kernel((ny, nx), (1.0, 1.0, 1.0), 0.1, 20.0,
+                            device=dev)
+    fmats = (prop.final_prop_mats((ny, nx), (1.0, 1.0), 0.1, 'inf',
+                                  device=dev)[:2] if final else (None, None))
+    g = torch.view_as_complex(torch.from_numpy(
+        rng.normal(size=(M, N, ny, nx, 2)).astype(np.float32))).to(dev)
+    return db, wave, h, fmats, g
+
+
+def _run(fn, db, wave, h, fmats, g, k1=25.0, s=1.0):
+    db = db.detach().requires_grad_()
+    wave = wave.detach().requires_grad_()
+    out = fn(db, wave, h, k1, s, *fmats)
+    gdb, gw = torch.autograd.grad(out, (db, wave), g)
+    return out.detach(), gdb, gw
+
+
+def _rel(a, b):
+    a = torch.view_as_real(a) if a.is_complex() else a.float()
+    b = torch.view_as_real(b) if b.is_complex() else b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+# f32: the kernel and cuBLAS sum the 16..72-deep products in other orders
+# over up to 32 steps; 1e-4 of the largest value holds with 10x margin.
+# bf16: db is the same bf16 values for both, but the kernel's records (and
+# so gdb) round to bf16 where autograd keeps f32; gdb is itself bf16.
+@pytest.mark.parametrize('dtype,tol_fwd,tol_grad', [
+    (torch.float32, 1e-4, 1e-4), (torch.bfloat16, 1e-4, 3e-2)])
+@pytest.mark.parametrize('M', [1, 2])
+@pytest.mark.parametrize('final', [False, True])
+@pytest.mark.parametrize('shape', [(4, 5, 16, 16), (3, 7, 12, 20)])
+def test_multislice_kernel_matches_plain(cuda, dtype, tol_fwd, tol_grad, M,
+                                         final, shape):
+    S, N, ny, nx = shape
+    args = _multislice_inputs(S, M, N, ny, nx, dtype, final, cuda)
+    out_k, gdb_k, gw_k = _run(cm.multislice_db_stored_packed, *args)
+    out_p, gdb_p, gw_p = _run(cm.multislice_db_stored_plain, *args)
+    torch.cuda.synchronize()
+    assert gdb_k.dtype == dtype
+    assert _rel(out_k, out_p) < tol_fwd
+    assert _rel(gdb_k, gdb_p) < tol_grad
+    assert _rel(gw_k, gw_p) < tol_grad
+
+
+def test_multislice_counts_launches(cuda):
+    args = _multislice_inputs(3, 1, 4, 16, 16, torch.float32, True, cuda)
+    f0, b0 = cm.K1_FWD.launches, cm.K1_BWD.launches
+    _run(cm.multislice_db_stored_packed, *args)
+    assert (cm.K1_FWD.launches - f0, cm.K1_BWD.launches - b0) == (1, 1)
+
+
+def test_multislice_rejects_too_many_modes(cuda):
+    db, wave, h, _, _ = _multislice_inputs(2, 3, 2, 72, 72, torch.float32,
+                                           False, cuda)
+    with pytest.raises(ValueError, match='shared memory'):
+        cm.multislice_db_stored_packed(db, wave, h, 25.0, 1.0)
+
+
+@pytest.mark.parametrize('channel_major', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('rows,cols,py,px,s,trail', [
+    (3, 4, 8, 8, 4, (3, 2)), (5, 2, 12, 8, 4, (2,)), (4, 4, 16, 16, 8, ()),
+    (2, 3, 8, 40, 8, (33,))])
+def test_grid_scatter_kernel_matches_plain(cuda, dtype, rows, cols, py, px,
+                                           s, trail, channel_major):
+    """Both memory layouts the kernel reads in place: contiguous
+    ``[N, py, px, *tr]`` and a view of ``[*tr, N, py, px]``; the last case
+    spans two 32-wide blocks in X and in channels."""
+    rng = np.random.default_rng(1)
+    cot = rng.normal(size=(rows * cols, py, px) + trail).astype(np.float32)
+    if channel_major:
+        lead = tuple(range(3, cot.ndim))
+        cot = torch.from_numpy(np.moveaxis(cot, lead, range(len(lead))).copy())
+        cot = cot.to(cuda, dtype).movedim(tuple(range(len(lead))), lead)
+        assert csg._channel_major(cot) == bool(trail)
+    else:
+        cot = torch.from_numpy(cot).to(cuda, dtype)
+    ty, tx = csg.tile_shape(cot.shape, s, rows)
+    acc0 = torch.from_numpy(rng.normal(size=(ty + 5, tx + 3) + trail)
+                            .astype(np.float32)).to(cuda)
+    n0 = csg.K2.launches
+    got = csg.scatter_grid2d_add(acc0.clone(), cot, 2, 1, s, rows)
+    assert csg.K2.launches == n0 + 1
+    ref = csg.scatter_grid2d_add_plain(acc0.clone(), cot, 2, 1, s, rows)
+    torch.cuda.synchronize()
+    # Both sum the same f32 values (bf16 upcast exactly) in other orders.
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('bf16', [False, True])
+def test_reconstructor_cuda_matches_cpu(cuda, bf16):
+    """A small per-angle run through the kernels on the card against the
+    plain path on the CPU: losses to 1e-4 (f32 noise of DFT matmuls vs
+    FFTs; bf16 records round in the kernel only)."""
+    import adorym_tpu_torch as pt
+    rng = np.random.default_rng(0)
+    xs = np.arange(4) * 4
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+    data = rng.random((3, 16, 16, 16)).astype(np.float32)
+    obj0 = (rng.random((24, 24, 24, 2)) * 1e-3).astype(np.float32)
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(24, 24, 24), probe_size=(16, 16),
+                             free_prop_cm='inf', binning=2),
+        train=pt.TrainConfig(minibatch_size=4, learning_rate=1e-3,
+                             optimizer='gd', update_scheme='per angle',
+                             rotate_out_of_loop=True, run_bfloat16=bf16,
+                             fused_multislice='on', zmajor_extract='on'))
+    losses = {}
+    for dev in ('cuda', 'cpu'):
+        rec = pt.Reconstructor(cfg, data=data, probe_pos=pos,
+                               theta_ls=np.linspace(0, np.pi, 3),
+                               obj_init=obj0.copy(), device=dev)
+        losses[dev] = [rec.run_epoch(e) for e in range(2)]
+    np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-4)
+
+
+def test_grid_scatter_rejects_tile_outside(cuda):
+    cot = torch.zeros((4, 8, 8, 2), device=cuda)
+    acc = torch.zeros((10, 10, 2), device=cuda)
+    with pytest.raises(ValueError, match='leaves the accumulator'):
+        csg.scatter_grid2d_add(acc, cot, 0, 0, 4, 2)
