@@ -18,11 +18,13 @@
 // of the wave gradient.  The mode sum gt = sum_m a w is taken inside the
 // block in mode order: no atomics, deterministic.
 //
-// What bounds it on the H100: at the flagship (S=32, M=1, N=529, 72x72)
-// one sweep is 32 propagations of 529 patches, each two 72-deep complex
-// matmul passes: about 76 GFLOP in the three-multiply form, against about
-// 1.4 GB of db, record and wave traffic -- about 1.1 ms of f32 CUDA-core
-// work and 0.4 ms of memory time, so it is bound by operations.
+// What bounds it on the H100: bytes.  At the flagship (S=32, M=1, N=529,
+// 72x72, f32) one sweep moves about 1.45 GB of db, records and waves
+// forward (2.15 GB backward), 0.43 / 0.64 ms at 3.35 TB/s.  Its 31
+// propagations and far field need about 11.7 GFLOP when the transforms are
+// FFTs (0.17 ms of f32 CUDA-core work).  The two 72-deep complex matmul
+// passes per step this kernel runs instead do 76 GFLOP in the
+// three-multiply form, 1.1 ms at the f32 peak.
 //
 // Design: one block per batch item.  The block keeps its M waves, one
 // transpose-free scratch plane and the two folded per-axis propagation

@@ -1,7 +1,7 @@
 """Ptychography / ptychotomography forward model, main-path subset of
 ``adorym_tpu/models/ptychography.py``: a shared probe, no probe
-refinements, the plain delta_beta multislice branch with the detector
-propagation folded into it."""
+refinements, the plain multislice branch (delta_beta or real_imag) with the
+detector propagation handed to the propagator."""
 
 from __future__ import annotations
 
@@ -55,10 +55,9 @@ def predict_from_patches(params: Dict, batch: Dict, subobj, cfg: ReconConfig,
     ``[zb, 2, N, py, px]``, the multislice kernel's operand layout.
     ``prebinned_z``: the patches' z axis is already bin-summed."""
     geo = cfg.geometry
-    if (geo.pure_projection or geo.slice_pos_cm_ls is not None
-            or cfg.train.unknown_type != 'delta_beta'):
-        raise NotImplementedError('pure-projection, sparse and real_imag '
-                                  'forward models: ROADMAP A.11')
+    if geo.pure_projection or geo.slice_pos_cm_ls is not None:
+        raise NotImplementedError('pure-projection and sparse forward '
+                                  'models: ROADMAP A.11')
     if (cfg.refine.optimize_ctf_lg_kappa or cfg.refine.optimize_prj_pos_offset
             or cfg.refine.optimize_free_prop):
         raise NotImplementedError('kappa, projection-offset and '
@@ -67,7 +66,7 @@ def predict_from_patches(params: Dict, batch: Dict, subobj, cfg: ReconConfig,
                            cfg)
     if cfg.train.run_bfloat16:
         # bf16 storage of the packed patches (a no-op when they were
-        # extracted from the bf16 copy); delta/beta are views of it.
+        # extracted from the bf16 copy); the two channels are views of it.
         subobj = subobj.to(torch.bfloat16)
     if zmajor:
         delta = torch.movedim(subobj[:, 0], 0, -1)

@@ -22,6 +22,7 @@ math op by op with the gradient from autograd.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -203,13 +204,25 @@ def multislice_db_stored_packed(db, wave, kernel, k1, s, fay=None, fax=None):
                                     float(s))
 
 
-def flops(n_steps, n_modes, n, ny, nx, final=True):
-    """Real floating-point operations of one sweep in the three-multiply
-    complex-matmul form: 3 real GEMMs per complex pass, an x pass
-    (ny*nx*nx) and a y pass (ny*ny*nx) per propagation, ``n_steps - 1``
-    propagations plus the far field."""
-    n_prop = n_steps - 1 + (1 if final else 0)
-    return float(n_prop * n_modes * n * 3 * 2 * (ny * nx * nx + ny * ny * nx))
+def fft2_flops(ny, nx):
+    """Real floating-point operations of one complex 2-D FFT, by the usual
+    ``5 n log2 n`` count."""
+    return 5.0 * ny * nx * math.log2(ny * nx)
+
+
+def flops(n_steps, n_modes, n, ny, nx, final=True, backward=False):
+    """Least real floating-point operations of one sweep, whatever form the
+    kernel computes it in: the transforms counted as FFTs.  Per
+    propagation a forward and an inverse 2-D FFT and the product with H
+    (``n_steps - 1`` of them), one FFT for the far field, and per step one
+    complex product for the modulation (two in the backward, which also
+    forms the slice's gradient).  The transmission's exponentials are not
+    counted."""
+    plane = ny * nx
+    ops = (n_steps - 1) * (2 * fft2_flops(ny, nx) + 6 * plane)
+    ops += fft2_flops(ny, nx) if final else 0.0
+    ops += n_steps * 6 * plane * (2 if backward else 1)
+    return float(n_modes * n * ops)
 
 
 def bytes_moved(n_steps, n_modes, n, ny, nx, itemsize, backward=False):

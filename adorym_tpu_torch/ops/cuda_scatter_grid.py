@@ -1,12 +1,18 @@
-"""Complete-grid scatter-add of patch cotangents: the CUDA kernel
-``csrc/grid_scatter.cu`` and its plain PyTorch version.
+"""Complete-grid patch scatter-add and gather: the CUDA kernels
+``csrc/grid_scatter.cu`` (K2) and ``csrc/grid_extract.cu`` (K3), each with
+its plain PyTorch version.
 
-Counterpart of ``adorym_tpu/ops/pallas_scatter_grid.py``: the kernel
-replaces the band kernel behind ``grid2d_tile`` (``:68``) together with the
-accumulator update of ``scatter_grid2d_add_pallas`` (``:182``).  Patch
-``(r, j)`` of a ``rows x cols`` grid, ``cot[r*cols + j, py, px, ...]``,
-is added at ``(y0 + r*stride, x0 + j*stride)`` of ``acc[Y, X, ...]``.
-Cotangents may be f32 or bf16; the sums and the accumulator are f32.
+Counterpart of ``adorym_tpu/ops/pallas_scatter_grid.py``.  K2 replaces the
+band kernel behind ``grid2d_tile`` (``:68``) together with the accumulator
+update of ``scatter_grid2d_add_pallas`` (``:182``): patch ``(r, j)`` of a
+``rows x cols`` grid, ``cot[r*cols + j, py, px, ...]``, is added at
+``(y0 + r*stride, x0 + j*stride)`` of ``acc[Y, X, ...]``.  Cotangents may
+be f32 or bf16; the sums and the accumulator are f32.  K3 replaces the
+band gather behind ``grid2d_extract`` (``:118``) and
+``extract_grid2d_pallas`` (``:156``): the same windows copied out of the
+object, K2's exact transpose.  It is forward only: the Reconstructor
+differentiates with respect to the patches, and K2 carries their gradient
+back.
 
 Unlike the JAX package, which returns a new accumulator
 (``dynamic_update_slice``), :func:`scatter_grid2d_add` updates ``acc`` IN
@@ -27,6 +33,8 @@ _I = ctypes.c_int
 _P = ctypes.c_void_p
 K2 = Kernel('grid_scatter.cu', 'k2_grid_scatter_add',
             [_I, _I, _P, _P] + [_I] * 9)
+K3 = Kernel('grid_extract.cu', 'k3_grid_extract',
+            [_P, _P, _I, ctypes.c_longlong] + [_I] * 8)
 
 
 def check_supported(cot_shape, stride, rows):
@@ -139,3 +147,76 @@ def bytes_moved(cot_shape, stride, rows, cot_itemsize):
     ty, tx = tile_shape(cot_shape, stride, rows)
     channels = int(np.prod(cot_shape[3:])) if len(cot_shape) > 3 else 1
     return float(np.prod(cot_shape) * cot_itemsize + 2 * ty * tx * channels * 4)
+
+
+# -- K3: the gather ---------------------------------------------------------
+
+def grid2d_extract_plain(tile, stride, rows, cols, probe_size):
+    """Plain version of the gather from a tile whose window ``(r, j)``
+    starts at ``(r*stride, j*stride)``: patches ``[rows*cols, py, px,
+    ...]`` (``pallas_scatter_grid.grid2d_extract``'s contract)."""
+    py, px = int(probe_size[0]), int(probe_size[1])
+    dev = tile.device
+    iy = (stride * torch.arange(rows, device=dev)[:, None]
+          + torch.arange(py, device=dev))
+    ix = (stride * torch.arange(cols, device=dev)[:, None]
+          + torch.arange(px, device=dev))
+    out = tile[iy[:, None, :, None], ix[None, :, None, :]]
+    return out.reshape((rows * cols, py, px) + tuple(tile.shape[2:]))
+
+
+def _check_extract(obj, y0, x0, stride, rows, cols, probe_size):
+    py, px = int(probe_size[0]), int(probe_size[1])
+    shape = (rows * cols, py, px)
+    check_supported(shape, stride, rows)
+    ty, tx = tile_shape(shape, stride, rows)
+    if not (0 <= y0 and y0 + ty <= obj.shape[0]
+            and 0 <= x0 and x0 + tx <= obj.shape[1]):
+        raise ValueError(f'grid footprint {ty}x{tx} at ({y0}, {x0}) leaves '
+                         f'the object {tuple(obj.shape[:2])}')
+    return ty, tx
+
+
+def _word_bytes(*sizes):
+    """Largest copy word (16, 8 or 4 bytes) dividing every size; raises
+    when 4 does not (an object site ``(z, 2)`` is always a multiple of 4
+    bytes)."""
+    for w in (16, 8, 4):
+        if all(s % w == 0 for s in sizes):
+            return w
+    raise ValueError('the grid gather copies 4-byte words: the bytes per '
+                     f'site and both pointers must be multiples of 4, got '
+                     f'{sizes}')
+
+
+def extract_grid2d(obj, y0, x0, stride, rows, cols, probe_size):
+    """Patches ``[rows*cols, py, px, *tr]`` of ``obj[Y, X, *tr]`` at the
+    windows ``(y0 + r*stride, x0 + j*stride)`` of a complete grid, in the
+    object's dtype (``pallas_scatter_grid.extract_grid2d_pallas``).  CUDA
+    tensors launch the kernel, which reads a contiguous ``obj`` in place;
+    CPU tensors run the plain version.  The footprint must lie inside
+    ``obj``.  ``y0``, ``x0``: the grid origin (host ints)."""
+    y0, x0 = int(y0), int(x0)
+    ty, tx = _check_extract(obj, y0, x0, stride, rows, cols, probe_size)
+    if not obj.is_cuda:
+        return grid2d_extract_plain(obj[y0:y0 + ty, x0:x0 + tx], stride,
+                                    rows, cols, probe_size)
+    if not obj.is_contiguous():
+        raise ValueError('obj must be contiguous')
+    if rows * cols > 65535:
+        raise ValueError(f'{rows * cols} patches exceed the launch grid')
+    py, px = int(probe_size[0]), int(probe_size[1])
+    out = torch.empty((rows * cols, py, px) + tuple(obj.shape[2:]),
+                      dtype=obj.dtype, device=obj.device)
+    site = int(np.prod(obj.shape[2:])) * obj.element_size()
+    K3(ptr(obj), ptr(out), _word_bytes(site, obj.data_ptr(), out.data_ptr()),
+       site, obj.shape[1], rows, cols, py, px, stride, y0, x0)
+    return out
+
+
+def extract_bytes_moved(patch_shape, stride, rows, itemsize):
+    """Least device-memory bytes of the gather: the grid's footprint read
+    once, every patch written once."""
+    ty, tx = tile_shape(patch_shape, stride, rows)
+    channels = int(np.prod(patch_shape[3:])) if len(patch_shape) > 3 else 1
+    return float((np.prod(patch_shape) + ty * tx * channels) * itemsize)

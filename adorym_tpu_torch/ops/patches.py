@@ -1,4 +1,5 @@
-"""Probe-footprint patch extraction and the complete-grid scatter.
+"""Probe-footprint patch extraction and the complete-grid scatter and
+gather.
 
 Main-path subset of ``adorym_tpu/ops/patches.py``.  Object layout:
 ``obj[y, x, z, 2]`` (delta/beta channels last).  Scan positions are host
@@ -121,9 +122,11 @@ def detect_full_grid(pos_table, minibatch_size, probe_size):
     return s
 
 
-# The JAX package's names for the grid scatter, kept so a reader finds the
-# counterparts here: the plain version and the router.  Both live in
-# cuda_scatter_grid, which makes the device choice; both update ``acc``
-# in place.
+# The JAX package's names for the grid scatter and gather, kept so a reader
+# finds the counterparts here.  All live in cuda_scatter_grid, which makes
+# the device choice (the kernel on CUDA, its plain version on the CPU); the
+# scatters update ``acc`` in place.  The gather takes grids whose footprint
+# lies inside the object, which the Reconstructor's padding guarantees.
 scatter_grid2d_add = _csg.scatter_grid2d_add_plain
 scatter_grid2d_add_best = _csg.scatter_grid2d_add
+extract_grid2d_best = _csg.extract_grid2d

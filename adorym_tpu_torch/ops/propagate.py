@@ -5,10 +5,12 @@ in the reference: ``sign_convention=1`` is the Goodman ``exp(ikz)``
 convention with ``n = 1 - delta + i*beta``.  Energies in eV, wavelengths
 and voxels in nm, distances in nm unless the name says ``_cm``.
 
-:func:`multislice_propagate` keeps two of the JAX package's branches: the
-plain FFT z scan, and the fused delta_beta dispatch, which on CUDA runs the
-multislice kernel of :mod:`.cuda_multislice` (its plain version on the
-CPU).  The remaining branches raise ``NotImplementedError`` naming their
+:func:`multislice_propagate` keeps three of the JAX package's branches:
+the plain FFT z scan; the fused delta_beta dispatch, which on CUDA runs the
+multislice kernel of :mod:`.cuda_multislice`; and the general fused scan
+(real_imag, or a non-paraxial transfer function), which runs the kernel of
+:mod:`.cuda_multislice_fused`.  Each kernel's plain version runs on the
+CPU.  The remaining branches raise ``NotImplementedError`` naming their
 ROADMAP item.
 """
 
@@ -305,12 +307,14 @@ def multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
             db_z, wave.to(torch.complex64), kernel, k1, mod_sign, fay, fax)
         return out if folded else to_det(out)
 
-    if fused and n_steps > 1:
-        raise NotImplementedError(
-            'K5 multislice_fused (non-delta_beta or non-paraxial fused '
-            'multislice) not yet ported: ROADMAP B')
-
     t_all = slice_modulator(delta_z, beta_z, k1, unknown_type, mod_sign)
+    if fused and n_steps > 1:
+        # real_imag, or a transfer function that is not separable: the
+        # general fused kernel, with the detector propagation after it.
+        from .cuda_multislice_fused import multislice_fused
+        return to_det(multislice_fused(t_all.to(torch.complex64),
+                                       wave.to(torch.complex64), kernel))
+
     wv = wave
     for t in t_all[:-1]:
         wv = ifft2(fft2(wv * t) * kernel)

@@ -7,9 +7,10 @@ fused rotate-back) -> ``patch_accum`` -> ``apply_step``.  Per angle:
 
   1. rotate the object once, pad it, bin it in z;
   2. per gradient chunk (a whole angle at the flagship), extract the
-     patches z-major, run the forward model (the multislice kernel), take
-     the loss and its gradient with respect to the patches, and add the
-     patch gradients into the accumulator with the grid-scatter kernel;
+     patches (z-major for the delta/beta kernel, else with the grid-gather
+     kernel), run the forward model (a multislice kernel), take the loss
+     and its gradient with respect to the patches, and add the patch
+     gradients into the accumulator with the grid-scatter kernel;
   3. crop, expand in z and rotate the accumulated gradient back in one
      gather, and apply the optimizer and the constraints.
 
@@ -270,8 +271,12 @@ class Reconstructor:
                 sub = patch_ops.extract_patches_zmajor(obj_zx, pos_int,
                                                        geo.probe_size)
             else:
-                sub = patch_ops.extract_patches(obj_ex, pos_int,
-                                                geo.probe_size)
+                # The chunk is whole rows of the complete grid: the grid
+                # gather (the exact transpose of the scatter below).
+                sub = patch_ops.extract_grid2d_best(
+                    obj_ex, pos_int[0, 0], pos_int[0, 1],
+                    self._rowgrid_stride, g, cfg.train.minibatch_size,
+                    geo.probe_size)
             sub.requires_grad_(True)
             aux = {'probe': self.params['probe'].detach().requires_grad_(
                 'probe' in aux_names)}

@@ -4,19 +4,26 @@
 
 Phases (any failure raises and exits nonzero):
   1. the card's name and power limit, torch and CUDA versions;
-  2. build every kernel of the main path from ``adorym_tpu_torch/csrc``
+  2. build every kernel of the main paths from ``adorym_tpu_torch/csrc``
      (one nvcc per source, all at once);
-  3. each kernel against its plain PyTorch version at the flagship shapes,
-     f32 and bf16 (forward and backward for the multislice pair), with
-     kernel, plain and library times and the bound of each;
-  4. the flagship epoch (256^3 object, 23x23 scan of 72^2 patterns at
-     stride 8, binning 8, Fraunhofer, Adam, per-angle updates with the
-     rotation out of the loop; 4 angles of random data) through
+  3. each kernel against its plain PyTorch version at the shapes its path
+     gives it, f32 and bf16 (forward and backward for the multislice
+     pairs), with kernel, plain and library times and the bound of each:
+     K1 and K2 at the delta_beta flagship; K3, K5 (with a non-paraxial
+     transfer function) and K2 at the real_imag flagship's trailing width;
+  4. the delta_beta flagship epoch (256^3 object, 23x23 scan of 72^2
+     patterns at stride 8, binning 8, Fraunhofer, Adam, per-angle updates
+     with the rotation out of the loop; 4 angles of random data) through
      ``Reconstructor``, f32 and bf16: a warmup epoch and 3 timed epochs,
      with each kernel's launch count read after the run, then one f32
      epoch under torch.profiler for the device time by kernel;
+  4b. the same for the real_imag flagship (the object starts as vacuum,
+     1 in the real channel and 0 in the imaginary one), through K3, K5 and
+     K2;
   5. a small configuration trained on CUDA and on the CPU: the per-epoch
-     losses must agree.
+     losses must agree;
+  5b. the same for a small real_imag configuration and for a delta_beta
+     one with a non-paraxial transfer function at a finite distance.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -136,7 +143,7 @@ def check_multislice(dtype, tol_fwd, tol_bwd):
     b_f, by_f = bound(cm.bytes_moved(S, M, N, n, n, isz),
                       cm.flops(S, M, N, n, n))
     b_b, by_b = bound(cm.bytes_moved(S, M, N, n, n, isz, backward=True),
-                      cm.flops(S, M, N, n, n))
+                      cm.flops(S, M, N, n, n, backward=True))
     src = 'adorym_tpu_torch/csrc/multislice_db_stored.cu'
     return [
         record(f'K1f multislice_db_stored forward ({tag})', src,
@@ -150,14 +157,16 @@ def check_multislice(dtype, tol_fwd, tol_bwd):
 
 
 def record(name, source, replaces, err, rel, tol, ms, plain_ms, bound_ms,
-           bound_by, library_ms, counter):
+           bound_by, library_ms, counter, path='delta_beta'):
     """One kernel's entry of the JSON line.  ``ms`` and ``kernel_ms`` are
     the same time; ``rel_err`` (max abs error over the plain version's
-    largest value) is what was held against ``tol``."""
+    largest value) is what was held against ``tol``.  ``counter`` and
+    ``path`` name the launch counter and the flagship run whose launches
+    the entry reports; both are dropped before printing."""
     return dict(name=name, route='cuda', source=source, replaces=replaces,
                 max_abs_err=err, rel_err=rel, tol=tol, ms=ms, kernel_ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, counter=counter)
+                library_ms=library_ms, counter=counter, path=path)
 
 
 def check_grid_scatter(dtype):
@@ -220,9 +229,153 @@ def check_grid_scatter(dtype):
                    ms, plain, b, by, lib, 'K2')]
 
 
+def check_grid_extract(dtype):
+    """K3 against its plain version at the real_imag flagship chunk: 529
+    patches of [72, 72, 256, 2] on the 23x23 grid at stride 8, gathered
+    from the padded object [260, 260, 256, 2] at the origin (0, 0).  A pure
+    copy: the two must be equal."""
+    from adorym_tpu_torch.ops import cuda_scatter_grid as csg
+    dev = torch.device('cuda')
+    rows, s, n, nz = 23, 8, 72, 256
+    gen = torch.Generator(device=dev).manual_seed(2)
+    obj = torch.randn((260, 260, nz, 2), device=dev, generator=gen).to(dtype)
+    ty, tx = csg.tile_shape((rows * rows, n, n), s, rows)
+    tile = obj[:ty, :tx]
+    got = csg.extract_grid2d(obj, 0, 0, s, rows, rows, (n, n))
+    ref = csg.grid2d_extract_plain(tile, s, rows, rows, (n, n))
+    torch.cuda.synchronize()
+    tag = str(dtype).split('.')[-1]
+    equal = torch.equal(got, ref)
+    err, rel = rel_err(got, ref)
+    log(f'K3 {tag}: equal to the plain version: {equal} (max_abs {err:.3e})')
+    if not equal:
+        raise AssertionError(f'K3 {tag} kernel disagrees with its plain '
+                             'version')
+    del got, ref
+    ms = time_ms(lambda: csg.extract_grid2d(obj, 0, 0, s, rows, rows,
+                                            (n, n)), 10)
+    plain = time_ms(lambda: csg.grid2d_extract_plain(tile, s, rows, rows,
+                                                     (n, n)), 3)
+    # One PyTorch call for the same gather, in the same layout: unfold's
+    # windows made contiguous.  Timed here only; the port never calls it.
+    lib = time_ms(lambda: tile.unfold(0, n, s).unfold(1, n, s).permute(
+        0, 1, 4, 5, 2, 3).contiguous(), 10)
+    b, by = bound(csg.extract_bytes_moved((rows * rows, n, n, nz, 2), s,
+                                          rows, obj.element_size()), 0.0)
+    return [record(f'K3 grid_extract ({tag})',
+                   'adorym_tpu_torch/csrc/grid_extract.cu',
+                   'adorym_tpu/ops/pallas_scatter_grid.py:110', err, rel, 0.0,
+                   ms, plain, b, by, lib, 'K3', 'real_imag')]
+
+
+def check_fused_multislice(tol_fwd, tol_bwd):
+    """K5 forward and backward against the plain version at one real_imag
+    flagship chunk: S=32 binned steps, M=1, N=529 patches of 72x72, with
+    the non-paraxial transfer function of one 8-voxel step (not
+    separable), in f32 (the kernels compute in f32 in both storage
+    modes)."""
+    from adorym_tpu_torch.ops import cuda_multislice_fused as cmf
+    from adorym_tpu_torch.ops import propagate as prop
+    S, M, N, n = 32, 1, 529, 72
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t = 1.0 + 0.05 * torch.randn((S, N, n, n), dtype=torch.complex64,
+                                 device=dev, generator=gen)
+    wave = torch.randn((M, N, n, n), dtype=torch.complex64, device=dev,
+                       generator=gen)
+    g = torch.randn((M, N, n, n), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    lmbda = 1240.0 / FLAGSHIP['energy_ev']
+    h = prop.fresnel_kernel((n, n), (1.0, 1.0, 1.0), lmbda, 8.0,
+                            fresnel_approx=False, device=dev)
+
+    def run(fn):
+        tt = t.detach().requires_grad_()
+        w = wave.detach().requires_grad_()
+        out = fn(tt, w, h)
+        gt, gw = torch.autograd.grad(out, (tt, w), g, retain_graph=True)
+        return out, gt, gw, (lambda: torch.autograd.grad(
+            out, (tt, w), g, retain_graph=True))
+
+    out_k, gt_k, gw_k, bwd_k = run(cmf.multislice_fused)
+    out_p, gt_p, gw_p, bwd_p = run(cmf.multislice_fused_plain)
+    torch.cuda.synchronize()
+    e_fwd, r_fwd = rel_err(out_k, out_p)
+    e_gt, r_gt = rel_err(gt_k, gt_p)
+    e_gw, r_gw = rel_err(gw_k, gw_p)
+    log(f'K5 float32 (non-paraxial H): fwd max_abs {e_fwd:.3e} rel '
+        f'{r_fwd:.3e} (tol {tol_fwd}); gt max_abs {e_gt:.3e} rel '
+        f'{r_gt:.3e}; gw max_abs {e_gw:.3e} rel {r_gw:.3e} (tol {tol_bwd})')
+    if not (r_fwd < tol_fwd and r_gt < tol_bwd and r_gw < tol_bwd):
+        raise AssertionError('K5 kernel disagrees with its plain version')
+    fy, fx = cmf._dft_mats(n, n, dev)
+    with torch.no_grad():
+        ms_f = time_ms(lambda: cmf.MultisliceFused.apply(t, wave, h, fy, fx),
+                       10)
+        plain_f = time_ms(lambda: cmf.multislice_fused_plain(t, wave, h), 5)
+    ms_b = time_ms(bwd_k, 10)
+    plain_b = time_ms(bwd_p, 5)
+    b_f, by_f = bound(cmf.bytes_moved(S, M, N, n, n),
+                      cmf.flops(S, M, N, n, n))
+    b_b, by_b = bound(cmf.bytes_moved(S, M, N, n, n, backward=True),
+                      cmf.flops(S, M, N, n, n, backward=True))
+    src = 'adorym_tpu_torch/csrc/multislice_fused.cu'
+    return [
+        record('K5f multislice_fused forward (float32)', src,
+               'adorym_tpu/ops/pallas_multislice.py:184', e_fwd, r_fwd,
+               tol_fwd, ms_f, plain_f, b_f, by_f, None, 'K5_FWD',
+               'real_imag'),
+        record('K5b multislice_fused backward (float32)', src,
+               'adorym_tpu/ops/pallas_multislice.py:222', max(e_gt, e_gw),
+               max(r_gt, r_gw), tol_bwd, ms_b, plain_b, b_b, by_b, None,
+               'K5_BWD', 'real_imag'),
+    ]
+
+
+def check_grid_scatter_wide(dtype):
+    """K2 at the real_imag flagship's trailing width: 529 contiguous patch
+    cotangents [72, 72, 256, 2] (C = 512, the layout autograd gives the
+    grid gather's patches) into the padded accumulator [260, 260, 256,
+    2]."""
+    from adorym_tpu_torch.ops import cuda_scatter_grid as csg
+    dev = torch.device('cuda')
+    rows, s, n, nz = 23, 8, 72, 256
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cot = torch.randn((rows * rows, n, n, nz, 2), device=dev,
+                      generator=gen).to(dtype)
+    acc0 = torch.randn((260, 260, nz, 2), device=dev, generator=gen)
+    ref = csg.scatter_grid2d_add_plain(acc0.clone(), cot, 0, 0, s, rows)
+    got = csg.scatter_grid2d_add(acc0.clone(), cot, 0, 0, s, rows)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    del got, ref
+    tag = str(dtype).split('.')[-1]
+    tol = 1e-5           # the same f32 values, <= 81 terms, other orders
+    log(f'K2 C=512 {tag}: max_abs {err:.3e} rel {rel:.3e} (tol {tol})')
+    if not rel < tol:
+        raise AssertionError(f'K2 C=512 {tag} kernel disagrees with its '
+                             'plain version')
+    acc = acc0.clone()
+    ms = time_ms(lambda: csg.scatter_grid2d_add(acc, cot, 0, 0, s, rows), 10)
+    plain = time_ms(lambda: csg.scatter_grid2d_add_plain(acc, cot, 0, 0, s,
+                                                         rows), 3)
+    ty, tx = csg.tile_shape(cot.shape, s, rows)
+    cols_in = cot.float().reshape(rows * rows, n * n, nz * 2).permute(
+        2, 1, 0).reshape(1, nz * 2 * n * n, rows * rows).contiguous()
+    lib = time_ms(lambda: torch.nn.functional.fold(
+        cols_in, (ty, tx), (n, n), stride=s), 10)
+    del cols_in
+    b, by = bound(csg.bytes_moved(cot.shape, s, rows, cot.element_size()),
+                  float(cot.numel()))
+    return [record(f'K2 grid_scatter C=512 ({tag})',
+                   'adorym_tpu_torch/csrc/grid_scatter.cu',
+                   'adorym_tpu/ops/pallas_scatter_grid.py:44', err, rel, tol,
+                   ms, plain, b, by, lib, 'K2', 'real_imag')]
+
+
 # -- phase 4 -----------------------------------------------------------------
 
-def flagship_config(bf16):
+def flagship_config(bf16, unknown_type='delta_beta'):
     import adorym_tpu_torch as pt
     f = FLAGSHIP
     return pt.ReconConfig(
@@ -232,16 +385,25 @@ def flagship_config(bf16):
                              free_prop_cm='inf', binning=f['binning']),
         train=pt.TrainConfig(minibatch_size=f['mb'], learning_rate=1e-7,
                              optimizer='adam', rotate_out_of_loop=True,
-                             update_scheme='per angle', run_bfloat16=bf16))
+                             update_scheme='per angle', run_bfloat16=bf16,
+                             unknown_type=unknown_type))
 
 
 def counters():
     from adorym_tpu_torch.ops import cuda_multislice as cm
+    from adorym_tpu_torch.ops import cuda_multislice_fused as cmf
     from adorym_tpu_torch.ops import cuda_scatter_grid as csg
-    return {'K1_FWD': cm.K1_FWD, 'K1_BWD': cm.K1_BWD, 'K2': csg.K2}
+    return {'K1_FWD': cm.K1_FWD, 'K1_BWD': cm.K1_BWD, 'K2': csg.K2,
+            'K3': csg.K3, 'K5_FWD': cmf.K5_FWD, 'K5_BWD': cmf.K5_BWD}
 
 
-def run_flagship(bf16, n_timed=3):
+#: The kernels each flagship path launches once per angle; the others
+#: must not launch on it.
+PATH_KERNELS = {'delta_beta': ('K1_FWD', 'K1_BWD', 'K2'),
+                'real_imag': ('K3', 'K5_FWD', 'K5_BWD', 'K2')}
+
+
+def run_flagship(bf16, unknown_type='delta_beta', n_timed=3):
     """Warmup + timed epochs of the flagship through Reconstructor on the
     card; returns (median patterns/s, launches per counter)."""
     import adorym_tpu_torch as pt
@@ -252,11 +414,14 @@ def run_flagship(bf16, n_timed=3):
                       dtype=np.float32)
     theta = np.linspace(0, np.pi, f['n_theta'], endpoint=False)
     obj0 = np.zeros((f['n_obj'],) * 3 + (2,), np.float32)
-    rec = pt.Reconstructor(flagship_config(bf16), data=data, probe_pos=pos,
-                           theta_ls=theta, obj_init=obj0)
+    if unknown_type == 'real_imag':
+        obj0[..., 0] = 1.0                  # vacuum
+    rec = pt.Reconstructor(flagship_config(bf16, unknown_type), data=data,
+                           probe_pos=pos, theta_ls=theta, obj_init=obj0)
+    del obj0
     if rec.device.type != 'cuda' or rec._grid_scatter_rows != 23:
         raise AssertionError('flagship: not one whole-angle chunk on CUDA')
-    tag = 'bf16' if bf16 else 'f32'
+    tag = f"{unknown_type} {'bf16' if bf16 else 'f32'}"
     torch.cuda.reset_peak_memory_stats()
     for c in counters().values():
         c.launches = 0
@@ -280,11 +445,15 @@ def run_flagship(bf16, n_timed=3):
     if not all(np.isfinite(losses)):
         raise AssertionError(f'flagship {tag}: non-finite loss {losses}')
     want = n_epochs * f['n_theta']           # one of each per angle
-    if any(v != want for v in launches.values()):
+    expect = {k: want if k in PATH_KERNELS[unknown_type] else 0
+              for k in launches}
+    if launches != expect:
         raise AssertionError(f'flagship {tag}: launches {launches}, '
-                             f'expected {want} of each')
+                             f'expected {expect}')
     if not bf16:
         profile_epoch(rec, n_epochs)
+    del rec
+    torch.cuda.empty_cache()
     return statistics.median(rates), launches
 
 
@@ -301,9 +470,23 @@ def profile_epoch(rec, i_epoch):
     busy = sum(e.self_device_time_total for e in events) / 1e3
     log(f'profile: epoch wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms '
         f'({100 * busy / (wall * 1e3):.1f}%)')
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
         log(f'  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x '
             f'{e.key[:90]}')
+    # Device time under the autograd nodes and the forward ops of the glue
+    # around the kernels (for real_imag: the z binning's product, its
+    # zero-safe backward, the channel selects); nested ops count in both.
+    ops = [e for e in prof.key_averages()
+           if (e.key.endswith(('Backward0', 'Backward1'))
+               or e.key in ('aten::prod', 'aten::copy_', 'aten::contiguous',
+                            'aten::reshape', 'aten::complex', 'aten::mul',
+                            'aten::add_', 'aten::fill_', 'aten::eq',
+                            'aten::sum', 'aten::cumprod', 'aten::flip',
+                            'aten::cat', 'aten::index'))
+           and e.device_time_total >= 1e3]
+    for e in sorted(ops, key=lambda e: -e.device_time_total):
+        log(f'  op {e.key}: device {e.device_time_total / 1e3:8.3f} ms '
+            f'host {e.cpu_time_total / 1e3:8.3f} ms {e.count:5d}x')
     # Host-side waits and copies: each blocking host-to-device copy drains
     # the stream, so the device idles until the host queues more work.
     for e in prof.key_averages():
@@ -315,9 +498,12 @@ def profile_epoch(rec, i_epoch):
 
 # -- phase 5 -----------------------------------------------------------------
 
-def small_config_agrees():
+def small_config_agrees(unknown_type='delta_beta', fresnel_approx=True,
+                        free_prop_cm='inf', expect=None):
     """32^3 object, binning 2, 3 angles, a 4x4 grid of 16^2 patterns, GD:
-    2 epochs on CUDA (kernels) and on the CPU (plain FFT path)."""
+    2 epochs on CUDA (kernels) and on the CPU (plain FFT path).  A
+    real_imag object starts near vacuum.  ``expect`` maps launch counters
+    to the launches the two runs must make (the CPU run makes none)."""
     import adorym_tpu_torch as pt
     rng = np.random.default_rng(0)
     xs = np.arange(4) * 4
@@ -326,26 +512,38 @@ def small_config_agrees():
     data = rng.random((3, 16, 16, 16)).astype(np.float32)
     theta = np.linspace(0, np.pi, 3, endpoint=False)
     obj0 = (rng.random((32, 32, 32, 2)) * 1e-3).astype(np.float32)
+    if unknown_type == 'real_imag':
+        obj0[..., 0] += 1.0
     cfg = pt.ReconConfig(
         geometry=pt.Geometry(obj_size=(32, 32, 32), probe_size=(16, 16),
                              energy_ev=5000., psize_cm=1e-7,
-                             free_prop_cm='inf', binning=2),
+                             free_prop_cm=free_prop_cm, binning=2,
+                             fresnel_approx=fresnel_approx),
         train=pt.TrainConfig(minibatch_size=4, learning_rate=1e-3,
                              optimizer='gd', rotate_out_of_loop=True,
-                             update_scheme='per angle'))
+                             update_scheme='per angle',
+                             unknown_type=unknown_type))
     out = {}
+    for c in counters().values():
+        c.launches = 0
     for dev in ('cuda', 'cpu'):
         rec = pt.Reconstructor(cfg, data=data, probe_pos=pos, theta_ls=theta,
                                obj_init=obj0.copy(), device=dev)
         out[dev] = [rec.run_epoch(e) for e in range(2)]
-    # Kernels (folded DFT matmuls) vs the CPU's FFTs: f32 noise only.
+    launches = {k: c.launches for k, c in counters().items()}
+    name = (f'small {unknown_type} fresnel_approx={fresnel_approx} '
+            f'free_prop_cm={free_prop_cm}')
+    if expect and any(launches[k] != v for k, v in expect.items()):
+        raise AssertionError(f'{name}: launches {launches}, expected '
+                             f'{expect}')
+    # Kernels (DFT matmuls) vs the CPU's FFTs: f32 noise only.
     tol = 1e-4
     rel = np.max(np.abs(np.subtract(out['cuda'], out['cpu']))
                  / np.abs(out['cpu']))
-    log(f'small config losses cuda {out["cuda"]} cpu {out["cpu"]} rel '
-        f'{rel:.3e} (tol {tol})')
+    log(f'{name}: losses cuda {out["cuda"]} cpu {out["cpu"]} rel {rel:.3e} '
+        f'(tol {tol}); launches {launches}')
     if not rel < tol:
-        raise AssertionError('small config: CUDA and CPU losses disagree')
+        raise AssertionError(f'{name}: CUDA and CPU losses disagree')
 
 
 def main():
@@ -361,7 +559,8 @@ def main():
         f'cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}')
 
     from adorym_tpu_torch.utils import cuda_build
-    build_s = cuda_build.build(['multislice_db_stored.cu', 'grid_scatter.cu'])
+    build_s = cuda_build.build(['multislice_db_stored.cu', 'grid_scatter.cu',
+                                'grid_extract.cu', 'multislice_fused.cu'])
     log(f'kernels built in {build_s:.2f} s')
 
     kernels = []
@@ -370,26 +569,38 @@ def main():
         # the kernel rounds its records and gdb to bf16, autograd does not.
         kernels += check_multislice(dtype, 1e-4, tol_bwd)
         kernels += check_grid_scatter(dtype)
+        kernels += check_grid_extract(dtype)
+        kernels += check_grid_scatter_wide(dtype)
+        torch.cuda.empty_cache()
+    # f32: 31 steps of four 72-point DFT matmuls against cuFFT, sums in
+    # other orders.
+    kernels += check_fused_multislice(1e-4, 1e-3)
     for k in kernels:
         lib = 'none' if k['library_ms'] is None else f"{k['library_ms']:.4f}"
         log(f"{k['name']}: kernel_ms {k['kernel_ms']:.4f} plain_ms "
             f"{k['plain_ms']:.4f} bound_ms {k['bound_ms']:.4f} "
             f"({k['bound_by']}) library_ms {lib}")
 
-    for bf16 in (False, True):
-        rate, launches = run_flagship(bf16)
-        tag = '(bfloat16)' if bf16 else '(float32)'
-        for k in kernels:
-            if k['name'].endswith(tag):
-                k['launches'] = launches[k['counter']]
+    for unknown_type in ('delta_beta', 'real_imag'):
+        for bf16 in (False, True):
+            rate, launches = run_flagship(bf16, unknown_type)
+            tag = '(bfloat16)' if bf16 else '(float32)'
+            for k in kernels:
+                if k['path'] == unknown_type and k['name'].endswith(tag):
+                    k['launches'] = launches[k['counter']]
     if not all(k.get('launches') for k in kernels):
         raise AssertionError('a kernel has no launch count from the '
                              'flagship run')
 
     small_config_agrees()
+    # Phase 5b: the general fused path, one K5 pair per angle and epoch.
+    small_config_agrees('real_imag', expect={'K5_FWD': 6, 'K1_FWD': 0,
+                                             'K3': 6})
+    small_config_agrees('delta_beta', False, 1e-5,
+                        expect={'K5_FWD': 6, 'K1_FWD': 0, 'K3': 0})
 
     for k in kernels:
-        del k['counter']
+        del k['counter'], k['path']
     log(smi)
     log(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

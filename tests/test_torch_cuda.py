@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from adorym_tpu_torch.ops import cuda_multislice as cm
+from adorym_tpu_torch.ops import cuda_multislice_fused as cmf
 from adorym_tpu_torch.ops import cuda_scatter_grid as csg
 from adorym_tpu_torch.ops import propagate as prop
 
@@ -121,11 +122,16 @@ def test_grid_scatter_kernel_matches_plain(cuda, dtype, rows, cols, py, px,
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize('bf16', [False, True])
-def test_reconstructor_cuda_matches_cpu(cuda, bf16):
+@pytest.mark.parametrize('unknown_type,fresnel_approx,free_prop_cm,bf16', [
+    ('delta_beta', True, 'inf', False), ('delta_beta', True, 'inf', True),
+    ('real_imag', True, 'inf', False), ('delta_beta', False, 1e-5, False)])
+def test_reconstructor_cuda_matches_cpu(cuda, unknown_type, fresnel_approx,
+                                        free_prop_cm, bf16):
     """A small per-angle run through the kernels on the card against the
     plain path on the CPU: losses to 1e-4 (f32 noise of DFT matmuls vs
-    FFTs; bf16 records round in the kernel only)."""
+    FFTs; bf16 records round in the kernel only).  Paraxial delta_beta
+    runs K1; real_imag (K3) and the non-paraxial transfer function run the
+    general K5, once per angle and epoch."""
     import adorym_tpu_torch as pt
     rng = np.random.default_rng(0)
     xs = np.arange(4) * 4
@@ -133,19 +139,26 @@ def test_reconstructor_cuda_matches_cpu(cuda, bf16):
     pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
     data = rng.random((3, 16, 16, 16)).astype(np.float32)
     obj0 = (rng.random((24, 24, 24, 2)) * 1e-3).astype(np.float32)
+    if unknown_type == 'real_imag':
+        obj0[..., 0] += 1.0
     cfg = pt.ReconConfig(
         geometry=pt.Geometry(obj_size=(24, 24, 24), probe_size=(16, 16),
-                             free_prop_cm='inf', binning=2),
+                             free_prop_cm=free_prop_cm, binning=2,
+                             fresnel_approx=fresnel_approx),
         train=pt.TrainConfig(minibatch_size=4, learning_rate=1e-3,
                              optimizer='gd', update_scheme='per angle',
                              rotate_out_of_loop=True, run_bfloat16=bf16,
-                             fused_multislice='on', zmajor_extract='on'))
+                             fused_multislice='on', zmajor_extract='on',
+                             unknown_type=unknown_type))
+    general = unknown_type == 'real_imag' or not fresnel_approx
     losses = {}
+    n0 = cmf.K5_FWD.launches
     for dev in ('cuda', 'cpu'):
         rec = pt.Reconstructor(cfg, data=data, probe_pos=pos,
                                theta_ls=np.linspace(0, np.pi, 3),
                                obj_init=obj0.copy(), device=dev)
         losses[dev] = [rec.run_epoch(e) for e in range(2)]
+    assert cmf.K5_FWD.launches - n0 == (6 if general else 0)
     np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-4)
 
 
@@ -154,3 +167,85 @@ def test_grid_scatter_rejects_tile_outside(cuda):
     acc = torch.zeros((10, 10, 2), device=cuda)
     with pytest.raises(ValueError, match='leaves the accumulator'):
         csg.scatter_grid2d_add(acc, cot, 0, 0, 4, 2)
+
+
+# -- K3 and K5 ---------------------------------------------------------------
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('rows,cols,py,px,s,trail', [
+    (3, 4, 16, 16, 8, (8, 2)), (5, 2, 12, 8, 4, (3, 2)),
+    (2, 3, 8, 8, 8, (1, 2)), (4, 4, 16, 16, 4, (33, 2))])
+def test_grid_extract_kernel_matches_plain(cuda, dtype, rows, cols, py, px,
+                                           s, trail):
+    """A pure copy, so exact; the object sites ``(z, 2)`` take 16-, 8- and
+    4-byte words."""
+    rng = np.random.default_rng(2)
+    shape = ((rows - 1) * s + py + 7, (cols - 1) * s + px + 5) + trail
+    obj = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        cuda, dtype)
+    n0 = csg.K3.launches
+    got = csg.extract_grid2d(obj, 3, 2, s, rows, cols, (py, px))
+    assert csg.K3.launches == n0 + 1
+    ref = csg.extract_grid2d(obj.cpu(), 3, 2, s, rows, cols, (py, px))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_grid_extract_rejects_odd_sites(cuda):
+    """A bf16 site of 3 values is 6 bytes: no 4-byte word divides it."""
+    obj = torch.zeros((24, 24, 3), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match='4-byte words'):
+        csg.extract_grid2d(obj, 0, 0, 8, 2, 2, (8, 8))
+
+
+def _fused_inputs(S, M, N, ny, nx, which, dev, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def c(*shape):
+        return torch.view_as_complex(torch.from_numpy(
+            rng.normal(size=shape + (2,)).astype(np.float32))).to(dev)
+
+    t = 1.0 + 0.1 * c(S, N, ny, nx)
+    wave = 0.5 * c(M, N, ny, nx)
+    g = c(M, N, ny, nx)
+    if which == 'paraxial':
+        h = prop.fresnel_kernel((ny, nx), (1.0, 1.0, 1.0), 0.1, 20.0,
+                                device=dev)
+    else:
+        h = prop.fresnel_kernel((ny, nx), (1.0, 1.0, 1.0), 1.6, 3.0,
+                                fresnel_approx=False, device=dev)
+    return t, wave, h, g
+
+
+# f32 both sides: the kernel's DFT matmuls against cuFFT over up to 4
+# steps of 16..72-point transforms; 1e-4 of the largest value.
+@pytest.mark.parametrize('which', ['paraxial', 'non_paraxial'])
+@pytest.mark.parametrize('M', [1, 2])
+@pytest.mark.parametrize('shape', [(4, 5, 16, 16), (3, 7, 12, 20),
+                                   (1, 3, 8, 8)])
+def test_fused_kernel_matches_plain(cuda, which, M, shape):
+    """Forward and both gradients (t is complex: its gradient is
+    conjugated on store) against autograd through the plain version."""
+    S, N, ny, nx = shape
+    t, wave, h, g = _fused_inputs(S, M, N, ny, nx, which, cuda)
+
+    def run(fn):
+        tt = t.detach().requires_grad_()
+        ww = wave.detach().requires_grad_()
+        out = fn(tt, ww, h)
+        return (out.detach(),) + torch.autograd.grad(out, (tt, ww), g)
+
+    f0, b0 = cmf.K5_FWD.launches, cmf.K5_BWD.launches
+    got = run(cmf.multislice_fused)
+    assert (cmf.K5_FWD.launches - f0, cmf.K5_BWD.launches - b0) == (1, 1)
+    ref = run(cmf.multislice_fused_plain)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert _rel(a, b) < 1e-4
+
+
+def test_fused_rejects_too_many_modes(cuda):
+    t, wave, h, _ = _fused_inputs(2, 4, 2, 72, 72, 'paraxial', cuda)
+    with pytest.raises(ValueError, match='shared memory'):
+        cmf.multislice_fused(t, wave, h)

@@ -1,6 +1,7 @@
-"""The port's grid-scatter plain version against the JAX package's Pallas
-band kernel (``grid2d_tile`` and ``scatter_grid2d_add_pallas``, interpret
-mode) and its XLA scatter."""
+"""The port's grid-scatter (K2) and grid-gather (K3) plain versions against
+the JAX package's Pallas band kernels (``grid2d_tile``,
+``scatter_grid2d_add_pallas``, ``grid2d_extract`` and
+``extract_grid2d_pallas``, interpret mode) and its XLA scatter."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -95,3 +96,86 @@ def test_bytes_moved_flagship():
     """0.70 GB of f32 cotangents plus the 248x248x64 tile read and written."""
     assert csg.bytes_moved((529, 72, 72, 32, 2), 8, 23, 4) == pytest.approx(
         0.7335e9, rel=1e-3)
+
+
+# -- K3: the grid gather ------------------------------------------------------
+
+EXTRACT_CASES = [(4, 4, 16, 16, 8, (8, 2)), (3, 5, 24, 16, 8, (16, 2)),
+                 (2, 2, 8, 8, 8, (16, 2)), (5, 3, 16, 24, 8, (4, 2))]
+
+
+def _obj(rows, cols, py, px, s, trail, dtype, seed=4):
+    rng = np.random.default_rng(seed)
+    shape = ((rows - 1) * s + py + 24, (cols - 1) * s + px + 16) + trail
+    return jnp.asarray(rng.normal(size=shape).astype(np.float32)).astype(dtype)
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+@pytest.mark.parametrize('dtype', [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize('rows,cols,py,px,s,trail', EXTRACT_CASES)
+def test_extract_matches_pallas(rows, cols, py, px, s, trail, dtype):
+    """K3's plain version, from a tile and from the object at an origin,
+    against ``grid2d_extract`` and ``extract_grid2d_pallas``: a pure copy,
+    so exact, in f32 and bf16 with a trailing ``(z, 2)`` axis."""
+    obj = _obj(rows, cols, py, px, s, trail, dtype)
+    y0, x0 = 8, 5
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    obj_t = torch.from_numpy(_np(obj)).to(tdtype)
+    want = psg.extract_grid2d_pallas(obj, y0, x0, s, rows, cols, (py, px),
+                                     interpret=True)
+    got = csg.extract_grid2d(obj_t, y0, x0, s, rows, cols, (py, px))
+    assert got.dtype == tdtype and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.float().numpy(), _np(want))
+    ty, tx = csg.tile_shape(want.shape, s, rows)
+    tile = obj[y0:y0 + ty, x0:x0 + tx]
+    want_t = psg.grid2d_extract(tile, s, rows, cols, (py, px),
+                                interpret=True)
+    got_t = csg.grid2d_extract_plain(obj_t[y0:y0 + ty, x0:x0 + tx], s, rows,
+                                     cols, (py, px))
+    np.testing.assert_array_equal(got_t.float().numpy(), _np(want_t))
+
+
+@pytest.mark.parametrize('y0,x0', [(4, 12), (0, 0), (16, 24)])
+def test_extract_best_matches_jax(y0, x0):
+    """The router against the JAX package's (whose CPU fallback is
+    ``extract_patches`` at the grid's positions), the footprint inside the
+    object as the Reconstructor's padding makes it."""
+    rng = np.random.default_rng(6)
+    rows, cols, py, px, s = 4, 3, 16, 16, 8
+    obj = rng.normal(size=(72, 64, 8, 2)).astype(np.float32)
+    want = jpatches.extract_grid2d_best(jnp.asarray(obj), jnp.asarray(y0),
+                                        jnp.asarray(x0), s, rows, cols,
+                                        (py, px))
+    got = tpatches.extract_grid2d_best(torch.from_numpy(obj), y0, x0, s,
+                                       rows, cols, (py, px))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_extract_is_the_scatter_transpose():
+    """<scatter(c), o> == <c, extract(o)> on the same grid."""
+    rng = np.random.default_rng(7)
+    rows, cols, py, px, s = 3, 4, 16, 16, 8
+    obj = torch.from_numpy(rng.normal(size=(48, 56, 4, 2)).astype(np.float64))
+    cot = torch.from_numpy(rng.normal(size=(rows * cols, py, px, 4, 2)))
+    acc = csg.scatter_grid2d_add_plain(torch.zeros_like(obj), cot, 5, 3, s,
+                                       rows)
+    patches = csg.extract_grid2d(obj, 5, 3, s, rows, cols, (py, px))
+    assert float((acc * obj).sum()) == pytest.approx(
+        float((cot * patches).sum()), rel=1e-12)
+
+
+def test_extract_rejects_footprint_outside():
+    obj = torch.zeros((20, 20, 2))
+    with pytest.raises(ValueError, match='leaves the object'):
+        csg.extract_grid2d(obj, 0, 2, 4, 3, 3, (12, 12))
+    with pytest.raises(ValueError):
+        csg.extract_grid2d(obj, 0, 0, 5, 2, 2, (8, 8))
+
+
+def test_extract_bytes_moved_real_imag_flagship():
+    """5.62 GB of f32 patches written plus the 248x248x512 footprint read."""
+    assert csg.extract_bytes_moved((529, 72, 72, 256, 2), 8, 23,
+                                   4) == pytest.approx(5.7426e9, rel=1e-3)
