@@ -1,0 +1,201 @@
+// Multislice propagation with invertible steps, delta/beta object: forward
+// (k4_fwd) and backward (k4_bwd) sweeps over the z steps that store nothing
+// step-sized.
+//
+// Replaces the Pallas kernels of adorym_tpu/ops/pallas_multislice.py:
+//   _fwd_db_kernel (:294, launched by _call_fwd_db :827) and
+//   _bwd_db_kernel (:495, launched by _call_bwd_db :874),
+// the custom-VJP pair behind multislice_db_packed (:941).
+//
+// Math: the forward is k1_fwd's (multislice_db_stored.cu) without records.
+// The backward rebuilds each step's wave instead of reading a record: the
+// paraxial step P = G diag(h) F is unitary, so P^-1 = conj(P)^T, and the
+// transmission never vanishes, so with v the post-modulation wave
+//   v_{S-1} = out, or F^-1 out with the far field (the exact inverse mats:
+//            the unnormalised Fraunhofer pair is not unitary),
+//   a      = g, or F^T g,
+// and for z = S-1 .. 0:
+//   z < S-1:  a <- P^T a,   v <- P^-1 v
+//   w    = v (1/t_z),  1/t = exp(+k1 b) exp(+i s k1 d)  (no division)
+//   gt   = sum_m a_m w_m;  gb = -k1 Re(gt t), gd = s k1 Im(gt t)
+//   a   <- a t_z,  v <- w.
+// Finally gw = a.  JAX's unconjugated convention inside, PyTorch's at the
+// load of g and the store of gw, as in k1_bwd.  f32 roundoff in the rebuilt
+// waves grows by up to exp(k1 b) per step (_bwd_db_kernel's accuracy note).
+//
+// What bounds it on the H100: operations.  At the multi-mode chunk (S=256,
+// M=3, N=529, 72x72, f32) the forward moves 5.75 GB (db, w0, out) against
+// 285 GFLOP of FFT-counted propagations (1.72 ms of bytes, 4.25 ms of f32
+// work at 67 TFLOP/s); the backward moves 11.4 GB against 582 GFLOP (two
+// propagations per step; 3.41 ms against 8.69 ms).  Its 72-deep complex
+// matmul passes do about 6.4 times the FFT count.
+//
+// Design: K1's (multislice_common.cuh): one block per (batch item, probe
+// mode), the forward exactly k1_fwd's sweep with the record stores compiled
+// out (166 KB of shared memory at 72x72).  The backward block keeps its
+// mode's cotangent a, its rebuilt wave v, a scratch plane and one pair of
+// mats: the transposed step mats (Py^T, Px) serve a as they are and v
+// conjugated on load, since P^-1 = conj(P^T) (207 KB at 72x72).  The far
+// field enters once, at the start: F^T for a, then the exact inverse for v,
+// loaded into the mat slots in turn before the step mats.  At M > 1 the M
+// blocks of a patch form a thread-block cluster and sum gt through
+// distributed shared memory in mode order (msdb::cross_mode_sum).
+
+#include "multislice_common.cuh"
+
+namespace {
+
+using namespace msdb;
+
+// db [S, 2, N, P]; out, g, gw [M, N, P] complex (g and gw in PyTorch's
+// convention); gdb [S, 2, N, P] in T.  ay/bx: the TRANSPOSED step mats
+// (Py^T, Px).  fay/fbx: the transposed far-field mats (Fy^T, Fx); iay/ibx:
+// the far field's exact inverse in the orientation of the forward (Fy^-1,
+// (Fx^-1)^T).  The far-field pointers are all null or all set.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    bwd_kernel(const T* __restrict__ db, const float2* __restrict__ out,
+               const float2* __restrict__ g, const float2* __restrict__ ay,
+               const float2* __restrict__ bx, const float2* __restrict__ fay,
+               const float2* __restrict__ fbx,
+               const float2* __restrict__ iay,
+               const float2* __restrict__ ibx, T* __restrict__ gdb,
+               float2* __restrict__ gw, int S, int M, int N, int ny, int nx,
+               float neg_k1, float neg_sk1, float sk1) {
+  extern __shared__ float2 smem[];
+  const int P = ny * nx;
+  float2* a = smem;
+  float2* v = a + P;
+  float2* scr = v + P;
+  float2* may = scr + P;
+  float2* mbx = may + ny * ny;
+  const int n = blockIdx.x / M;
+  const int m = blockIdx.x - n * M;
+  const size_t wave_off = ((size_t)m * N + n) * P;
+
+  for (int e = threadIdx.x; e < P; e += blockDim.x) {
+    const float2 ge = g[wave_off + e];
+    a[e] = make_float2(ge.x, -ge.y);
+    v[e] = out[wave_off + e];
+  }
+  if (fay != nullptr) {
+    copy_to_smem(may, fay, ny * ny);
+    copy_to_smem(mbx, fbx, nx * nx);
+    __syncthreads();
+    propagate(a, scr, may, mbx, ny, nx);
+    copy_to_smem(may, iay, ny * ny);
+    copy_to_smem(mbx, ibx, nx * nx);
+    __syncthreads();
+    propagate(v, scr, may, mbx, ny, nx);
+  }
+  copy_to_smem(may, ay, ny * ny);
+  copy_to_smem(mbx, bx, nx * nx);
+  __syncthreads();
+
+  for (int z = S - 1; z >= 0; --z) {
+    if (z < S - 1) {
+      propagate(a, scr, may, mbx, ny, nx);
+      propagate<true>(v, scr, may, mbx, ny, nx);
+    }
+    const T* d = db + ((size_t)(2 * z) * N + n) * P;
+    const T* b = db + ((size_t)(2 * z + 1) * N + n) * P;
+    T* gd = gdb + ((size_t)(2 * z) * N + n) * P;
+    T* gb = gdb + ((size_t)(2 * z + 1) * N + n) * P;
+    for (int p = threadIdx.x; p < P; p += blockDim.x) {
+      float2 t, t_inv;
+      modulator_and_inverse(to_float(d[p]), to_float(b[p]), neg_k1, neg_sk1,
+                            &t, &t_inv);
+      const float2 wv = cmul(v[p], t_inv);
+      const float2 av = a[p];
+      const float2 aw = cmul(av, wv);
+      if (M == 1) {
+        store_slice_grad(gd, gb, p, aw, t, neg_k1, sk1);
+      } else {
+        scr[p] = aw;
+      }
+      a[p] = cmul(av, t);
+      v[p] = wv;
+    }
+    if (M == 1) {
+      __syncthreads();
+    } else {
+      cross_mode_sum(scr, d, b, gd, gb, P, M, m, neg_k1, neg_sk1, sk1);
+    }
+  }
+
+  for (int e = threadIdx.x; e < P; e += blockDim.x) {
+    const float2 ae = a[e];
+    gw[wave_off + e] = make_float2(ae.x, -ae.y);
+  }
+}
+
+// The forward block holds the wave and a scratch plane, the backward block
+// the cotangent, the rebuilt wave and a scratch plane; both one pair of
+// mats.
+constexpr int kFwdPlanes = 2;
+constexpr int kBwdPlanes = 3;
+
+template <typename T>
+int launch_fwd(const void* db, const void* w0, const void* ay, const void* bx,
+               const void* fay, const void* fbx, void* out, int S, int M,
+               int N, int ny, int nx, float neg_k1, float neg_sk1,
+               cudaStream_t stream) {
+  return launch(fwd_kernel<T, false>, N, M, smem_bytes(kFwdPlanes, ny, nx),
+                false, stream, static_cast<const T*>(db),
+                static_cast<const float2*>(w0),
+                static_cast<const float2*>(ay), static_cast<const float2*>(bx),
+                static_cast<const float2*>(fay),
+                static_cast<const float2*>(fbx), static_cast<float2*>(out),
+                static_cast<T*>(nullptr), S, M, N, ny, nx, neg_k1, neg_sk1);
+}
+
+template <typename T>
+int launch_bwd(const void* db, const void* out, const void* g, const void* ay,
+               const void* bx, const void* fay, const void* fbx,
+               const void* iay, const void* ibx, void* gdb, void* gw, int S,
+               int M, int N, int ny, int nx, float neg_k1, float neg_sk1,
+               float sk1, cudaStream_t stream) {
+  if (M > kMaxModes) return (int)cudaErrorInvalidValue;
+  return launch(bwd_kernel<T>, N, M, smem_bytes(kBwdPlanes, ny, nx), true,
+                stream, static_cast<const T*>(db),
+                static_cast<const float2*>(out), static_cast<const float2*>(g),
+                static_cast<const float2*>(ay), static_cast<const float2*>(bx),
+                static_cast<const float2*>(fay),
+                static_cast<const float2*>(fbx),
+                static_cast<const float2*>(iay),
+                static_cast<const float2*>(ibx), static_cast<T*>(gdb),
+                static_cast<float2*>(gw), S, M, N, ny, nx, neg_k1, neg_sk1,
+                sk1);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (db and gdb).  The far-field pointers
+// may be null (no far field folded into the last step).  Returns the CUDA
+// error code of the launch (0 on success).
+extern "C" int k4_fwd(int dtype, const void* db, const void* w0,
+                      const void* ay, const void* bx, const void* fay,
+                      const void* fbx, void* out, int S, int M, int N, int ny,
+                      int nx, float neg_k1, float neg_sk1, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_fwd<float>(db, w0, ay, bx, fay, fbx, out, S, M, N, ny, nx,
+                             neg_k1, neg_sk1, st);
+  return launch_fwd<__nv_bfloat16>(db, w0, ay, bx, fay, fbx, out, S, M, N,
+                                   ny, nx, neg_k1, neg_sk1, st);
+}
+
+extern "C" int k4_bwd(int dtype, const void* db, const void* out,
+                      const void* g, const void* ay, const void* bx,
+                      const void* fay, const void* fbx, const void* iay,
+                      const void* ibx, void* gdb, void* gw, int S, int M,
+                      int N, int ny, int nx, float neg_k1, float neg_sk1,
+                      float sk1, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd<float>(db, out, g, ay, bx, fay, fbx, iay, ibx, gdb, gw,
+                             S, M, N, ny, nx, neg_k1, neg_sk1, sk1, st);
+  return launch_bwd<__nv_bfloat16>(db, out, g, ay, bx, fay, fbx, iay, ibx,
+                                   gdb, gw, S, M, N, ny, nx, neg_k1, neg_sk1,
+                                   sk1, st);
+}

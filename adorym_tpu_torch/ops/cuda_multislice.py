@@ -1,11 +1,13 @@
-"""Multislice propagation through a delta/beta object with stored
-intermediates: the CUDA kernel pair ``csrc/multislice_db_stored.cu`` and
-its plain PyTorch version.
+"""Multislice propagation through a delta/beta object: the CUDA kernel pairs
+``csrc/multislice_db_stored.cu`` (K1, stored intermediates) and
+``csrc/multislice_db.cu`` (K4, invertible steps), each with its plain
+PyTorch version.
 
 Counterpart of ``adorym_tpu/ops/pallas_multislice.py``'s
-``multislice_db_stored_packed`` (``:1125``), whose forward and backward
-Pallas kernels (``_fwd_db_st_kernel`` ``:353``, ``_bwd_db_st_kernel``
-``:422``) the CUDA kernels replace.  The object arrives packed and z-major,
+``multislice_db_stored_packed`` (``:1125``; Pallas kernels
+``_fwd_db_st_kernel`` ``:353`` and ``_bwd_db_st_kernel`` ``:422``) and
+``multislice_db_packed`` (``:941``; ``_fwd_db_kernel`` ``:294`` and
+``_bwd_db_kernel`` ``:495``).  The object arrives packed and z-major,
 ``db[S, 2, N, ny, nx]`` (slot 0 delta, slot 1 beta, one binned slice per
 step), in f32 or bf16; the incident wave is ``[M, N, ny, nx]`` complex64
 (M probe modes).  Each step multiplies the wave by the slice transmission
@@ -13,10 +15,18 @@ step), in f32 or bf16; the incident wave is ``[M, N, ny, nx]`` complex64
 per-axis Fresnel matrices ``w <- Py w Px^T``; the last step applies the
 optional far-field matrices instead.
 
-:func:`multislice_db_stored_packed` routes by device: CUDA tensors go
-through the kernels (an autograd Function whose backward is the second
-kernel), CPU tensors through :func:`multislice_db_stored_plain`, the same
-math op by op with the gradient from autograd.
+K1 records the wave entering every step for its backward, M times the
+size of db.  K4 records nothing: its backward rebuilds the waves by
+inverting the steps, at two propagations per step instead of one.
+``propagate.multislice_propagate`` picks K4 when K1's records would pass
+one eighth of the device's memory.
+
+:func:`multislice_db_stored_packed` and :func:`multislice_db_packed` route
+by device: CUDA tensors go through the kernels (an autograd Function whose
+backward is the second kernel), CPU tensors through the plain versions,
+:func:`multislice_db_stored_plain` (op by op, the gradient from autograd)
+and :func:`multislice_db_plain` (op by op in both directions, the backward
+rebuilding the waves as K4's does).
 """
 
 from __future__ import annotations
@@ -31,6 +41,9 @@ from .fourier import dft_matrix
 
 #: Dynamic shared memory one block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
+#: Probe modes the backward kernels take: the portable thread-block
+#: cluster size (one block per mode of a patch).
+MAX_MODES = 8
 
 _F = ctypes.c_float
 _I = ctypes.c_int
@@ -39,6 +52,10 @@ K1_FWD = Kernel('multislice_db_stored.cu', 'k1_fwd',
                 [_I] + [_P] * 8 + [_I] * 5 + [_F, _F])
 K1_BWD = Kernel('multislice_db_stored.cu', 'k1_bwd',
                 [_I] + [_P] * 9 + [_I] * 5 + [_F, _F, _F])
+K4_FWD = Kernel('multislice_db.cu', 'k4_fwd',
+                [_I] + [_P] * 7 + [_I] * 5 + [_F, _F])
+K4_BWD = Kernel('multislice_db.cu', 'k4_bwd',
+                [_I] + [_P] * 11 + [_I] * 5 + [_F, _F, _F])
 
 
 def _fold_prop_mats(kernel):
@@ -71,6 +88,19 @@ def _modulator(db_z, k1, s):
     return torch.complex(amp * torch.cos(ph), amp * torch.sin(ph))
 
 
+def _modulator_and_inverse(db_z, k1, s):
+    """``t`` and ``1/t = exp(+k1 b) exp(+i s k1 d)``, each from its own
+    exponential (no division), in f32 (``_bwd_db_kernel``'s arithmetic)."""
+    d = db_z[0].float()
+    b = db_z[1].float()
+    ph = -s * k1 * d
+    cs, sn = torch.cos(ph), torch.sin(ph)
+    amp = torch.exp(-k1 * b)
+    inv_amp = torch.exp(k1 * b)
+    return (torch.complex(amp * cs, amp * sn),
+            torch.complex(inv_amp * cs, -inv_amp * sn))
+
+
 def _apply_prop(w, my, mx):
     """``w <- my w mx^T`` over the last two axes: the x pass, then the y
     pass (``pallas_multislice._apply_prop``)."""
@@ -78,7 +108,7 @@ def _apply_prop(w, my, mx):
 
 
 def multislice_db_stored_plain(db, wave, kernel, k1, s, fay=None, fax=None):
-    """Plain PyTorch version of the kernel pair: the same steps op by op,
+    """Plain PyTorch version of K1: the same steps op by op,
     differentiable by autograd.  ``fay``/``fax``: optional far-field mats
     applied at the last step as ``fay w fax^T``."""
     py, px = _fold_prop_mats(kernel)
@@ -93,10 +123,76 @@ def multislice_db_stored_plain(db, wave, kernel, k1, s, fay=None, fax=None):
     return w
 
 
-def smem_bytes(n_modes, ny, nx):
-    """Dynamic shared memory of one kernel block: the M waves, one scratch
-    plane and the two per-axis matrices, complex64."""
-    return 8 * ((n_modes + 1) * ny * nx + ny * ny + nx * nx)
+class MultisliceDbPlain(torch.autograd.Function):
+    """Plain PyTorch version of K4, the arithmetic twin of its kernels: the
+    forward stores nothing step-sized, and the backward rebuilds each
+    step's wave from the output (``_bwd_db_kernel``): ``a <- P^T a``,
+    ``m = P^-1 w``, ``w = m (1/t)``, with the exact inverse far-field mats
+    at the first step.  JAX's unconjugated cotangent inside, converted from
+    and to PyTorch's convention at the ends.  Takes tensors on any
+    device."""
+
+    @staticmethod
+    def forward(ctx, db, wave, kernel, k1, s, fay, fax, fayi, faxi):
+        out = multislice_db_stored_plain(db, wave, kernel, k1, s, fay, fax)
+        ctx.save_for_backward(db, out)
+        ctx.mats = (kernel, fay, fax, fayi, faxi)
+        ctx.k1, ctx.s = k1, s
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        db, out = ctx.saved_tensors
+        kernel, fay, fax, fayi, faxi = ctx.mats
+        k1, s = ctx.k1, ctx.s
+        py, px = _fold_prop_mats(kernel)
+        ty, tx = py.transpose(0, 1), px.transpose(0, 1)
+        iy, ix = py.conj().transpose(0, 1), px.conj().transpose(0, 1)
+        a = torch.conj_physical(grad_out)
+        v = out
+        if fay is not None:
+            a = _apply_prop(a, fay.transpose(0, 1), fax.transpose(0, 1))
+            v = _apply_prop(v, fayi, faxi)
+        n_steps = db.shape[0]
+        gdb = torch.empty_like(db)
+        for z in range(n_steps - 1, -1, -1):
+            if z < n_steps - 1:
+                a = _apply_prop(a, ty, tx)
+                v = _apply_prop(v, iy, ix)
+            t, t_inv = _modulator_and_inverse(db[z], k1, s)
+            w = v * t_inv
+            gt = (a * w).sum(0)
+            cu = gt * t
+            gdb[z, 1] = (-k1 * cu.real).to(db.dtype)
+            gdb[z, 0] = (s * k1 * cu.imag).to(db.dtype)
+            a = a * t
+            v = w
+        return (gdb, torch.conj_physical(a), None, None, None, None, None,
+                None, None)
+
+
+def multislice_db_plain(db, wave, kernel, k1, s, fay=None, fax=None,
+                        fayi=None, faxi=None):
+    """Plain PyTorch version of K4 (:class:`MultisliceDbPlain`).  With the
+    far-field mats ``fay``/``fax``, their exact inverses ``fayi``/``faxi``
+    (``propagate.final_prop_mats``'s last two) are required."""
+    _check_far_field(fay, fax, fayi, faxi)
+    return MultisliceDbPlain.apply(db, wave, kernel, k1, s, fay, fax, fayi,
+                                   faxi)
+
+
+def _check_far_field(fay, fax, fayi, faxi):
+    given = [m is not None for m in (fay, fax, fayi, faxi)]
+    if any(given) and not all(given):
+        raise ValueError('the invertible multislice takes the far-field mats '
+                         'with their exact inverses: fay, fax, fayi, faxi')
+
+
+def smem_bytes(ny, nx, planes=2):
+    """Dynamic shared memory of one kernel block: ``planes`` complex
+    planes (2 in K1 and K4f, the wave and a scratch plane; 3 in K4b, which
+    adds the rebuilt wave) and the two per-axis matrices."""
+    return 8 * (planes * ny * nx + ny * ny + nx * nx)
 
 
 def _dtype_code(dtype):
@@ -108,11 +204,11 @@ def _dtype_code(dtype):
 
 
 class MultisliceDbStored(torch.autograd.Function):
-    """The CUDA kernel pair as one autograd Function.  ``mats`` holds the
-    step and far-field matrices in the orientations the kernels take:
-    forward ``Py, Px^T`` (far field ``Fy, Fx^T``), backward the transposes
-    ``Py^T, Px`` (``Fy^T, Fx``), as :func:`prop_mats` builds them.  Takes
-    contiguous CUDA operands (see :func:`multislice_db_stored_packed`)."""
+    """K1 as one autograd Function.  ``mats`` holds the step and far-field
+    matrices in the orientations the kernels take: forward ``Py, Px^T``
+    (far field ``Fy, Fx^T``), backward the transposes ``Py^T, Px``
+    (``Fy^T, Fx``), as :func:`prop_mats` builds them.  Takes contiguous
+    CUDA operands (see :func:`multislice_db_stored_packed`)."""
 
     @staticmethod
     def forward(ctx, db, wave, mats, k1, s):
@@ -151,7 +247,49 @@ class MultisliceDbStored(torch.autograd.Function):
         return gdb, gw, None, None, None
 
 
-def _check_cuda_operands(db, wave, kernel):
+class MultisliceDb(torch.autograd.Function):
+    """K4 as one autograd Function: the forward kernel stores nothing
+    step-sized; the backward kernel rebuilds the waves from the output.
+    ``mats`` as for :class:`MultisliceDbStored`, plus the far field's exact
+    inverse ``Fy^-1, (Fx^-1)^T`` when there is one.  Takes contiguous CUDA
+    operands (see :func:`multislice_db_packed`)."""
+
+    @staticmethod
+    def forward(ctx, db, wave, mats, k1, s):
+        n_steps, _, n, ny, nx = db.shape
+        m = wave.shape[0]
+        out = torch.empty((m, n, ny, nx), dtype=torch.complex64,
+                          device=db.device)
+        K4_FWD(_dtype_code(db.dtype), ptr(db), ptr(wave),
+               ptr(mats['fwd_y']), ptr(mats['fwd_x']),
+               ptr(mats.get('ffwd_y')), ptr(mats.get('ffwd_x')),
+               ptr(out), n_steps, m, n, ny, nx, -k1, -s * k1)
+        ctx.save_for_backward(db, out)
+        ctx.mats = mats
+        ctx.k1, ctx.s = k1, s
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        db, out = ctx.saved_tensors
+        mats = ctx.mats
+        n_steps, _, n, ny, nx = db.shape
+        m = out.shape[0]
+        g = grad_out.resolve_conj().contiguous()
+        gdb = torch.empty_like(db)
+        gw = torch.empty((m, n, ny, nx), dtype=torch.complex64,
+                         device=db.device)
+        k1, s = ctx.k1, ctx.s
+        K4_BWD(_dtype_code(db.dtype), ptr(db), ptr(out), ptr(g),
+               ptr(mats['bwd_y']), ptr(mats['bwd_x']),
+               ptr(mats.get('fbwd_y')), ptr(mats.get('fbwd_x')),
+               ptr(mats.get('finv_y')), ptr(mats.get('finv_x')),
+               ptr(gdb), ptr(gw), n_steps, m, n, ny, nx,
+               -k1, -s * k1, s * k1)
+        return gdb, gw, None, None, None
+
+
+def _check_cuda_operands(db, wave, kernel, planes):
     if db.dim() != 5 or db.shape[1] != 2:
         raise ValueError(f'db must be [S, 2, N, ny, nx], got {tuple(db.shape)}')
     _dtype_code(db.dtype)
@@ -165,43 +303,70 @@ def _check_cuda_operands(db, wave, kernel):
         raise ValueError(f'kernel must be [{ny}, {nx}]')
     if not (wave.is_cuda and kernel.is_cuda):
         raise ValueError('db, wave and kernel must share a CUDA device')
-    need = smem_bytes(wave.shape[0], ny, nx)
+    if wave.shape[0] > MAX_MODES:
+        raise ValueError(f'multislice kernels take at most {MAX_MODES} probe '
+                         f'modes (one cluster block each), got '
+                         f'{wave.shape[0]}')
+    need = smem_bytes(ny, nx, planes)
     if need > MAX_SMEM_BYTES:
         raise ValueError(
-            f'multislice kernel needs {need} bytes of shared memory for '
-            f'{wave.shape[0]} modes at {ny}x{nx}; the limit is '
-            f'{MAX_SMEM_BYTES}')
+            f'multislice kernel needs {need} bytes of shared memory at '
+            f'{ny}x{nx}; the limit is {MAX_SMEM_BYTES}')
 
 
-def prop_mats(kernel, fay=None, fax=None):
-    """The matrices :class:`MultisliceDbStored` takes: the folded step
-    mats of ``kernel`` and the optional far-field mats, each in the
-    orientation of the kernel that reads it, on ``kernel``'s device."""
+def prop_mats(kernel, fay=None, fax=None, fayi=None, faxi=None):
+    """The matrices :class:`MultisliceDbStored` and :class:`MultisliceDb`
+    take: the folded step mats of ``kernel`` and the optional far-field
+    mats (with K4 their exact inverses too), each in the orientation of the
+    kernel that reads it, on ``kernel``'s device."""
     py, px = _fold_prop_mats(kernel)
     mats = {'fwd_y': py.contiguous(), 'fwd_x': px.transpose(0, 1).contiguous(),
             'bwd_y': py.transpose(0, 1).contiguous(), 'bwd_x': px.contiguous()}
+
+    def dev(m):
+        return m.to(device=kernel.device, dtype=torch.complex64)
+
     if fay is not None:
-        fay = fay.to(device=kernel.device, dtype=torch.complex64)
-        fax = fax.to(device=kernel.device, dtype=torch.complex64)
+        fay, fax = dev(fay), dev(fax)
         mats.update(ffwd_y=fay.contiguous(),
                     ffwd_x=fax.transpose(0, 1).contiguous(),
                     fbwd_y=fay.transpose(0, 1).contiguous(),
                     fbwd_x=fax.contiguous())
+    if fayi is not None:
+        mats.update(finv_y=dev(fayi).contiguous(),
+                    finv_x=dev(faxi).transpose(0, 1).contiguous())
     return mats
 
 
 def multislice_db_stored_packed(db, wave, kernel, k1, s, fay=None, fax=None):
     """Exit (or, with ``fay``/``fax``, detector) wave ``[M, N, ny, nx]``
-    complex64 of the packed multislice; differentiable in ``db`` and
-    ``wave``.  CUDA tensors run the kernels; CPU tensors the plain version.
-    ``kernel``: the per-step Fresnel transfer function ``[ny, nx]``
-    (separable); ``k1``, ``s``: wavenumber scale and sign convention."""
+    complex64 of the packed multislice with stored intermediates (K1);
+    differentiable in ``db`` and ``wave``.  CUDA tensors run the kernels;
+    CPU tensors the plain version.  ``kernel``: the per-step Fresnel
+    transfer function ``[ny, nx]`` (separable); ``k1``, ``s``: wavenumber
+    scale and sign convention."""
     if not db.is_cuda:
         return multislice_db_stored_plain(db, wave, kernel, k1, s, fay, fax)
-    _check_cuda_operands(db, wave, kernel)
+    _check_cuda_operands(db, wave, kernel, 2)
     return MultisliceDbStored.apply(db.contiguous(), wave.contiguous(),
                                     prop_mats(kernel, fay, fax), float(k1),
                                     float(s))
+
+
+def multislice_db_packed(db, wave, kernel, k1, s, fay=None, fax=None,
+                         fayi=None, faxi=None):
+    """The same function as :func:`multislice_db_stored_packed` through
+    the invertible kernel pair (K4), which stores nothing step-sized; with
+    a far field, ``fayi``/``faxi`` are its exact inverses.  CUDA tensors
+    run the kernels; CPU tensors the plain version."""
+    if not db.is_cuda:
+        return multislice_db_plain(db, wave, kernel, k1, s, fay, fax, fayi,
+                                   faxi)
+    _check_far_field(fay, fax, fayi, faxi)
+    _check_cuda_operands(db, wave, kernel, 3)
+    return MultisliceDb.apply(db.contiguous(), wave.contiguous(),
+                              prop_mats(kernel, fay, fax, fayi, faxi),
+                              float(k1), float(s))
 
 
 def fft2_flops(ny, nx):
@@ -210,28 +375,38 @@ def fft2_flops(ny, nx):
     return 5.0 * ny * nx * math.log2(ny * nx)
 
 
-def flops(n_steps, n_modes, n, ny, nx, final=True, backward=False):
+def flops(n_steps, n_modes, n, ny, nx, final=True, backward=False,
+          invertible=False):
     """Least real floating-point operations of one sweep, whatever form the
     kernel computes it in: the transforms counted as FFTs.  Per
     propagation a forward and an inverse 2-D FFT and the product with H
     (``n_steps - 1`` of them), one FFT for the far field, and per step one
     complex product for the modulation (two in the backward, which also
-    forms the slice's gradient).  The transmission's exponentials are not
-    counted."""
+    forms the slice's gradient).  The invertible backward (K4b) propagates
+    the cotangent and the rebuilt wave, so it has twice the propagations
+    and far-field transforms, and three products per step (the rebuilt
+    wave, the slice's gradient, the cotangent).  The transmission's
+    exponentials are not counted."""
     plane = ny * nx
-    ops = (n_steps - 1) * (2 * fft2_flops(ny, nx) + 6 * plane)
-    ops += fft2_flops(ny, nx) if final else 0.0
-    ops += n_steps * 6 * plane * (2 if backward else 1)
+    rebuild = backward and invertible
+    sweeps = 2 if rebuild else 1
+    ops = sweeps * (n_steps - 1) * (2 * fft2_flops(ny, nx) + 6 * plane)
+    ops += sweeps * fft2_flops(ny, nx) if final else 0.0
+    products = 3 if rebuild else (2 if backward else 1)
+    ops += n_steps * 6 * plane * products
     return float(n_modes * n * ops)
 
 
-def bytes_moved(n_steps, n_modes, n, ny, nx, itemsize, backward=False):
+def bytes_moved(n_steps, n_modes, n, ny, nx, itemsize, backward=False,
+                records=True):
     """Least device-memory bytes of one sweep: every input read once and
-    every output written once (db, records and waves)."""
+    every output written once (db, records and waves).  ``records=False``
+    counts K4, which has none: its backward reads the output wave
+    instead."""
     plane = n * ny * nx
     db = n_steps * 2 * plane * itemsize
-    rec = n_steps * n_modes * plane * 2 * itemsize
+    rec = n_steps * n_modes * plane * 2 * itemsize if records else 0
     wave = n_modes * plane * 8
-    if backward:          # db, records, g in; gdb, gw out
-        return float(db + rec + wave + db + wave)
-    return float(db + wave + wave + rec)   # db, w0 in; out, records out
+    if backward:          # db, records or out, g in; gdb, gw out
+        return float(db + (rec if records else wave) + wave + db + wave)
+    return float(db + wave + wave + rec)   # db, w0 in; out (records) out

@@ -12,12 +12,13 @@ band gather behind ``grid2d_extract`` (``:118``) and
 ``extract_grid2d_pallas`` (``:156``): the same windows copied out of the
 object, K2's exact transpose.  It is forward only: the Reconstructor
 differentiates with respect to the patches, and K2 carries their gradient
-back.
+back.  K6, ``scatter_rowgrid_add_pallas`` (``:193``), is K2's kernel for one
+grid row; the Reconstructor does not route to it.
 
 Unlike the JAX package, which returns a new accumulator
-(``dynamic_update_slice``), :func:`scatter_grid2d_add` updates ``acc`` IN
-PLACE and returns it: the accumulator is the size of the padded object and
-is touched once per gradient chunk.
+(``dynamic_update_slice``), the scatters update ``acc`` IN PLACE and
+return it: the accumulator is the size of the padded object and is
+touched once per gradient chunk.
 """
 
 from __future__ import annotations
@@ -35,6 +36,10 @@ K2 = Kernel('grid_scatter.cu', 'k2_grid_scatter_add',
             [_I, _I, _P, _P] + [_I] * 9)
 K3 = Kernel('grid_extract.cu', 'k3_grid_extract',
             [_P, _P, _I, ctypes.c_longlong] + [_I] * 8)
+#: K6: the same entry point as K2, launched for one grid row at a time by
+#: :func:`scatter_rowgrid_add_kernel`; counted apart from K2.
+K6 = Kernel('grid_scatter.cu', 'k2_grid_scatter_add',
+            [_I, _I, _P, _P] + [_I] * 9)
 
 
 def check_supported(cot_shape, stride, rows):
@@ -129,15 +134,19 @@ def scatter_grid2d_add(acc, cot, y0, x0, stride, rows):
     y0, x0 = int(y0), int(x0)
     if not acc.is_cuda:
         return scatter_grid2d_add_plain(acc, cot, y0, x0, stride, rows)
+    return _launch_scatter(K2, acc, cot, y0, x0, stride, rows)
+
+
+def _launch_scatter(kernel, acc, cot, y0, x0, stride, rows):
     _check_cuda_operands(acc, cot, y0, x0, stride, rows)
     channel_major = _channel_major(cot)
     if not channel_major:
         cot = cot.contiguous()
     n, py, px = cot.shape[:3]
     channels = int(np.prod(cot.shape[3:])) if cot.dim() > 3 else 1
-    K2(0 if cot.dtype == torch.float32 else 1, int(channel_major), ptr(cot),
-       ptr(acc), rows, n // rows, py, px, channels, stride, acc.shape[1],
-       y0, x0)
+    kernel(0 if cot.dtype == torch.float32 else 1, int(channel_major),
+           ptr(cot), ptr(acc), rows, n // rows, py, px, channels, stride,
+           acc.shape[1], y0, x0)
     return acc
 
 
@@ -147,6 +156,44 @@ def bytes_moved(cot_shape, stride, rows, cot_itemsize):
     ty, tx = tile_shape(cot_shape, stride, rows)
     channels = int(np.prod(cot_shape[3:])) if len(cot_shape) > 3 else 1
     return float(np.prod(cot_shape) * cot_itemsize + 2 * ty * tx * channels * 4)
+
+
+# -- K6: one grid row -------------------------------------------------------
+
+def scatter_rowgrid_add(acc, cot, y0, x0, stride):
+    """Plain version of one grid row's scatter (``patches.py:204``): the
+    patches ``cot[N, py, px, ...]`` at ``(y0, x0 + stride*j)`` added into
+    ``acc`` in place (returned), summed in ``acc``'s dtype.  Lane ``b`` of
+    patch ``j`` (``px/stride`` lanes of ``stride`` columns) lands at column
+    block ``j + b``: ``px/stride`` shifted adds, then one update of the
+    row's ``[py, (N-1)*stride + px]`` tile."""
+    y0, x0 = int(y0), int(x0)
+    n, py, px = cot.shape[:3]
+    k = px // stride
+    trailing = tuple(cot.shape[3:])
+    z = cot.reshape((n, py, k, stride) + trailing)
+    buf = torch.zeros((n + k - 1, py, stride) + trailing, dtype=acc.dtype,
+                      device=acc.device)
+    for b in range(k):
+        buf[b:b + n] += z[:, :, b].to(acc.dtype)
+    width = (n + k - 1) * stride
+    tile = buf.movedim(0, 1).reshape((py, width) + trailing)
+    acc[y0:y0 + py, x0:x0 + width] += tile
+    return acc
+
+
+def scatter_rowgrid_add_kernel(acc, cot, y0, x0, stride):
+    """Counterpart of ``scatter_rowgrid_add_pallas``
+    (``pallas_scatter_grid.py:193``): one grid row through K2's kernel with
+    ``rows=1``, fused with the accumulator update, counted in :data:`K6`.
+    The Reconstructor does not route to it, as the JAX package's
+    Reconstructor does not (a row at a time costs one launch and one tile
+    update per row where the complete-grid scatter pays one per chunk).
+    CPU tensors run :func:`scatter_rowgrid_add`."""
+    y0, x0 = int(y0), int(x0)
+    if not acc.is_cuda:
+        return scatter_rowgrid_add(acc, cot, y0, x0, stride)
+    return _launch_scatter(K6, acc, cot, y0, x0, stride, 1)
 
 
 # -- K3: the gather ---------------------------------------------------------

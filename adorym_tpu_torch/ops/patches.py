@@ -129,4 +129,5 @@ def detect_full_grid(pos_table, minibatch_size, probe_size):
 # lies inside the object, which the Reconstructor's padding guarantees.
 scatter_grid2d_add = _csg.scatter_grid2d_add_plain
 scatter_grid2d_add_best = _csg.scatter_grid2d_add
+scatter_rowgrid_add = _csg.scatter_rowgrid_add
 extract_grid2d_best = _csg.extract_grid2d

@@ -6,11 +6,12 @@ convention with ``n = 1 - delta + i*beta``.  Energies in eV, wavelengths
 and voxels in nm, distances in nm unless the name says ``_cm``.
 
 :func:`multislice_propagate` keeps three of the JAX package's branches:
-the plain FFT z scan; the fused delta_beta dispatch, which on CUDA runs the
-multislice kernel of :mod:`.cuda_multislice`; and the general fused scan
-(real_imag, or a non-paraxial transfer function), which runs the kernel of
-:mod:`.cuda_multislice_fused`.  Each kernel's plain version runs on the
-CPU.  The remaining branches raise ``NotImplementedError`` naming their
+the plain FFT z scan; the fused delta_beta dispatch, which on CUDA runs
+one of the two multislice kernels of :mod:`.cuda_multislice` (stored
+intermediates, or invertible steps when the records would be large); and
+the general fused scan (real_imag, or a non-paraxial transfer function),
+which runs the kernel of :mod:`.cuda_multislice_fused`.  Each kernel's
+plain version runs on the CPU.  The remaining branches raise ``NotImplementedError`` naming their
 ROADMAP item.
 """
 
@@ -25,11 +26,13 @@ from ..constants import PI, wavelength_nm
 from ..utils.profiling import hbm_limit_bytes
 from .fourier import dft_matrix, fft2, fft2_and_shift, ifft2, ifft2_and_shift
 
+
 def _db_stored_max_bytes(device) -> float:
     """Stored-intermediates switch of the fused delta_beta branch: above
-    this many bytes of per-chunk forward records the JAX package switches
-    to the invertible kernel (K4, not ported yet).  One eighth of the
-    device's memory (16e9 / 8 on the CPU, the JAX package's default)."""
+    this many bytes of per-chunk forward records the invertible kernel
+    (K4) takes over from the stored one (K1), as in the JAX package.  One
+    eighth of the device's memory (16e9 / 8 on the CPU, the JAX package's
+    default)."""
     return hbm_limit_bytes(device) / 8
 
 
@@ -280,15 +283,15 @@ def multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
     if (fused and n_steps > 1 and unknown_type == 'delta_beta'
             and fresnel_approx):
         from . import cuda_multislice as cm
+        # K1 keeps the forward's records through the backward; above one
+        # eighth of the device's memory K4 rebuilds them instead.
         inter_bytes = n_steps * wave.numel() * 8
-        if inter_bytes > _db_stored_max_bytes(wave.device):
-            raise NotImplementedError(
-                'K4 multislice_db_packed not yet ported')
+        invertible = inter_bytes > _db_stored_max_bytes(wave.device)
         if db_z is None:
             db_z = torch.stack([delta_z, beta_z.to(delta_z.dtype)], 1)
         if db_z.dtype not in (torch.float32, torch.bfloat16):
             db_z = db_z.float()
-        fay = fax = None
+        f_mats = (None, None, None, None)
         folded = False
         if final_prop is not None:
             fp = final_prop['free_prop_cm']
@@ -301,10 +304,14 @@ def multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
                     normalize_fft=final_prop.get('normalize_fft', False),
                     fresnel_approx=fresnel_approx, device=wave.device)
                 if mats is not None:
-                    fay, fax = mats[:2]
-                    folded = True
-        out = cm.multislice_db_stored_packed(
-            db_z, wave.to(torch.complex64), kernel, k1, mod_sign, fay, fax)
+                    f_mats, folded = mats, True
+        wave = wave.to(torch.complex64)
+        if invertible:
+            out = cm.multislice_db_packed(db_z, wave, kernel, k1, mod_sign,
+                                          *f_mats)
+        else:
+            out = cm.multislice_db_stored_packed(db_z, wave, kernel, k1,
+                                                 mod_sign, *f_mats[:2])
         return out if folded else to_det(out)
 
     t_all = slice_modulator(delta_z, beta_z, k1, unknown_type, mod_sign)

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (Hopper)
 into a shared library with a plain C interface and loaded with
 ``ctypes``.  Libraries are built on first use into ``build/adorym_tpu_torch/``
-at the root of the checkout, named by the hash of their source so that an
-edited source rebuilds.  Nothing is compiled when a module is imported: the
+at the root of the checkout, named by the hash of their source and of the
+shared headers (``csrc/*.cuh``) so that an edited source or header
+rebuilds.  Nothing is compiled when a module is imported: the
 CPU tests import every module on machines without ``nvcc``.
 
 :class:`Kernel` wraps one C entry point: it builds its library on first
@@ -45,8 +46,12 @@ def nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    digest = hashlib.sha1((CSRC / source).read_bytes()
-                          + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library of ``source``, named by the hash of the source, every
+    header under ``csrc/`` (any may be included) and the flags."""
+    text = (CSRC / source).read_bytes() + b''.join(
+        h.read_bytes() for h in sorted(CSRC.glob('*.cuh')))
+    flags = ' '.join(NVCC_FLAGS).encode()
+    digest = hashlib.sha1(text + flags).hexdigest()[:12]
     return BUILD_DIR / f'{Path(source).stem}-{digest}.so'
 
 

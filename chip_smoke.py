@@ -11,6 +11,10 @@ Phases (any failure raises and exits nonzero):
      pairs), with kernel, plain and library times and the bound of each:
      K1 and K2 at the delta_beta flagship; K3, K5 (with a non-paraxial
      transfer function) and K2 at the real_imag flagship's trailing width;
+     K1 at three probe modes; K4 at the multi-mode flagship's chunk (256
+     steps, three modes, physical absorption), also against K1's plain
+     version on 64 of its patches; K2 on that chunk's z-major gradient
+     (C = 512); K6, one grid row at a time through K2's kernel;
   4. the delta_beta flagship epoch (256^3 object, 23x23 scan of 72^2
      patterns at stride 8, binning 8, Fraunhofer, Adam, per-angle updates
      with the rotation out of the loop; 4 angles of random data) through
@@ -20,10 +24,16 @@ Phases (any failure raises and exits nonzero):
   4b. the same for the real_imag flagship (the object starts as vacuum,
      1 in the real channel and 0 in the imaginary one), through K3, K5 and
      K2;
+  4c. the same for the multi-mode flagship (three probe modes refined with
+     the object, binning 1, so 256 steps), through K4 and K2; then, f32
+     only, one warmup and one timed epoch at binning 8, through K1 at three
+     modes;
   5. a small configuration trained on CUDA and on the CPU: the per-epoch
      losses must agree;
   5b. the same for a small real_imag configuration and for a delta_beta
-     one with a non-paraxial transfer function at a finite distance.
+     one with a non-paraxial transfer function at a finite distance;
+  5c. the same for a small multi-mode configuration (three refined probe
+     modes, binning 1), with K4 forced and then through K1.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -88,14 +98,16 @@ def flagship_positions():
 
 # -- phase 3 -----------------------------------------------------------------
 
-def check_multislice(dtype, tol_fwd, tol_bwd):
+def check_multislice(dtype, tol_fwd, tol_bwd, M=1):
     """K1 forward and backward against the plain version at one flagship
-    gradient chunk: S=32 binned steps, M=1, N=529 patches of 72x72."""
+    gradient chunk: S=32 binned steps, N=529 patches of 72x72, M probe
+    modes (M=1 on the delta_beta flagship, 3 on the binned multi-mode
+    one)."""
     from adorym_tpu_torch.ops import cuda_multislice as cm
     from adorym_tpu_torch.ops import propagate as prop
-    S, M, N, n = 32, 1, 529, 72
+    S, N, n = 32, 529, 72
     dev = torch.device('cuda')
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(0 if M == 1 else 10 + M)
     db = (torch.rand((S, 2, N, n, n), device=dev, generator=gen)
           * 0.01).to(dtype)
     wave = torch.randn((M, N, n, n), dtype=torch.complex64, device=dev,
@@ -124,12 +136,14 @@ def check_multislice(dtype, tol_fwd, tol_bwd):
     e_gd, r_gd = rel_err(gd_k, gd_p)
     e_gw, r_gw = rel_err(gw_k, gw_p)
     tag = str(dtype).split('.')[-1]
-    log(f'K1 {tag}: fwd max_abs {e_fwd:.3e} rel {r_fwd:.3e} (tol {tol_fwd}); '
+    modes = f' M={M}' if M > 1 else ''
+    log(f'K1{modes} {tag}: fwd max_abs {e_fwd:.3e} rel {r_fwd:.3e} '
+        f'(tol {tol_fwd}); '
         f'gdb max_abs {e_gd:.3e} rel {r_gd:.3e}; gw max_abs {e_gw:.3e} '
         f'rel {r_gw:.3e} (tol {tol_bwd})')
     if not (r_fwd < tol_fwd and r_gd < tol_bwd and r_gw < tol_bwd):
-        raise AssertionError(f'K1 {tag} kernel disagrees with its plain '
-                             'version')
+        raise AssertionError(f'K1{modes} {tag} kernel disagrees with its '
+                             'plain version')
     mats = cm.prop_mats(h, fay, fax)
     with torch.no_grad():
         # The launch alone: the step and far-field mats are built once.
@@ -145,14 +159,118 @@ def check_multislice(dtype, tol_fwd, tol_bwd):
     b_b, by_b = bound(cm.bytes_moved(S, M, N, n, n, isz, backward=True),
                       cm.flops(S, M, N, n, n, backward=True))
     src = 'adorym_tpu_torch/csrc/multislice_db_stored.cu'
+    path = 'delta_beta' if M == 1 else 'multimode_binned'
     return [
-        record(f'K1f multislice_db_stored forward ({tag})', src,
+        record(f'K1f multislice_db_stored forward{modes} ({tag})', src,
                'adorym_tpu/ops/pallas_multislice.py:353', e_fwd, r_fwd,
-               tol_fwd, ms_f, plain_f, b_f, by_f, None, 'K1_FWD'),
-        record(f'K1b multislice_db_stored backward ({tag})', src,
+               tol_fwd, ms_f, plain_f, b_f, by_f, None, 'K1_FWD', path),
+        record(f'K1b multislice_db_stored backward{modes} ({tag})', src,
                'adorym_tpu/ops/pallas_multislice.py:422', max(e_gd, e_gw),
                max(r_gd, r_gw), tol_bwd, ms_b, plain_b, b_b, by_b, None,
-               'K1_BWD'),
+               'K1_BWD', path),
+    ]
+
+
+def check_invertible(dtype):
+    """K4 forward and backward against its plain version (which rebuilds
+    the waves op by op) at the multi-mode flagship's chunk: S=256 steps
+    (binning 1), M=3 modes, N=529 patches of 72x72, with the Fraunhofer far
+    field and its exact inverse.  The absorption is physical (b up to 1e-4,
+    k1 b up to 2.5e-3 per 1 nm slice), since the rebuilt waves carry
+    roundoff grown by exp(k1 b) per step.  In f32 the kernel's gradients
+    are also held against the truth, autograd through K1's plain version
+    (which keeps every step), on the first 64 patches, where that fits.
+
+    Tolerances, relative to the largest value: the forward 1e-4 and the
+    gradients 1e-3 (256 steps of 72-deep sums in other orders than
+    cuBLAS); in bf16 the gradient on db, which each rounds once to bf16,
+    to 2 bf16 ulps of its largest value."""
+    from adorym_tpu_torch.ops import cuda_multislice as cm
+    from adorym_tpu_torch.ops import propagate as prop
+    S, M, N, n = 256, 3, 529, 72
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(5)
+    db = torch.empty((S, 2, N, n, n), device=dev)
+    db[:, 0].uniform_(0, 1e-3, generator=gen)
+    db[:, 1].uniform_(0, 1e-4, generator=gen)
+    db = db.to(dtype)
+    wave = torch.randn((M, N, n, n), dtype=torch.complex64, device=dev,
+                       generator=gen)
+    g = torch.randn((M, N, n, n), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    lmbda = 1240.0 / FLAGSHIP['energy_ev']
+    voxel = (1.0, 1.0, 1.0)
+    k1 = 2 * np.pi * 1.0 / lmbda
+    h = prop.fresnel_kernel((n, n), voxel, lmbda, 1.0, device=dev)
+    fm = prop.final_prop_mats((n, n), voxel, lmbda, 'inf', device=dev)
+
+    def run(fn, d_in, w_in, g_in, mats):
+        d = d_in.detach().requires_grad_()
+        w = w_in.detach().requires_grad_()
+        out = fn(d, w, h, k1, 1.0, *mats)
+        gd, gw = torch.autograd.grad(out, (d, w), g_in, retain_graph=True)
+        return out.detach(), gd, gw, (lambda: torch.autograd.grad(
+            out, (d, w), g_in, retain_graph=True))
+
+    tag = str(dtype).split('.')[-1]
+    out_k, gd_k, gw_k, bwd_k = run(cm.multislice_db_packed, db, wave, g, fm)
+    out_p, gd_p, gw_p, bwd_p = run(cm.multislice_db_plain, db, wave, g, fm)
+    torch.cuda.synchronize()
+    e_fwd, r_fwd = rel_err(out_k, out_p)
+    e_gd, r_gd = rel_err(gd_k, gd_p)
+    e_gw, r_gw = rel_err(gw_k, gw_p)
+    tol_fwd, tol_bwd = 1e-4, 1e-3
+    tol_gd = tol_bwd
+    if dtype == torch.bfloat16:
+        top = float(gd_p.float().abs().max())
+        tol_gd = 2 * 2.0 ** (np.floor(np.log2(top)) - 7) / top
+    log(f'K4 {tag} (S={S}, M={M}): fwd max_abs {e_fwd:.3e} rel {r_fwd:.3e} '
+        f'(tol {tol_fwd}); gdb max_abs {e_gd:.3e} rel {r_gd:.3e} (tol '
+        f'{tol_gd:.3e}); gw max_abs {e_gw:.3e} rel {r_gw:.3e} (tol '
+        f'{tol_bwd})')
+    if not (r_fwd < tol_fwd and r_gd <= tol_gd and r_gw < tol_bwd):
+        raise AssertionError(f'K4 {tag} kernel disagrees with its plain '
+                             'version')
+    del out_p, gd_p, gw_p, gd_k, gw_k
+    if dtype == torch.float32:
+        # The truth keeps all 256 steps' intermediates: 64 patches fit.
+        sub = (db[:, :, :64], wave[:, :64], g[:, :64])
+        _, gd_t, gw_t, _ = run(cm.multislice_db_stored_plain, *sub, fm[:2])
+        _, gd_s, gw_s, _ = run(cm.multislice_db_packed, *sub, fm)
+        torch.cuda.synchronize()
+        t_gd, t_rgd = rel_err(gd_s, gd_t)
+        t_gw, t_rgw = rel_err(gw_s, gw_t)
+        log(f'K4 {tag} against the truth (K1 plain, autograd, S={S}, N=64):'
+            f' gdb max_abs {t_gd:.3e} rel {t_rgd:.3e}; gw max_abs '
+            f'{t_gw:.3e} rel {t_rgw:.3e} (tol {tol_bwd})')
+        if not (t_rgd < tol_bwd and t_rgw < tol_bwd):
+            raise AssertionError('K4 disagrees with the stored truth')
+        del gd_t, gw_t, gd_s, gw_s
+    mats = cm.prop_mats(h, *fm)
+    with torch.no_grad():
+        ms_f = time_ms(lambda: cm.MultisliceDb.apply(db, wave, mats, k1,
+                                                     1.0), 3)
+        plain_f = time_ms(lambda: cm.multislice_db_stored_plain(
+            db, wave, h, k1, 1.0, *fm[:2]), 2)
+    ms_b = time_ms(bwd_k, 3)
+    plain_b = time_ms(bwd_p, 2)
+    isz = db.element_size()
+    b_f, by_f = bound(cm.bytes_moved(S, M, N, n, n, isz, records=False),
+                      cm.flops(S, M, N, n, n))
+    b_b, by_b = bound(cm.bytes_moved(S, M, N, n, n, isz, backward=True,
+                                     records=False),
+                      cm.flops(S, M, N, n, n, backward=True,
+                               invertible=True))
+    src = 'adorym_tpu_torch/csrc/multislice_db.cu'
+    return [
+        record(f'K4f multislice_db forward ({tag})', src,
+               'adorym_tpu/ops/pallas_multislice.py:294', e_fwd, r_fwd,
+               tol_fwd, ms_f, plain_f, b_f, by_f, None, 'K4_FWD',
+               'multimode'),
+        record(f'K4b multislice_db backward ({tag})', src,
+               'adorym_tpu/ops/pallas_multislice.py:495', max(e_gd, e_gw),
+               max(r_gd, r_gw), max(tol_gd, tol_bwd), ms_b, plain_b, b_b,
+               by_b, None, 'K4_BWD', 'multimode'),
     ]
 
 
@@ -332,17 +450,25 @@ def check_fused_multislice(tol_fwd, tol_bwd):
     ]
 
 
-def check_grid_scatter_wide(dtype):
-    """K2 at the real_imag flagship's trailing width: 529 contiguous patch
-    cotangents [72, 72, 256, 2] (C = 512, the layout autograd gives the
-    grid gather's patches) into the padded accumulator [260, 260, 256,
-    2]."""
+def check_grid_scatter_wide(dtype, zmajor=False):
+    """K2 at the trailing width C = 512 into the padded accumulator [260,
+    260, 256, 2]: on the real_imag flagship 529 contiguous patch
+    cotangents [72, 72, 256, 2] (the layout autograd gives the grid
+    gather's patches); with ``zmajor``, on the multi-mode flagship, the
+    multislice kernel's z-major gradient [256, 2, 529, 72, 72] viewed as
+    [529, 72, 72, 256, 2] and read in place."""
     from adorym_tpu_torch.ops import cuda_scatter_grid as csg
     dev = torch.device('cuda')
     rows, s, n, nz = 23, 8, 72, 256
-    gen = torch.Generator(device=dev).manual_seed(4)
-    cot = torch.randn((rows * rows, n, n, nz, 2), device=dev,
-                      generator=gen).to(dtype)
+    gen = torch.Generator(device=dev).manual_seed(6 if zmajor else 4)
+    if zmajor:
+        cot = torch.randn((nz, 2, rows * rows, n, n), device=dev,
+                          generator=gen).to(dtype).permute(2, 3, 4, 0, 1)
+        if not csg._channel_major(cot):
+            raise AssertionError('K2: the z-major view is not read in place')
+    else:
+        cot = torch.randn((rows * rows, n, n, nz, 2), device=dev,
+                          generator=gen).to(dtype)
     acc0 = torch.randn((260, 260, nz, 2), device=dev, generator=gen)
     ref = csg.scatter_grid2d_add_plain(acc0.clone(), cot, 0, 0, s, rows)
     got = csg.scatter_grid2d_add(acc0.clone(), cot, 0, 0, s, rows)
@@ -350,11 +476,13 @@ def check_grid_scatter_wide(dtype):
     err, rel = rel_err(got, ref)
     del got, ref
     tag = str(dtype).split('.')[-1]
+    layout = 'z-major' if zmajor else 'patch-major'
     tol = 1e-5           # the same f32 values, <= 81 terms, other orders
-    log(f'K2 C=512 {tag}: max_abs {err:.3e} rel {rel:.3e} (tol {tol})')
+    log(f'K2 C=512 {layout} {tag}: max_abs {err:.3e} rel {rel:.3e} '
+        f'(tol {tol})')
     if not rel < tol:
-        raise AssertionError(f'K2 C=512 {tag} kernel disagrees with its '
-                             'plain version')
+        raise AssertionError(f'K2 C=512 {layout} {tag} kernel disagrees '
+                             'with its plain version')
     acc = acc0.clone()
     ms = time_ms(lambda: csg.scatter_grid2d_add(acc, cot, 0, 0, s, rows), 10)
     plain = time_ms(lambda: csg.scatter_grid2d_add_plain(acc, cot, 0, 0, s,
@@ -367,26 +495,97 @@ def check_grid_scatter_wide(dtype):
     del cols_in
     b, by = bound(csg.bytes_moved(cot.shape, s, rows, cot.element_size()),
                   float(cot.numel()))
-    return [record(f'K2 grid_scatter C=512 ({tag})',
+    return [record(f'K2 grid_scatter C=512 {layout} ({tag})',
                    'adorym_tpu_torch/csrc/grid_scatter.cu',
                    'adorym_tpu/ops/pallas_scatter_grid.py:44', err, rel, tol,
-                   ms, plain, b, by, lib, 'K2', 'real_imag')]
+                   ms, plain, b, by, lib, 'K2',
+                   'multimode' if zmajor else 'real_imag')]
+
+
+def check_rowgrid_scatter():
+    """K6 against its plain version at the delta_beta flagship's chunk, one
+    grid row at a time: 23 rows of 23 patch cotangents [72, 72, 32, 2]
+    (patch-major, so each row's patches are contiguous) into the padded
+    accumulator [260, 260, 32, 2].  The Reconstructor does not route to
+    K6 (as the JAX package's does not): its launches on the main
+    path are 0, and this is its only run.  Library yardstick: ``F.fold``
+    of one row, 23 times."""
+    from adorym_tpu_torch.ops import cuda_scatter_grid as csg
+    dev = torch.device('cuda')
+    rows, s, n, zb = 23, 8, 72, 32
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cot = torch.randn((rows * rows, n, n, zb, 2), device=dev, generator=gen)
+    acc0 = torch.randn((260, 260, zb, 2), device=dev, generator=gen)
+
+    def by_rows(fn, acc):
+        for r in range(rows):
+            fn(acc, cot[r * rows:(r + 1) * rows], r * s, 0, s)
+        return acc
+
+    got = by_rows(csg.scatter_rowgrid_add_kernel, acc0.clone())
+    ref = by_rows(csg.scatter_rowgrid_add, acc0.clone())
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    tol = 1e-5           # the same f32 values, <= 9 terms, other orders
+    log(f'K6 float32 (23 rows): max_abs {err:.3e} rel {rel:.3e} (tol {tol})')
+    if not rel < tol:
+        raise AssertionError('K6 kernel disagrees with its plain version')
+    acc = acc0.clone()
+    ms = time_ms(lambda: by_rows(csg.scatter_rowgrid_add_kernel, acc), 10)
+    plain = time_ms(lambda: by_rows(csg.scatter_rowgrid_add, acc), 5)
+    tx = (rows - 1) * s + n
+    cols_in = [cot[r * rows:(r + 1) * rows].reshape(rows, n * n, zb * 2)
+               .permute(2, 1, 0).reshape(1, zb * 2 * n * n, rows)
+               .contiguous() for r in range(rows)]
+    lib = time_ms(lambda: [torch.nn.functional.fold(
+        c, (n, tx), (n, n), stride=s) for c in cols_in], 10)
+    row_shape = (rows, n, n, zb, 2)
+    b, by = bound(rows * csg.bytes_moved(row_shape, s, 1, 4),
+                  float(cot.numel()))
+    return [record('K6 scatter_rowgrid (float32)',
+                   'adorym_tpu_torch/csrc/grid_scatter.cu',
+                   'adorym_tpu/ops/pallas_scatter_grid.py:193', err, rel,
+                   tol, ms, plain, b, by, lib, 'K6', None)]
 
 
 # -- phase 4 -----------------------------------------------------------------
 
-def flagship_config(bf16, unknown_type='delta_beta'):
+#: The flagship paths: the object's kind, probe modes (refined with the
+#: object when more than one) and z binning of each.
+PATHS = {'delta_beta': dict(unknown_type='delta_beta', n_modes=1, binning=8),
+         'real_imag': dict(unknown_type='real_imag', n_modes=1, binning=8),
+         'multimode': dict(unknown_type='delta_beta', n_modes=3, binning=1),
+         'multimode_binned': dict(unknown_type='delta_beta', n_modes=3,
+                                  binning=8)}
+
+
+def probe_modes(n, n_modes, seed=11):
+    """``n_modes`` distinct probe modes ``[n_modes, n, n, 2]``: a Gaussian
+    spot at decreasing weights, each with its own noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:n, :n] - (n - 1) / 2
+    spot = np.exp(-(yy ** 2 + xx ** 2) / (2 * (n / 4) ** 2))
+    modes = [np.stack([w * spot + rng.normal(0, 0.02, spot.shape),
+                       rng.normal(0, 0.02, spot.shape)], -1)
+             for w in (1.0, 0.4, 0.15, 0.06, 0.02)[:n_modes]]
+    return np.stack(modes).astype(np.float32)
+
+
+def flagship_config(bf16, path='delta_beta'):
     import adorym_tpu_torch as pt
     f = FLAGSHIP
+    p = PATHS[path]
     return pt.ReconConfig(
         geometry=pt.Geometry(obj_size=(f['n_obj'],) * 3,
                              probe_size=(f['n_probe'],) * 2,
                              energy_ev=f['energy_ev'], psize_cm=f['psize_cm'],
-                             free_prop_cm='inf', binning=f['binning']),
+                             free_prop_cm='inf', binning=p['binning']),
         train=pt.TrainConfig(minibatch_size=f['mb'], learning_rate=1e-7,
                              optimizer='adam', rotate_out_of_loop=True,
                              update_scheme='per angle', run_bfloat16=bf16,
-                             unknown_type=unknown_type))
+                             unknown_type=p['unknown_type'],
+                             n_probe_modes=p['n_modes']),
+        refine=pt.RefineConfig(optimize_probe=p['n_modes'] > 1))
 
 
 def counters():
@@ -394,34 +593,42 @@ def counters():
     from adorym_tpu_torch.ops import cuda_multislice_fused as cmf
     from adorym_tpu_torch.ops import cuda_scatter_grid as csg
     return {'K1_FWD': cm.K1_FWD, 'K1_BWD': cm.K1_BWD, 'K2': csg.K2,
-            'K3': csg.K3, 'K5_FWD': cmf.K5_FWD, 'K5_BWD': cmf.K5_BWD}
+            'K3': csg.K3, 'K4_FWD': cm.K4_FWD, 'K4_BWD': cm.K4_BWD,
+            'K5_FWD': cmf.K5_FWD, 'K5_BWD': cmf.K5_BWD, 'K6': csg.K6}
 
 
 #: The kernels each flagship path launches once per angle; the others
-#: must not launch on it.
+#: must not launch on it.  K6 is on no path (the Reconstructor does not
+#: route to it, as the JAX package's does not).
 PATH_KERNELS = {'delta_beta': ('K1_FWD', 'K1_BWD', 'K2'),
-                'real_imag': ('K3', 'K5_FWD', 'K5_BWD', 'K2')}
+                'real_imag': ('K3', 'K5_FWD', 'K5_BWD', 'K2'),
+                'multimode': ('K4_FWD', 'K4_BWD', 'K2'),
+                'multimode_binned': ('K1_FWD', 'K1_BWD', 'K2')}
 
 
-def run_flagship(bf16, unknown_type='delta_beta', n_timed=3):
+def run_flagship(bf16, path='delta_beta', n_timed=3):
     """Warmup + timed epochs of the flagship through Reconstructor on the
     card; returns (median patterns/s, launches per counter)."""
     import adorym_tpu_torch as pt
     f = FLAGSHIP
+    p = PATHS[path]
     pos = flagship_positions()
     rng = np.random.default_rng(0)
     data = rng.random((f['n_theta'], len(pos), f['n_probe'], f['n_probe']),
                       dtype=np.float32)
     theta = np.linspace(0, np.pi, f['n_theta'], endpoint=False)
     obj0 = np.zeros((f['n_obj'],) * 3 + (2,), np.float32)
-    if unknown_type == 'real_imag':
+    if p['unknown_type'] == 'real_imag':
         obj0[..., 0] = 1.0                  # vacuum
-    rec = pt.Reconstructor(flagship_config(bf16, unknown_type), data=data,
-                           probe_pos=pos, theta_ls=theta, obj_init=obj0)
+    probe0 = (probe_modes(f['n_probe'], p['n_modes']) if p['n_modes'] > 1
+              else None)
+    rec = pt.Reconstructor(flagship_config(bf16, path), data=data,
+                           probe_pos=pos, theta_ls=theta, obj_init=obj0,
+                           probe_init=probe0)
     del obj0
     if rec.device.type != 'cuda' or rec._grid_scatter_rows != 23:
         raise AssertionError('flagship: not one whole-angle chunk on CUDA')
-    tag = f"{unknown_type} {'bf16' if bf16 else 'f32'}"
+    tag = f"{path} {'bf16' if bf16 else 'f32'}"
     torch.cuda.reset_peak_memory_stats()
     for c in counters().values():
         c.launches = 0
@@ -445,8 +652,7 @@ def run_flagship(bf16, unknown_type='delta_beta', n_timed=3):
     if not all(np.isfinite(losses)):
         raise AssertionError(f'flagship {tag}: non-finite loss {losses}')
     want = n_epochs * f['n_theta']           # one of each per angle
-    expect = {k: want if k in PATH_KERNELS[unknown_type] else 0
-              for k in launches}
+    expect = {k: want if k in PATH_KERNELS[path] else 0 for k in launches}
     if launches != expect:
         raise AssertionError(f'flagship {tag}: launches {launches}, '
                              f'expected {expect}')
@@ -499,12 +705,16 @@ def profile_epoch(rec, i_epoch):
 # -- phase 5 -----------------------------------------------------------------
 
 def small_config_agrees(unknown_type='delta_beta', fresnel_approx=True,
-                        free_prop_cm='inf', expect=None):
-    """32^3 object, binning 2, 3 angles, a 4x4 grid of 16^2 patterns, GD:
-    2 epochs on CUDA (kernels) and on the CPU (plain FFT path).  A
-    real_imag object starts near vacuum.  ``expect`` maps launch counters
-    to the launches the two runs must make (the CPU run makes none)."""
+                        free_prop_cm='inf', expect=None, n_modes=1,
+                        binning=2, lr=1e-3, force_invertible=False):
+    """32^3 object, 3 angles, a 4x4 grid of 16^2 patterns, GD: 2 epochs on
+    CUDA (kernels) and on the CPU (plain FFT path).  A real_imag object
+    starts near vacuum.  With ``n_modes`` > 1 the distinct probe modes are
+    refined too, and ``force_invertible`` sets the stored/invertible
+    switch so that both runs take K4.  ``expect`` maps launch counters to
+    the launches the two runs must make (the CPU run makes none)."""
     import adorym_tpu_torch as pt
+    from adorym_tpu_torch.ops import propagate as prop
     rng = np.random.default_rng(0)
     xs = np.arange(4) * 4
     yy, xx = np.meshgrid(xs, xs, indexing='ij')
@@ -517,22 +727,35 @@ def small_config_agrees(unknown_type='delta_beta', fresnel_approx=True,
     cfg = pt.ReconConfig(
         geometry=pt.Geometry(obj_size=(32, 32, 32), probe_size=(16, 16),
                              energy_ev=5000., psize_cm=1e-7,
-                             free_prop_cm=free_prop_cm, binning=2,
+                             free_prop_cm=free_prop_cm, binning=binning,
                              fresnel_approx=fresnel_approx),
-        train=pt.TrainConfig(minibatch_size=4, learning_rate=1e-3,
+        train=pt.TrainConfig(minibatch_size=4, learning_rate=lr,
                              optimizer='gd', rotate_out_of_loop=True,
                              update_scheme='per angle',
-                             unknown_type=unknown_type))
+                             unknown_type=unknown_type,
+                             n_probe_modes=n_modes),
+        refine=pt.RefineConfig(optimize_probe=n_modes > 1,
+                               probe_optimizer='gd',
+                               probe_learning_rate=1e-2))
+    probe0 = probe_modes(16, n_modes) if n_modes > 1 else None
     out = {}
     for c in counters().values():
         c.launches = 0
-    for dev in ('cuda', 'cpu'):
-        rec = pt.Reconstructor(cfg, data=data, probe_pos=pos, theta_ls=theta,
-                               obj_init=obj0.copy(), device=dev)
-        out[dev] = [rec.run_epoch(e) for e in range(2)]
+    switch = prop._db_stored_max_bytes
+    if force_invertible:
+        prop._db_stored_max_bytes = lambda device: -1.0
+    try:
+        for dev in ('cuda', 'cpu'):
+            rec = pt.Reconstructor(cfg, data=data, probe_pos=pos,
+                                   theta_ls=theta, obj_init=obj0.copy(),
+                                   probe_init=probe0, device=dev)
+            out[dev] = [rec.run_epoch(e) for e in range(2)]
+    finally:
+        prop._db_stored_max_bytes = switch
     launches = {k: c.launches for k, c in counters().items()}
     name = (f'small {unknown_type} fresnel_approx={fresnel_approx} '
-            f'free_prop_cm={free_prop_cm}')
+            f'free_prop_cm={free_prop_cm} modes={n_modes} '
+            f'binning={binning} invertible={force_invertible}')
     if expect and any(launches[k] != v for k, v in expect.items()):
         raise AssertionError(f'{name}: launches {launches}, expected '
                              f'{expect}')
@@ -560,7 +783,8 @@ def main():
 
     from adorym_tpu_torch.utils import cuda_build
     build_s = cuda_build.build(['multislice_db_stored.cu', 'grid_scatter.cu',
-                                'grid_extract.cu', 'multislice_fused.cu'])
+                                'grid_extract.cu', 'multislice_fused.cu',
+                                'multislice_db.cu'])
     log(f'kernels built in {build_s:.2f} s')
 
     kernels = []
@@ -575,20 +799,41 @@ def main():
     # f32: 31 steps of four 72-point DFT matmuls against cuFFT, sums in
     # other orders.
     kernels += check_fused_multislice(1e-4, 1e-3)
+    # The multi-mode paths: K1 at three modes (as K1 at one), K4 at 256
+    # steps, K2 on its z-major gradient, and K6.
+    kernels += check_multislice(torch.float32, 1e-4, 1e-3, M=3)
+    for dtype in (torch.float32, torch.bfloat16):
+        kernels += check_invertible(dtype)
+        torch.cuda.empty_cache()
+        kernels += check_grid_scatter_wide(dtype, zmajor=True)
+        torch.cuda.empty_cache()
+    kernels += check_rowgrid_scatter()
     for k in kernels:
         lib = 'none' if k['library_ms'] is None else f"{k['library_ms']:.4f}"
         log(f"{k['name']}: kernel_ms {k['kernel_ms']:.4f} plain_ms "
             f"{k['plain_ms']:.4f} bound_ms {k['bound_ms']:.4f} "
             f"({k['bound_by']}) library_ms {lib}")
 
-    for unknown_type in ('delta_beta', 'real_imag'):
-        for bf16 in (False, True):
-            rate, launches = run_flagship(bf16, unknown_type)
-            tag = '(bfloat16)' if bf16 else '(float32)'
-            for k in kernels:
-                if k['path'] == unknown_type and k['name'].endswith(tag):
-                    k['launches'] = launches[k['counter']]
-    if not all(k.get('launches') for k in kernels):
+    runs = [(path, bf16, 3) for path in ('delta_beta', 'real_imag',
+                                         'multimode')
+            for bf16 in (False, True)] + [('multimode_binned', False, 1)]
+    k6_launches = 0
+    for path, bf16, n_timed in runs:
+        rate, launches = run_flagship(bf16, path, n_timed)
+        k6_launches += launches['K6']
+        tag = '(bfloat16)' if bf16 else '(float32)'
+        for k in kernels:
+            if k['path'] == path and k['name'].endswith(tag):
+                k['launches'] = launches[k['counter']]
+    for k in kernels:
+        if k['counter'] == 'K6':
+            # Checked 0 by every run above: on no path of the Reconstructor.
+            k['launches'] = k6_launches
+            k['launches_note'] = ('not routed by the Reconstructor, as in '
+                                  'the JAX package (pallas_scatter_grid.py:'
+                                  '198-203): checked here against its '
+                                  'plain version only')
+    if not all(k.get('launches') for k in kernels if k['path']):
         raise AssertionError('a kernel has no launch count from the '
                              'flagship run')
 
@@ -598,6 +843,14 @@ def main():
                                              'K3': 6})
     small_config_agrees('delta_beta', False, 1e-5,
                         expect={'K5_FWD': 6, 'K1_FWD': 0, 'K3': 0})
+    # Phase 5c: three refined probe modes at binning 1, through K4 (the
+    # switch forced) and through K1; one pair per angle and epoch.  The
+    # object's step keeps the absorption physical for K4's rebuilt waves.
+    multimode = dict(n_modes=3, binning=1, lr=1e-4)
+    small_config_agrees(force_invertible=True, **multimode,
+                        expect={'K4_FWD': 6, 'K4_BWD': 6, 'K1_FWD': 0})
+    small_config_agrees(**multimode,
+                        expect={'K1_FWD': 6, 'K1_BWD': 6, 'K4_FWD': 0})
 
     for k in kernels:
         del k['counter'], k['path']

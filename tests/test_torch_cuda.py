@@ -60,11 +60,13 @@ def _rel(a, b):
 # so gdb) round to bf16 where autograd keeps f32; gdb is itself bf16.
 @pytest.mark.parametrize('dtype,tol_fwd,tol_grad', [
     (torch.float32, 1e-4, 1e-4), (torch.bfloat16, 1e-4, 3e-2)])
-@pytest.mark.parametrize('M', [1, 2])
+@pytest.mark.parametrize('M', [1, 2, 3, 4, 5])
 @pytest.mark.parametrize('final', [False, True])
 @pytest.mark.parametrize('shape', [(4, 5, 16, 16), (3, 7, 12, 20)])
 def test_multislice_kernel_matches_plain(cuda, dtype, tol_fwd, tol_grad, M,
                                          final, shape):
+    """K1 at one block per (patch, mode); from two modes on, the backward's
+    blocks of a patch form a cluster and sum the modes in shared memory."""
     S, N, ny, nx = shape
     args = _multislice_inputs(S, M, N, ny, nx, dtype, final, cuda)
     out_k, gdb_k, gw_k = _run(cm.multislice_db_stored_packed, *args)
@@ -83,11 +85,68 @@ def test_multislice_counts_launches(cuda):
     assert (cm.K1_FWD.launches - f0, cm.K1_BWD.launches - b0) == (1, 1)
 
 
-def test_multislice_rejects_too_many_modes(cuda):
-    db, wave, h, _, _ = _multislice_inputs(2, 3, 2, 72, 72, torch.float32,
+@pytest.mark.parametrize('fn', [cm.multislice_db_stored_packed,
+                                cm.multislice_db_packed])
+def test_multislice_rejects_too_many_modes(cuda, fn):
+    """Nine modes: more blocks than a portable cluster holds."""
+    db, wave, h, _, _ = _multislice_inputs(2, 9, 2, 16, 16, torch.float32,
                                            False, cuda)
+    with pytest.raises(ValueError, match='probe modes'):
+        fn(db, wave, h, 25.0, 1.0)
+
+
+@pytest.mark.parametrize('fn,side', [(cm.multislice_db_stored_packed, 88),
+                                     (cm.multislice_db_packed, 80)])
+def test_multislice_rejects_planes_beyond_shared_memory(cuda, fn, side):
+    """K1's block holds two planes and the mats (above 232,448 bytes from
+    88x88); K4's backward block three (from 80x80, which K1 takes)."""
+    db, wave, h, _, _ = _multislice_inputs(2, 1, 1, side, side,
+                                           torch.float32, False, cuda)
     with pytest.raises(ValueError, match='shared memory'):
+        fn(db, wave, h, 25.0, 1.0)
+    if side == 80:
         cm.multislice_db_stored_packed(db, wave, h, 25.0, 1.0)
+
+
+def _bf16_ulps(a, b):
+    """Max error in bf16 ulps of the largest reference magnitude."""
+    ref = b.float().abs().max()
+    ulp = 2.0 ** (torch.floor(torch.log2(ref)) - 7)
+    return float((a.float() - b.float()).abs().max() / ulp)
+
+
+# f32: as for K1.  bf16: db is the same bf16 values for both and neither
+# keeps records; each rounds gdb once to bf16 from f32 values that differ
+# by the summation order only.
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('M', [1, 2, 3, 5])
+@pytest.mark.parametrize('final', [False, True])
+@pytest.mark.parametrize('shape', [(4, 5, 16, 16), (3, 7, 12, 20)])
+def test_invertible_kernel_matches_plain(cuda, dtype, M, final, shape):
+    """K4 (no records; the backward rebuilds the waves) against its plain
+    version, which rebuilds them op by op, and against autograd through
+    K1's plain version."""
+    S, N, ny, nx = shape
+    db, wave, h, fmats, g = _multislice_inputs(S, M, N, ny, nx, dtype, True,
+                                               cuda)
+    inv = (prop.final_prop_mats((ny, nx), (1.0, 1.0), 0.1, 'inf',
+                                device=cuda) if final else (None,) * 4)
+    f0, b0 = cm.K4_FWD.launches, cm.K4_BWD.launches
+    out_k, gdb_k, gw_k = _run(cm.multislice_db_packed, db, wave, h, inv, g)
+    assert (cm.K4_FWD.launches - f0, cm.K4_BWD.launches - b0) == (1, 1)
+    out_p, gdb_p, gw_p = _run(cm.multislice_db_plain, db, wave, h, inv, g)
+    out_s, gdb_s, gw_s = _run(cm.multislice_db_stored_plain, db, wave, h,
+                              inv[:2], g)
+    torch.cuda.synchronize()
+    assert gdb_k.dtype == dtype
+    assert _rel(out_k, out_p) < 1e-4
+    assert _rel(gw_k, gw_p) < 1e-4
+    if dtype == torch.float32:
+        assert _rel(gdb_k, gdb_p) < 1e-4
+        assert _rel(gdb_k, gdb_s) < 1e-4
+    else:
+        assert _bf16_ulps(gdb_k, gdb_p) <= 2
+    assert _rel(gw_k, gw_s) < 1e-4
 
 
 @pytest.mark.parametrize('channel_major', [False, True])
@@ -160,6 +219,41 @@ def test_reconstructor_cuda_matches_cpu(cuda, unknown_type, fresnel_approx,
         losses[dev] = [rec.run_epoch(e) for e in range(2)]
     assert cmf.K5_FWD.launches - n0 == (6 if general else 0)
     np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-4)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_grid_scatter_wide_zmajor_matches_plain(cuda, dtype):
+    """K2 at the multi-mode flagship's width, C = 256 x 2: the z-major
+    gradient ``[zb, 2, N, py, px]`` read in place (cut to 3x4 patches of
+    16^2)."""
+    rng = np.random.default_rng(5)
+    zm = torch.from_numpy(rng.normal(size=(256, 2, 12, 16, 16))
+                          .astype(np.float32)).to(cuda, dtype)
+    cot = zm.permute(2, 3, 4, 0, 1)
+    assert csg._channel_major(cot)
+    acc0 = torch.from_numpy(rng.normal(size=(40, 48, 256, 2))
+                            .astype(np.float32)).to(cuda)
+    got = csg.scatter_grid2d_add(acc0.clone(), cot, 4, 2, 8, 3)
+    ref = csg.scatter_grid2d_add_plain(acc0.clone(), cot, 4, 2, 8, 3)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_rowgrid_scatter_kernel_matches_plain(cuda):
+    """K6: one grid row through K2's kernel (rows=1), counted apart."""
+    rng = np.random.default_rng(6)
+    cot = torch.from_numpy(rng.normal(size=(5, 16, 16, 4, 2))
+                           .astype(np.float32)).to(cuda)
+    acc0 = torch.from_numpy(rng.normal(size=(20, 60, 4, 2))
+                            .astype(np.float32)).to(cuda)
+    n6, n2 = csg.K6.launches, csg.K2.launches
+    got = csg.scatter_rowgrid_add_kernel(acc0.clone(), cot, 3, 2, 8)
+    assert (csg.K6.launches - n6, csg.K2.launches - n2) == (1, 0)
+    ref = csg.scatter_rowgrid_add(acc0.clone(), cot, 3, 2, 8)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_grid_scatter_rejects_tile_outside(cuda):

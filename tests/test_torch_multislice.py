@@ -115,7 +115,8 @@ def test_bound_counts():
         12.22e9, rel=1e-3)
     assert cm.bytes_moved(32, 1, 529, 72, 72, 4) == pytest.approx(
         1.448e9, rel=1e-3)
-    assert cm.smem_bytes(1, 72, 72) == 165888
+    # One block per (patch, mode): the wave, a scratch plane, two mats.
+    assert cm.smem_bytes(72, 72) == 165888
 
 
 # -- K5: the general fused multislice ---------------------------------------

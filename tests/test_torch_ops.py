@@ -134,8 +134,14 @@ def test_multislice_propagate_unported_branches_raise():
 def test_stored_switch_sized_from_device(monkeypatch):
     """The stored-records switch is an eighth of the device's memory (the
     JAX package's 16e9 default on the CPU); above it the invertible kernel
-    K4 would run, which raises until it is ported."""
+    K4 runs in place of K1, with the same result."""
+    from adorym_tpu_torch.ops import cuda_multislice as cm
     assert tprop._db_stored_max_bytes('cpu') == pytest.approx(16e9 / 8)
+    calls = []
+    for name in ('multislice_db_packed', 'multislice_db_stored_packed'):
+        real = getattr(cm, name)
+        monkeypatch.setattr(cm, name, lambda *a, _r=real, _n=name, **k:
+                            calls.append(_n) or _r(*a, **k))
     obj = torch.from_numpy(RNG.uniform(0, 1e-3, (1, 8, 8, 4, 2))
                            .astype(np.float32))
     w = torch.ones((1, 1, 8, 8), dtype=torch.complex64)
@@ -145,9 +151,10 @@ def test_stored_switch_sized_from_device(monkeypatch):
     assert out.shape == w.shape
     # 4 steps of one 8x8 complex wave hold 2 KiB of records.
     monkeypatch.setattr(tprop, 'hbm_limit_bytes', lambda device: 8 * 1024.0)
-    with pytest.raises(NotImplementedError, match='K4'):
-        tprop.multislice_propagate(obj[..., 0], obj[..., 1], w, 5000.0,
-                                   1e-7, **kw)
+    out_k4 = tprop.multislice_propagate(obj[..., 0], obj[..., 1], w, 5000.0,
+                                        1e-7, **kw)
+    assert calls == ['multislice_db_stored_packed', 'multislice_db_packed']
+    np.testing.assert_array_equal(out_k4.numpy(), out.numpy())
 
 
 # -- patches ---------------------------------------------------------------

@@ -85,6 +85,30 @@ def test_channel_major_layout_detected():
                                3).numpy())
 
 
+@pytest.mark.parametrize('n,py,px,s,trail', [(5, 16, 16, 8, (4, 2)),
+                                             (3, 8, 16, 4, (3,))])
+def test_rowgrid_scatter_matches_pallas_and_xla(n, py, px, s, trail):
+    """K6's plain version and its wrapper (the plain version on the CPU)
+    against ``scatter_rowgrid_add_pallas`` (interpret mode) and the JAX
+    package's ``scatter_rowgrid_add``: one grid row at ``(y0, x0 +
+    s*j)``."""
+    cot = _cot(1, n, py, px, trail, seed=8)
+    acc = np.random.default_rng(9).normal(
+        size=(py + 5, (n - 1) * s + px + 7) + trail).astype(np.float32)
+    y0, x0 = 3, 5
+    want_p = np.asarray(psg.scatter_rowgrid_add_pallas(
+        jnp.asarray(acc), jnp.asarray(cot), y0, x0, s, interpret=True))
+    want_x = np.asarray(jpatches.scatter_rowgrid_add(
+        jnp.asarray(acc), jnp.asarray(cot), y0, x0, s))
+    for fn in (csg.scatter_rowgrid_add, csg.scatter_rowgrid_add_kernel,
+               tpatches.scatter_rowgrid_add):
+        acc_t = torch.from_numpy(acc.copy())
+        got = fn(acc_t, torch.from_numpy(cot), y0, x0, s)
+        assert got.data_ptr() == acc_t.data_ptr(), 'must update in place'
+        np.testing.assert_allclose(got.numpy(), want_p, rtol=1e-6, atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), want_x, rtol=1e-6, atol=1e-5)
+
+
 @pytest.mark.parametrize('shape,stride,rows', [
     ((12, 16, 16, 2), 6, 3), ((12, 16, 16, 2), 8, 5)])
 def test_unsupported_shapes_raise(shape, stride, rows):
