@@ -1,8 +1,9 @@
 // Shared pieces of the delta/beta multislice kernels (K1 in
 // multislice_db_stored.cu, K4 in multislice_db.cu): storage-type helpers,
 // the slice transmission, the shared-memory complex matmul and the folded
-// propagation, the forward sweep both kernels run, and the deterministic
-// cross-mode sum of their backward sweeps.
+// propagation, K4's FFT step propagation (fft_propagate), the forward sweep
+// both kernels run, and the deterministic cross-mode sum of their backward
+// sweeps.
 //
 // Layouts (row-major): db [S, 2, N, P] (slot 0 delta, slot 1 beta, P =
 // ny*nx); waves [M, N, P] complex; records [S, M, N, P] complex pairs of T;
@@ -180,10 +181,442 @@ inline size_t smem_bytes(int planes, int ny, int nx) {
                            (size_t)nx * nx);
 }
 
+// -- The FFT step propagation (K4's FFT route) -------------------------------
+//
+// The paraxial step P = G diag(h) F of each axis, unfolded: per axis a DFT,
+// the product with h/n, an unnormalised inverse DFT, with F = dft_matrix(n)
+// and G = conj(F)/n.  K4b needs two more variants of the same step:
+//   kStepP     P                  FFT, x h/n, inverse FFT (K4f's step)
+//   kStepPT    P^T = F diag(h) G  inverse FFT, x h/n, FFT (the cotangent)
+//   kStepPInv  P^-1 = G diag(h*) F  FFT, x conj(h)/n, inverse FFT (the wave)
+// Each axis's transforms have length n = n1 n2, two Cooley-Tukey stages,
+// and the transform back runs the transpose of the forward's stages, so an
+// axis takes three passes over the plane from shared memory to shared
+// memory (fft_pass): the forward's first stage; its second stage, the
+// axis's h and the first stage back, all in registers; the last stage back.
+// 6 passes a step, ping-ponging between the plane and the scratch plane, at
+// the FFT count of work.  K4b runs its two propagations (the cotangent and
+// the rebuilt wave) in the same passes.
+//
+// Inside the step the plane is laid out with an odd row stride (nx | 1):
+// the x passes map neighbouring threads to neighbouring rows, and an even
+// stride would put a warp's column into 2 of the 16 bank pairs of a float2.
+// The first pass reads, and the last writes, the plane's own layout (row
+// stride nx), so the rest of the kernel never sees the padding; a plane
+// only needs ny (nx | 1) elements of room.
+//
+// During the steps the mat slots (the far field's, once a launch) hold the
+// next step's db planes, copied in with cp.async while the step before
+// propagates (stage_async), so the modulation reads shared memory.
+//
+// What each choice bought on an H100 (700 W), K4 at the multi-mode chunk
+// (256 steps, 3 modes, 529 patches of 72x72), by tools/ab_k4_routes.py:
+// the odd stride 43.2 against 68.0 ms (K4f); 6 passes instead of 8, 37.3
+// -> 31.9 and 92.9 -> 77.7 (K4b); K4b's two planes in the same passes,
+// 77.1 -> 68.6; the db planes copied into shared memory during the
+// propagation, 31.7 -> 26.6 and 69.0 -> 62.3 (an L2 prefetch in their
+// place had given 43.0 -> 37.3 and 99.0 -> 93.3).  The dense route: 107
+// and 245 ms.
+//
+// fft_plan's table holds the step's vectors hy/ny and hx/nx (built by the
+// wrapper, fft_step_vectors) and the n-th roots of unity of each axis.
+
+constexpr int kMaxRadix = 9;
+
+enum FftStep { kStepP, kStepPT, kStepPInv };
+
+// n1 of the split n = n1 n2 the FFT route takes: the largest n1 with
+// 2 <= n1 <= n2 <= kMaxRadix, or 0 when n has none (the dense route).
+__host__ __device__ inline int fft_radix(int n) {
+  for (int r = kMaxRadix; r >= 2; --r) {
+    if (n % r == 0 && r * r <= n && n / r <= kMaxRadix) return r;
+  }
+  return 0;
+}
+
+// The row stride of a plane inside the FFT step: odd.
+__host__ __device__ inline int fft_row_stride(int nx) { return nx | 1; }
+
+// Elements of an FFT-route block's region after its planes: the two mat
+// slots (the far field, once a launch), which during the steps hold the
+// next step's db planes (room for f32: P float2) and, in the backward
+// (`planes` = 3), first the rebuilt wave's scratch plane.
+__host__ __device__ inline int fft_slot_elems(int planes, int ny, int nx) {
+  const int mats = ny * ny + nx * nx;
+  const int steps = (planes == 3 ? ny * fft_row_stride(nx) : 0) + ny * nx;
+  return mats > steps ? mats : steps;
+}
+
+// Dynamic shared memory of an FFT-route block: `planes` planes of the padded
+// stride, the slot region, and the table: hy, hx and the two axes' roots.
+inline size_t fft_smem_bytes(int planes, int ny, int nx) {
+  return sizeof(float2) *
+         ((size_t)planes * ny * fft_row_stride(nx) +
+          fft_slot_elems(planes, ny, nx) + 2 * ((size_t)ny + nx));
+}
+
+struct FftPlan {
+  const float2* hy;   // [ny] hy/ny
+  const float2* hx;   // [nx] hx/nx
+  const float2* twy;  // [ny] exp(-2 pi i k/ny)
+  const float2* twx;  // [nx] exp(-2 pi i k/nx)
+  int ny, nx, y1, x1, sp;
+};
+
+// exp(-2 pi i k/n), from sincospif on an argument reduced to [-1, 1].
+__device__ __forceinline__ float2 unit_root(int k, int n) {
+  const int kk = 2 * k <= n ? k : k - n;
+  float sn, cs;
+  sincospif(-2.0f * kk / n, &sn, &cs);
+  return make_float2(cs, sn);
+}
+
+// Fills the table at `tab` (2 (ny + nx) elements) from the step vectors in
+// device memory.  The caller's next barrier publishes it.
+__device__ __forceinline__ FftPlan fft_plan(float2* tab,
+                                            const float2* __restrict__ hy,
+                                            const float2* __restrict__ hx,
+                                            int ny, int nx) {
+  for (int e = threadIdx.x; e < ny + nx; e += blockDim.x) {
+    const bool y = e < ny;
+    tab[e] = y ? hy[e] : hx[e - ny];
+    tab[ny + nx + e] = y ? unit_root(e, ny) : unit_root(e - ny, nx);
+  }
+  FftPlan f;
+  f.hy = tab;
+  f.hx = tab + ny;
+  f.twy = tab + ny + nx;
+  f.twx = f.twy + ny;
+  f.ny = ny;
+  f.nx = nx;
+  f.y1 = fft_radix(ny);
+  f.x1 = fft_radix(nx);
+  f.sp = fft_row_stride(nx);
+  return f;
+}
+
+// Starts copying n elements of T from device to shared memory with
+// cp.async, 16 bytes a copy, when both sides and the size are 16-byte
+// aligned; else copies them at once.  stage_wait() ends the copies.  The
+// FFT route copies each step's db planes so while the step before it
+// propagates, and its modulation reads shared memory.
+template <typename T>
+__device__ __forceinline__ void stage_async(T* dst, const T* src, int n) {
+  const size_t bytes = sizeof(T) * (size_t)n;
+  const char* s = reinterpret_cast<const char*>(src);
+  const unsigned d =
+      static_cast<unsigned>(__cvta_generic_to_shared(static_cast<void*>(dst)));
+  if ((reinterpret_cast<uintptr_t>(s) | d | bytes) % 16 == 0) {
+    for (size_t o = (size_t)threadIdx.x * 16; o < bytes;
+         o += (size_t)blockDim.x * 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       d + (unsigned)o),
+                   "l"(s + o));
+    }
+  } else {
+    for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
+  }
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+}
+
+// The root tw[k] of the table, conjugated for the inverse transform.
+template <bool kInv>
+__device__ __forceinline__ float2 root(const float2* tw, int k) {
+  float2 t = tw[k];
+  if (kInv) t.y = -t.y;
+  return t;
+}
+
+// v times -i (forward) or +i (inverse).
+template <bool kInv>
+__device__ __forceinline__ float2 rot(float2 v) {
+  return kInv ? make_float2(-v.y, v.x) : make_float2(v.y, -v.x);
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 cscale(float2 a, float s) {
+  return make_float2(a.x * s, a.y * s);
+}
+
+// x <- its R-point DFT, X[k] = sum_j x[j] exp(-+2 pi i jk/R) (+ with kInv),
+// in natural order, in registers.  The general radix sums directly with the
+// R-th roots tw[m * step] of the table (step = n / R); 2, 3, 4, 8 and 9 are
+// butterflies with constant roots.
+template <int R, bool kInv>
+struct Dft {
+  __device__ __forceinline__ static void run(float2 (&x)[R],
+                                             const float2* tw, int step) {
+    float2 wr[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) wr[m] = root<kInv>(tw, m * step);
+    float2 y[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float2 acc = x[0];
+#pragma unroll
+      for (int j = 1; j < R; ++j) acc = cadd(acc, cmul(x[j], wr[(j * k) % R]));
+      y[k] = acc;
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) x[k] = y[k];
+  }
+};
+
+__device__ __forceinline__ void dft2(float2& a, float2& b) {
+  const float2 s = cadd(a, b);
+  b = csub(a, b);
+  a = s;
+}
+
+template <bool kInv>
+__device__ __forceinline__ void dft3(float2& a, float2& b, float2& c) {
+  const float kS3 = 0.86602540378443865f;  // sqrt(3) / 2
+  const float2 s = cadd(b, c);
+  const float2 u = cscale(rot<kInv>(csub(b, c)), kS3);
+  const float2 t = csub(a, cscale(s, 0.5f));
+  a = cadd(a, s);
+  b = cadd(t, u);
+  c = csub(t, u);
+}
+
+template <bool kInv>
+__device__ __forceinline__ void dft4(float2& a, float2& b, float2& c,
+                                     float2& d) {
+  const float2 s0 = cadd(a, c), d0 = csub(a, c);
+  const float2 s1 = cadd(b, d), d1 = rot<kInv>(csub(b, d));
+  a = cadd(s0, s1);
+  c = csub(s0, s1);
+  b = cadd(d0, d1);
+  d = csub(d0, d1);
+}
+
+template <bool kInv>
+struct Dft<2, kInv> {
+  __device__ __forceinline__ static void run(float2 (&x)[2], const float2*,
+                                             int) {
+    dft2(x[0], x[1]);
+  }
+};
+
+template <bool kInv>
+struct Dft<3, kInv> {
+  __device__ __forceinline__ static void run(float2 (&x)[3], const float2*,
+                                             int) {
+    dft3<kInv>(x[0], x[1], x[2]);
+  }
+};
+
+template <bool kInv>
+struct Dft<4, kInv> {
+  __device__ __forceinline__ static void run(float2 (&x)[4], const float2*,
+                                             int) {
+    dft4<kInv>(x[0], x[1], x[2], x[3]);
+  }
+};
+
+// 8 = 2 x 4 (and 4 = 2 x 2): the even and odd 4-point DFTs, then the
+// radix-2 butterflies with the roots of 8.
+template <bool kInv>
+struct Dft<8, kInv> {
+  __device__ __forceinline__ static void run(float2 (&x)[8], const float2*,
+                                             int) {
+    const float kC = 0.70710678118654752f;
+    const float sg = kInv ? 1.f : -1.f;
+    dft4<kInv>(x[0], x[2], x[4], x[6]);
+    dft4<kInv>(x[1], x[3], x[5], x[7]);
+    const float2 o1 = cmul(x[3], make_float2(kC, sg * kC));
+    const float2 o2 = rot<kInv>(x[5]);
+    const float2 o3 = cmul(x[7], make_float2(-kC, sg * kC));
+    const float2 e0 = x[0], e1 = x[2], e2 = x[4], e3 = x[6], o0 = x[1];
+    x[0] = cadd(e0, o0);
+    x[4] = csub(e0, o0);
+    x[1] = cadd(e1, o1);
+    x[5] = csub(e1, o1);
+    x[2] = cadd(e2, o2);
+    x[6] = csub(e2, o2);
+    x[3] = cadd(e3, o3);
+    x[7] = csub(e3, o3);
+  }
+};
+
+// 9 = 3 x 3: j = 3 j1 + j2, k = k1 + 3 k2; 3-point DFTs over j1, the roots
+// of 9 w^(j2 k1), 3-point DFTs over j2.
+template <bool kInv>
+struct Dft<9, kInv> {
+  __device__ __forceinline__ static void run(float2 (&x)[9], const float2*,
+                                             int) {
+    const float sg = kInv ? 1.f : -1.f;
+    const float2 w1 = make_float2(0.76604444311897804f, sg * 0.64278760968653933f);
+    const float2 w2 = make_float2(0.17364817766693035f, sg * 0.98480775301220806f);
+    const float2 w4 = make_float2(-0.93969262078590838f, sg * 0.34202014332566873f);
+    dft3<kInv>(x[0], x[3], x[6]);
+    dft3<kInv>(x[1], x[4], x[7]);
+    dft3<kInv>(x[2], x[5], x[8]);
+    // Now x[j2 + 3 k1] holds Y[j2][k1].
+    x[4] = cmul(x[4], w1);
+    x[7] = cmul(x[7], w2);
+    x[5] = cmul(x[5], w2);
+    x[8] = cmul(x[8], w4);
+    dft3<kInv>(x[0], x[1], x[2]);
+    dft3<kInv>(x[3], x[4], x[5]);
+    dft3<kInv>(x[6], x[7], x[8]);
+    // Now x[3 k1 + k2] holds X[k1 + 3 k2]: transpose to natural order.
+    float2 t = x[1];
+    x[1] = x[3];
+    x[3] = t;
+    t = x[2];
+    x[2] = x[6];
+    x[6] = t;
+    t = x[5];
+    x[5] = x[7];
+    x[7] = t;
+  }
+};
+
+// One pass of the length-n 1-D transforms (n = n1 n2) of `lines` lines,
+// from src to dst.  Element i of line l lies at l*ls + i*es (each side its
+// own strides).  With j = n2 j1 + j2 and k = k1 + n1 k2 the forward DFT
+// (direction kInv) is two Cooley-Tukey stages, and the DFT back (direction
+// !kInv, from natural order to natural order) is their transpose:
+//   kPassA (R = n1): for each j2, the DFT over j1 of x[n2 j1 + j2], times
+//          the root w^(j2 k1), stored at n2 k1 + j2;
+//   kPassB (R = n2): for each k1, the DFT over j2 of those n2 neighbours,
+//          which is X[k1 + n1 k2] over k2 in natural order; times he[k1 +
+//          n1 k2] (kH = 2: conjugated); the DFT back over k2, times the
+//          root of the other direction w^-(j2 k1), stored in place;
+//   kPassC (R = n1): for each j2, the DFT back over k1 of the elements at
+//          n2 k1 + j2, stored in natural order at n2 j1 + j2.
+// The caller gives pass C the direction back (!kInv of A and B).  Items run
+// line-fastest, so a warp's threads take neighbouring lines.
+enum FftPass { kPassA, kPassB, kPassC };
+
+// One item of a pass: group g of line l (item it, line-fastest).
+template <int R, int kPass, bool kInv, int kH>
+__device__ __forceinline__ void fft_item(const float2* __restrict__ src,
+                                         float2* __restrict__ dst, int it,
+                                         int lines, int s_ls, int s_es,
+                                         int d_ls, int d_es, int n1, int n2,
+                                         const float2* __restrict__ tw,
+                                         const float2* __restrict__ he) {
+  const int n = n1 * n2;
+  // Element e of a group lies at pos0 + e * pos_step along the line.
+  const int pos_step = kPass == kPassB ? 1 : n2;
+  const int g = it / lines;
+  const int l = it - g * lines;
+  const float2* s = src + l * s_ls;
+  float2* d = dst + l * d_ls;
+  const int pos0 = kPass == kPassB ? n2 * g : g;
+  float2 x[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) x[j] = s[(pos0 + j * pos_step) * s_es];
+  Dft<R, kInv>::run(x, tw, n / R);
+  if constexpr (kPass == kPassA) {
+#pragma unroll
+    for (int k = 1; k < R; ++k) x[k] = cmul(x[k], root<kInv>(tw, g * k));
+  } else if constexpr (kPass == kPassB) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float2 hc = he[g + n1 * k];
+      if (kH == 2) hc.y = -hc.y;
+      x[k] = cmul(x[k], hc);
+    }
+    Dft<R, !kInv>::run(x, tw, n / R);
+#pragma unroll
+    for (int j = 1; j < R; ++j) x[j] = cmul(x[j], root<!kInv>(tw, g * j));
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k) d[(pos0 + k * pos_step) * d_es] = x[k];
+}
+
+// The pass over one plane (src -> dst) or, with kPair, over two at once
+// (src2 -> dst2 in the direction kInv2 with kH2, its items after the
+// first plane's), at the radix (n2 for pass B, else n1) given at run time.
+// Ends with a barrier.
+template <int kPass, bool kInv, int kH, bool kPair, bool kInv2, int kH2>
+__device__ __forceinline__ void fft_pass(const float2* src, float2* dst,
+                                         const float2* src2, float2* dst2,
+                                         int lines, int s_ls, int s_es,
+                                         int d_ls, int d_es, int n1, int n,
+                                         const float2* tw, const float2* he) {
+  const int n2 = n / n1;
+  const int items = lines * (kPass == kPassB ? n1 : n2);
+  const int total = kPair ? 2 * items : items;
+#define MSDB_FFT_PASS(R)                                                     \
+  case R:                                                                    \
+    for (int it = threadIdx.x; it < total; it += blockDim.x) {               \
+      if (!kPair || it < items) {                                            \
+        fft_item<R, kPass, kInv, kH>(src, dst, it, lines, s_ls, s_es, d_ls,  \
+                                     d_es, n1, n2, tw, he);                  \
+      } else {                                                               \
+        fft_item<R, kPass, kInv2, kH2>(src2, dst2, it - items, lines, s_ls,  \
+                                       s_es, d_ls, d_es, n1, n2, tw, he);    \
+      }                                                                      \
+    }                                                                        \
+    break;
+  switch (kPass == kPassB ? n2 : n1) {
+    MSDB_FFT_PASS(2)
+    MSDB_FFT_PASS(3)
+    MSDB_FFT_PASS(4)
+    MSDB_FFT_PASS(5)
+    MSDB_FFT_PASS(6)
+    MSDB_FFT_PASS(7)
+    MSDB_FFT_PASS(8)
+    MSDB_FFT_PASS(9)
+  }
+#undef MSDB_FFT_PASS
+  __syncthreads();
+}
+
+// w <- V_y w V_x^T for one ny x nx plane (row stride nx) through the scratch
+// plane, V the step variant kStep of each axis: six passes, ping-ponging
+// w -> scr -> w.  Per axis, pass A and B take the transform, the axis's h
+// and the first stage back; pass C the last stage back.  The y passes come
+// first and last: their lines are the columns, so a warp's threads take
+// neighbouring columns of the plane's own layout, which the first pass
+// reads and the last writes.  The x passes between them work on the odd
+// stride.  (The axes' operators commute, so y's pass C may follow x's.)
+// With kPair, the same passes also take w2 <- V2_y w2 V2_x^T through scr2,
+// V2 the variant kStep2.  Ends with a barrier.
+template <int kStep, bool kPair = false, int kStep2 = kStepP>
+__device__ __forceinline__ void fft_propagate(float2* w, float2* scr,
+                                              const FftPlan& f,
+                                              float2* w2 = nullptr,
+                                              float2* scr2 = nullptr) {
+  constexpr bool kI = kStep == kStepPT;  // the direction of the first half
+  constexpr int kH = kStep == kStepPInv ? 2 : 1;
+  constexpr bool kI2 = kStep2 == kStepPT;
+  constexpr int kH2 = kStep2 == kStepPInv ? 2 : 1;
+  const int ny = f.ny, nx = f.nx, sp = f.sp;
+  fft_pass<kPassA, kI, 0, kPair, kI2, 0>(w, scr, w2, scr2, nx, 1, nx, 1, sp,
+                                         f.y1, ny, f.twy, nullptr);
+  fft_pass<kPassB, kI, kH, kPair, kI2, kH2>(scr, w, scr2, w2, nx, 1, sp, 1,
+                                            sp, f.y1, ny, f.twy, f.hy);
+  fft_pass<kPassA, kI, 0, kPair, kI2, 0>(w, scr, w2, scr2, ny, sp, 1, sp, 1,
+                                         f.x1, nx, f.twx, nullptr);
+  fft_pass<kPassB, kI, kH, kPair, kI2, kH2>(scr, w, scr2, w2, ny, sp, 1, sp,
+                                            1, f.x1, nx, f.twx, f.hx);
+  fft_pass<kPassC, !kI, 0, kPair, !kI2, 0>(w, scr, w2, scr2, ny, sp, 1, sp, 1,
+                                           f.x1, nx, f.twx, nullptr);
+  fft_pass<kPassC, !kI, 0, kPair, !kI2, 0>(scr, w, scr2, w2, nx, 1, sp, 1, nx,
+                                           f.y1, ny, f.twy, nullptr);
+}
+
 // The forward sweep of one (patch, mode) block: per step the modulation
 // (recording the entering wave in T when kRecords), then the folded step
-// propagation, or at the last step the far-field mats when given.
-template <typename T, bool kRecords>
+// propagation, or at the last step the far-field mats when given.  kFft
+// (K4's FFT route only) takes each step through fft_propagate instead, with
+// ay and bx the step's vectors hy/ny and hx/nx; the far field stays the
+// dense product in the mat slots.  K1 never sets it.
+template <typename T, bool kRecords, bool kFft = false>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const T* __restrict__ db, const float2* __restrict__ w0,
                const float2* __restrict__ ay, const float2* __restrict__ bx,
@@ -192,31 +625,58 @@ __global__ void __launch_bounds__(kThreads)
                int N, int ny, int nx, float neg_k1, float neg_sk1) {
   extern __shared__ float2 smem[];
   const int P = ny * nx;
+  const int Q = kFft ? ny * fft_row_stride(nx) : P;
   float2* w = smem;
-  float2* scr = w + P;
-  float2* may = scr + P;
+  float2* scr = w + Q;
+  float2* may = scr + Q;
   float2* mbx = may + ny * ny;
   const int n = blockIdx.x / M;
   const int m = blockIdx.x - n * M;
   const size_t wave_off = ((size_t)m * N + n) * P;
 
   copy_to_smem(w, w0 + wave_off, P);
-  copy_to_smem(may, ay, ny * ny);
-  copy_to_smem(mbx, bx, nx * nx);
+  FftPlan plan;
+  T* stage = reinterpret_cast<T*>(may);  // the FFT route's db planes
+  if constexpr (kFft) {
+    stage_async(stage, db + (size_t)n * P, P);
+    stage_async(stage + P, db + ((size_t)N + n) * P, P);
+    plan = fft_plan(mbx + nx * nx, ay, bx, ny, nx);
+    stage_wait();
+  } else {
+    copy_to_smem(may, ay, ny * ny);
+    copy_to_smem(mbx, bx, nx * nx);
+  }
   __syncthreads();
 
   for (int z = 0; z < S; ++z) {
     const T* d = db + ((size_t)(2 * z) * N + n) * P;
     const T* b = db + ((size_t)(2 * z + 1) * N + n) * P;
     T* rz = kRecords ? rec + (((size_t)z * M + m) * N + n) * P * 2 : nullptr;
-    for (int p = threadIdx.x; p < P; p += blockDim.x) {
-      const float2 t = modulator(to_float(d[p]), to_float(b[p]), neg_k1,
-                                 neg_sk1);
-      const float2 wv = w[p];
-      if (kRecords) store_pair(rz + 2 * p, wv);
-      w[p] = cmul(wv, t);
+    if constexpr (kFft) {
+      for (int p = threadIdx.x; p < P; p += blockDim.x) {
+        w[p] = cmul(w[p], modulator(to_float(stage[p]),
+                                    to_float(stage[P + p]), neg_k1,
+                                    neg_sk1));
+      }
+    } else {
+      for (int p = threadIdx.x; p < P; p += blockDim.x) {
+        const float2 t = modulator(to_float(d[p]), to_float(b[p]), neg_k1,
+                                   neg_sk1);
+        const float2 wv = w[p];
+        if (kRecords) store_pair(rz + 2 * p, wv);
+        w[p] = cmul(wv, t);
+      }
     }
     __syncthreads();
+    if constexpr (kFft) {
+      if (z < S - 1) {
+        stage_async(stage, d + 2 * (size_t)N * P, P);
+        stage_async(stage + P, b + 2 * (size_t)N * P, P);
+        fft_propagate<kStepP>(w, scr, plan);
+        stage_wait();
+        continue;
+      }
+    }
     if (z == S - 1) {
       if (fay == nullptr) break;
       // No thread reads the step mats after the barrier above.

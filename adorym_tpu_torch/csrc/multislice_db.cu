@@ -27,19 +27,32 @@
 // M=3, N=529, 72x72, f32) the forward moves 5.75 GB (db, w0, out) against
 // 285 GFLOP of FFT-counted propagations (1.72 ms of bytes, 4.25 ms of f32
 // work at 67 TFLOP/s); the backward moves 11.4 GB against 582 GFLOP (two
-// propagations per step; 3.41 ms against 8.69 ms).  Its 72-deep complex
-// matmul passes do about 6.4 times the FFT count.
+// propagations per step; 3.41 ms against 8.69 ms).
 //
 // Design: K1's (multislice_common.cuh): one block per (batch item, probe
-// mode), the forward exactly k1_fwd's sweep with the record stores compiled
-// out (166 KB of shared memory at 72x72).  The backward block keeps its
-// mode's cotangent a, its rebuilt wave v, a scratch plane and one pair of
-// mats: the transposed step mats (Py^T, Px) serve a as they are and v
-// conjugated on load, since P^-1 = conj(P^T) (207 KB at 72x72).  The far
-// field enters once, at the start: F^T for a, then the exact inverse for v,
-// loaded into the mat slots in turn before the step mats.  At M > 1 the M
-// blocks of a patch form a thread-block cluster and sum gt through
-// distributed shared memory in mode order (msdb::cross_mode_sum).
+// mode), the forward k1_fwd's sweep with the record stores compiled out.
+// The backward block keeps its mode's cotangent a, its rebuilt wave v and a
+// scratch plane.  The far field enters once, as dense products in the two
+// mat slots: at the last forward step, and at the backward's start (F^T for
+// a, then the exact inverse for v).  At M > 1 the M blocks of a patch form a
+// thread-block cluster and sum gt through distributed shared memory in
+// mode order (msdb::cross_mode_sum).
+//
+// Two routes for the steps, chosen by the wrapper from the shape alone:
+//   FFT   (route 1; ny and nx each n1 n2 with 2 <= n1 <= n2 <= 9, so 72 =
+//         8 x 9): each step is msdb::fft_propagate, six passes of two-stage
+//         transforms in shared memory, which do the FFT count of work the
+//         bound uses; the steps' h vectors and the roots of unity sit beside
+//         the mat slots (212 KB for the backward at 72x72).  The mat slots
+//         hold the far field once a launch; during the steps they hold the
+//         next step's db planes, copied in (cp.async) while the step before
+//         propagates, and in the backward also v's scratch plane: the
+//         backward propagates a and v in the same passes.
+//   dense (route 0; any other shape): the folded step mats in the mat
+//         slots, two 72-deep complex matmuls per propagation, about 6.4
+//         times the FFT count; the backward serves a with the transposed
+//         mats (Py^T, Px) and v with the same conjugated on load, since
+//         P^-1 = conj(P^T) (207 KB at 72x72).
 
 #include "multislice_common.cuh"
 
@@ -49,10 +62,11 @@ using namespace msdb;
 
 // db [S, 2, N, P]; out, g, gw [M, N, P] complex (g and gw in PyTorch's
 // convention); gdb [S, 2, N, P] in T.  ay/bx: the TRANSPOSED step mats
-// (Py^T, Px).  fay/fbx: the transposed far-field mats (Fy^T, Fx); iay/ibx:
-// the far field's exact inverse in the orientation of the forward (Fy^-1,
-// (Fx^-1)^T).  The far-field pointers are all null or all set.
-template <typename T>
+// (Py^T, Px), or with kFft the step's vectors hy/ny and hx/nx.  fay/fbx:
+// the transposed far-field mats (Fy^T, Fx); iay/ibx: the far field's exact
+// inverse in the orientation of the forward (Fy^-1, (Fx^-1)^T).  The
+// far-field pointers are all null or all set.
+template <typename T, bool kFft>
 __global__ void __launch_bounds__(kThreads)
     bwd_kernel(const T* __restrict__ db, const float2* __restrict__ out,
                const float2* __restrict__ g, const float2* __restrict__ ay,
@@ -64,15 +78,23 @@ __global__ void __launch_bounds__(kThreads)
                float neg_k1, float neg_sk1, float sk1) {
   extern __shared__ float2 smem[];
   const int P = ny * nx;
+  const int Q = kFft ? ny * fft_row_stride(nx) : P;
   float2* a = smem;
-  float2* v = a + P;
-  float2* scr = v + P;
-  float2* may = scr + P;
+  float2* v = a + Q;
+  float2* scr = v + Q;
+  float2* may = scr + Q;
   float2* mbx = may + ny * ny;
   const int n = blockIdx.x / M;
   const int m = blockIdx.x - n * M;
   const size_t wave_off = ((size_t)m * N + n) * P;
 
+  // On the FFT route, after the far field, the slot region holds v's
+  // scratch plane (at may) and the step's db planes (stage).
+  T* stage = reinterpret_cast<T*>(may + Q);
+  FftPlan plan;
+  if constexpr (kFft) {
+    plan = fft_plan(may + fft_slot_elems(3, ny, nx), ay, bx, ny, nx);
+  }
   for (int e = threadIdx.x; e < P; e += blockDim.x) {
     const float2 ge = g[wave_off + e];
     a[e] = make_float2(ge.x, -ge.y);
@@ -88,19 +110,38 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     propagate(v, scr, may, mbx, ny, nx);
   }
-  copy_to_smem(may, ay, ny * ny);
-  copy_to_smem(mbx, bx, nx * nx);
-  __syncthreads();
+  if constexpr (kFft) {
+    stage_async(stage, db + ((size_t)(2 * S - 2) * N + n) * P, P);
+    stage_async(stage + P, db + ((size_t)(2 * S - 1) * N + n) * P, P);
+    stage_wait();
+  } else {
+    copy_to_smem(may, ay, ny * ny);
+    copy_to_smem(mbx, bx, nx * nx);
+    __syncthreads();
+  }
 
   for (int z = S - 1; z >= 0; --z) {
-    if (z < S - 1) {
-      propagate(a, scr, may, mbx, ny, nx);
-      propagate<true>(v, scr, may, mbx, ny, nx);
-    }
     const T* d = db + ((size_t)(2 * z) * N + n) * P;
     const T* b = db + ((size_t)(2 * z + 1) * N + n) * P;
     T* gd = gdb + ((size_t)(2 * z) * N + n) * P;
     T* gb = gdb + ((size_t)(2 * z + 1) * N + n) * P;
+    if (z < S - 1) {
+      if constexpr (kFft) {
+        // a and v in the same passes, v through may; the step's db planes
+        // arrive in the meantime.
+        stage_async(stage, d, P);
+        stage_async(stage + P, b, P);
+        fft_propagate<kStepPT, true, kStepPInv>(a, scr, plan, v, may);
+        stage_wait();
+      } else {
+        propagate(a, scr, may, mbx, ny, nx);
+        propagate<true>(v, scr, may, mbx, ny, nx);
+      }
+    }
+    if constexpr (kFft) {
+      d = stage;
+      b = stage + P;
+    }
     for (int p = threadIdx.x; p < P; p += blockDim.x) {
       float2 t, t_inv;
       modulator_and_inverse(to_float(d[p]), to_float(b[p]), neg_k1, neg_sk1,
@@ -131,17 +172,42 @@ __global__ void __launch_bounds__(kThreads)
 
 // The forward block holds the wave and a scratch plane, the backward block
 // the cotangent, the rebuilt wave and a scratch plane; both one pair of
-// mats.
+// mat slots (and on the FFT route the table).
 constexpr int kFwdPlanes = 2;
 constexpr int kBwdPlanes = 3;
+constexpr int kRouteDense = 0;
+constexpr int kRouteFft = 1;
+
+// The kernel of `route`, with its shared memory, or false when the shape
+// does not take the route.
+template <typename K>
+bool pick_route(int route, int planes, int ny, int nx, K dense, K fft,
+                K* kernel, size_t* smem) {
+  if (route == kRouteDense) {
+    *kernel = dense;
+    *smem = smem_bytes(planes, ny, nx);
+    return true;
+  }
+  if (route != kRouteFft || fft_radix(ny) == 0 || fft_radix(nx) == 0) {
+    return false;
+  }
+  *kernel = fft;
+  *smem = fft_smem_bytes(planes, ny, nx);
+  return true;
+}
 
 template <typename T>
-int launch_fwd(const void* db, const void* w0, const void* ay, const void* bx,
-               const void* fay, const void* fbx, void* out, int S, int M,
-               int N, int ny, int nx, float neg_k1, float neg_sk1,
-               cudaStream_t stream) {
-  return launch(fwd_kernel<T, false>, N, M, smem_bytes(kFwdPlanes, ny, nx),
-                false, stream, static_cast<const T*>(db),
+int launch_fwd(int route, const void* db, const void* w0, const void* ay,
+               const void* bx, const void* fay, const void* fbx, void* out,
+               int S, int M, int N, int ny, int nx, float neg_k1,
+               float neg_sk1, cudaStream_t stream) {
+  decltype(&fwd_kernel<T, false>) kernel;
+  size_t smem;
+  if (!pick_route(route, kFwdPlanes, ny, nx, &fwd_kernel<T, false>,
+                  &fwd_kernel<T, false, true>, &kernel, &smem)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch(kernel, N, M, smem, false, stream, static_cast<const T*>(db),
                 static_cast<const float2*>(w0),
                 static_cast<const float2*>(ay), static_cast<const float2*>(bx),
                 static_cast<const float2*>(fay),
@@ -150,14 +216,19 @@ int launch_fwd(const void* db, const void* w0, const void* ay, const void* bx,
 }
 
 template <typename T>
-int launch_bwd(const void* db, const void* out, const void* g, const void* ay,
-               const void* bx, const void* fay, const void* fbx,
-               const void* iay, const void* ibx, void* gdb, void* gw, int S,
-               int M, int N, int ny, int nx, float neg_k1, float neg_sk1,
-               float sk1, cudaStream_t stream) {
+int launch_bwd(int route, const void* db, const void* out, const void* g,
+               const void* ay, const void* bx, const void* fay,
+               const void* fbx, const void* iay, const void* ibx, void* gdb,
+               void* gw, int S, int M, int N, int ny, int nx, float neg_k1,
+               float neg_sk1, float sk1, cudaStream_t stream) {
   if (M > kMaxModes) return (int)cudaErrorInvalidValue;
-  return launch(bwd_kernel<T>, N, M, smem_bytes(kBwdPlanes, ny, nx), true,
-                stream, static_cast<const T*>(db),
+  decltype(&bwd_kernel<T, false>) kernel;
+  size_t smem;
+  if (!pick_route(route, kBwdPlanes, ny, nx, &bwd_kernel<T, false>,
+                  &bwd_kernel<T, true>, &kernel, &smem)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch(kernel, N, M, smem, true, stream, static_cast<const T*>(db),
                 static_cast<const float2*>(out), static_cast<const float2*>(g),
                 static_cast<const float2*>(ay), static_cast<const float2*>(bx),
                 static_cast<const float2*>(fay),
@@ -170,22 +241,24 @@ int launch_bwd(const void* db, const void* out, const void* g, const void* ay,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (db and gdb).  The far-field pointers
+// dtype: 0 = float32, 1 = bfloat16 (db and gdb).  route: 0 dense (ay, bx
+// the folded step mats), 1 FFT (ay, bx the step's vectors hy/ny, hx/nx;
+// refused for a shape without its radix split).  The far-field pointers
 // may be null (no far field folded into the last step).  Returns the CUDA
 // error code of the launch (0 on success).
-extern "C" int k4_fwd(int dtype, const void* db, const void* w0,
+extern "C" int k4_fwd(int dtype, int route, const void* db, const void* w0,
                       const void* ay, const void* bx, const void* fay,
                       const void* fbx, void* out, int S, int M, int N, int ny,
                       int nx, float neg_k1, float neg_sk1, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_fwd<float>(db, w0, ay, bx, fay, fbx, out, S, M, N, ny, nx,
-                             neg_k1, neg_sk1, st);
-  return launch_fwd<__nv_bfloat16>(db, w0, ay, bx, fay, fbx, out, S, M, N,
-                                   ny, nx, neg_k1, neg_sk1, st);
+    return launch_fwd<float>(route, db, w0, ay, bx, fay, fbx, out, S, M, N,
+                             ny, nx, neg_k1, neg_sk1, st);
+  return launch_fwd<__nv_bfloat16>(route, db, w0, ay, bx, fay, fbx, out, S,
+                                   M, N, ny, nx, neg_k1, neg_sk1, st);
 }
 
-extern "C" int k4_bwd(int dtype, const void* db, const void* out,
+extern "C" int k4_bwd(int dtype, int route, const void* db, const void* out,
                       const void* g, const void* ay, const void* bx,
                       const void* fay, const void* fbx, const void* iay,
                       const void* ibx, void* gdb, void* gw, int S, int M,
@@ -193,9 +266,10 @@ extern "C" int k4_bwd(int dtype, const void* db, const void* out,
                       float sk1, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(db, out, g, ay, bx, fay, fbx, iay, ibx, gdb, gw,
-                             S, M, N, ny, nx, neg_k1, neg_sk1, sk1, st);
-  return launch_bwd<__nv_bfloat16>(db, out, g, ay, bx, fay, fbx, iay, ibx,
-                                   gdb, gw, S, M, N, ny, nx, neg_k1, neg_sk1,
-                                   sk1, st);
+    return launch_bwd<float>(route, db, out, g, ay, bx, fay, fbx, iay, ibx,
+                             gdb, gw, S, M, N, ny, nx, neg_k1, neg_sk1, sk1,
+                             st);
+  return launch_bwd<__nv_bfloat16>(route, db, out, g, ay, bx, fay, fbx, iay,
+                                   ibx, gdb, gw, S, M, N, ny, nx, neg_k1,
+                                   neg_sk1, sk1, st);
 }

@@ -21,6 +21,15 @@ inverting the steps, at two propagations per step instead of one.
 ``propagate.multislice_propagate`` picks K4 when K1's records would pass
 one eighth of the device's memory.
 
+K4 takes each step by one of two routes, chosen from the shape alone
+(:func:`k4_route`): ``'fft'`` when both sides split as ``n1 * n2`` with
+``2 <= n1 <= n2 <= 9`` (72 = 8 x 9), where the kernels run the step
+unfolded, as two-stage FFTs in shared memory with the step's vectors of
+:func:`fft_step_vectors`; ``'dense'`` otherwise, the folded matrices.
+:func:`fft_stages_plain`, :func:`fft_stages_back_plain` and
+:func:`fft_step_plain` model the FFT route's stages, roots and orders in
+PyTorch for the tests.
+
 :func:`multislice_db_stored_packed` and :func:`multislice_db_packed` route
 by device: CUDA tensors go through the kernels (an autograd Function whose
 backward is the second kernel), CPU tensors through the plain versions,
@@ -53,9 +62,16 @@ K1_FWD = Kernel('multislice_db_stored.cu', 'k1_fwd',
 K1_BWD = Kernel('multislice_db_stored.cu', 'k1_bwd',
                 [_I] + [_P] * 9 + [_I] * 5 + [_F, _F, _F])
 K4_FWD = Kernel('multislice_db.cu', 'k4_fwd',
-                [_I] + [_P] * 7 + [_I] * 5 + [_F, _F])
+                [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _F])
 K4_BWD = Kernel('multislice_db.cu', 'k4_bwd',
-                [_I] + [_P] * 11 + [_I] * 5 + [_F, _F, _F])
+                [_I, _I] + [_P] * 11 + [_I] * 5 + [_F, _F, _F])
+#: K4's routes, as the C entry points number them.
+K4_ROUTES = {'dense': 0, 'fft': 1}
+#: K4 launches (forward and backward) by route, counted beside
+#: ``K4_FWD.launches`` and ``K4_BWD.launches``.
+K4_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0}
+#: The largest radix of the FFT route's two stages (``csrc`` kMaxRadix).
+MAX_RADIX = 9
 
 
 def _fold_prop_mats(kernel):
@@ -76,6 +92,104 @@ def _fold_prop_mats(kernel):
     fy, gy = mats(ny)
     fx, gx = mats(nx)
     return (gy * hy[None, :]) @ fy, (gx * hx[None, :]) @ fx
+
+
+def fft_radix(n):
+    """``n1`` of the split ``n = n1 * n2`` the FFT route takes: the largest
+    ``n1`` with ``2 <= n1 <= n2 <= MAX_RADIX``, or 0 when there is none
+    (``msdb::fft_radix``)."""
+    for r in range(MAX_RADIX, 1, -1):
+        if n % r == 0 and r * r <= n and n // r <= MAX_RADIX:
+            return r
+    return 0
+
+
+def k4_route(ny, nx):
+    """K4's route for ``ny x nx`` planes: ``'fft'`` when both sides take
+    the radix split and the backward's block fits in shared memory with
+    the FFT route's padding and table, else ``'dense'``."""
+    if (fft_radix(ny) and fft_radix(nx)
+            and smem_bytes(ny, nx, 3, 'fft') <= MAX_SMEM_BYTES):
+        return 'fft'
+    return 'dense'
+
+
+def fft_step_vectors(kernel):
+    """The FFT route's step vectors ``(hy / ny, hx / nx)``, complex64 on
+    ``kernel``'s device: the separable transfer function's factors
+    (``hy = H[:, 0] / H[0, 0]``, ``hx = H[0, :]``, as :func:`_fold_prop_mats`
+    takes them) with the ``1/n`` of each axis's ``G = conj(F) / n``."""
+    h = kernel.to(torch.complex64)
+    ny, nx = h.shape
+    hy = h[:, 0] / h[0, 0]
+    return (hy / ny).contiguous(), (h[0, :] / nx).contiguous()
+
+
+def _unit_roots(n, device=None):
+    """``exp(-2 pi i k / n)`` for ``k < n``, from an angle reduced to at
+    most half a turn, as ``msdb::unit_root`` takes it (there in f32)."""
+    k = torch.arange(n, dtype=torch.float64, device=device)
+    kk = torch.where(2 * k <= n, k, k - n)
+    return torch.polar(torch.ones_like(kk), -2 * math.pi * kk / n).to(
+        torch.complex64)
+
+
+def _radix_dfts(n1, n2, roots):
+    """The ``n1``- and ``n2``-point DFT matrices ``[k, j]`` from the
+    ``n``-th roots, and the stage roots ``w^(k1 j2)`` ``[n1, n2]``."""
+    j1 = torch.arange(n1, device=roots.device)
+    j2 = torch.arange(n2, device=roots.device)
+    return (roots[(j1[:, None] * j1[None, :]) % n1 * n2],
+            roots[(j2[:, None] * j2[None, :]) % n2 * n1],
+            roots[j1[:, None] * j2[None, :]])
+
+
+def fft_stages_plain(x, n1, n2, inverse=False):
+    """The FFT route's transform of length ``n = n1 * n2`` over the last
+    axis of complex64 ``x``, in the kernel's two stages (unnormalised;
+    ``inverse`` flips the roots' sign).  With ``j = n2 j1 + j2`` and ``k =
+    k1 + n1 k2``: the ``n1``-point DFT over ``j1`` of each ``j2``'s
+    elements, times the root ``w^(j2 k1)``, leaving ``Y[k1, j2]`` at ``n2
+    k1 + j2`` (pass A); the ``n2``-point DFT over ``j2`` of each ``k1``'s
+    neighbours, ``X[k1 + n1 k2]`` in natural order (pass B's first
+    half)."""
+    roots = _unit_roots(n1 * n2, x.device)
+    d1, d2, tw = _radix_dfts(n1, n2, roots.conj() if inverse else roots)
+    y = (d1 @ x.reshape(*x.shape[:-1], n1, n2)) * tw     # [k1, j2]
+    return (y @ d2.transpose(0, 1)).transpose(-1, -2).reshape(x.shape)
+
+
+def fft_stages_back_plain(x, n1, n2, inverse=False):
+    """The FFT route's transform back, from natural order to natural order:
+    the transpose of :func:`fft_stages_plain`'s stages.  The ``n2``-point
+    DFT over ``k2`` of each ``k1``'s elements ``x[k1 + n1 k2]``, times the
+    root ``w^(j2 k1)`` (pass B's second half, leaving ``Z[k1, j2]`` at ``n2
+    k1 + j2``); the ``n1``-point DFT over ``k1`` of each ``j2``'s elements,
+    stored at ``n2 j1 + j2`` (pass C)."""
+    roots = _unit_roots(n1 * n2, x.device)
+    d1, d2, tw = _radix_dfts(n1, n2, roots.conj() if inverse else roots)
+    z = x.reshape(*x.shape[:-1], n2, n1).transpose(-1, -2)  # [k1, k2]
+    z = (z @ d2.transpose(0, 1)) * tw                        # [k1, j2]
+    return (d1 @ z).reshape(x.shape)                          # [j1, j2]
+
+
+def fft_step_plain(w, vy, vx, step='P'):
+    """The FFT route's step on planes ``[..., ny, nx]``: per axis (y, then
+    x) the transform (:func:`fft_stages_plain`), the product with the
+    axis's step vector (:func:`fft_step_vectors`) and the transform back
+    (:func:`fft_stages_back_plain`), each axis ``w <- V_y w V_x^T``.
+    ``step``: ``'P'`` (forward: FFT, h, inverse FFT), ``'PT'`` (``P^T``:
+    inverse FFT, h, FFT) or ``'Pinv'`` (``P^-1``: FFT, conj(h), inverse
+    FFT)."""
+    first_inverse = step == 'PT'
+    for dim, v in ((-2, vy), (-1, vx)):
+        n = w.shape[dim]
+        r = fft_radix(n)
+        x = fft_stages_plain(w.movedim(dim, -1), r, n // r, first_inverse)
+        x = x * (v.conj() if step == 'Pinv' else v)
+        w = fft_stages_back_plain(x, r, n // r,
+                                  not first_inverse).movedim(-1, dim)
+    return w
 
 
 def _modulator(db_z, k1, s):
@@ -188,10 +302,19 @@ def _check_far_field(fay, fax, fayi, faxi):
                          'with their exact inverses: fay, fax, fayi, faxi')
 
 
-def smem_bytes(ny, nx, planes=2):
+def smem_bytes(ny, nx, planes=2, route='dense'):
     """Dynamic shared memory of one kernel block: ``planes`` complex
     planes (2 in K1 and K4f, the wave and a scratch plane; 3 in K4b, which
-    adds the rebuilt wave) and the two per-axis matrices."""
+    adds the rebuilt wave) and the two per-axis matrices.  K4's FFT route
+    pads the planes' rows to an odd length, holds in the matrices' region
+    during the steps the next step's db planes (and in the backward first
+    the rebuilt wave's scratch plane), and adds the step vectors and both
+    axes' roots of unity (``msdb::fft_smem_bytes``)."""
+    if route == 'fft':
+        plane = ny * (nx | 1)
+        steps = (plane if planes == 3 else 0) + ny * nx
+        return 8 * (planes * plane + max(ny * ny + nx * nx, steps)
+                    + 2 * (ny + nx))
     return 8 * (planes * ny * nx + ny * ny + nx * nx)
 
 
@@ -250,9 +373,11 @@ class MultisliceDbStored(torch.autograd.Function):
 class MultisliceDb(torch.autograd.Function):
     """K4 as one autograd Function: the forward kernel stores nothing
     step-sized; the backward kernel rebuilds the waves from the output.
-    ``mats`` as for :class:`MultisliceDbStored`, plus the far field's exact
-    inverse ``Fy^-1, (Fx^-1)^T`` when there is one.  Takes contiguous CUDA
-    operands (see :func:`multislice_db_packed`)."""
+    ``mats`` as :func:`prop_mats` builds them for ``mats['route']``: as for
+    :class:`MultisliceDbStored` (on the FFT route the step slots hold the
+    step's vectors), plus the far field's exact inverse ``Fy^-1,
+    (Fx^-1)^T`` when there is one.  Takes contiguous CUDA operands (see
+    :func:`multislice_db_packed`)."""
 
     @staticmethod
     def forward(ctx, db, wave, mats, k1, s):
@@ -260,10 +385,12 @@ class MultisliceDb(torch.autograd.Function):
         m = wave.shape[0]
         out = torch.empty((m, n, ny, nx), dtype=torch.complex64,
                           device=db.device)
-        K4_FWD(_dtype_code(db.dtype), ptr(db), ptr(wave),
+        route = mats['route']
+        K4_FWD(_dtype_code(db.dtype), K4_ROUTES[route], ptr(db), ptr(wave),
                ptr(mats['fwd_y']), ptr(mats['fwd_x']),
                ptr(mats.get('ffwd_y')), ptr(mats.get('ffwd_x')),
                ptr(out), n_steps, m, n, ny, nx, -k1, -s * k1)
+        K4_ROUTE_LAUNCHES[route] += 1
         ctx.save_for_backward(db, out)
         ctx.mats = mats
         ctx.k1, ctx.s = k1, s
@@ -280,16 +407,19 @@ class MultisliceDb(torch.autograd.Function):
         gw = torch.empty((m, n, ny, nx), dtype=torch.complex64,
                          device=db.device)
         k1, s = ctx.k1, ctx.s
-        K4_BWD(_dtype_code(db.dtype), ptr(db), ptr(out), ptr(g),
+        route = mats['route']
+        K4_BWD(_dtype_code(db.dtype), K4_ROUTES[route], ptr(db), ptr(out),
+               ptr(g),
                ptr(mats['bwd_y']), ptr(mats['bwd_x']),
                ptr(mats.get('fbwd_y')), ptr(mats.get('fbwd_x')),
                ptr(mats.get('finv_y')), ptr(mats.get('finv_x')),
                ptr(gdb), ptr(gw), n_steps, m, n, ny, nx,
                -k1, -s * k1, s * k1)
+        K4_ROUTE_LAUNCHES[route] += 1
         return gdb, gw, None, None, None
 
 
-def _check_cuda_operands(db, wave, kernel, planes):
+def _check_cuda_operands(db, wave, kernel, planes, route='dense'):
     if db.dim() != 5 or db.shape[1] != 2:
         raise ValueError(f'db must be [S, 2, N, ny, nx], got {tuple(db.shape)}')
     _dtype_code(db.dtype)
@@ -307,21 +437,31 @@ def _check_cuda_operands(db, wave, kernel, planes):
         raise ValueError(f'multislice kernels take at most {MAX_MODES} probe '
                          f'modes (one cluster block each), got '
                          f'{wave.shape[0]}')
-    need = smem_bytes(ny, nx, planes)
+    need = smem_bytes(ny, nx, planes, route)
     if need > MAX_SMEM_BYTES:
         raise ValueError(
             f'multislice kernel needs {need} bytes of shared memory at '
             f'{ny}x{nx}; the limit is {MAX_SMEM_BYTES}')
 
 
-def prop_mats(kernel, fay=None, fax=None, fayi=None, faxi=None):
+def prop_mats(kernel, fay=None, fax=None, fayi=None, faxi=None,
+              route='dense'):
     """The matrices :class:`MultisliceDbStored` and :class:`MultisliceDb`
     take: the folded step mats of ``kernel`` and the optional far-field
     mats (with K4 their exact inverses too), each in the orientation of the
-    kernel that reads it, on ``kernel``'s device."""
-    py, px = _fold_prop_mats(kernel)
-    mats = {'fwd_y': py.contiguous(), 'fwd_x': px.transpose(0, 1).contiguous(),
-            'bwd_y': py.transpose(0, 1).contiguous(), 'bwd_x': px.contiguous()}
+    kernel that reads it, on ``kernel``'s device.  On K4's ``'fft'`` route
+    the step slots hold the step's vectors (:func:`fft_step_vectors`),
+    which serve both directions."""
+    if route == 'fft':
+        vy, vx = fft_step_vectors(kernel)
+        mats = {'fwd_y': vy, 'fwd_x': vx, 'bwd_y': vy, 'bwd_x': vx}
+    else:
+        py, px = _fold_prop_mats(kernel)
+        mats = {'fwd_y': py.contiguous(),
+                'fwd_x': px.transpose(0, 1).contiguous(),
+                'bwd_y': py.transpose(0, 1).contiguous(),
+                'bwd_x': px.contiguous()}
+    mats['route'] = route
 
     def dev(m):
         return m.to(device=kernel.device, dtype=torch.complex64)
@@ -358,14 +498,16 @@ def multislice_db_packed(db, wave, kernel, k1, s, fay=None, fax=None,
     """The same function as :func:`multislice_db_stored_packed` through
     the invertible kernel pair (K4), which stores nothing step-sized; with
     a far field, ``fayi``/``faxi`` are its exact inverses.  CUDA tensors
-    run the kernels; CPU tensors the plain version."""
+    run the kernels, on the route :func:`k4_route` picks for the shape;
+    CPU tensors the plain version."""
     if not db.is_cuda:
         return multislice_db_plain(db, wave, kernel, k1, s, fay, fax, fayi,
                                    faxi)
     _check_far_field(fay, fax, fayi, faxi)
-    _check_cuda_operands(db, wave, kernel, 3)
+    route = k4_route(*db.shape[-2:])
+    _check_cuda_operands(db, wave, kernel, 3, route)
     return MultisliceDb.apply(db.contiguous(), wave.contiguous(),
-                              prop_mats(kernel, fay, fax, fayi, faxi),
+                              prop_mats(kernel, fay, fax, fayi, faxi, route),
                               float(k1), float(s))
 
 

@@ -12,9 +12,11 @@ Phases (any failure raises and exits nonzero):
      K1 and K2 at the delta_beta flagship; K3, K5 (with a non-paraxial
      transfer function) and K2 at the real_imag flagship's trailing width;
      K1 at three probe modes; K4 at the multi-mode flagship's chunk (256
-     steps, three modes, physical absorption), also against K1's plain
-     version on 64 of its patches; K2 on that chunk's z-major gradient
-     (C = 512); K6, one grid row at a time through K2's kernel;
+     steps, three modes, physical absorption) on its FFT route, also
+     against K1's plain version on 64 of its patches, and on its dense
+     route (the folded step mats), checked and timed beside it; K2 on that
+     chunk's z-major gradient (C = 512); K6, one grid row at a time through
+     K2's kernel;
   4. the delta_beta flagship epoch (256^3 object, 23x23 scan of 72^2
      patterns at stride 8, binning 8, Fraunhofer, Adam, per-angle updates
      with the rotation out of the loop; 4 angles of random data) through
@@ -25,7 +27,8 @@ Phases (any failure raises and exits nonzero):
      1 in the real channel and 0 in the imaginary one), through K3, K5 and
      K2;
   4c. the same for the multi-mode flagship (three probe modes refined with
-     the object, binning 1, so 256 steps), through K4 and K2; then, f32
+     the object, binning 1, so 256 steps), through K4 on its FFT route and
+     K2; then, f32
      only, one warmup and one timed epoch at binning 8, through K1 at three
      modes;
   5. a small configuration trained on CUDA and on the CPU: the per-epoch
@@ -33,7 +36,8 @@ Phases (any failure raises and exits nonzero):
   5b. the same for a small real_imag configuration and for a delta_beta
      one with a non-paraxial transfer function at a finite distance;
   5c. the same for a small multi-mode configuration (three refined probe
-     modes, binning 1), with K4 forced and then through K1.
+     modes, binning 1), with K4 forced (on its FFT route at 16^2) and then
+     through K1.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -181,9 +185,13 @@ def check_invertible(dtype):
     are also held against the truth, autograd through K1's plain version
     (which keeps every step), on the first 64 patches, where that fits.
 
+    The shape takes K4's FFT route (72 = 8 x 9), which the main path runs;
+    the dense route (the folded step mats), forced, is held against the
+    same plain version with the same tolerances and timed beside it.
+
     Tolerances, relative to the largest value: the forward 1e-4 and the
-    gradients 1e-3 (256 steps of 72-deep sums in other orders than
-    cuBLAS); in bf16 the gradient on db, which each rounds once to bf16,
+    gradients 1e-3 (256 steps of sums in other orders than cuBLAS and
+    cuFFT); in bf16 the gradient on db, which each rounds once to bf16,
     to 2 bf16 ulps of its largest value."""
     from adorym_tpu_torch.ops import cuda_multislice as cm
     from adorym_tpu_torch.ops import propagate as prop
@@ -213,25 +221,42 @@ def check_invertible(dtype):
             out, (d, w), g_in, retain_graph=True))
 
     tag = str(dtype).split('.')[-1]
+    route = cm.k4_route(n, n)
+    if route != 'fft':
+        raise AssertionError(f'K4 takes the {route} route at {n}x{n}')
+    r0 = dict(cm.K4_ROUTE_LAUNCHES)
     out_k, gd_k, gw_k, bwd_k = run(cm.multislice_db_packed, db, wave, g, fm)
+    took = {r: cm.K4_ROUTE_LAUNCHES[r] - r0[r] for r in r0}
+    mats_d = cm.prop_mats(h, *fm, route='dense')
+
+    def dense(d, w, h_, k1_, s_, *_):
+        return cm.MultisliceDb.apply(d, w, mats_d, k1_, s_)
+    out_d, gd_d, gw_d, bwd_d = run(dense, db, wave, g, fm)
     out_p, gd_p, gw_p, bwd_p = run(cm.multislice_db_plain, db, wave, g, fm)
     torch.cuda.synchronize()
-    e_fwd, r_fwd = rel_err(out_k, out_p)
-    e_gd, r_gd = rel_err(gd_k, gd_p)
-    e_gw, r_gw = rel_err(gw_k, gw_p)
+    if took != {'fft': 2, 'dense': 0}:
+        raise AssertionError(f'K4 {tag}: launches by route {took}')
     tol_fwd, tol_bwd = 1e-4, 1e-3
     tol_gd = tol_bwd
     if dtype == torch.bfloat16:
         top = float(gd_p.float().abs().max())
         tol_gd = 2 * 2.0 ** (np.floor(np.log2(top)) - 7) / top
-    log(f'K4 {tag} (S={S}, M={M}): fwd max_abs {e_fwd:.3e} rel {r_fwd:.3e} '
-        f'(tol {tol_fwd}); gdb max_abs {e_gd:.3e} rel {r_gd:.3e} (tol '
-        f'{tol_gd:.3e}); gw max_abs {e_gw:.3e} rel {r_gw:.3e} (tol '
-        f'{tol_bwd})')
-    if not (r_fwd < tol_fwd and r_gd <= tol_gd and r_gw < tol_bwd):
-        raise AssertionError(f'K4 {tag} kernel disagrees with its plain '
-                             'version')
-    del out_p, gd_p, gw_p, gd_k, gw_k
+    errs = {}
+    for name, (out_r, gd_r, gw_r) in (('fft', (out_k, gd_k, gw_k)),
+                                      ('dense', (out_d, gd_d, gw_d))):
+        e_fwd, r_fwd = rel_err(out_r, out_p)
+        e_gd, r_gd = rel_err(gd_r, gd_p)
+        e_gw, r_gw = rel_err(gw_r, gw_p)
+        errs[name] = (e_fwd, r_fwd, max(e_gd, e_gw), max(r_gd, r_gw))
+        log(f'K4 {tag} (S={S}, M={M}) {name} route: fwd max_abs {e_fwd:.3e} '
+            f'rel {r_fwd:.3e} (tol {tol_fwd}); gdb max_abs {e_gd:.3e} rel '
+            f'{r_gd:.3e} (tol {tol_gd:.3e}); gw max_abs {e_gw:.3e} rel '
+            f'{r_gw:.3e} (tol {tol_bwd})')
+        if not (r_fwd < tol_fwd and r_gd <= tol_gd and r_gw < tol_bwd):
+            raise AssertionError(f'K4 {tag} {name} route disagrees with its '
+                                 'plain version')
+    e_fwd, r_fwd, e_bwd, r_bwd = errs['fft']
+    del out_p, gd_p, gw_p, gd_k, gw_k, out_d, gd_d, gw_d
     if dtype == torch.float32:
         # The truth keeps all 256 steps' intermediates: 64 patches fit.
         sub = (db[:, :, :64], wave[:, :64], g[:, :64])
@@ -246,14 +271,29 @@ def check_invertible(dtype):
         if not (t_rgd < tol_bwd and t_rgw < tol_bwd):
             raise AssertionError('K4 disagrees with the stored truth')
         del gd_t, gw_t, gd_s, gw_s
-    mats = cm.prop_mats(h, *fm)
+    mats = cm.prop_mats(h, *fm, route='fft')
     with torch.no_grad():
+        # The routes in turns: fft, dense, dense, fft.
         ms_f = time_ms(lambda: cm.MultisliceDb.apply(db, wave, mats, k1,
                                                      1.0), 3)
+        dense_f = (time_ms(lambda: cm.MultisliceDb.apply(db, wave, mats_d,
+                                                         k1, 1.0), 3)
+                   + time_ms(lambda: cm.MultisliceDb.apply(
+                       db, wave, mats_d, k1, 1.0), 3)) / 2
+        ms_f = (ms_f + time_ms(lambda: cm.MultisliceDb.apply(
+            db, wave, mats, k1, 1.0), 3)) / 2
         plain_f = time_ms(lambda: cm.multislice_db_stored_plain(
             db, wave, h, k1, 1.0, *fm[:2]), 2)
     ms_b = time_ms(bwd_k, 3)
+    dense_b = (time_ms(bwd_d, 3) + time_ms(bwd_d, 3)) / 2
+    ms_b = (ms_b + time_ms(bwd_k, 3)) / 2
     plain_b = time_ms(bwd_p, 2)
+    log(f'K4 {tag}: forward fft route {ms_f:.3f} ms, dense route '
+        f'{dense_f:.3f} ms; backward fft route {ms_b:.3f} ms, dense route '
+        f'{dense_b:.3f} ms')
+    if not (ms_f < dense_f and ms_b < dense_b):
+        raise AssertionError(f'K4 {tag}: the FFT route is not faster than '
+                             'the dense route at the flagship shape')
     isz = db.element_size()
     b_f, by_f = bound(cm.bytes_moved(S, M, N, n, n, isz, records=False),
                       cm.flops(S, M, N, n, n))
@@ -262,16 +302,23 @@ def check_invertible(dtype):
                       cm.flops(S, M, N, n, n, backward=True,
                                invertible=True))
     src = 'adorym_tpu_torch/csrc/multislice_db.cu'
-    return [
+    recs = [
         record(f'K4f multislice_db forward ({tag})', src,
                'adorym_tpu/ops/pallas_multislice.py:294', e_fwd, r_fwd,
                tol_fwd, ms_f, plain_f, b_f, by_f, None, 'K4_FWD',
                'multimode'),
         record(f'K4b multislice_db backward ({tag})', src,
-               'adorym_tpu/ops/pallas_multislice.py:495', max(e_gd, e_gw),
-               max(r_gd, r_gw), max(tol_gd, tol_bwd), ms_b, plain_b, b_b,
-               by_b, None, 'K4_BWD', 'multimode'),
+               'adorym_tpu/ops/pallas_multislice.py:495', e_bwd, r_bwd,
+               max(tol_gd, tol_bwd), ms_b, plain_b, b_b, by_b, None,
+               'K4_BWD', 'multimode'),
     ]
+    # The step route of ``ms`` (the main path's), and the dense route's
+    # time and error in the same process.
+    for rec, dense_ms, i in ((recs[0], dense_f, 0), (recs[1], dense_b, 2)):
+        rec.update(step_route=route, dense_ms=dense_ms,
+                   dense_max_abs_err=errs['dense'][i],
+                   dense_rel_err=errs['dense'][i + 1])
+    return recs
 
 
 def record(name, source, replaces, err, rel, tol, ms, plain_ms, bound_ms,
@@ -597,12 +644,31 @@ def counters():
             'K5_FWD': cmf.K5_FWD, 'K5_BWD': cmf.K5_BWD, 'K6': csg.K6}
 
 
+def reset_counts():
+    from adorym_tpu_torch.ops import cuda_multislice as cm
+    for c in counters().values():
+        c.launches = 0
+    for r in cm.K4_ROUTE_LAUNCHES:
+        cm.K4_ROUTE_LAUNCHES[r] = 0
+
+
+def launch_counts():
+    """Each kernel's launches, and K4's (forward and backward together) by
+    step route as ``K4_FFT`` and ``K4_DENSE``."""
+    from adorym_tpu_torch.ops import cuda_multislice as cm
+    counts = {k: c.launches for k, c in counters().items()}
+    counts.update({f'K4_{r.upper()}': v
+                   for r, v in cm.K4_ROUTE_LAUNCHES.items()})
+    return counts
+
+
 #: The kernels each flagship path launches once per angle; the others
 #: must not launch on it.  K6 is on no path (the Reconstructor does not
-#: route to it, as the JAX package's does not).
+#: route to it, as the JAX package's does not).  K4 takes its FFT route
+#: (K4_FFT counts its forward and backward launches together).
 PATH_KERNELS = {'delta_beta': ('K1_FWD', 'K1_BWD', 'K2'),
                 'real_imag': ('K3', 'K5_FWD', 'K5_BWD', 'K2'),
-                'multimode': ('K4_FWD', 'K4_BWD', 'K2'),
+                'multimode': ('K4_FWD', 'K4_BWD', 'K2', 'K4_FFT'),
                 'multimode_binned': ('K1_FWD', 'K1_BWD', 'K2')}
 
 
@@ -630,8 +696,7 @@ def run_flagship(bf16, path='delta_beta', n_timed=3):
         raise AssertionError('flagship: not one whole-angle chunk on CUDA')
     tag = f"{path} {'bf16' if bf16 else 'f32'}"
     torch.cuda.reset_peak_memory_stats()
-    for c in counters().values():
-        c.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     losses = [rec.run_epoch(0)]
     warm = time.perf_counter() - t0
@@ -640,7 +705,7 @@ def run_flagship(bf16, path='delta_beta', n_timed=3):
         t0 = time.perf_counter()
         losses.append(rec.run_epoch(ep))     # ends in a device->host fetch
         walls.append(time.perf_counter() - t0)
-    launches = {k: c.launches for k, c in counters().items()}
+    launches = launch_counts()
     n_epochs = 1 + n_timed
     patterns = f['n_theta'] * len(pos)
     rates = [patterns / w for w in walls]
@@ -653,6 +718,7 @@ def run_flagship(bf16, path='delta_beta', n_timed=3):
         raise AssertionError(f'flagship {tag}: non-finite loss {losses}')
     want = n_epochs * f['n_theta']           # one of each per angle
     expect = {k: want if k in PATH_KERNELS[path] else 0 for k in launches}
+    expect['K4_FFT'] *= 2                    # forward and backward
     if launches != expect:
         raise AssertionError(f'flagship {tag}: launches {launches}, '
                              f'expected {expect}')
@@ -739,8 +805,7 @@ def small_config_agrees(unknown_type='delta_beta', fresnel_approx=True,
                                probe_learning_rate=1e-2))
     probe0 = probe_modes(16, n_modes) if n_modes > 1 else None
     out = {}
-    for c in counters().values():
-        c.launches = 0
+    reset_counts()
     switch = prop._db_stored_max_bytes
     if force_invertible:
         prop._db_stored_max_bytes = lambda device: -1.0
@@ -752,7 +817,7 @@ def small_config_agrees(unknown_type='delta_beta', fresnel_approx=True,
             out[dev] = [rec.run_epoch(e) for e in range(2)]
     finally:
         prop._db_stored_max_bytes = switch
-    launches = {k: c.launches for k, c in counters().items()}
+    launches = launch_counts()
     name = (f'small {unknown_type} fresnel_approx={fresnel_approx} '
             f'free_prop_cm={free_prop_cm} modes={n_modes} '
             f'binning={binning} invertible={force_invertible}')
@@ -810,9 +875,11 @@ def main():
     kernels += check_rowgrid_scatter()
     for k in kernels:
         lib = 'none' if k['library_ms'] is None else f"{k['library_ms']:.4f}"
+        dense = (f" dense_ms {k['dense_ms']:.4f}" if 'dense_ms' in k
+                 else '')
         log(f"{k['name']}: kernel_ms {k['kernel_ms']:.4f} plain_ms "
             f"{k['plain_ms']:.4f} bound_ms {k['bound_ms']:.4f} "
-            f"({k['bound_by']}) library_ms {lib}")
+            f"({k['bound_by']}) library_ms {lib}{dense}")
 
     runs = [(path, bf16, 3) for path in ('delta_beta', 'real_imag',
                                          'multimode')
@@ -844,11 +911,13 @@ def main():
     small_config_agrees('delta_beta', False, 1e-5,
                         expect={'K5_FWD': 6, 'K1_FWD': 0, 'K3': 0})
     # Phase 5c: three refined probe modes at binning 1, through K4 (the
-    # switch forced) and through K1; one pair per angle and epoch.  The
-    # object's step keeps the absorption physical for K4's rebuilt waves.
+    # switch forced; its FFT route at 16^2) and through K1; one pair per
+    # angle and epoch.  The object's step keeps the absorption physical for
+    # K4's rebuilt waves.
     multimode = dict(n_modes=3, binning=1, lr=1e-4)
     small_config_agrees(force_invertible=True, **multimode,
-                        expect={'K4_FWD': 6, 'K4_BWD': 6, 'K1_FWD': 0})
+                        expect={'K4_FWD': 6, 'K4_BWD': 6, 'K4_FFT': 12,
+                                'K4_DENSE': 0, 'K1_FWD': 0})
     small_config_agrees(**multimode,
                         expect={'K1_FWD': 6, 'K1_BWD': 6, 'K4_FWD': 0})
 

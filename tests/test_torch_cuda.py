@@ -108,11 +108,27 @@ def test_multislice_rejects_planes_beyond_shared_memory(cuda, fn, side):
         cm.multislice_db_stored_packed(db, wave, h, 25.0, 1.0)
 
 
+def test_invertible_fft_route_needs_the_split(cuda):
+    """13 and 17 are prime: K4's entry point refuses the FFT route there."""
+    db, wave, h, _, _ = _multislice_inputs(2, 1, 1, 13, 17, torch.float32,
+                                           False, cuda)
+    mats = cm.prop_mats(h, route='fft')
+    with pytest.raises(RuntimeError, match='k4_fwd launch failed'):
+        cm.MultisliceDb.apply(db, wave, mats, 25.0, 1.0)
+
+
 def _bf16_ulps(a, b):
     """Max error in bf16 ulps of the largest reference magnitude."""
     ref = b.float().abs().max()
     ulp = 2.0 ** (torch.floor(torch.log2(ref)) - 7)
     return float((a.float() - b.float()).abs().max() / ulp)
+
+
+#: The route K4 takes at each shape of its card test: the FFT route where
+#: both sides split as n1 n2 with 2 <= n1 <= n2 <= 9 (the flagship's 72 =
+#: 8 x 9), the dense route elsewhere.
+K4_ROUTE = {(16, 16): 'fft', (12, 20): 'fft', (72, 72): 'fft',
+            (13, 17): 'dense'}
 
 
 # f32: as for K1.  bf16: db is the same bf16 values for both and neither
@@ -121,19 +137,25 @@ def _bf16_ulps(a, b):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('M', [1, 2, 3, 5])
 @pytest.mark.parametrize('final', [False, True])
-@pytest.mark.parametrize('shape', [(4, 5, 16, 16), (3, 7, 12, 20)])
+@pytest.mark.parametrize('shape', [(4, 5, 16, 16), (3, 7, 12, 20),
+                                   (3, 4, 72, 72), (3, 4, 13, 17)])
 def test_invertible_kernel_matches_plain(cuda, dtype, M, final, shape):
     """K4 (no records; the backward rebuilds the waves) against its plain
     version, which rebuilds them op by op, and against autograd through
-    K1's plain version."""
+    K1's plain version, on the route its shape takes."""
     S, N, ny, nx = shape
     db, wave, h, fmats, g = _multislice_inputs(S, M, N, ny, nx, dtype, True,
                                                cuda)
     inv = (prop.final_prop_mats((ny, nx), (1.0, 1.0), 0.1, 'inf',
                                 device=cuda) if final else (None,) * 4)
+    route = K4_ROUTE[(ny, nx)]
+    assert cm.k4_route(ny, nx) == route
     f0, b0 = cm.K4_FWD.launches, cm.K4_BWD.launches
+    r0 = dict(cm.K4_ROUTE_LAUNCHES)
     out_k, gdb_k, gw_k = _run(cm.multislice_db_packed, db, wave, h, inv, g)
     assert (cm.K4_FWD.launches - f0, cm.K4_BWD.launches - b0) == (1, 1)
+    assert {r: cm.K4_ROUTE_LAUNCHES[r] - r0[r] for r in r0} == {
+        r: 2 if r == route else 0 for r in r0}
     out_p, gdb_p, gw_p = _run(cm.multislice_db_plain, db, wave, h, inv, g)
     out_s, gdb_s, gw_s = _run(cm.multislice_db_stored_plain, db, wave, h,
                               inv[:2], g)
