@@ -1,9 +1,9 @@
 // Shared pieces of the delta/beta multislice kernels (K1 in
 // multislice_db_stored.cu, K4 in multislice_db.cu): storage-type helpers,
 // the slice transmission, the shared-memory complex matmul and the folded
-// propagation, K4's FFT step propagation (fft_propagate), the forward sweep
-// both kernels run, and the deterministic cross-mode sum of their backward
-// sweeps.
+// propagation, the FFT step propagation of both (fft_propagate), the
+// forward sweep both kernels run, and the deterministic cross-mode sum of
+// their backward sweeps.
 //
 // Layouts (row-major): db [S, 2, N, P] (slot 0 delta, slot 1 beta, P =
 // ny*nx); waves [M, N, P] complex; records [S, M, N, P] complex pairs of T;
@@ -181,14 +181,16 @@ inline size_t smem_bytes(int planes, int ny, int nx) {
                            (size_t)nx * nx);
 }
 
-// -- The FFT step propagation (K4's FFT route) -------------------------------
+// -- The FFT step propagation (the FFT route of K1 and K4) -------------------
 //
 // The paraxial step P = G diag(h) F of each axis, unfolded: per axis a DFT,
 // the product with h/n, an unnormalised inverse DFT, with F = dft_matrix(n)
-// and G = conj(F)/n.  K4b needs two more variants of the same step:
-//   kStepP     P                  FFT, x h/n, inverse FFT (K4f's step)
+// and G = conj(F)/n.  The backward sweeps need two more variants of the
+// same step:
+//   kStepP     P                  FFT, x h/n, inverse FFT (the forwards')
 //   kStepPT    P^T = F diag(h) G  inverse FFT, x h/n, FFT (the cotangent)
-//   kStepPInv  P^-1 = G diag(h*) F  FFT, x conj(h)/n, inverse FFT (the wave)
+//   kStepPInv  P^-1 = G diag(h*) F  FFT, x conj(h)/n, inverse FFT (K4b's
+//                                   rebuilt wave)
 // Each axis's transforms have length n = n1 n2, two Cooley-Tukey stages,
 // and the transform back runs the transpose of the forward's stages, so an
 // axis takes three passes over the plane from shared memory to shared
@@ -220,6 +222,14 @@ inline size_t smem_bytes(int planes, int ny, int nx) {
 //
 // fft_plan's table holds the step's vectors hy/ny and hx/nx (built by the
 // wrapper, fft_step_vectors) and the n-th roots of unity of each axis.
+//
+// Accuracy against a complex128 sweep of the same steps (chip_smoke's
+// check_truth, H100): after 31 binned steps of 8 nm and the far field (K1 on
+// the delta_beta chunk) this route is half as far from it as the folded
+// mats; after 255 steps of 1 nm (K4 on the multi-mode chunk) the two are
+// within 20% of each other, either side by output and norm.  Roots built
+// in f64 instead of sincospif came out no nearer, so the remaining error is
+// the f32 rounding of the step's factors, which the folded mats share.
 
 constexpr int kMaxRadix = 9;
 
@@ -239,8 +249,10 @@ __host__ __device__ inline int fft_row_stride(int nx) { return nx | 1; }
 
 // Elements of an FFT-route block's region after its planes: the two mat
 // slots (the far field, once a launch), which during the steps hold the
-// next step's db planes (room for f32: P float2) and, in the backward
-// (`planes` = 3), first the rebuilt wave's scratch plane.
+// next step's db planes (room for f32: P float2); in K1b also the step's
+// record plane (P float2 more in f32, and 2 ny nx <= ny^2 + nx^2 always
+// leaves room); in K4b (`planes` = 3) first the rebuilt wave's scratch
+// plane.
 __host__ __device__ inline int fft_slot_elems(int planes, int ny, int nx) {
   const int mats = ny * ny + nx * nx;
   const int steps = (planes == 3 ? ny * fft_row_stride(nx) : 0) + ny * nx;
@@ -613,9 +625,14 @@ __device__ __forceinline__ void fft_propagate(float2* w, float2* scr,
 // The forward sweep of one (patch, mode) block: per step the modulation
 // (recording the entering wave in T when kRecords), then the folded step
 // propagation, or at the last step the far-field mats when given.  kFft
-// (K4's FFT route only) takes each step through fft_propagate instead, with
-// ay and bx the step's vectors hy/ny and hx/nx; the far field stays the
-// dense product in the mat slots.  K1 never sets it.
+// (the FFT route of K1f and K4f) takes each step through fft_propagate
+// instead, with ay and bx the step's vectors hy/ny and hx/nx; the far field
+// stays the dense product in the mat slots.  On that route the record
+// stores are plain stores issued in the modulation loop, before the step's
+// first pass: nothing waits on them, so they drain while the step runs.
+// Streaming stores (st.global.cs) in their place measured the same on an
+// H100 (K1f 1.498 against 1.497 ms at the delta_beta chunk,
+// tools/ab_k4_routes.py).
 template <typename T, bool kRecords, bool kFft = false>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const T* __restrict__ db, const float2* __restrict__ w0,
@@ -654,6 +671,7 @@ __global__ void __launch_bounds__(kThreads)
     T* rz = kRecords ? rec + (((size_t)z * M + m) * N + n) * P * 2 : nullptr;
     if constexpr (kFft) {
       for (int p = threadIdx.x; p < P; p += blockDim.x) {
+        if constexpr (kRecords) store_pair(rz + 2 * p, w[p]);
         w[p] = cmul(w[p], modulator(to_float(stage[p]),
                                     to_float(stage[P + p]), neg_k1,
                                     neg_sk1));
@@ -758,6 +776,28 @@ int launch(void (*kernel)(KArgs...), int N, int M, size_t smem,
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The step routes, as the entry points of K1 and K4 number them.
+constexpr int kRouteDense = 0;
+constexpr int kRouteFft = 1;
+
+// The kernel of `route`, with its shared memory for a block of `planes`
+// planes, or false when the shape does not take the route.
+template <typename K>
+bool pick_route(int route, int planes, int ny, int nx, K dense, K fft,
+                K* kernel, size_t* smem) {
+  if (route == kRouteDense) {
+    *kernel = dense;
+    *smem = smem_bytes(planes, ny, nx);
+    return true;
+  }
+  if (route != kRouteFft || fft_radix(ny) == 0 || fft_radix(nx) == 0) {
+    return false;
+  }
+  *kernel = fft;
+  *smem = fft_smem_bytes(planes, ny, nx);
+  return true;
 }
 
 }  // namespace msdb

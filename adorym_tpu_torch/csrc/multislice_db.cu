@@ -175,26 +175,6 @@ __global__ void __launch_bounds__(kThreads)
 // mat slots (and on the FFT route the table).
 constexpr int kFwdPlanes = 2;
 constexpr int kBwdPlanes = 3;
-constexpr int kRouteDense = 0;
-constexpr int kRouteFft = 1;
-
-// The kernel of `route`, with its shared memory, or false when the shape
-// does not take the route.
-template <typename K>
-bool pick_route(int route, int planes, int ny, int nx, K dense, K fft,
-                K* kernel, size_t* smem) {
-  if (route == kRouteDense) {
-    *kernel = dense;
-    *smem = smem_bytes(planes, ny, nx);
-    return true;
-  }
-  if (route != kRouteFft || fft_radix(ny) == 0 || fft_radix(nx) == 0) {
-    return false;
-  }
-  *kernel = fft;
-  *smem = fft_smem_bytes(planes, ny, nx);
-  return true;
-}
 
 template <typename T>
 int launch_fwd(int route, const void* db, const void* w0, const void* ay,

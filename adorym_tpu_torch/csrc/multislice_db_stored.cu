@@ -22,24 +22,36 @@
 // 72x72, f32) one sweep moves about 1.45 GB of db, records and waves
 // forward (2.15 GB backward), 0.43 / 0.64 ms at 3.35 TB/s.  Its 31
 // propagations and far field need about 11.7 GFLOP when the transforms are
-// FFTs (0.17 ms of f32 CUDA-core work).  The two 72-deep complex matmul
-// passes per step this kernel runs instead do 76 GFLOP in the
-// three-multiply form, 1.1 ms at the f32 peak.
+// FFTs (0.17 ms of f32 CUDA-core work).
 //
 // Design: one block per (batch item, probe mode) (multislice_common.cuh).
-// The block keeps its wave, one transpose-free scratch plane and the two
-// folded per-axis propagation matrices in shared memory for the whole z
-// scan (166 KB at 72x72), so the wavefield never leaves the SM between
-// steps (the TPU kernel's one idea); device memory sees each record written
-// once.  The modes of a patch are independent in the forward; the backward
-// needs their sum gt, so at M > 1 it launches the patch's M blocks as one
+// The block keeps its wave and a scratch plane in shared memory for the
+// whole z scan, so the wavefield never leaves the SM between steps (the
+// TPU kernel's one idea); device memory sees each record written once.
+// The modes of a patch are independent in the forward; the backward needs
+// their sum gt, so at M > 1 it launches the patch's M blocks as one
 // thread-block cluster and sums through distributed shared memory
 // (msdb::cross_mode_sum), at most 8 modes.  At M = 1 the block forms gt
-// alone, as before.  The two matmul passes read shared memory only: each
-// thread owns four output rows of one column, so every matrix element it
-// loads feeds four complex multiply-adds.  Tensor cores (wgmma) are later
-// work; this kernel runs plain f32 FMAs, so the f32 path is full f32 and
-// bf16 is a storage type only.
+// alone.  Plain f32 FMAs throughout: the f32 path is full f32 and bf16 is a
+// storage type only.
+//
+// Two routes for the steps, chosen by the wrapper from the shape alone, as
+// K4's (multislice_db.cu):
+//   FFT   (route 1; ny and nx each n1 n2 with 2 <= n1 <= n2 <= 9, so 72 =
+//         8 x 9): each step is msdb::fft_propagate, six passes of two-stage
+//         transforms in shared memory at the FFT count of work; the forward
+//         is K4f's sweep with the record stores, the backward runs P^T
+//         (kStepPT) a step.  The mat slots hold the far field once a
+//         launch; during the steps they hold the step's db planes (and in
+//         the backward its record plane), copied in with cp.async while the
+//         step before propagates, so the modulation reads shared memory.
+//         169 KB at 72x72, forward and backward.
+//   dense (route 0; any other shape): the folded per-axis matrices in the
+//         mat slots, two 72-deep complex matmuls a step (76 GFLOP a sweep
+//         at the flagship in the three-multiply form, 6.4 times the FFT
+//         count); each thread owns four output rows of one column, so every
+//         matrix element it loads feeds four complex multiply-adds.  166 KB
+//         at 72x72.
 
 #include "multislice_common.cuh"
 
@@ -49,8 +61,9 @@ using namespace msdb;
 
 // g, gw [M, N, P] complex in PyTorch's convention (the conjugate of
 // JAX's cotangent); gdb [S, 2, N, P] in T.  ay/bx are the TRANSPOSED step
-// mats (Py^T, Px) and fay/fbx the transposed far-field mats (Fy^T, Fx).
-template <typename T>
+// mats (Py^T, Px), or with kFft the step's vectors hy/ny and hx/nx; fay/fbx
+// the transposed far-field mats (Fy^T, Fx).
+template <typename T, bool kFft>
 __global__ void __launch_bounds__(kThreads)
     bwd_kernel(const T* __restrict__ db, const T* __restrict__ rec,
                const float2* __restrict__ g, const float2* __restrict__ ay,
@@ -60,14 +73,22 @@ __global__ void __launch_bounds__(kThreads)
                float neg_k1, float neg_sk1, float sk1) {
   extern __shared__ float2 smem[];
   const int P = ny * nx;
+  const int Q = kFft ? ny * fft_row_stride(nx) : P;
   float2* a = smem;
-  float2* scr = a + P;
-  float2* may = scr + P;
+  float2* scr = a + Q;
+  float2* may = scr + Q;
   float2* mbx = may + ny * ny;
   const int n = blockIdx.x / M;
   const int m = blockIdx.x - n * M;
   const size_t wave_off = ((size_t)m * N + n) * P;
 
+  // On the FFT route, after the far field, the slot region holds the
+  // step's db planes and its record plane (stage).
+  T* stage = reinterpret_cast<T*>(may);
+  FftPlan plan;
+  if constexpr (kFft) {
+    plan = fft_plan(may + fft_slot_elems(2, ny, nx), ay, bx, ny, nx);
+  }
   for (int e = threadIdx.x; e < P; e += blockDim.x) {
     const float2 v = g[wave_off + e];
     a[e] = make_float2(v.x, -v.y);
@@ -78,17 +99,41 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     propagate(a, scr, may, mbx, ny, nx);
   }
-  copy_to_smem(may, ay, ny * ny);
-  copy_to_smem(mbx, bx, nx * nx);
-  __syncthreads();
+  if constexpr (kFft) {
+    stage_async(stage, db + ((size_t)(2 * S - 2) * N + n) * P, P);
+    stage_async(stage + P, db + ((size_t)(2 * S - 1) * N + n) * P, P);
+    stage_async(stage + 2 * P,
+                rec + (((size_t)(S - 1) * M + m) * N + n) * P * 2, 2 * P);
+    stage_wait();
+  } else {
+    copy_to_smem(may, ay, ny * ny);
+    copy_to_smem(mbx, bx, nx * nx);
+    __syncthreads();
+  }
 
   for (int z = S - 1; z >= 0; --z) {
-    if (z < S - 1) propagate(a, scr, may, mbx, ny, nx);
     const T* d = db + ((size_t)(2 * z) * N + n) * P;
     const T* b = db + ((size_t)(2 * z + 1) * N + n) * P;
     T* gd = gdb + ((size_t)(2 * z) * N + n) * P;
     T* gb = gdb + ((size_t)(2 * z + 1) * N + n) * P;
     const T* rz = rec + (((size_t)z * M + m) * N + n) * P * 2;
+    if (z < S - 1) {
+      if constexpr (kFft) {
+        // The step's db and record planes arrive during the propagation.
+        stage_async(stage, d, P);
+        stage_async(stage + P, b, P);
+        stage_async(stage + 2 * P, rz, 2 * P);
+        fft_propagate<kStepPT>(a, scr, plan);
+        stage_wait();
+      } else {
+        propagate(a, scr, may, mbx, ny, nx);
+      }
+    }
+    if constexpr (kFft) {
+      d = stage;
+      b = stage + P;
+      rz = stage + 2 * P;
+    }
     for (int p = threadIdx.x; p < P; p += blockDim.x) {
       const float2 t = modulator(to_float(d[p]), to_float(b[p]), neg_k1,
                                  neg_sk1);
@@ -115,16 +160,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block holds the wave (or cotangent), a scratch plane and the mats.
+// One block holds the wave (or cotangent), a scratch plane and the mat
+// slots (and on the FFT route the table).
 constexpr int kPlanes = 2;
 
 template <typename T>
-int launch_fwd(const void* db, const void* w0, const void* ay, const void* bx,
-               const void* fay, const void* fbx, void* out, void* rec, int S,
-               int M, int N, int ny, int nx, float neg_k1, float neg_sk1,
-               cudaStream_t stream) {
-  return launch(fwd_kernel<T, true>, N, M, smem_bytes(kPlanes, ny, nx), false,
-                stream, static_cast<const T*>(db),
+int launch_fwd(int route, const void* db, const void* w0, const void* ay,
+               const void* bx, const void* fay, const void* fbx, void* out,
+               void* rec, int S, int M, int N, int ny, int nx, float neg_k1,
+               float neg_sk1, cudaStream_t stream) {
+  decltype(&fwd_kernel<T, true>) kernel;
+  size_t smem;
+  if (!pick_route(route, kPlanes, ny, nx, &fwd_kernel<T, true>,
+                  &fwd_kernel<T, true, true>, &kernel, &smem)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch(kernel, N, M, smem, false, stream, static_cast<const T*>(db),
                 static_cast<const float2*>(w0),
                 static_cast<const float2*>(ay), static_cast<const float2*>(bx),
                 static_cast<const float2*>(fay),
@@ -133,15 +184,21 @@ int launch_fwd(const void* db, const void* w0, const void* ay, const void* bx,
 }
 
 template <typename T>
-int launch_bwd(const void* db, const void* rec, const void* g, const void* ay,
-               const void* bx, const void* fay, const void* fbx, void* gdb,
-               void* gw, int S, int M, int N, int ny, int nx, float neg_k1,
-               float neg_sk1, float sk1, cudaStream_t stream) {
+int launch_bwd(int route, const void* db, const void* rec, const void* g,
+               const void* ay, const void* bx, const void* fay,
+               const void* fbx, void* gdb, void* gw, int S, int M, int N,
+               int ny, int nx, float neg_k1, float neg_sk1, float sk1,
+               cudaStream_t stream) {
   if (M > kMaxModes) return (int)cudaErrorInvalidValue;
-  return launch(bwd_kernel<T>, N, M, smem_bytes(kPlanes, ny, nx), true,
-                stream, static_cast<const T*>(db), static_cast<const T*>(rec),
-                static_cast<const float2*>(g), static_cast<const float2*>(ay),
-                static_cast<const float2*>(bx),
+  decltype(&bwd_kernel<T, false>) kernel;
+  size_t smem;
+  if (!pick_route(route, kPlanes, ny, nx, &bwd_kernel<T, false>,
+                  &bwd_kernel<T, true>, &kernel, &smem)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch(kernel, N, M, smem, true, stream, static_cast<const T*>(db),
+                static_cast<const T*>(rec), static_cast<const float2*>(g),
+                static_cast<const float2*>(ay), static_cast<const float2*>(bx),
                 static_cast<const float2*>(fay),
                 static_cast<const float2*>(fbx), static_cast<T*>(gdb),
                 static_cast<float2*>(gw), S, M, N, ny, nx, neg_k1, neg_sk1,
@@ -150,31 +207,34 @@ int launch_bwd(const void* db, const void* rec, const void* g, const void* ay,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (db, records and gdb).  fay/fbx may be
-// null (no far field folded into the last step).  Returns the CUDA error
-// code of the launch (0 on success).
-extern "C" int k1_fwd(int dtype, const void* db, const void* w0,
+// dtype: 0 = float32, 1 = bfloat16 (db, records and gdb).  route: 0 dense
+// (ay, bx the folded step mats), 1 FFT (ay, bx the step's vectors hy/ny,
+// hx/nx; refused for a shape without its radix split).  fay/fbx may be null
+// (no far field folded into the last step).  Returns the CUDA error code of
+// the launch (0 on success).
+extern "C" int k1_fwd(int dtype, int route, const void* db, const void* w0,
                       const void* ay, const void* bx, const void* fay,
                       const void* fbx, void* out, void* rec, int S, int M,
                       int N, int ny, int nx, float neg_k1, float neg_sk1,
                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_fwd<float>(db, w0, ay, bx, fay, fbx, out, rec, S, M, N, ny,
-                             nx, neg_k1, neg_sk1, st);
-  return launch_fwd<__nv_bfloat16>(db, w0, ay, bx, fay, fbx, out, rec, S, M,
-                                   N, ny, nx, neg_k1, neg_sk1, st);
+    return launch_fwd<float>(route, db, w0, ay, bx, fay, fbx, out, rec, S, M,
+                             N, ny, nx, neg_k1, neg_sk1, st);
+  return launch_fwd<__nv_bfloat16>(route, db, w0, ay, bx, fay, fbx, out, rec,
+                                   S, M, N, ny, nx, neg_k1, neg_sk1, st);
 }
 
-extern "C" int k1_bwd(int dtype, const void* db, const void* rec,
+extern "C" int k1_bwd(int dtype, int route, const void* db, const void* rec,
                       const void* g, const void* ay, const void* bx,
                       const void* fay, const void* fbx, void* gdb, void* gw,
                       int S, int M, int N, int ny, int nx, float neg_k1,
                       float neg_sk1, float sk1, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(db, rec, g, ay, bx, fay, fbx, gdb, gw, S, M, N,
-                             ny, nx, neg_k1, neg_sk1, sk1, st);
-  return launch_bwd<__nv_bfloat16>(db, rec, g, ay, bx, fay, fbx, gdb, gw, S,
-                                   M, N, ny, nx, neg_k1, neg_sk1, sk1, st);
+    return launch_bwd<float>(route, db, rec, g, ay, bx, fay, fbx, gdb, gw, S,
+                             M, N, ny, nx, neg_k1, neg_sk1, sk1, st);
+  return launch_bwd<__nv_bfloat16>(route, db, rec, g, ay, bx, fay, fbx, gdb,
+                                   gw, S, M, N, ny, nx, neg_k1, neg_sk1, sk1,
+                                   st);
 }

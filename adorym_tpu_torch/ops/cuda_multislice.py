@@ -21,14 +21,14 @@ inverting the steps, at two propagations per step instead of one.
 ``propagate.multislice_propagate`` picks K4 when K1's records would pass
 one eighth of the device's memory.
 
-K4 takes each step by one of two routes, chosen from the shape alone
-(:func:`k4_route`): ``'fft'`` when both sides split as ``n1 * n2`` with
-``2 <= n1 <= n2 <= 9`` (72 = 8 x 9), where the kernels run the step
-unfolded, as two-stage FFTs in shared memory with the step's vectors of
-:func:`fft_step_vectors`; ``'dense'`` otherwise, the folded matrices.
-:func:`fft_stages_plain`, :func:`fft_stages_back_plain` and
-:func:`fft_step_plain` model the FFT route's stages, roots and orders in
-PyTorch for the tests.
+Both pairs take each step by one of two routes, chosen from the shape
+alone (:func:`k1_route`, :func:`k4_route`): ``'fft'`` when both sides split
+as ``n1 * n2`` with ``2 <= n1 <= n2 <= 9`` (72 = 8 x 9) and the block fits,
+where the kernels run the step unfolded, as two-stage FFTs in shared
+memory with the step's vectors of :func:`fft_step_vectors`; ``'dense'``
+otherwise, the folded matrices.  :func:`fft_stages_plain`,
+:func:`fft_stages_back_plain` and :func:`fft_step_plain` model the FFT
+route's stages, roots and orders in PyTorch for the tests.
 
 :func:`multislice_db_stored_packed` and :func:`multislice_db_packed` route
 by device: CUDA tensors go through the kernels (an autograd Function whose
@@ -58,15 +58,18 @@ _F = ctypes.c_float
 _I = ctypes.c_int
 _P = ctypes.c_void_p
 K1_FWD = Kernel('multislice_db_stored.cu', 'k1_fwd',
-                [_I] + [_P] * 8 + [_I] * 5 + [_F, _F])
+                [_I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F])
 K1_BWD = Kernel('multislice_db_stored.cu', 'k1_bwd',
-                [_I] + [_P] * 9 + [_I] * 5 + [_F, _F, _F])
+                [_I, _I] + [_P] * 9 + [_I] * 5 + [_F, _F, _F])
 K4_FWD = Kernel('multislice_db.cu', 'k4_fwd',
                 [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _F])
 K4_BWD = Kernel('multislice_db.cu', 'k4_bwd',
                 [_I, _I] + [_P] * 11 + [_I] * 5 + [_F, _F, _F])
-#: K4's routes, as the C entry points number them.
-K4_ROUTES = {'dense': 0, 'fft': 1}
+#: The step routes, as the C entry points of K1 and K4 number them.
+STEP_ROUTES = {'dense': 0, 'fft': 1}
+#: K1 launches (forward and backward) by route, counted beside
+#: ``K1_FWD.launches`` and ``K1_BWD.launches``.
+K1_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0}
 #: K4 launches (forward and backward) by route, counted beside
 #: ``K4_FWD.launches`` and ``K4_BWD.launches``.
 K4_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0}
@@ -104,14 +107,24 @@ def fft_radix(n):
     return 0
 
 
-def k4_route(ny, nx):
-    """K4's route for ``ny x nx`` planes: ``'fft'`` when both sides take
-    the radix split and the backward's block fits in shared memory with
-    the FFT route's padding and table, else ``'dense'``."""
+def _step_route(ny, nx, planes):
     if (fft_radix(ny) and fft_radix(nx)
-            and smem_bytes(ny, nx, 3, 'fft') <= MAX_SMEM_BYTES):
+            and smem_bytes(ny, nx, planes, 'fft') <= MAX_SMEM_BYTES):
         return 'fft'
     return 'dense'
+
+
+def k1_route(ny, nx):
+    """K1's route for ``ny x nx`` planes: ``'fft'`` when both sides take
+    the radix split and its two-plane block fits in shared memory with the
+    FFT route's padding and table, else ``'dense'``."""
+    return _step_route(ny, nx, 2)
+
+
+def k4_route(ny, nx):
+    """K4's route for ``ny x nx`` planes: as :func:`k1_route`, with the
+    backward's three-plane block."""
+    return _step_route(ny, nx, 3)
 
 
 def fft_step_vectors(kernel):
@@ -302,18 +315,25 @@ def _check_far_field(fay, fax, fayi, faxi):
                          'with their exact inverses: fay, fax, fayi, faxi')
 
 
+def fft_slot_elems(planes, ny, nx):
+    """Complex elements of an FFT-route block's slot region: the two mat
+    slots, which hold the far field once a launch and during the steps the
+    step's f32 db planes (``ny * nx`` elements; in K1b also its f32 record
+    plane, as many more), and in K4b (``planes`` = 3) first the rebuilt
+    wave's scratch plane (``msdb::fft_slot_elems``)."""
+    steps = (ny * (nx | 1) if planes == 3 else 0) + ny * nx
+    return max(ny * ny + nx * nx, steps)
+
+
 def smem_bytes(ny, nx, planes=2, route='dense'):
     """Dynamic shared memory of one kernel block: ``planes`` complex
     planes (2 in K1 and K4f, the wave and a scratch plane; 3 in K4b, which
-    adds the rebuilt wave) and the two per-axis matrices.  K4's FFT route
-    pads the planes' rows to an odd length, holds in the matrices' region
-    during the steps the next step's db planes (and in the backward first
-    the rebuilt wave's scratch plane), and adds the step vectors and both
-    axes' roots of unity (``msdb::fft_smem_bytes``)."""
+    adds the rebuilt wave) and the two per-axis matrices.  The FFT route
+    pads the planes' rows to an odd length, takes the slot region of
+    :func:`fft_slot_elems`, and adds the step vectors and both axes' roots
+    of unity (``msdb::fft_smem_bytes``)."""
     if route == 'fft':
-        plane = ny * (nx | 1)
-        steps = (plane if planes == 3 else 0) + ny * nx
-        return 8 * (planes * plane + max(ny * ny + nx * nx, steps)
+        return 8 * (planes * ny * (nx | 1) + fft_slot_elems(planes, ny, nx)
                     + 2 * (ny + nx))
     return 8 * (planes * ny * nx + ny * ny + nx * nx)
 
@@ -328,10 +348,11 @@ def _dtype_code(dtype):
 
 class MultisliceDbStored(torch.autograd.Function):
     """K1 as one autograd Function.  ``mats`` holds the step and far-field
-    matrices in the orientations the kernels take: forward ``Py, Px^T``
-    (far field ``Fy, Fx^T``), backward the transposes ``Py^T, Px``
-    (``Fy^T, Fx``), as :func:`prop_mats` builds them.  Takes contiguous
-    CUDA operands (see :func:`multislice_db_stored_packed`)."""
+    matrices in the orientations the kernels take, as :func:`prop_mats`
+    builds them for ``mats['route']``: forward ``Py, Px^T`` (far field
+    ``Fy, Fx^T``), backward the transposes ``Py^T, Px`` (``Fy^T, Fx``); on
+    the FFT route the step slots hold the step's vectors.  Takes
+    contiguous CUDA operands (see :func:`multislice_db_stored_packed`)."""
 
     @staticmethod
     def forward(ctx, db, wave, mats, k1, s):
@@ -341,11 +362,13 @@ class MultisliceDbStored(torch.autograd.Function):
                           device=db.device)
         rec = torch.empty((n_steps, m, n, ny, nx, 2), dtype=db.dtype,
                           device=db.device)
-        K1_FWD(_dtype_code(db.dtype), ptr(db), ptr(wave),
-               ptr(mats['fwd_y']), ptr(mats['fwd_x']),
+        route = mats['route']
+        K1_FWD(_dtype_code(db.dtype), STEP_ROUTES[route], ptr(db),
+               ptr(wave), ptr(mats['fwd_y']), ptr(mats['fwd_x']),
                ptr(mats.get('ffwd_y')), ptr(mats.get('ffwd_x')),
                ptr(out), ptr(rec), n_steps, m, n, ny, nx,
                -k1, -s * k1)
+        K1_ROUTE_LAUNCHES[route] += 1
         ctx.save_for_backward(db, rec)
         ctx.mats = mats
         ctx.k1, ctx.s = k1, s
@@ -362,11 +385,13 @@ class MultisliceDbStored(torch.autograd.Function):
         gw = torch.empty((m, n, ny, nx), dtype=torch.complex64,
                          device=db.device)
         k1, s = ctx.k1, ctx.s
-        K1_BWD(_dtype_code(db.dtype), ptr(db), ptr(rec), ptr(g),
-               ptr(mats['bwd_y']), ptr(mats['bwd_x']),
+        route = mats['route']
+        K1_BWD(_dtype_code(db.dtype), STEP_ROUTES[route], ptr(db), ptr(rec),
+               ptr(g), ptr(mats['bwd_y']), ptr(mats['bwd_x']),
                ptr(mats.get('fbwd_y')), ptr(mats.get('fbwd_x')),
                ptr(gdb), ptr(gw), n_steps, m, n, ny, nx,
                -k1, -s * k1, s * k1)
+        K1_ROUTE_LAUNCHES[route] += 1
         return gdb, gw, None, None, None
 
 
@@ -386,8 +411,8 @@ class MultisliceDb(torch.autograd.Function):
         out = torch.empty((m, n, ny, nx), dtype=torch.complex64,
                           device=db.device)
         route = mats['route']
-        K4_FWD(_dtype_code(db.dtype), K4_ROUTES[route], ptr(db), ptr(wave),
-               ptr(mats['fwd_y']), ptr(mats['fwd_x']),
+        K4_FWD(_dtype_code(db.dtype), STEP_ROUTES[route], ptr(db),
+               ptr(wave), ptr(mats['fwd_y']), ptr(mats['fwd_x']),
                ptr(mats.get('ffwd_y')), ptr(mats.get('ffwd_x')),
                ptr(out), n_steps, m, n, ny, nx, -k1, -s * k1)
         K4_ROUTE_LAUNCHES[route] += 1
@@ -408,7 +433,7 @@ class MultisliceDb(torch.autograd.Function):
                          device=db.device)
         k1, s = ctx.k1, ctx.s
         route = mats['route']
-        K4_BWD(_dtype_code(db.dtype), K4_ROUTES[route], ptr(db), ptr(out),
+        K4_BWD(_dtype_code(db.dtype), STEP_ROUTES[route], ptr(db), ptr(out),
                ptr(g),
                ptr(mats['bwd_y']), ptr(mats['bwd_x']),
                ptr(mats.get('fbwd_y')), ptr(mats.get('fbwd_x')),
@@ -449,7 +474,7 @@ def prop_mats(kernel, fay=None, fax=None, fayi=None, faxi=None,
     """The matrices :class:`MultisliceDbStored` and :class:`MultisliceDb`
     take: the folded step mats of ``kernel`` and the optional far-field
     mats (with K4 their exact inverses too), each in the orientation of the
-    kernel that reads it, on ``kernel``'s device.  On K4's ``'fft'`` route
+    kernel that reads it, on ``kernel``'s device.  On the ``'fft'`` route
     the step slots hold the step's vectors (:func:`fft_step_vectors`),
     which serve both directions."""
     if route == 'fft':
@@ -481,16 +506,18 @@ def prop_mats(kernel, fay=None, fax=None, fayi=None, faxi=None,
 def multislice_db_stored_packed(db, wave, kernel, k1, s, fay=None, fax=None):
     """Exit (or, with ``fay``/``fax``, detector) wave ``[M, N, ny, nx]``
     complex64 of the packed multislice with stored intermediates (K1);
-    differentiable in ``db`` and ``wave``.  CUDA tensors run the kernels;
-    CPU tensors the plain version.  ``kernel``: the per-step Fresnel
-    transfer function ``[ny, nx]`` (separable); ``k1``, ``s``: wavenumber
-    scale and sign convention."""
+    differentiable in ``db`` and ``wave``.  CUDA tensors run the kernels,
+    on the route :func:`k1_route` picks for the shape; CPU tensors the
+    plain version.  ``kernel``: the per-step Fresnel transfer function
+    ``[ny, nx]`` (separable); ``k1``, ``s``: wavenumber scale and sign
+    convention."""
     if not db.is_cuda:
         return multislice_db_stored_plain(db, wave, kernel, k1, s, fay, fax)
-    _check_cuda_operands(db, wave, kernel, 2)
+    route = k1_route(*db.shape[-2:])
+    _check_cuda_operands(db, wave, kernel, 2, route)
     return MultisliceDbStored.apply(db.contiguous(), wave.contiguous(),
-                                    prop_mats(kernel, fay, fax), float(k1),
-                                    float(s))
+                                    prop_mats(kernel, fay, fax, route=route),
+                                    float(k1), float(s))
 
 
 def multislice_db_packed(db, wave, kernel, k1, s, fay=None, fax=None,

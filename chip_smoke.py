@@ -9,14 +9,16 @@ Phases (any failure raises and exits nonzero):
   3. each kernel against its plain PyTorch version at the shapes its path
      gives it, f32 and bf16 (forward and backward for the multislice
      pairs), with kernel, plain and library times and the bound of each:
-     K1 and K2 at the delta_beta flagship; K3, K5 (with a non-paraxial
-     transfer function) and K2 at the real_imag flagship's trailing width;
-     K1 at three probe modes; K4 at the multi-mode flagship's chunk (256
-     steps, three modes, physical absorption) on its FFT route, also
-     against K1's plain version on 64 of its patches, and on its dense
-     route (the folded step mats), checked and timed beside it; K2 on that
-     chunk's z-major gradient (C = 512); K6, one grid row at a time through
-     K2's kernel;
+     K1 and K2 at the delta_beta flagship, K1 on its FFT route and on its
+     dense route (the folded step mats), checked and timed beside it; K3,
+     K5 (with a non-paraxial transfer function) and K2 at the real_imag
+     flagship's trailing width; K1 at three probe modes; K4 at the
+     multi-mode flagship's chunk (256 steps, three modes, physical
+     absorption) on its FFT route, also against K1's plain version on 64
+     of its patches, and on its dense route, checked and timed beside it;
+     K2 on that chunk's z-major gradient (C = 512); K6, one grid row at a
+     time through K2's kernel; then both routes of K1 and K4 and their
+     plain version against a complex128 sweep on 64 patches;
   4. the delta_beta flagship epoch (256^3 object, 23x23 scan of 72^2
      patterns at stride 8, binning 8, Fraunhofer, Adam, per-angle updates
      with the rotation out of the loop; 4 angles of random data) through
@@ -31,8 +33,8 @@ Phases (any failure raises and exits nonzero):
      K2; then, f32
      only, one warmup and one timed epoch at binning 8, through K1 at three
      modes;
-  5. a small configuration trained on CUDA and on the CPU: the per-epoch
-     losses must agree;
+  5. a small configuration trained on CUDA and on the CPU (through K1's
+     FFT route at 16^2): the per-epoch losses must agree;
   5b. the same for a small real_imag configuration and for a delta_beta
      one with a non-paraxial transfer function at a finite distance;
   5c. the same for a small multi-mode configuration (three refined probe
@@ -106,7 +108,10 @@ def check_multislice(dtype, tol_fwd, tol_bwd, M=1):
     """K1 forward and backward against the plain version at one flagship
     gradient chunk: S=32 binned steps, N=529 patches of 72x72, M probe
     modes (M=1 on the delta_beta flagship, 3 on the binned multi-mode
-    one)."""
+    one).  The shape takes K1's FFT route (72 = 8 x 9), which the main
+    path runs; the dense route (the folded step mats), forced, is held
+    against the same plain version with the same tolerances and timed
+    beside it in turns (fft, dense, dense, fft)."""
     from adorym_tpu_torch.ops import cuda_multislice as cm
     from adorym_tpu_torch.ops import propagate as prop
     S, N, n = 32, 529, 72
@@ -133,30 +138,61 @@ def check_multislice(dtype, tol_fwd, tol_bwd, M=1):
         return out, gd, gw, (lambda: torch.autograd.grad(
             out, (d, w), g, retain_graph=True))
 
-    out_k, gd_k, gw_k, bwd_k = run(cm.multislice_db_stored_packed)
-    out_p, gd_p, gw_p, bwd_p = run(cm.multislice_db_stored_plain)
-    torch.cuda.synchronize()
-    e_fwd, r_fwd = rel_err(out_k, out_p)
-    e_gd, r_gd = rel_err(gd_k, gd_p)
-    e_gw, r_gw = rel_err(gw_k, gw_p)
     tag = str(dtype).split('.')[-1]
     modes = f' M={M}' if M > 1 else ''
-    log(f'K1{modes} {tag}: fwd max_abs {e_fwd:.3e} rel {r_fwd:.3e} '
-        f'(tol {tol_fwd}); '
-        f'gdb max_abs {e_gd:.3e} rel {r_gd:.3e}; gw max_abs {e_gw:.3e} '
-        f'rel {r_gw:.3e} (tol {tol_bwd})')
-    if not (r_fwd < tol_fwd and r_gd < tol_bwd and r_gw < tol_bwd):
-        raise AssertionError(f'K1{modes} {tag} kernel disagrees with its '
-                             'plain version')
-    mats = cm.prop_mats(h, fay, fax)
+    route = cm.k1_route(n, n)
+    if route != 'fft':
+        raise AssertionError(f'K1 takes the {route} route at {n}x{n}')
+    r0 = dict(cm.K1_ROUTE_LAUNCHES)
+    out_k, gd_k, gw_k, bwd_k = run(cm.multislice_db_stored_packed)
+    took = {r: cm.K1_ROUTE_LAUNCHES[r] - r0[r] for r in r0}
+    mats_d = cm.prop_mats(h, fay, fax, route='dense')
+
+    def dense(d, w, h_, k1_, s_, *_):
+        return cm.MultisliceDbStored.apply(d, w, mats_d, k1_, s_)
+    out_d, gd_d, gw_d, bwd_d = run(dense)
+    out_p, gd_p, gw_p, bwd_p = run(cm.multislice_db_stored_plain)
+    torch.cuda.synchronize()
+    if took != {'fft': 2, 'dense': 0}:
+        raise AssertionError(f'K1{modes} {tag}: launches by route {took}')
+    errs = {}
+    for name, (out_r, gd_r, gw_r) in (('fft', (out_k, gd_k, gw_k)),
+                                      ('dense', (out_d, gd_d, gw_d))):
+        e_fwd, r_fwd = rel_err(out_r, out_p)
+        e_gd, r_gd = rel_err(gd_r, gd_p)
+        e_gw, r_gw = rel_err(gw_r, gw_p)
+        errs[name] = (e_fwd, r_fwd, max(e_gd, e_gw), max(r_gd, r_gw))
+        log(f'K1{modes} {tag} {name} route: fwd max_abs {e_fwd:.3e} rel '
+            f'{r_fwd:.3e} (tol {tol_fwd}); gdb max_abs {e_gd:.3e} rel '
+            f'{r_gd:.3e}; gw max_abs {e_gw:.3e} rel {r_gw:.3e} (tol '
+            f'{tol_bwd})')
+        if not (r_fwd < tol_fwd and r_gd < tol_bwd and r_gw < tol_bwd):
+            raise AssertionError(f'K1{modes} {tag} {name} route disagrees '
+                                 'with its plain version')
+    e_fwd, r_fwd, e_bwd, r_bwd = errs['fft']
+    mats = cm.prop_mats(h, fay, fax, route='fft')
+
+    def launch(m):
+        # The launch alone: the step vectors or mats are built once.
+        return lambda: cm.MultisliceDbStored.apply(db, wave, m, k1, 1.0)
     with torch.no_grad():
-        # The launch alone: the step and far-field mats are built once.
-        ms_f = time_ms(lambda: cm.MultisliceDbStored.apply(
-            db, wave, mats, k1, 1.0), 10)
+        # The routes in turns: fft, dense, dense, fft.
+        ms_f = time_ms(launch(mats), 10)
+        dense_f = (time_ms(launch(mats_d), 10)
+                   + time_ms(launch(mats_d), 10)) / 2
+        ms_f = (ms_f + time_ms(launch(mats), 10)) / 2
         plain_f = time_ms(lambda: cm.multislice_db_stored_plain(
             db, wave, h, k1, 1.0, fay, fax), 5)
     ms_b = time_ms(bwd_k, 10)
+    dense_b = (time_ms(bwd_d, 10) + time_ms(bwd_d, 10)) / 2
+    ms_b = (ms_b + time_ms(bwd_k, 10)) / 2
     plain_b = time_ms(bwd_p, 5)
+    log(f'K1{modes} {tag}: forward fft route {ms_f:.3f} ms, dense route '
+        f'{dense_f:.3f} ms; backward fft route {ms_b:.3f} ms, dense route '
+        f'{dense_b:.3f} ms')
+    if not (ms_f < dense_f and ms_b < dense_b):
+        raise AssertionError(f'K1{modes} {tag}: the FFT route is not faster '
+                             'than the dense route at the flagship shape')
     isz = db.element_size()
     b_f, by_f = bound(cm.bytes_moved(S, M, N, n, n, isz),
                       cm.flops(S, M, N, n, n))
@@ -164,15 +200,24 @@ def check_multislice(dtype, tol_fwd, tol_bwd, M=1):
                       cm.flops(S, M, N, n, n, backward=True))
     src = 'adorym_tpu_torch/csrc/multislice_db_stored.cu'
     path = 'delta_beta' if M == 1 else 'multimode_binned'
-    return [
+    recs = [
         record(f'K1f multislice_db_stored forward{modes} ({tag})', src,
                'adorym_tpu/ops/pallas_multislice.py:353', e_fwd, r_fwd,
                tol_fwd, ms_f, plain_f, b_f, by_f, None, 'K1_FWD', path),
         record(f'K1b multislice_db_stored backward{modes} ({tag})', src,
-               'adorym_tpu/ops/pallas_multislice.py:422', max(e_gd, e_gw),
-               max(r_gd, r_gw), tol_bwd, ms_b, plain_b, b_b, by_b, None,
-               'K1_BWD', path),
+               'adorym_tpu/ops/pallas_multislice.py:422', e_bwd, r_bwd,
+               tol_bwd, ms_b, plain_b, b_b, by_b, None, 'K1_BWD', path),
     ]
+    add_dense_route(recs, route, dense_f, dense_b, errs['dense'])
+    return recs
+
+
+def add_dense_route(recs, route, dense_f, dense_b, errs):
+    """The step route of a multislice pair's ``ms`` (the main path's), and
+    the dense route's time and error in the same process."""
+    for rec, dense_ms, i in ((recs[0], dense_f, 0), (recs[1], dense_b, 2)):
+        rec.update(step_route=route, dense_ms=dense_ms,
+                   dense_max_abs_err=errs[i], dense_rel_err=errs[i + 1])
 
 
 def check_invertible(dtype):
@@ -312,13 +357,120 @@ def check_invertible(dtype):
                max(tol_gd, tol_bwd), ms_b, plain_b, b_b, by_b, None,
                'K4_BWD', 'multimode'),
     ]
-    # The step route of ``ms`` (the main path's), and the dense route's
-    # time and error in the same process.
-    for rec, dense_ms, i in ((recs[0], dense_f, 0), (recs[1], dense_b, 2)):
-        rec.update(step_route=route, dense_ms=dense_ms,
-                   dense_max_abs_err=errs['dense'][i],
-                   dense_rel_err=errs['dense'][i + 1])
+    add_dense_route(recs, route, dense_f, dense_b, errs['dense'])
     return recs
+
+
+def truth_sweep(db, wave, h, k1, s, far):
+    """The multislice function of K1 and K4 in complex128, differentiable
+    by autograd: the transmission in f64, each step the folded ``P = G
+    diag(h) F`` of each axis built in f64 from the f32 transfer function
+    upcast (the operator both routes apply, without their roundoff), and
+    the exact Fraunhofer pair ``far`` at the last step."""
+    from adorym_tpu_torch.ops.fourier import dft_matrix
+    dev = db.device
+    h = h.to(torch.complex128)
+
+    def mats(n):
+        return (torch.from_numpy(dft_matrix(n, dtype=np.complex128)).to(dev),
+                torch.from_numpy(dft_matrix(n, inverse=True,
+                                            dtype=np.complex128)).to(dev))
+
+    (fy, gy), (fx, gx) = mats(h.shape[0]), mats(h.shape[1])
+    py = (gy * (h[:, 0] / h[0, 0])[None, :]) @ fy
+    px = (gx * h[0, :][None, :]) @ fx
+    w = wave.to(torch.complex128)
+    n_steps = db.shape[0]
+    for z in range(n_steps):
+        d, b = db[z, 0].double(), db[z, 1].double()
+        w = w * torch.polar(torch.exp(-k1 * b), -s * k1 * d)
+        if z < n_steps - 1:
+            w = py @ w @ px.transpose(0, 1)
+        else:
+            w = far[0] @ w @ far[1].transpose(0, 1)
+    return w
+
+
+def fraunhofer_f64(n, dev):
+    """The unnormalised Fraunhofer matrix of one axis (fftshift after the
+    DFT) in complex128."""
+    from adorym_tpu_torch.ops.fourier import dft_matrix
+    shift = np.fft.fftshift(np.eye(n), axes=0)
+    return torch.from_numpy(shift @ dft_matrix(n, dtype=np.complex128)).to(
+        dev)
+
+
+def check_truth():
+    """Both step routes of K1 and K4 and their plain version (the folded
+    complex64 mats, the arithmetic of the JAX package's kernels) against
+    the complex128 sweep (:func:`truth_sweep`), forward and gradients, on
+    64 patches of 72x72 with the Fraunhofer far field: K4 at the
+    multi-mode chunk's depth (S=256 steps of 1 nm, M=3, physical
+    absorption), K1 at the delta_beta chunk's (S=32 binned steps of 8 nm,
+    M=1).  Errors relative to the truth's largest value; each is held to
+    the kernels' tolerances (1e-4 forward, 1e-3 gradients).  Returns
+    {kernel: {form: (fwd, gdb, gw)}}."""
+    from adorym_tpu_torch.ops import cuda_multislice as cm
+    from adorym_tpu_torch.ops import propagate as prop
+    dev = torch.device('cuda')
+    n, N = 72, 64
+    lmbda = 1240.0 / FLAGSHIP['energy_ev']
+    voxel = (1.0, 1.0, 1.0)
+    k1 = 2 * np.pi * 1.0 / lmbda
+    fm = prop.final_prop_mats((n, n), voxel, lmbda, 'inf', device=dev)
+    far = (fraunhofer_f64(n, dev),) * 2
+    out = {}
+    for kernel, S, M, dist, hi, seed in (('K4', 256, 3, 1.0, (1e-3, 1e-4), 5),
+                                         ('K1', 32, 1, 8.0, (1e-2, 1e-2), 0)):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        db = torch.empty((S, 2, N, n, n), device=dev)
+        db[:, 0].uniform_(0, hi[0], generator=gen)
+        db[:, 1].uniform_(0, hi[1], generator=gen)
+        wave = torch.randn((M, N, n, n), dtype=torch.complex64, device=dev,
+                           generator=gen)
+        g = torch.randn((M, N, n, n), dtype=torch.complex64, device=dev,
+                        generator=gen)
+        h = prop.fresnel_kernel((n, n), voxel, lmbda, dist, device=dev)
+
+        def grads(fn, dtype=torch.float32, cdtype=torch.complex64):
+            d = db.to(dtype).requires_grad_()
+            w = wave.to(cdtype).requires_grad_()
+            o = fn(d, w)
+            gd, gw = torch.autograd.grad(o, (d, w), g.to(cdtype))
+            return o.detach(), gd, gw
+
+        truth = grads(lambda d, w: truth_sweep(d, w, h, k1, 1.0, far),
+                      torch.float64, torch.complex128)
+        if kernel == 'K4':
+            forms = {r: (lambda d, w, m=cm.prop_mats(h, *fm, route=r):
+                         cm.MultisliceDb.apply(d, w, m, k1, 1.0))
+                     for r in ('fft', 'dense')}
+        else:
+            forms = {r: (lambda d, w, m=cm.prop_mats(h, *fm[:2], route=r):
+                         cm.MultisliceDbStored.apply(d, w, m, k1, 1.0))
+                     for r in ('fft', 'dense')}
+        forms['plain'] = lambda d, w: cm.multislice_db_stored_plain(
+            d, w, h, k1, 1.0, *fm[:2])
+        out[kernel] = {}
+        for form, fn in forms.items():
+            got = grads(fn)
+            torch.cuda.synchronize()
+            errs = tuple(rel_err(a.to(b.dtype), b)[1]
+                         for a, b in zip(got, truth))
+            rms = tuple(float((a.to(b.dtype) - b).norm() / b.norm())
+                        for a, b in zip(got, truth))
+            out[kernel][form] = errs
+            log(f'{kernel} (S={S}, M={M}, N={N}) {form} against complex128: '
+                f'fwd {errs[0]:.3e} gdb {errs[1]:.3e} gw {errs[2]:.3e} of '
+                f'the largest values; rms {rms[0]:.3e} / {rms[1]:.3e} / '
+                f'{rms[2]:.3e} of the rms values')
+            if not (errs[0] < 1e-4 and max(errs[1:]) < 1e-3):
+                raise AssertionError(f'{kernel} {form} disagrees with the '
+                                     'complex128 sweep')
+            del got
+        del truth, db
+        torch.cuda.empty_cache()
+    return out
 
 
 def record(name, source, replaces, err, rel, tol, ms, plain_ms, bound_ms,
@@ -648,28 +800,32 @@ def reset_counts():
     from adorym_tpu_torch.ops import cuda_multislice as cm
     for c in counters().values():
         c.launches = 0
-    for r in cm.K4_ROUTE_LAUNCHES:
-        cm.K4_ROUTE_LAUNCHES[r] = 0
+    for routes in (cm.K1_ROUTE_LAUNCHES, cm.K4_ROUTE_LAUNCHES):
+        for r in routes:
+            routes[r] = 0
 
 
 def launch_counts():
-    """Each kernel's launches, and K4's (forward and backward together) by
-    step route as ``K4_FFT`` and ``K4_DENSE``."""
+    """Each kernel's launches, and K1's and K4's (forward and backward
+    together) by step route as ``K1_FFT``, ``K1_DENSE``, ``K4_FFT`` and
+    ``K4_DENSE``."""
     from adorym_tpu_torch.ops import cuda_multislice as cm
     counts = {k: c.launches for k, c in counters().items()}
-    counts.update({f'K4_{r.upper()}': v
-                   for r, v in cm.K4_ROUTE_LAUNCHES.items()})
+    for name, routes in (('K1', cm.K1_ROUTE_LAUNCHES),
+                         ('K4', cm.K4_ROUTE_LAUNCHES)):
+        counts.update({f'{name}_{r.upper()}': v for r, v in routes.items()})
     return counts
 
 
 #: The kernels each flagship path launches once per angle; the others
 #: must not launch on it.  K6 is on no path (the Reconstructor does not
-#: route to it, as the JAX package's does not).  K4 takes its FFT route
-#: (K4_FFT counts its forward and backward launches together).
-PATH_KERNELS = {'delta_beta': ('K1_FWD', 'K1_BWD', 'K2'),
+#: route to it, as the JAX package's does not).  K1 and K4 take their FFT
+#: route (K1_FFT and K4_FFT count the forward and backward launches
+#: together).
+PATH_KERNELS = {'delta_beta': ('K1_FWD', 'K1_BWD', 'K2', 'K1_FFT'),
                 'real_imag': ('K3', 'K5_FWD', 'K5_BWD', 'K2'),
                 'multimode': ('K4_FWD', 'K4_BWD', 'K2', 'K4_FFT'),
-                'multimode_binned': ('K1_FWD', 'K1_BWD', 'K2')}
+                'multimode_binned': ('K1_FWD', 'K1_BWD', 'K2', 'K1_FFT')}
 
 
 def run_flagship(bf16, path='delta_beta', n_timed=3):
@@ -718,7 +874,8 @@ def run_flagship(bf16, path='delta_beta', n_timed=3):
         raise AssertionError(f'flagship {tag}: non-finite loss {losses}')
     want = n_epochs * f['n_theta']           # one of each per angle
     expect = {k: want if k in PATH_KERNELS[path] else 0 for k in launches}
-    expect['K4_FFT'] *= 2                    # forward and backward
+    expect['K1_FFT'] *= 2                    # forward and backward
+    expect['K4_FFT'] *= 2
     if launches != expect:
         raise AssertionError(f'flagship {tag}: launches {launches}, '
                              f'expected {expect}')
@@ -873,6 +1030,15 @@ def main():
         kernels += check_grid_scatter_wide(dtype, zmajor=True)
         torch.cuda.empty_cache()
     kernels += check_rowgrid_scatter()
+    # The f32 kernels of K1 and K4 against the complex128 sweep, each route.
+    truth = check_truth()
+    for k in kernels:
+        which = k['name'][:2]
+        if (which in truth and k['name'].endswith('(float32)')
+                and ' M=' not in k['name']):
+            i = slice(0, 1) if 'forward' in k['name'] else slice(1, 3)
+            k['truth_rel_err'] = {form: max(e[i]) for form, e in
+                                  truth[which].items()}
     for k in kernels:
         lib = 'none' if k['library_ms'] is None else f"{k['library_ms']:.4f}"
         dense = (f" dense_ms {k['dense_ms']:.4f}" if 'dense_ms' in k
@@ -904,7 +1070,10 @@ def main():
         raise AssertionError('a kernel has no launch count from the '
                              'flagship run')
 
-    small_config_agrees()
+    # Phase 5: 16^2 patterns take K1's FFT route, one pair per angle and
+    # epoch.
+    small_config_agrees(expect={'K1_FWD': 6, 'K1_BWD': 6, 'K1_FFT': 12,
+                                'K1_DENSE': 0})
     # Phase 5b: the general fused path, one K5 pair per angle and epoch.
     small_config_agrees('real_imag', expect={'K5_FWD': 6, 'K1_FWD': 0,
                                              'K3': 6})
@@ -919,7 +1088,8 @@ def main():
                         expect={'K4_FWD': 6, 'K4_BWD': 6, 'K4_FFT': 12,
                                 'K4_DENSE': 0, 'K1_FWD': 0})
     small_config_agrees(**multimode,
-                        expect={'K1_FWD': 6, 'K1_BWD': 6, 'K4_FWD': 0})
+                        expect={'K1_FWD': 6, 'K1_BWD': 6, 'K1_FFT': 12,
+                                'K1_DENSE': 0, 'K4_FWD': 0})
 
     for k in kernels:
         del k['counter'], k['path']

@@ -54,25 +54,67 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-# f32: the kernel and cuBLAS sum the 16..72-deep products in other orders
-# over up to 32 steps; 1e-4 of the largest value holds with 10x margin.
-# bf16: db is the same bf16 values for both, but the kernel's records (and
-# so gdb) round to bf16 where autograd keeps f32; gdb is itself bf16.
-@pytest.mark.parametrize('dtype,tol_fwd,tol_grad', [
-    (torch.float32, 1e-4, 1e-4), (torch.bfloat16, 1e-4, 3e-2)])
+#: The route K1 takes at each shape of its card test: the FFT route where
+#: both sides split as n1 n2 with 2 <= n1 <= n2 <= 9 (the flagship's 72 =
+#: 8 x 9), the dense route elsewhere.
+K1_ROUTE = {(16, 16): 'fft', (12, 20): 'fft', (72, 72): 'fft',
+            (13, 17): 'dense'}
+
+
+def _stored_dense(db, wave, h, k1, s, fay=None, fax=None):
+    """K1 forced onto its dense route (the folded step mats)."""
+    return cm.MultisliceDbStored.apply(
+        db, wave, cm.prop_mats(h, fay, fax, route='dense'), k1, s)
+
+
+# f32: the kernel and cuBLAS sum the 16..72-deep products (or the FFT
+# route's transforms) in other orders over up to 32 steps; 1e-4 of the
+# largest value holds with 10x margin.  bf16: db is the same bf16 values
+# for both, but the kernel's records (and so gdb) round to bf16 where
+# autograd keeps f32; gdb is itself bf16.
+MULTISLICE_TOLS = [(torch.float32, 1e-4, 1e-4), (torch.bfloat16, 1e-4, 3e-2)]
+
+
+@pytest.mark.parametrize('dtype,tol_fwd,tol_grad', MULTISLICE_TOLS)
 @pytest.mark.parametrize('M', [1, 2, 3, 4, 5])
 @pytest.mark.parametrize('final', [False, True])
-@pytest.mark.parametrize('shape', [(4, 5, 16, 16), (3, 7, 12, 20)])
+@pytest.mark.parametrize('shape', [(4, 5, 16, 16), (3, 7, 12, 20),
+                                   (3, 4, 72, 72), (3, 4, 13, 17)])
 def test_multislice_kernel_matches_plain(cuda, dtype, tol_fwd, tol_grad, M,
                                          final, shape):
-    """K1 at one block per (patch, mode); from two modes on, the backward's
-    blocks of a patch form a cluster and sum the modes in shared memory."""
+    """K1 at one block per (patch, mode), on the route its shape takes;
+    from two modes on, the backward's blocks of a patch form a cluster and
+    sum the modes in shared memory."""
     S, N, ny, nx = shape
+    route = K1_ROUTE[(ny, nx)]
+    assert cm.k1_route(ny, nx) == route
     args = _multislice_inputs(S, M, N, ny, nx, dtype, final, cuda)
+    r0 = dict(cm.K1_ROUTE_LAUNCHES)
     out_k, gdb_k, gw_k = _run(cm.multislice_db_stored_packed, *args)
+    assert {r: cm.K1_ROUTE_LAUNCHES[r] - r0[r] for r in r0} == {
+        r: 2 if r == route else 0 for r in r0}
     out_p, gdb_p, gw_p = _run(cm.multislice_db_stored_plain, *args)
     torch.cuda.synchronize()
     assert gdb_k.dtype == dtype
+    assert _rel(out_k, out_p) < tol_fwd
+    assert _rel(gdb_k, gdb_p) < tol_grad
+    assert _rel(gw_k, gw_p) < tol_grad
+
+
+@pytest.mark.parametrize('dtype,tol_fwd,tol_grad', MULTISLICE_TOLS)
+@pytest.mark.parametrize('M', [1, 3])
+@pytest.mark.parametrize('final', [False, True])
+def test_multislice_dense_route_matches_plain(cuda, dtype, tol_fwd, tol_grad,
+                                              M, final):
+    """K1's dense route, forced at 72^2 where the shape takes the FFT
+    route, to the same tolerances."""
+    args = _multislice_inputs(3, M, 4, 72, 72, dtype, final, cuda)
+    r0 = dict(cm.K1_ROUTE_LAUNCHES)
+    out_k, gdb_k, gw_k = _run(_stored_dense, *args)
+    assert {r: cm.K1_ROUTE_LAUNCHES[r] - r0[r] for r in r0} == {
+        'dense': 2, 'fft': 0}
+    out_p, gdb_p, gw_p = _run(cm.multislice_db_stored_plain, *args)
+    torch.cuda.synchronize()
     assert _rel(out_k, out_p) < tol_fwd
     assert _rel(gdb_k, gdb_p) < tol_grad
     assert _rel(gw_k, gw_p) < tol_grad
@@ -106,6 +148,15 @@ def test_multislice_rejects_planes_beyond_shared_memory(cuda, fn, side):
         fn(db, wave, h, 25.0, 1.0)
     if side == 80:
         cm.multislice_db_stored_packed(db, wave, h, 25.0, 1.0)
+
+
+def test_stored_fft_route_needs_the_split(cuda):
+    """13 and 17 are prime: K1's entry point refuses the FFT route there."""
+    db, wave, h, _, _ = _multislice_inputs(2, 1, 1, 13, 17, torch.float32,
+                                           False, cuda)
+    mats = cm.prop_mats(h, route='fft')
+    with pytest.raises(RuntimeError, match='k1_fwd launch failed'):
+        cm.MultisliceDbStored.apply(db, wave, mats, 25.0, 1.0)
 
 
 def test_invertible_fft_route_needs_the_split(cuda):

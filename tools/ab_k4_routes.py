@@ -1,19 +1,27 @@
-"""Time K4 (``adorym_tpu_torch/csrc/multislice_db.cu``) on its FFT and
+"""Time the delta/beta multislice kernels K4 (``adorym_tpu_torch/csrc/
+multislice_db.cu``) and K1 (``multislice_db_stored.cu``) on their FFT and
 dense step routes, for one or more copies of the kernel sources, on one
 CUDA card.
 
-    python tools/ab_k4_routes.py [CSRC_DIR ...] [--k1-sass PARENT_CSRC]
+    python tools/ab_k4_routes.py [CSRC_DIR ...] [--sass k1|k4 PARENT_CSRC]
+                                 [--kernels k4,k1]
 
 Each ``CSRC_DIR`` holds a copy of ``adorym_tpu_torch/csrc`` (default: the
 checkout's own); each is built with nvcc into ``build/ab_k4_routes/`` (its
-registers and spills printed), and its entry points ``k4_fwd``/``k4_bwd``
-are timed by CUDA events at the multi-mode flagship chunk (S=256 steps,
-M=3 modes, N=529 patches of 72x72, Fraunhofer far field, f32), on both
-routes, the sources in turns (forward order, then reversed).  Every
-version's FFT-route output is held against the first version's dense
-route.  With ``--k1-sass``, the SASS of K1 (``multislice_db_stored.cu``)
-built from the checkout is compared, function by function, with the one
-built from ``PARENT_CSRC``.  Prints the card's name and power limit first.
+registers and spills printed), and its entry points are timed by CUDA
+events on both routes, the sources in turns (forward order, then
+reversed), f32 with the Fraunhofer far field:
+
+  k4  ``k4_fwd``/``k4_bwd`` at the multi-mode flagship chunk (S=256 steps,
+      M=3 modes, N=529 patches of 72x72);
+  k1  ``k1_fwd``/``k1_bwd`` at the delta_beta flagship chunk (S=32, M=1)
+      with N=529 and N=528 patches (529 blocks are 4 full rounds of 132
+      SMs and one block more), and at M=3 (the binned multi-mode chunk).
+
+Every version's FFT-route outputs are held against the first version's
+dense route.  With ``--sass``, the SASS of the named kernel's source built
+from the checkout is compared, function by function, with the one built
+from ``PARENT_CSRC``.  Prints the card's name and power limit first.
 """
 
 import argparse
@@ -34,6 +42,13 @@ from adorym_tpu_torch.utils import cuda_build  # noqa: E402
 
 OUT = REPO / 'build' / 'ab_k4_routes'
 _F, _I, _P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+SOURCES = {'k4': 'multislice_db.cu', 'k1': 'multislice_db_stored.cu'}
+ARGTYPES = {
+    'k4_fwd': [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _F, _P],
+    'k4_bwd': [_I, _I] + [_P] * 11 + [_I] * 5 + [_F] * 3 + [_P],
+    'k1_fwd': [_I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+    'k1_bwd': [_I, _I] + [_P] * 9 + [_I] * 5 + [_F] * 3 + [_P],
+}
 
 
 def nvcc(src, out, *extra):
@@ -43,33 +58,34 @@ def nvcc(src, out, *extra):
                             stderr=subprocess.STDOUT, text=True)
 
 
-def build(dirs):
+def build(dirs, kernels):
+    """One library per (copy, kernel), all nvcc processes at once."""
     OUT.mkdir(parents=True, exist_ok=True)
-    procs = {d: nvcc(Path(d) / 'multislice_db.cu', OUT / f'k4_{i}.so',
-                     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-             for i, d in enumerate(dirs)}
-    libs = []
-    for i, (d, p) in enumerate(procs.items()):
+    procs = {(i, k): nvcc(Path(d) / SOURCES[k], OUT / f'{k}_{i}.so',
+                          '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+             for i, d in enumerate(dirs) for k in kernels}
+    libs = {}
+    for (i, k), p in procs.items():
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(log)
         for fn, regs in re.findall(r"entry function '(\w+)'.*?Used (\d+) "
                                    r"registers", log, re.S):
             kind = 'fwd' if 'fwd_kernel' in fn else 'bwd'
-            print(f'{d}: {kind} {fn[-40:]} {regs} registers', flush=True)
-        print(f'{d}: spills', sorted(set(re.findall(
+            print(f'{dirs[i]}: {k} {kind} {fn[-40:]} {regs} registers',
+                  flush=True)
+        print(f'{dirs[i]}: {k} spills', sorted(set(re.findall(
             r'(\d+) bytes spill stores', log))), flush=True)
-        lib = ctypes.CDLL(str(OUT / f'k4_{i}.so'))
-        lib.k4_fwd.argtypes = [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _F, _P]
-        lib.k4_bwd.argtypes = [_I, _I] + [_P] * 11 + [_I] * 5 + [_F] * 3 + [_P]
-        libs.append(lib)
+        lib = ctypes.CDLL(str(OUT / f'{k}_{i}.so'))
+        for sym in (f'{k}_fwd', f'{k}_bwd'):
+            getattr(lib, sym).argtypes = ARGTYPES[sym]
+        libs[(i, k)] = lib
     return libs
 
 
 def sass(cubin):
-    """Function -> SASS lines, the function names read as the template
-    arguments K1 instantiates (with or without a trailing false flag) and
-    without the anonymous namespace's hash."""
+    """Function -> SASS lines, the function names without the anonymous
+    namespace's hash."""
     text = subprocess.run([str(Path(cuda_build.nvcc()).parent / 'cuobjdump'),
                            '-sass', str(cubin)],
                           capture_output=True, text=True, check=True).stdout
@@ -78,20 +94,20 @@ def sass(cubin):
         m = re.match(r'\s*Function : (\S+)', line)
         if m:
             cur = re.sub(r'_GLOBAL__N__\w+?_\d+_', '', m.group(1))
-            cur = cur.replace('Lb1ELb0EEE', 'Lb1EEE')
             funcs[cur] = []
         elif cur and '/*' in line:
             funcs[cur].append(re.sub(r'/\*[0-9a-f]{4}\*/', '', line).strip())
     return funcs
 
 
-def k1_sass(parent):
+def compare_sass(kernel, parent):
+    """Prints, for each function of ``kernel``'s source, whether its SASS
+    built from the checkout equals the one built from ``parent``."""
     cubins = {}
     procs = []
     for tag, d in (('parent', Path(parent)), ('this', cuda_build.CSRC)):
-        cubins[tag] = OUT / f'k1_{tag}.cubin'
-        procs.append(nvcc(d / 'multislice_db_stored.cu', cubins[tag],
-                          '-cubin'))
+        cubins[tag] = OUT / f'{kernel}_{tag}.cubin'
+        procs.append(nvcc(d / SOURCES[kernel], cubins[tag], '-cubin'))
     for p in procs:
         log, _ = p.communicate()
         if p.returncode:
@@ -99,7 +115,7 @@ def k1_sass(parent):
     old, new = sass(cubins['parent']), sass(cubins['this'])
     for name in sorted(set(old) | set(new)):
         same = old.get(name) == new.get(name)
-        print(f'K1 SASS {name[:70]}: '
+        print(f'{kernel.upper()} SASS {name[:70]}: '
               f"{'identical' if same else 'DIFFERS'} "
               f'({len(old.get(name, []))} / {len(new.get(name, []))} lines)',
               flush=True)
@@ -117,21 +133,13 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument('dirs', nargs='*', default=[str(cuda_build.CSRC)])
-    ap.add_argument('--k1-sass', default=None)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print('ab_k4_routes: no CUDA device', file=sys.stderr)
-        return 2
-    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, timeout=60).stdout.strip(), flush=True)
-    libs = build(args.dirs)
-    if args.k1_sass:
-        k1_sass(args.k1_sass)
-    S, M, N, n = 256, 3, 529, 72
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def operands(S, M, N, n=72, records=False):
+    """Physical absorption (the multi-mode chunk's), a 1 nm step at 5 keV
+    (8 binned steps at S=32), the Fraunhofer far field and its inverse."""
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(5)
     db = torch.empty((S, 2, N, n, n), device=dev)
@@ -141,23 +149,26 @@ def main():
                        generator=gen)
     g = torch.randn_like(wave)
     lmbda = 1240.0 / 5000.0
-    k1 = 2 * np.pi / lmbda
-    h = prop.fresnel_kernel((n, n), (1., 1., 1.), lmbda, 1.0, device=dev)
+    h = prop.fresnel_kernel((n, n), (1., 1., 1.), lmbda, 256.0 / S,
+                            device=dev)
     fm = prop.final_prop_mats((n, n), (1., 1., 1.), lmbda, 'inf', device=dev)
-    mats = {r: cm.prop_mats(h, *fm, route=r) for r in cm.K4_ROUTES}
-    outs = {}
+    mats = {r: cm.prop_mats(h, *fm, route=r) for r in cm.STEP_ROUTES}
+    rec = (torch.empty((S, M, N, n, n, 2), device=dev) if records else None)
+    return db, wave, g, mats, rec, 2 * np.pi / lmbda
+
+
+def entries(lib, kernel, route, ops, outs):
+    """The forward and backward entry points of ``kernel`` on ``route``
+    as closures; their outputs go to ``outs``."""
+    db, wave, g, mats, rec, k1 = ops
+    m, code = mats[route], cm.STEP_ROUTES[route]
+    S, _, N, n, _ = db.shape
+    shape = (S, wave.shape[0], N, n, n, -k1, -k1)
+    out = torch.empty_like(wave)
+    gdb, gw = torch.empty_like(db), torch.empty_like(wave)
+    outs.append((out, gdb, gw))
     st = torch.cuda.current_stream().cuda_stream
-    shape = (S, M, N, n, n, -k1, -k1)
-
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr())
-
-    def entry(lib, route):
-        m, code = mats[route], cm.K4_ROUTES[route]
-        out = torch.empty_like(wave)
-        gdb, gw = torch.empty_like(db), torch.empty_like(wave)
-        outs[(lib, route)] = (out, gdb, gw)
-
+    if kernel == 'k4':
         def fwd():
             assert lib.k4_fwd(0, code, ptr(db), ptr(wave), ptr(m['fwd_y']),
                               ptr(m['fwd_x']), ptr(m['ffwd_y']),
@@ -169,30 +180,81 @@ def main():
                               ptr(m['fbwd_y']), ptr(m['fbwd_x']),
                               ptr(m['finv_y']), ptr(m['finv_x']), ptr(gdb),
                               ptr(gw), *shape, k1, st) == 0
-        return fwd, bwd
+    else:
+        def fwd():
+            assert lib.k1_fwd(0, code, ptr(db), ptr(wave), ptr(m['fwd_y']),
+                              ptr(m['fwd_x']), ptr(m['ffwd_y']),
+                              ptr(m['ffwd_x']), ptr(out), ptr(rec), *shape,
+                              st) == 0
 
-    runs = [(i, r) for i in range(len(libs)) for r in ('fft', 'dense')]
-    eps = {key: entry(libs[key[0]], key[1]) for key in runs}
+        def bwd():
+            assert lib.k1_bwd(0, code, ptr(db), ptr(rec), ptr(g),
+                              ptr(m['bwd_y']), ptr(m['bwd_x']),
+                              ptr(m['fbwd_y']), ptr(m['fbwd_x']), ptr(gdb),
+                              ptr(gw), *shape, k1, st) == 0
+    return fwd, bwd
+
+
+def rel(a, b):
+    a = torch.view_as_real(a) if a.is_complex() else a
+    b = torch.view_as_real(b) if b.is_complex() else b
+    return float((a - b).abs().max() / b.abs().max())
+
+
+#: (kernel, S, M, N, repetitions) of each timed case.
+CASES = {'k4': [('k4', 256, 3, 529, 3)],
+         'k1': [('k1', 32, 1, 529, 10), ('k1', 32, 1, 528, 10),
+                ('k1', 32, 3, 529, 5)]}
+
+
+def run_case(libs, dirs, kernel, S, M, N, reps):
+    ops = operands(S, M, N, records=kernel == 'k1')
+    runs = [(i, r) for i in range(len(dirs)) for r in ('fft', 'dense')]
+    eps, outs = {}, []
+    for i, r in runs:
+        eps[(i, r)] = entries(libs[(i, kernel)], kernel, r, ops, outs)
+    results = dict(zip(runs, outs))
     for fwd, bwd in eps.values():
         fwd()
         bwd()
     torch.cuda.synchronize()
-    ref = outs[(libs[0], 'dense')]
-    for i, lib in enumerate(libs):
-        got = outs[(lib, 'fft')]
-        errs = [float((torch.view_as_real(a) if a.is_complex() else a).sub(
-            torch.view_as_real(b) if b.is_complex() else b).abs().max()
-            / (torch.view_as_real(b) if b.is_complex() else b).abs().max())
-            for a, b in zip(got, ref)]
-        print(f'{args.dirs[i]}: fft route against the first dense route: '
+    ref = results[(0, 'dense')]
+    tag = f'{kernel.upper()} S={S} M={M} N={N}'
+    for i in range(len(dirs)):
+        errs = [rel(a, b) for a, b in zip(results[(i, 'fft')], ref)]
+        print(f'{dirs[i]} {tag}: fft route against the first dense route: '
               f'out {errs[0]:.2e} gdb {errs[1]:.2e} gw {errs[2]:.2e}',
               flush=True)
     for order in (runs, runs[::-1]):
         for i, route in order:
             fwd, bwd = eps[(i, route)]
-            print(f'{args.dirs[i]} {route}: K4f '
-                  f'{time_ms(fwd, 3):.3f} ms K4b '
-                  f'{time_ms(bwd, 3):.3f} ms', flush=True)
+            print(f'{dirs[i]} {tag} {route}: {kernel.upper()}f '
+                  f'{time_ms(fwd, reps):.3f} ms {kernel.upper()}b '
+                  f'{time_ms(bwd, reps):.3f} ms', flush=True)
+    del ops, eps, outs, results
+    torch.cuda.empty_cache()
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument('dirs', nargs='*', default=[str(cuda_build.CSRC)])
+    ap.add_argument('--sass', nargs=2, metavar=('KERNEL', 'PARENT_CSRC'),
+                    default=None)
+    ap.add_argument('--kernels', default='k4,k1')
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print('ab_k4_routes: no CUDA device', file=sys.stderr)
+        return 2
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    kernels = args.kernels.split(',')
+    libs = build(args.dirs, kernels)
+    if args.sass:
+        compare_sass(*args.sass)
+    for k in kernels:
+        for case in CASES[k]:
+            run_case(libs, args.dirs, *case)
     return 0
 
 

@@ -14,8 +14,8 @@ substitution, into ``build/ab_multislice_inline/``:
 
 then times each kernel entry point by CUDA events at the flagship chunk
 (S=32 binned steps, 529 patches of 72x72, M=1 and M=3) and at the
-multi-mode chunk (S=256, M=3; K4 on its dense route), the variants in
-turns.  Prints the card's
+multi-mode chunk (S=256, M=3), K1 and K4 on their dense routes, the
+variants in turns.  Prints the card's
 name and power limit first.
 """
 
@@ -45,7 +45,7 @@ VARIANTS = {'shipped': [],
             'fwd_inline': [(FWD_CALL, 'propagate(w, scr, may, mbx, ny, nx);')],
             'bwd_call': BWD_SUBS}
 _F, _I, _P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
-DENSE = cm.K4_ROUTES['dense']   # the matmuls this tool times
+DENSE = cm.STEP_ROUTES['dense']   # the matmuls this tool times
 
 
 def build():
@@ -71,8 +71,8 @@ def build():
     libs = {}
     for name in VARIANTS:
         k1 = ctypes.CDLL(str(OUT / name / 'multislice_db_stored.so'))
-        k1.k1_fwd.argtypes = [_I] + [_P] * 8 + [_I] * 5 + [_F, _F, _P]
-        k1.k1_bwd.argtypes = [_I] + [_P] * 9 + [_I] * 5 + [_F] * 3 + [_P]
+        k1.k1_fwd.argtypes = [_I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F, _P]
+        k1.k1_bwd.argtypes = [_I, _I] + [_P] * 9 + [_I] * 5 + [_F] * 3 + [_P]
         k4 = ctypes.CDLL(str(OUT / name / 'multislice_db.so'))
         k4.k4_fwd.argtypes = [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _F, _P]
         k4.k4_bwd.argtypes = [_I, _I] + [_P] * 11 + [_I] * 5 + [_F] * 3 + [_P]
@@ -118,11 +118,12 @@ def entry_points(S, M, records, N=529, n=72):
     shape = (S, M, N, n, n, -k1, -k1)
     return {
         'K1f': lambda k1lib, _: k1lib.k1_fwd(
-            0, ptr(db), ptr(wave), ptr(m['fwd_y']), ptr(m['fwd_x']),
+            0, DENSE, ptr(db), ptr(wave), ptr(m['fwd_y']), ptr(m['fwd_x']),
             ptr(m['ffwd_y']), ptr(m['ffwd_x']), ptr(out), ptr(rec), *shape,
             st),
         'K1b': lambda k1lib, _: k1lib.k1_bwd(
-            0, ptr(db), ptr(rec), ptr(g), ptr(m['bwd_y']), ptr(m['bwd_x']),
+            0, DENSE, ptr(db), ptr(rec), ptr(g), ptr(m['bwd_y']),
+            ptr(m['bwd_x']),
             ptr(m['fbwd_y']), ptr(m['fbwd_x']), ptr(gdb), ptr(gw), *shape,
             k1, st),
         'K4f': lambda _, k4lib: k4lib.k4_fwd(
