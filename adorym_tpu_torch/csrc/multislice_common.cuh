@@ -1,8 +1,9 @@
-// Shared pieces of the delta/beta multislice kernels (K1 in
-// multislice_db_stored.cu, K4 in multislice_db.cu): storage-type helpers,
+// Shared pieces of the multislice kernels (K1 in multislice_db_stored.cu,
+// K4 in multislice_db.cu, K5 in multislice_fused.cu): storage-type helpers,
 // the slice transmission, the shared-memory complex matmul and the folded
-// propagation, the FFT step propagation of both (fft_propagate), the
-// forward sweep both kernels run, and the deterministic cross-mode sum of
+// propagation, the FFT step propagation of K1 and K4 (fft_propagate) and
+// of K5, whose transfer function need not be separable (fft_propagate2d),
+// the forward sweep K1 and K4 run, and the deterministic cross-mode sum of
 // their backward sweeps.
 //
 // Layouts (row-major): db [S, 2, N, P] (slot 0 delta, slot 1 beta, P =
@@ -503,13 +504,27 @@ struct Dft<9, kInv> {
 //          the root w^(j2 k1), stored at n2 k1 + j2;
 //   kPassB (R = n2): for each k1, the DFT over j2 of those n2 neighbours,
 //          which is X[k1 + n1 k2] over k2 in natural order; times he[k1 +
-//          n1 k2] (kH = 2: conjugated); the DFT back over k2, times the
-//          root of the other direction w^-(j2 k1), stored in place;
+//          n1 k2] (kH = 2: conjugated; kH = 3: he + l n, line l's own row
+//          of a 2-D table); the DFT back over k2, times the root of the
+//          other direction w^-(j2 k1), stored in place;
 //   kPassC (R = n1): for each j2, the DFT back over k1 of the elements at
 //          n2 k1 + j2, stored in natural order at n2 j1 + j2.
-// The caller gives pass C the direction back (!kInv of A and B).  Items run
-// line-fastest, so a warp's threads take neighbouring lines.
-enum FftPass { kPassA, kPassB, kPassC };
+// The caller gives pass C the direction back (!kInv of A and B).  Pass B's
+// two halves also run alone, for a product that needs the other axis's
+// whole spectrum (fft_propagate2d):
+//   kPassBF (R = n2): pass B's DFT over j2 only, X[k1 + n1 k2] stored at
+//          n2 k1 + k2;
+//   kPassBB (R = n2): pass B's second half, in the direction the caller
+//          gives (the direction back): the DFT over k2 of the elements at
+//          n2 k1 + k2, times the root w^(j2 k1) of that direction, stored
+//          in place.
+// Items run line-fastest, so a warp's threads take neighbouring lines.
+enum FftPass { kPassA, kPassB, kPassC, kPassBF, kPassBB };
+
+// Pass B and its halves take the n2 neighbours of one k1 as an item.
+__host__ __device__ constexpr bool pass_b(int pass) {
+  return pass == kPassB || pass == kPassBF || pass == kPassBB;
+}
 
 // One item of a pass: group g of line l (item it, line-fastest).
 template <int R, int kPass, bool kInv, int kH>
@@ -521,12 +536,12 @@ __device__ __forceinline__ void fft_item(const float2* __restrict__ src,
                                          const float2* __restrict__ he) {
   const int n = n1 * n2;
   // Element e of a group lies at pos0 + e * pos_step along the line.
-  const int pos_step = kPass == kPassB ? 1 : n2;
+  const int pos_step = pass_b(kPass) ? 1 : n2;
   const int g = it / lines;
   const int l = it - g * lines;
   const float2* s = src + l * s_ls;
   float2* d = dst + l * d_ls;
-  const int pos0 = kPass == kPassB ? n2 * g : g;
+  const int pos0 = pass_b(kPass) ? n2 * g : g;
   float2 x[R];
 #pragma unroll
   for (int j = 0; j < R; ++j) x[j] = s[(pos0 + j * pos_step) * s_es];
@@ -535,6 +550,7 @@ __device__ __forceinline__ void fft_item(const float2* __restrict__ src,
 #pragma unroll
     for (int k = 1; k < R; ++k) x[k] = cmul(x[k], root<kInv>(tw, g * k));
   } else if constexpr (kPass == kPassB) {
+    if constexpr (kH == 3) he += l * n;
 #pragma unroll
     for (int k = 0; k < R; ++k) {
       float2 hc = he[g + n1 * k];
@@ -544,6 +560,9 @@ __device__ __forceinline__ void fft_item(const float2* __restrict__ src,
     Dft<R, !kInv>::run(x, tw, n / R);
 #pragma unroll
     for (int j = 1; j < R; ++j) x[j] = cmul(x[j], root<!kInv>(tw, g * j));
+  } else if constexpr (kPass == kPassBB) {
+#pragma unroll
+    for (int j = 1; j < R; ++j) x[j] = cmul(x[j], root<kInv>(tw, g * j));
   }
 #pragma unroll
   for (int k = 0; k < R; ++k) d[(pos0 + k * pos_step) * d_es] = x[k];
@@ -560,7 +579,7 @@ __device__ __forceinline__ void fft_pass(const float2* src, float2* dst,
                                          int d_ls, int d_es, int n1, int n,
                                          const float2* tw, const float2* he) {
   const int n2 = n / n1;
-  const int items = lines * (kPass == kPassB ? n1 : n2);
+  const int items = lines * (pass_b(kPass) ? n1 : n2);
   const int total = kPair ? 2 * items : items;
 #define MSDB_FFT_PASS(R)                                                     \
   case R:                                                                    \
@@ -574,7 +593,7 @@ __device__ __forceinline__ void fft_pass(const float2* src, float2* dst,
       }                                                                      \
     }                                                                        \
     break;
-  switch (kPass == kPassB ? n2 : n1) {
+  switch (pass_b(kPass) ? n2 : n1) {
     MSDB_FFT_PASS(2)
     MSDB_FFT_PASS(3)
     MSDB_FFT_PASS(4)
@@ -620,6 +639,79 @@ __device__ __forceinline__ void fft_propagate(float2* w, float2* scr,
                                            f.x1, nx, f.twx, nullptr);
   fft_pass<kPassC, !kI, 0, kPair, !kI2, 0>(scr, w, scr2, w2, nx, 1, sp, 1, nx,
                                            f.y1, ny, f.twy, nullptr);
+}
+
+// -- The FFT step with a 2-D transfer function (the FFT route of K5) ---------
+//
+// K5's step applies any [ny, nx] transfer function H between the forward
+// and the inverse 2-D transform; the non-paraxial H is not separable, so
+// the product needs the whole 2-D spectrum and cannot sit inside each
+// axis's pass B as in fft_propagate.  The step runs pass B of the y axis in
+// its two halves around the x axis's three passes, 7 passes a step:
+//   y pass A; y pass B, forward half (kPassBF); x pass A; x pass B with
+//   the 2-D product (kH = 3); x pass C; y pass B, back half (kPassBB);
+//   y pass C.
+// Between the y halves, row l of the plane holds the y frequency ky = k1 +
+// n1 k2 of l = n2 k1 + k2 (pass B's storage order), so the step table
+// holds H / (ny nx) with its rows in that order (built by the wrapper,
+// cuda_multislice_fused.step_table): x pass B reads its line's row with
+// pass B's own indexing.  Two variants, with G = conj(F) / n of each axis:
+//   kStepP   w <- G_y G_x (H o (F_y w F_x))   (K5f)
+//   kStepPT  F_y F_x (H o (G_y w G_x))        (K5b: JAX's transpose, which
+//                                              takes H itself, not conj(H))
+// The 7 passes ping-pong from w to scr and back and end in scr: the step's
+// result is scr, in the plane's own layout (row stride nx), and w is
+// clobbered.  The y passes come first and last, as in fft_propagate, and
+// the ones between work on the odd row stride.  Ends with a barrier.
+
+// Fills the table at `tab` (ny + nx elements) with the n-th roots of unity
+// of both axes (the plan of fft_propagate2d, which has no step vectors).
+// The caller's next barrier publishes it.
+__device__ __forceinline__ FftPlan fft_plan2d(float2* tab, int ny, int nx) {
+  for (int e = threadIdx.x; e < ny + nx; e += blockDim.x) {
+    tab[e] = e < ny ? unit_root(e, ny) : unit_root(e - ny, nx);
+  }
+  FftPlan f;
+  f.hy = nullptr;
+  f.hx = nullptr;
+  f.twy = tab;
+  f.twx = tab + ny;
+  f.ny = ny;
+  f.nx = nx;
+  f.y1 = fft_radix(ny);
+  f.x1 = fft_radix(nx);
+  f.sp = fft_row_stride(nx);
+  return f;
+}
+
+template <int kStep>
+__device__ __forceinline__ void fft_propagate2d(float2* w, float2* scr,
+                                                const FftPlan& f,
+                                                const float2* h2) {
+  static_assert(kStep == kStepP || kStep == kStepPT,
+                "the 2-D step takes P or P^T");
+  constexpr bool kI = kStep == kStepPT;  // the direction of the first half
+  const int ny = f.ny, nx = f.nx, sp = f.sp;
+  fft_pass<kPassA, kI, 0, false, false, 0>(w, scr, nullptr, nullptr, nx, 1,
+                                           nx, 1, sp, f.y1, ny, f.twy,
+                                           nullptr);
+  fft_pass<kPassBF, kI, 0, false, false, 0>(scr, w, nullptr, nullptr, nx, 1,
+                                            sp, 1, sp, f.y1, ny, f.twy,
+                                            nullptr);
+  fft_pass<kPassA, kI, 0, false, false, 0>(w, scr, nullptr, nullptr, ny, sp,
+                                           1, sp, 1, f.x1, nx, f.twx,
+                                           nullptr);
+  fft_pass<kPassB, kI, 3, false, false, 0>(scr, w, nullptr, nullptr, ny, sp,
+                                           1, sp, 1, f.x1, nx, f.twx, h2);
+  fft_pass<kPassC, !kI, 0, false, false, 0>(w, scr, nullptr, nullptr, ny, sp,
+                                            1, sp, 1, f.x1, nx, f.twx,
+                                            nullptr);
+  fft_pass<kPassBB, !kI, 0, false, false, 0>(scr, w, nullptr, nullptr, nx, 1,
+                                             sp, 1, sp, f.y1, ny, f.twy,
+                                             nullptr);
+  fft_pass<kPassC, !kI, 0, false, false, 0>(w, scr, nullptr, nullptr, nx, 1,
+                                            sp, 1, nx, f.y1, ny, f.twy,
+                                            nullptr);
 }
 
 // The forward sweep of one (patch, mode) block: per step the modulation

@@ -18,6 +18,14 @@ transmission is the object's channels themselves, and the non-paraxial
 transfer function.  The kernels compute and record in f32 whatever the
 object's storage type.
 
+The kernels take each step by one of two routes, chosen from the shape
+alone (:func:`k5_route`), as K1 and K4 do: ``'fft'`` when both sides split
+as ``n1 * n2`` with ``2 <= n1 <= n2 <= 9`` (72 = 8 x 9), where each step
+is a 2-D FFT in shared memory with the transfer function applied from the
+step table of :func:`step_table`; ``'dense'`` otherwise, four DFT matmuls a
+step.  :func:`fft_step2d_plain` models the FFT route's step in PyTorch for
+the tests.
+
 :func:`multislice_fused` routes by device: CUDA tensors go through the
 kernels (an autograd Function whose backward is the second kernel), CPU
 tensors through :func:`multislice_fused_plain`, the same steps op by op with
@@ -28,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import torch
 
@@ -37,8 +46,11 @@ from .fourier import dft_matrix, fft2, ifft2
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p
-K5_FWD = Kernel('multislice_fused.cu', 'k5_fwd', [_P] * 7 + [_I] * 5)
-K5_BWD = Kernel('multislice_fused.cu', 'k5_bwd', [_P] * 8 + [_I] * 5)
+K5_FWD = Kernel('multislice_fused.cu', 'k5_fwd', [_I] + [_P] * 7 + [_I] * 5)
+K5_BWD = Kernel('multislice_fused.cu', 'k5_bwd', [_I] + [_P] * 8 + [_I] * 5)
+#: K5 launches (forward and backward) by step route, counted beside
+#: ``K5_FWD.launches`` and ``K5_BWD.launches``.
+K5_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0}
 
 
 def multislice_fused_plain(t, wave, kernel):
@@ -50,11 +62,90 @@ def multislice_fused_plain(t, wave, kernel):
     return w * t[-1]
 
 
-def smem_bytes(n_modes, ny, nx):
-    """Dynamic shared memory of one kernel block: the M waves, one scratch
-    plane and the DFT matrices (one when ny == nx), complex64."""
-    return 8 * ((n_modes + 1) * ny * nx + ny * ny
-                + (0 if nx == ny else nx * nx))
+def smem_bytes(n_modes, ny, nx, route='dense', backward=False):
+    """Dynamic shared memory of one kernel block, complex64.  Dense route:
+    one block per patch holds the M waves, one scratch plane and the DFT
+    matrices (one when ny == nx).  FFT route: one block per (patch, mode)
+    holds the plane and its scratch plane with rows padded to an odd
+    length, the staged t plane (and in the backward the staged record
+    plane), both axes' roots of unity and, where the block still fits, the
+    step table; else the table is read through L2
+    (``multislice_fused.cu``, ``fft2d_smem_bytes``)."""
+    if route == 'dense':
+        return 8 * ((n_modes + 1) * ny * nx + ny * ny
+                    + (0 if nx == ny else nx * nx))
+    planes = 2 * ny * (nx | 1) + (2 if backward else 1) * ny * nx + ny + nx
+    with_table = 8 * (planes + ny * nx)
+    return with_table if with_table <= _cm.MAX_SMEM_BYTES else 8 * planes
+
+
+def k5_route(ny, nx):
+    """K5's route for ``ny x nx`` planes: ``'fft'`` when both sides take
+    the radix split (:func:`.cuda_multislice.fft_radix`) and the backward's
+    block fits in shared memory (with the step table through L2 if need
+    be), else ``'dense'``.  The number of modes does not enter: the FFT
+    route runs one block per mode."""
+    if (_cm.fft_radix(ny) and _cm.fft_radix(nx)
+            and smem_bytes(1, ny, nx, 'fft', backward=True)
+            <= _cm.MAX_SMEM_BYTES):
+        return 'fft'
+    return 'dense'
+
+
+def _stage_order(n):
+    """The frequency of each position along an axis after pass B's forward
+    half: position ``n2 k1 + k2`` holds ``k1 + n1 k2``."""
+    n1 = _cm.fft_radix(n)
+    n2 = n // n1
+    pos = torch.arange(n)
+    return pos // n2 + n1 * (pos % n2)
+
+
+#: The step tables built so far, by the transfer function tensor's id:
+#: (a weak reference to it, its version counter, the table).
+_tables = {}
+
+
+def step_table(kernel):
+    """The FFT route's step table of the transfer function ``kernel[ny,
+    nx]``: ``H / (ny nx)`` in complex64 on its device, row ``n2 k1 + k2``
+    holding the y frequency ``k1 + n1 k2`` (the order in which the y axis's
+    forward half leaves the rows), so the x pass reads its row with the
+    natural x frequencies.  Built once for each transfer-function tensor
+    (rebuilt if it is modified in place): the propagator keeps one tensor
+    per geometry, so the table is not rebuilt per chunk."""
+    hit = _tables.get(id(kernel))
+    if (hit is not None and hit[0]() is kernel
+            and hit[1] == kernel._version):
+        return hit[2]
+    h = kernel.to(torch.complex64)
+    ny, nx = h.shape
+    table = (h[_stage_order(ny).to(h.device)] / (ny * nx)).contiguous()
+    if len(_tables) >= 16:
+        _tables.clear()
+    _tables[id(kernel)] = (weakref.ref(kernel), kernel._version, table)
+    return table
+
+
+def fft_step2d_plain(w, table, step='P'):
+    """The FFT route's 2-D step on planes ``[..., ny, nx]``, op by op in
+    the kernels' stages (:func:`.cuda_multislice.fft_stages_plain` and
+    :func:`.cuda_multislice.fft_stages_back_plain`): the y transform, the x
+    transform, the product with the step table (put back in natural order),
+    the x transform back and the y transform back.  ``step``: ``'P'``
+    (forward: FFTs, H / (ny nx), inverse FFTs) or ``'PT'`` (``P^T``: inverse
+    FFTs, the same H / (ny nx), FFTs; JAX's transpose takes H itself)."""
+    ny, nx = w.shape[-2:]
+    ry, rx = _cm.fft_radix(ny), _cm.fft_radix(nx)
+    first_inverse = step == 'PT'
+    h = torch.empty_like(table)
+    h[_stage_order(ny).to(table.device)] = table
+    x = _cm.fft_stages_plain(w.transpose(-1, -2), ry, ny // ry,
+                             first_inverse).transpose(-1, -2)
+    x = _cm.fft_stages_plain(x, rx, nx // rx, first_inverse) * h
+    x = _cm.fft_stages_back_plain(x, rx, nx // rx, not first_inverse)
+    return _cm.fft_stages_back_plain(x.transpose(-1, -2), ry, ny // ry,
+                                     not first_inverse).transpose(-1, -2)
 
 
 @functools.lru_cache(maxsize=16)
@@ -66,39 +157,60 @@ def _dft_mats(ny, nx, device):
     return fy, fx
 
 
+def step_mats(kernel, route):
+    """The step operands the kernels take on ``route``: on ``'fft'`` the
+    step table (:func:`step_table`); on ``'dense'`` the DFT matrices and
+    the transfer function itself."""
+    if route == 'fft':
+        return {'route': 'fft', 'fy': None, 'fx': None,
+                'h': step_table(kernel)}
+    ny, nx = kernel.shape
+    fy, fx = _dft_mats(ny, nx, kernel.device)
+    return {'route': 'dense', 'fy': fy, 'fx': fx,
+            'h': kernel.contiguous()}
+
+
 class MultisliceFused(torch.autograd.Function):
     """The CUDA kernel pair as one autograd Function.  Takes contiguous
-    complex64 CUDA operands and the DFT matrices of :func:`_dft_mats`
-    (see :func:`multislice_fused`)."""
+    complex64 CUDA operands and the step operands of :func:`step_mats` for
+    ``mats['route']`` (see :func:`multislice_fused`)."""
 
     @staticmethod
-    def forward(ctx, t, wave, kernel, fy, fx):
+    def forward(ctx, t, wave, mats):
         n_steps, n, ny, nx = t.shape
         m = wave.shape[0]
         out = torch.empty((m, n, ny, nx), dtype=torch.complex64,
                           device=t.device)
         rec = torch.empty((n_steps, m, n, ny, nx), dtype=torch.complex64,
                           device=t.device)
-        K5_FWD(ptr(t), ptr(wave), ptr(fy), ptr(fx), ptr(kernel), ptr(out),
-               ptr(rec), n_steps, m, n, ny, nx)
-        ctx.save_for_backward(t, rec, kernel, fy, fx)
+        route = mats['route']
+        K5_FWD(_cm.STEP_ROUTES[route], ptr(t), ptr(wave), ptr(mats['fy']),
+               ptr(mats['fx']), ptr(mats['h']), ptr(out), ptr(rec), n_steps,
+               m, n, ny, nx)
+        K5_ROUTE_LAUNCHES[route] += 1
+        ctx.save_for_backward(t, rec)
+        ctx.mats = mats
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        t, rec, kernel, fy, fx = ctx.saved_tensors
+        t, rec = ctx.saved_tensors
+        mats = ctx.mats
         n_steps, n, ny, nx = t.shape
         m = rec.shape[1]
         g = grad_out.resolve_conj().contiguous()
         gt = torch.empty_like(t)
         gw = torch.empty((m, n, ny, nx), dtype=torch.complex64,
                          device=t.device)
-        K5_BWD(ptr(t), ptr(rec), ptr(g), ptr(fy), ptr(fx), ptr(kernel),
-               ptr(gt), ptr(gw), n_steps, m, n, ny, nx)
-        return gt, gw, None, None, None
+        route = mats['route']
+        K5_BWD(_cm.STEP_ROUTES[route], ptr(t), ptr(rec), ptr(g),
+               ptr(mats['fy']), ptr(mats['fx']), ptr(mats['h']), ptr(gt),
+               ptr(gw), n_steps, m, n, ny, nx)
+        K5_ROUTE_LAUNCHES[route] += 1
+        return gt, gw, None
 
 
-def _check_cuda_operands(t, wave, kernel):
+def _check_cuda_operands(t, wave, kernel, route):
     if t.dim() != 4:
         raise ValueError(f't must be [S, N, ny, nx], got {tuple(t.shape)}')
     _, n, ny, nx = t.shape
@@ -113,11 +225,16 @@ def _check_cuda_operands(t, wave, kernel):
     if tuple(kernel.shape) != (ny, nx):
         raise ValueError(f'kernel must be [{ny}, {nx}], '
                          f'got {tuple(kernel.shape)}')
-    need = smem_bytes(wave.shape[0], ny, nx)
+    m = wave.shape[0]
+    if route == 'fft' and m > _cm.MAX_MODES:
+        raise ValueError(f'the fused multislice kernels take at most '
+                         f'{_cm.MAX_MODES} probe modes (one cluster block '
+                         f'each), got {m}')
+    need = smem_bytes(m, ny, nx, route, backward=True)
     if need > _cm.MAX_SMEM_BYTES:
         raise ValueError(
             f'fused multislice kernel needs {need} bytes of shared memory '
-            f'for {wave.shape[0]} modes at {ny}x{nx}; the limit is '
+            f'for {m} modes at {ny}x{nx}; the limit is '
             f'{_cm.MAX_SMEM_BYTES}')
 
 
@@ -125,20 +242,21 @@ def multislice_fused(t, wave, kernel):
     """Exit wave ``[M, N, ny, nx]`` complex64 of the multislice through
     the slice transmissions ``t[S, N, ny, nx]``; differentiable in ``t``
     and ``wave`` (not in ``kernel``: it is geometry).  CUDA tensors run the
-    kernels; CPU tensors the plain version."""
+    kernels, on the route :func:`k5_route` picks for the shape; CPU
+    tensors the plain version."""
     if not t.is_cuda:
         return multislice_fused_plain(t, wave, kernel)
-    _check_cuda_operands(t, wave, kernel)
-    _, _, ny, nx = t.shape
-    fy, fx = _dft_mats(ny, nx, t.device)
+    route = k5_route(*t.shape[-2:])
+    _check_cuda_operands(t, wave, kernel, route)
     return MultisliceFused.apply(t.contiguous(), wave.contiguous(),
-                                 kernel.contiguous(), fy, fx)
+                                 step_mats(kernel, route))
 
 
 def flops(n_steps, n_modes, n, ny, nx, backward=False):
     """Least real floating-point operations of one sweep, the transforms
-    counted as FFTs (:func:`.cuda_multislice.flops` without a far field).
-    The kernels' DFT matmuls do about 13 times as many at 72x72."""
+    counted as FFTs (:func:`.cuda_multislice.flops` without a far field),
+    whichever route runs: the dense route's DFT matmuls do about 13 times
+    as many at 72x72."""
     return _cm.flops(n_steps, n_modes, n, ny, nx, final=False,
                      backward=backward)
 

@@ -66,6 +66,17 @@ def fresnel_kernel(shape, voxel_nm, lmbda_nm, dist_nm, fresnel_approx=True,
     return torch.polar(mask, phase)
 
 
+@functools.lru_cache(maxsize=16)
+def _step_kernel(shape, voxel_nm, lmbda_nm, dist_nm, fresnel_approx,
+                 sign_convention, device):
+    """The multislice step's transfer function, one tensor per geometry and
+    device: the kernels' step operands built from it (K5's step table) are
+    then built once, not per chunk.  Read only."""
+    return fresnel_kernel(shape, voxel_nm, lmbda_nm, dist_nm,
+                          fresnel_approx=fresnel_approx,
+                          sign_convention=sign_convention, device=device)
+
+
 def fresnel_propagate(wave, dist_nm, lmbda_nm, voxel_nm, fresnel_approx=True,
                       sign_convention=1):
     """Propagate a (batched) wave by ``dist_nm`` with the TF method."""
@@ -208,6 +219,98 @@ def _bin_slices(arr, binning, unknown_type):
     return arr.prod(1)
 
 
+class BinRealImag(torch.autograd.Function):
+    """The real_imag transmissions of packed patches, binned in z in one
+    pass: ``stack[N, py, px, nz, 2]`` (f32 or bf16; channel 0 the real
+    part, 1 the imaginary part) to ``t[S, N, py, px]`` complex64 with ``S =
+    ceil(nz / binning)``.  Each channel is multiplied over each bin of
+    ``binning`` slices on its own, the short tail bin over the slices it
+    has (the reference pads it with 1): the JAX package's ``_pad_z_to_multiple``
+    and ``_bin_slices`` of both channels, then ``delta + i beta``.  The
+    products are taken in f32 whatever the storage type.
+
+    The backward writes the packed gradient in one pass over the stack,
+    each slice's the incoming gradient times the exact product of its
+    bin's other slices, in f32 (:func:`_bin_product_grad`): no division,
+    so zeros need no count, and no scan.  Its temporaries, by chunks of
+    patches, hold three eighths of the stack's elements; nothing of it selects
+    channels or holds per-channel copies of the stack."""
+
+    @staticmethod
+    def forward(ctx, stack, binning):
+        stack = stack.contiguous()
+        ctx.save_for_backward(stack)
+        ctx.binning = binning
+        n, py, px, nz, _ = stack.shape
+        full = nz // binning * binning
+        parts = []
+        if full:
+            parts.append(stack[..., :full, :].reshape(
+                n, py, px, full // binning, binning, 2).prod(
+                    4, dtype=torch.float32))
+        if full < nz:
+            parts.append(stack[..., full:, :].prod(3, keepdim=True,
+                                                   dtype=torch.float32))
+        t = parts[0] if len(parts) == 1 else torch.cat(parts, 3)
+        return torch.view_as_complex(t.permute(3, 0, 1, 2, 4).contiguous())
+
+    @staticmethod
+    def backward(ctx, grad_t):
+        (stack,) = ctx.saved_tensors
+        binning = ctx.binning
+        nz = stack.shape[3]
+        full = nz // binning * binning
+        # d t / d re is the real part of PyTorch's gradient, d t / d im the
+        # imaginary part: [N, py, px, S, 2], patch-major like the stack.
+        g = torch.view_as_real(grad_t.resolve_conj()).permute(
+            1, 2, 3, 0, 4).contiguous()
+        grad = torch.empty_like(stack)
+        groups = [(slice(0, full), slice(0, full // binning), binning),
+                  (slice(full, nz), slice(full // binning, None), nz - full)]
+        for zs, bins, size in groups:
+            if zs.stop > zs.start:
+                _bin_product_grad(stack[..., zs, :], g[..., bins, :],
+                                  grad[..., zs, :], size)
+        return grad, None
+
+
+#: Patch chunks of the binning's backward: its temporaries are this
+#: fraction of the stack.
+_BIN_CHUNKS = 8
+
+
+def _bin_product_grad(x, g, grad, size):
+    """Writes ``grad[N, py, px, bins * size, 2]``: at each slice, ``g[N,
+    py, px, bins, 2]`` of its bin times the product of the bin's other
+    slices, in f32.  By chunks of patches, each bin is doubled, so that
+    the ``size - 1`` slices after slice k, cyclically, are the bin without
+    k: one product over those windows, read whole bins at a time."""
+    n, py, px = x.shape[:3]
+    bins = g.shape[3]
+    step = -(-n // _BIN_CHUNKS)
+    for c0 in range(0, n, step):
+        c = slice(c0, c0 + step)
+        gc = g[c].unsqueeze(4)
+        out = grad[c].view(-1, py, px, bins, size, 2)
+        if size == 1:
+            out.copy_(gc)
+            continue
+        xc = x[c].reshape(-1, py, px, bins, size, 2)
+        y = torch.cat([xc, xc], 4)
+        st = y.stride()
+        others = y.as_strided(y.shape[:4] + (size, size - 1, 2),
+                              st[:4] + (st[4], st[4], st[5]),
+                              y.storage_offset() + st[4])
+        torch.mul(others.prod(5, dtype=torch.float32), gc, out=out)
+
+
+def bin_real_imag(stack, binning):
+    """``t[S, N, py, px]`` complex64 from the packed real_imag patches
+    ``stack[N, py, px, nz, 2]``, each channel multiplied over bins of
+    ``binning`` slices (:class:`BinRealImag`)."""
+    return BinRealImag.apply(stack, int(binning))
+
+
 def multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
                          slice_spacing_cm=None, binning=1,
                          unknown_type='delta_beta', fresnel_approx=True,
@@ -225,7 +328,9 @@ def multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
     propagation, folded into the kernel's last step where it is a
     separable matrix pair.  ``db_stack`` ``[..., y, x, nz, 2]`` or
     ``db_zmajor`` ``[nz, 2, ..., y, x]``: the packed channels the kernel
-    consumes.  ``prebinned``: the z axis is already bin-summed.  See
+    consumes; a real_imag ``db_stack`` is binned from the packed layout in
+    one pass (:func:`bin_real_imag`).  ``prebinned``: the z axis is already
+    bin-summed.  See
     ``adorym_tpu.ops.propagate.multislice_propagate`` for the full
     contract.
     """
@@ -249,16 +354,23 @@ def multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
             normalize_fft=final_prop.get('normalize_fft', False),
             fresnel_approx=fresnel_approx)
 
-    delta_z = torch.movedim(delta, -1, 0)
-    beta_z = torch.movedim(beta, -1, 0)
-    if not prebinned:
-        delta_z = _bin_slices(_pad_z_to_multiple(delta_z, binning,
-                                                 unknown_type),
-                              binning, unknown_type)
-        beta_z = _bin_slices(_pad_z_to_multiple(beta_z, binning,
-                                                unknown_type),
-                             binning, unknown_type)
-    n_steps = delta_z.shape[0]
+    t_all = None
+    if unknown_type == 'real_imag' and db_stack is not None and not prebinned:
+        # The packed patches to the binned transmissions in one pass: no
+        # channel selects or per-channel products for autograd to undo.
+        t_all = bin_real_imag(db_stack, binning)
+        n_steps, z_dims = t_all.shape[0], t_all.dim()
+    else:
+        delta_z = torch.movedim(delta, -1, 0)
+        beta_z = torch.movedim(beta, -1, 0)
+        if not prebinned:
+            delta_z = _bin_slices(_pad_z_to_multiple(delta_z, binning,
+                                                     unknown_type),
+                                  binning, unknown_type)
+            beta_z = _bin_slices(_pad_z_to_multiple(beta_z, binning,
+                                                    unknown_type),
+                                 binning, unknown_type)
+        n_steps, z_dims = delta_z.shape[0], delta_z.dim()
 
     db_z = None
     if unknown_type == 'delta_beta':
@@ -271,14 +383,12 @@ def multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
                                                   unknown_type),
                                binning, unknown_type)
 
-    kernel = fresnel_kernel(wave.shape[-2:], voxel_nm, lmbda_nm,
-                            delta_nm * binning,
-                            fresnel_approx=fresnel_approx,
-                            sign_convention=sign_convention,
-                            device=wave.device)
+    kernel = _step_kernel(tuple(int(v) for v in wave.shape[-2:]), voxel_nm,
+                          lmbda_nm, delta_nm * binning, fresnel_approx,
+                          sign_convention, wave.device)
     if fused == 'auto':
         fused = wave.is_cuda
-    fused = fused and wave.dim() == 4 and delta_z.dim() == 4
+    fused = fused and wave.dim() == 4 and z_dims == 4
 
     if (fused and n_steps > 1 and unknown_type == 'delta_beta'
             and fresnel_approx):
@@ -314,7 +424,8 @@ def multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
                                                  mod_sign, *f_mats[:2])
         return out if folded else to_det(out)
 
-    t_all = slice_modulator(delta_z, beta_z, k1, unknown_type, mod_sign)
+    if t_all is None:
+        t_all = slice_modulator(delta_z, beta_z, k1, unknown_type, mod_sign)
     if fused and n_steps > 1:
         # real_imag, or a transfer function that is not separable: the
         # general fused kernel, with the detector propagation after it.

@@ -385,34 +385,82 @@ def _fused_inputs(S, M, N, ny, nx, which, dev, seed=0):
     return t, wave, h, g
 
 
-# f32 both sides: the kernel's DFT matmuls against cuFFT over up to 4
-# steps of 16..72-point transforms; 1e-4 of the largest value.
+#: The route K5 takes at each shape of its card test: the FFT route where
+#: both sides split as n1 n2 with 2 <= n1 <= n2 <= 9 (the real_imag
+#: flagship's 72 = 8 x 9; at 81^2 the backward reads its step table through
+#: L2), the dense route elsewhere.
+K5_ROUTE = {(16, 16): 'fft', (12, 20): 'fft', (8, 8): 'fft', (72, 72): 'fft',
+            (81, 81): 'fft', (13, 17): 'dense'}
+
+
+def _fused_run(fn, t, wave, h, g):
+    tt = t.detach().requires_grad_()
+    ww = wave.detach().requires_grad_()
+    out = fn(tt, ww, h)
+    return (out.detach(),) + torch.autograd.grad(out, (tt, ww), g)
+
+
+# f32 both sides: the kernel's transforms (FFT route) or DFT matmuls
+# (dense route) against cuFFT over up to 4 steps of 8..81-point
+# transforms; 1e-4 of the largest value.
 @pytest.mark.parametrize('which', ['paraxial', 'non_paraxial'])
-@pytest.mark.parametrize('M', [1, 2])
+@pytest.mark.parametrize('M', [1, 2, 3])
 @pytest.mark.parametrize('shape', [(4, 5, 16, 16), (3, 7, 12, 20),
-                                   (1, 3, 8, 8)])
+                                   (1, 3, 8, 8), (3, 4, 72, 72),
+                                   (2, 3, 81, 81), (3, 4, 13, 17)])
 def test_fused_kernel_matches_plain(cuda, which, M, shape):
     """Forward and both gradients (t is complex: its gradient is
-    conjugated on store) against autograd through the plain version."""
+    conjugated on store) against autograd through the plain version, on
+    the route the shape takes; from two modes on, the FFT route's backward
+    blocks of a patch form a cluster and sum gt in shared memory."""
     S, N, ny, nx = shape
+    route = K5_ROUTE[(ny, nx)]
+    assert cmf.k5_route(ny, nx) == route
     t, wave, h, g = _fused_inputs(S, M, N, ny, nx, which, cuda)
-
-    def run(fn):
-        tt = t.detach().requires_grad_()
-        ww = wave.detach().requires_grad_()
-        out = fn(tt, ww, h)
-        return (out.detach(),) + torch.autograd.grad(out, (tt, ww), g)
-
     f0, b0 = cmf.K5_FWD.launches, cmf.K5_BWD.launches
-    got = run(cmf.multislice_fused)
+    r0 = dict(cmf.K5_ROUTE_LAUNCHES)
+    got = _fused_run(cmf.multislice_fused, t, wave, h, g)
     assert (cmf.K5_FWD.launches - f0, cmf.K5_BWD.launches - b0) == (1, 1)
-    ref = run(cmf.multislice_fused_plain)
+    assert {r: cmf.K5_ROUTE_LAUNCHES[r] - r0[r] for r in r0} == {
+        r: 2 if r == route else 0 for r in r0}
+    ref = _fused_run(cmf.multislice_fused_plain, t, wave, h, g)
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert _rel(a, b) < 1e-4
 
 
-def test_fused_rejects_too_many_modes(cuda):
-    t, wave, h, _ = _fused_inputs(2, 4, 2, 72, 72, 'paraxial', cuda)
-    with pytest.raises(ValueError, match='shared memory'):
+@pytest.mark.parametrize('M', [1, 3])
+def test_fused_dense_route_matches_plain(cuda, M):
+    """K5's dense route, forced at 72^2 where the shape takes the FFT
+    route, with the non-paraxial transfer function."""
+    t, wave, h, g = _fused_inputs(3, M, 4, 72, 72, 'non_paraxial', cuda)
+    mats = cmf.step_mats(h, 'dense')
+    r0 = dict(cmf.K5_ROUTE_LAUNCHES)
+    got = _fused_run(lambda tt, ww, _: cmf.MultisliceFused.apply(tt, ww, mats),
+                     t, wave, h, g)
+    assert {r: cmf.K5_ROUTE_LAUNCHES[r] - r0[r] for r in r0} == {
+        'dense': 2, 'fft': 0}
+    ref = _fused_run(cmf.multislice_fused_plain, t, wave, h, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert _rel(a, b) < 1e-4
+
+
+@pytest.mark.parametrize('M,side,match', [(4, 70, 'shared memory'),
+                                          (9, 72, 'probe modes')])
+def test_fused_rejects_too_many_modes(cuda, M, side, match):
+    """The dense route holds a patch's M waves in one block: 4 modes at
+    70^2 (which does not split) pass its shared memory.  The FFT route
+    runs one block per mode and sums the modes across a cluster: 9 modes
+    pass a portable cluster."""
+    t, wave, h, _ = _fused_inputs(2, M, 2, side, side, 'paraxial', cuda)
+    with pytest.raises(ValueError, match=match):
         cmf.multislice_fused(t, wave, h)
+
+
+def test_fused_fft_route_needs_the_split(cuda):
+    """13 and 17 are prime: K5's entry point refuses the FFT route there."""
+    t, wave, h, _ = _fused_inputs(2, 1, 1, 13, 17, 'paraxial', cuda)
+    mats = {'route': 'fft', 'fy': None, 'fx': None, 'h': h}
+    with pytest.raises(RuntimeError, match='k5_fwd launch failed'):
+        cmf.MultisliceFused.apply(t, wave, mats)

@@ -3,7 +3,7 @@ multislice_db.cu``) and K1 (``multislice_db_stored.cu``) on their FFT and
 dense step routes, for one or more copies of the kernel sources, on one
 CUDA card.
 
-    python tools/ab_k4_routes.py [CSRC_DIR ...] [--sass k1|k4 PARENT_CSRC]
+    python tools/ab_k4_routes.py [CSRC_DIR ...] [--sass k1,k4 PARENT_CSRC]
                                  [--kernels k4,k1]
 
 Each ``CSRC_DIR`` holds a copy of ``adorym_tpu_torch/csrc`` (default: the
@@ -19,9 +19,10 @@ reversed), f32 with the Fraunhofer far field:
       SMs and one block more), and at M=3 (the binned multi-mode chunk).
 
 Every version's FFT-route outputs are held against the first version's
-dense route.  With ``--sass``, the SASS of the named kernel's source built
+dense route.  With ``--sass``, the SASS of each named kernel's source built
 from the checkout is compared, function by function, with the one built
-from ``PARENT_CSRC``.  Prints the card's name and power limit first.
+from ``PARENT_CSRC``; ``--kernels ''`` then skips the timing.  Prints the
+card's name and power limit first.
 """
 
 import argparse
@@ -238,7 +239,7 @@ def run_case(libs, dirs, kernel, S, M, N, reps):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('dirs', nargs='*', default=[str(cuda_build.CSRC)])
-    ap.add_argument('--sass', nargs=2, metavar=('KERNEL', 'PARENT_CSRC'),
+    ap.add_argument('--sass', nargs=2, metavar=('KERNELS', 'PARENT_CSRC'),
                     default=None)
     ap.add_argument('--kernels', default='k4,k1')
     args = ap.parse_args()
@@ -248,10 +249,11 @@ def main():
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
-    kernels = args.kernels.split(',')
+    kernels = [k for k in args.kernels.split(',') if k]
     libs = build(args.dirs, kernels)
     if args.sass:
-        compare_sass(*args.sass)
+        for kernel in args.sass[0].split(','):
+            compare_sass(kernel, args.sass[1])
     for k in kernels:
         for case in CASES[k]:
             run_case(libs, args.dirs, *case)
