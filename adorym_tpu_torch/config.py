@@ -140,18 +140,22 @@ class TrainConfig:
     # kernel's last step: 'auto' | 'off'.
     fuse_farfield: str = 'auto'
     # Patch-granular gradient accumulation for scan tables that are not
-    # constant-stride grids (not ported: ROADMAP A.4).
+    # constant-stride grids (not ported: ROADMAP A, the rest of the
+    # per-angle path).
     patch_grad: bool = False
     # Bin the rotated object in z once per angle and move patches at
     # binned depth: 'auto' | 'off'.
     prebin_z: str = 'auto'
     # Streaming rotation for objects too large for the bulk rotate
-    # (not ported: ROADMAP A.6): 'auto' | 'on' | 'off'.
+    # (not ported: ROADMAP A, the rest of the per-angle path): 'auto' |
+    # 'on' | 'off'.
     stream_rotation: str = 'auto'
     # Gradient rotate-back: False interpolates at -theta like the
-    # reference; True is the exact transpose (not ported: ROADMAP A.6).
+    # reference; True is the exact transpose (not ported: ROADMAP A, the
+    # rest of the per-angle path).
     exact_grad_rotation: bool = False
-    # Immediate-scheme band rotate-back (ROADMAP A.10): 'exact' | 'interp'.
+    # Immediate-scheme band rotate-back (ROADMAP A, the immediate scheme):
+    # 'exact' | 'interp'.
     imm_grad_rotation: str = 'exact'
     # Extract patches z-major, born in the multislice kernel's
     # [zb, 2, N, py, px] layout: 'auto' (on for CUDA) | 'on' | 'off'.
@@ -163,7 +167,7 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Device layout (multi-GPU is ROADMAP A.13)."""
+    """Device layout (multi-GPU is ROADMAP A, multi-GPU and out-of-core)."""
     data_axis: int = 1
     object_axis: int = 1
     axis_names: Tuple[str, str] = ('dp', 'op')

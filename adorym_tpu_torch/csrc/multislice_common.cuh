@@ -508,7 +508,9 @@ struct Dft<9, kInv> {
 //          of a 2-D table); the DFT back over k2, times the root of the
 //          other direction w^-(j2 k1), stored in place;
 //   kPassC (R = n1): for each j2, the DFT back over k1 of the elements at
-//          n2 k1 + j2, stored in natural order at n2 j1 + j2.
+//          n2 k1 + j2, stored in natural order at n2 j1 + j2 (kH = 4: times
+//          1/n, rounded to f32 once, the axis's share of the 2-D step's
+//          1/(ny nx)).
 // The caller gives pass C the direction back (!kInv of A and B).  Pass B's
 // two halves also run alone, for a product that needs the other axis's
 // whole spectrum (fft_propagate2d):
@@ -563,6 +565,13 @@ __device__ __forceinline__ void fft_item(const float2* __restrict__ src,
   } else if constexpr (kPass == kPassBB) {
 #pragma unroll
     for (int j = 1; j < R; ++j) x[j] = cmul(x[j], root<kInv>(tw, g * j));
+  } else if constexpr (kPass == kPassC && kH == 4) {
+    const float inv_n = __frcp_rn((float)n);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      x[k].x *= inv_n;
+      x[k].y *= inv_n;
+    }
   }
 #pragma unroll
   for (int k = 0; k < R; ++k) d[(pos0 + k * pos_step) * d_es] = x[k];
@@ -653,9 +662,13 @@ __device__ __forceinline__ void fft_propagate(float2* w, float2* scr,
 //   y pass C.
 // Between the y halves, row l of the plane holds the y frequency ky = k1 +
 // n1 k2 of l = n2 k1 + k2 (pass B's storage order), so the step table
-// holds H / (ny nx) with its rows in that order (built by the wrapper,
+// holds H with its rows in that order (built by the wrapper,
 // cuda_multislice_fused.step_table): x pass B reads its line's row with
-// pass B's own indexing.  Two variants, with G = conj(F) / n of each axis:
+// pass B's own indexing.  Each axis's pass C takes its 1/n (kH = 4): so
+// taken, rather than rounded into the table as H / (ny nx), the step's
+// gain bias, which adds up over the steps, is smaller, and a sweep lands
+// nearer a complex128 one (ROADMAP C.2).  Two variants, with G = conj(F)
+// / n of each axis:
 //   kStepP   w <- G_y G_x (H o (F_y w F_x))   (K5f)
 //   kStepPT  F_y F_x (H o (G_y w G_x))        (K5b: JAX's transpose, which
 //                                              takes H itself, not conj(H))
@@ -703,13 +716,13 @@ __device__ __forceinline__ void fft_propagate2d(float2* w, float2* scr,
                                            nullptr);
   fft_pass<kPassB, kI, 3, false, false, 0>(scr, w, nullptr, nullptr, ny, sp,
                                            1, sp, 1, f.x1, nx, f.twx, h2);
-  fft_pass<kPassC, !kI, 0, false, false, 0>(w, scr, nullptr, nullptr, ny, sp,
+  fft_pass<kPassC, !kI, 4, false, false, 0>(w, scr, nullptr, nullptr, ny, sp,
                                             1, sp, 1, f.x1, nx, f.twx,
                                             nullptr);
   fft_pass<kPassBB, !kI, 0, false, false, 0>(scr, w, nullptr, nullptr, nx, 1,
                                              sp, 1, sp, f.y1, ny, f.twy,
                                              nullptr);
-  fft_pass<kPassC, !kI, 0, false, false, 0>(w, scr, nullptr, nullptr, nx, 1,
+  fft_pass<kPassC, !kI, 4, false, false, 0>(w, scr, nullptr, nullptr, nx, 1,
                                             sp, 1, nx, f.y1, ny, f.twy,
                                             nullptr);
 }

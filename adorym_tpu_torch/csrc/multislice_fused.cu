@@ -36,8 +36,8 @@
 //         8 x 9): one block per (batch item, probe mode), blockIdx.x = n M
 //         + m, as K1 and K4 (multislice_common.cuh).  Each step is
 //         msdb::fft_propagate2d, 7 passes of two-stage transforms in shared
-//         memory at the FFT count of work, with the step table (H / (ny nx),
-//         rows in the y axis's stage order, built once by the wrapper) in
+//         memory at the FFT count of work, with the step table (H, rows
+//         in the y axis's stage order, built once by the wrapper) in
 //         shared memory, or read through L2 where it does not fit beside
 //         the block's planes.  The next step's t plane (and in the backward
 //         its record plane) is copied into shared memory with cp.async while

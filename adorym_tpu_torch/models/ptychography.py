@@ -31,19 +31,22 @@ def select_probe(params, batch):
 
 def prepare_probe(params: Dict, batch: Dict, cfg: ReconConfig):
     """The complex probe ``[n_modes, py, px]``; probe defocus and position
-    offset refinement are ROADMAP A.11."""
+    offset refinement are ROADMAP A, remaining model families and
+    refinables."""
     if (cfg.refine.optimize_probe_defocusing
             or cfg.refine.optimize_probe_pos_offset):
         raise NotImplementedError('probe defocus / position-offset '
-                                  'refinement: ROADMAP A.11')
+                                  'refinement: ROADMAP A, remaining model '
+                                  'families and refinables')
     return complex_probe(select_probe(params, batch))
 
 
 def shifted_probes(probe, params: Dict, batch: Dict, cfg: ReconConfig):
     """The shared probe for every spot (per-spot position correction is
-    ROADMAP A.11)."""
+    ROADMAP A, remaining model families and refinables)."""
     if cfg.refine.optimize_all_probe_pos:
-        raise NotImplementedError('probe position refinement: ROADMAP A.11')
+        raise NotImplementedError('probe position refinement: ROADMAP A, '
+                                  'remaining model families and refinables')
     return probe
 
 
@@ -57,11 +60,13 @@ def predict_from_patches(params: Dict, batch: Dict, subobj, cfg: ReconConfig,
     geo = cfg.geometry
     if geo.pure_projection or geo.slice_pos_cm_ls is not None:
         raise NotImplementedError('pure-projection and sparse forward '
-                                  'models: ROADMAP A.11')
+                                  'models: ROADMAP A, remaining model '
+                                  'families and refinables')
     if (cfg.refine.optimize_ctf_lg_kappa or cfg.refine.optimize_prj_pos_offset
             or cfg.refine.optimize_free_prop):
         raise NotImplementedError('kappa, projection-offset and '
-                                  'free-propagation refinement: ROADMAP A.11')
+                                  'free-propagation refinement: ROADMAP A, '
+                                  'remaining model families and refinables')
     probe = shifted_probes(prepare_probe(params, batch, cfg), params, batch,
                            cfg)
     if cfg.train.run_bfloat16:

@@ -38,6 +38,7 @@ import ctypes
 import functools
 import weakref
 
+import numpy as np
 import torch
 
 from ..utils.cuda_build import Kernel, ptr
@@ -108,10 +109,12 @@ _tables = {}
 
 def step_table(kernel):
     """The FFT route's step table of the transfer function ``kernel[ny,
-    nx]``: ``H / (ny nx)`` in complex64 on its device, row ``n2 k1 + k2``
-    holding the y frequency ``k1 + n1 k2`` (the order in which the y axis's
-    forward half leaves the rows), so the x pass reads its row with the
-    natural x frequencies.  Built once for each transfer-function tensor
+    nx]``: ``H`` in complex64 on its device, row ``n2 k1 + k2`` holding
+    the y frequency ``k1 + n1 k2`` (the order in which the y axis's forward
+    half leaves the rows), so the x pass reads its row with the natural x
+    frequencies.  The step's ``1 / (ny nx)`` is not in the table: each
+    axis's last pass back multiplies by its own ``1 / n``, rounded to f32
+    (:func:`fft_step2d_plain`; ROADMAP C.2).  Built once for each transfer-function tensor
     (rebuilt if it is modified in place): the propagator keeps one tensor
     per geometry, so the table is not rebuilt per chunk."""
     hit = _tables.get(id(kernel))
@@ -120,7 +123,7 @@ def step_table(kernel):
         return hit[2]
     h = kernel.to(torch.complex64)
     ny, nx = h.shape
-    table = (h[_stage_order(ny).to(h.device)] / (ny * nx)).contiguous()
+    table = h[_stage_order(ny).to(h.device)].contiguous()
     if len(_tables) >= 16:
         _tables.clear()
     _tables[id(kernel)] = (weakref.ref(kernel), kernel._version, table)
@@ -132,9 +135,10 @@ def fft_step2d_plain(w, table, step='P'):
     the kernels' stages (:func:`.cuda_multislice.fft_stages_plain` and
     :func:`.cuda_multislice.fft_stages_back_plain`): the y transform, the x
     transform, the product with the step table (put back in natural order),
-    the x transform back and the y transform back.  ``step``: ``'P'``
-    (forward: FFTs, H / (ny nx), inverse FFTs) or ``'PT'`` (``P^T``: inverse
-    FFTs, the same H / (ny nx), FFTs; JAX's transpose takes H itself)."""
+    the x transform back times ``1 / nx`` and the y transform back times
+    ``1 / ny`` (each rounded to f32 once).  ``step``: ``'P'`` (forward:
+    FFTs, H, inverse FFTs) or ``'PT'`` (``P^T``: inverse FFTs, the same H,
+    FFTs; JAX's transpose takes H itself)."""
     ny, nx = w.shape[-2:]
     ry, rx = _cm.fft_radix(ny), _cm.fft_radix(nx)
     first_inverse = step == 'PT'
@@ -143,9 +147,11 @@ def fft_step2d_plain(w, table, step='P'):
     x = _cm.fft_stages_plain(w.transpose(-1, -2), ry, ny // ry,
                              first_inverse).transpose(-1, -2)
     x = _cm.fft_stages_plain(x, rx, nx // rx, first_inverse) * h
-    x = _cm.fft_stages_back_plain(x, rx, nx // rx, not first_inverse)
-    return _cm.fft_stages_back_plain(x.transpose(-1, -2), ry, ny // ry,
-                                     not first_inverse).transpose(-1, -2)
+    x = _cm.fft_stages_back_plain(x, rx, nx // rx,
+                                  not first_inverse) * np.float32(1 / nx)
+    x = _cm.fft_stages_back_plain(x.transpose(-1, -2), ry, ny // ry,
+                                  not first_inverse).transpose(-1, -2)
+    return x * np.float32(1 / ny)
 
 
 @functools.lru_cache(maxsize=16)

@@ -15,6 +15,14 @@ differentiates with respect to the patches, and K2 carries their gradient
 back.  K6, ``scatter_rowgrid_add_pallas`` (``:193``), is K2's kernel for one
 grid row; the Reconstructor does not route to it.
 
+K2's kernel has two instantiations for each dtype and layout: ``'vec'``,
+in which a thread owns 16 bytes of contiguous cotangent elements (4 f32
+or 8 bf16), and ``'scalar'``, one element a thread, for the shapes and
+pointers the vector form does not take (:func:`vector_width` chooses by
+shape, dtype and alignment).  Both sum in the same order, so they agree
+bit for bit.  :data:`K2_ROUTE_LAUNCHES` and :data:`K6_ROUTE_LAUNCHES`
+count the launches of each.
+
 Unlike the JAX package, which returns a new accumulator
 (``dynamic_update_slice``), the scatters update ``acc`` IN PLACE and
 return it: the accumulator is the size of the padded object and is
@@ -29,17 +37,21 @@ import numpy as np
 import torch
 
 from ..utils.cuda_build import Kernel, ptr
+from . import cuda_multislice as _cm
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p
 K2 = Kernel('grid_scatter.cu', 'k2_grid_scatter_add',
-            [_I, _I, _P, _P] + [_I] * 9)
+            [_I, _I, _I, _P, _P] + [_I] * 9)
 K3 = Kernel('grid_extract.cu', 'k3_grid_extract',
             [_P, _P, _I, ctypes.c_longlong] + [_I] * 8)
 #: K6: the same entry point as K2, launched for one grid row at a time by
 #: :func:`scatter_rowgrid_add_kernel`; counted apart from K2.
 K6 = Kernel('grid_scatter.cu', 'k2_grid_scatter_add',
-            [_I, _I, _P, _P] + [_I] * 9)
+            [_I, _I, _I, _P, _P] + [_I] * 9)
+#: K2's and K6's launches by instantiation (:func:`vector_width`).
+K2_ROUTE_LAUNCHES = {'vec': 0, 'scalar': 0}
+K6_ROUTE_LAUNCHES = {'vec': 0, 'scalar': 0}
 
 
 def check_supported(cot_shape, stride, rows):
@@ -124,6 +136,36 @@ def _channel_major(cot) -> bool:
             and cot.movedim(trail, tuple(range(len(trail)))).is_contiguous())
 
 
+def bulk_copy_smem_bytes(itemsize, cols, px, stride):
+    """Dynamic shared memory of a block of K2's channel-major vector
+    instantiation (``tma_stage_bytes`` in the source): two buffers, each
+    the block's 8 (f32) or 16 (bf16) rows of every patch column that can
+    cover its 256 X values, padded by 8 elements a column."""
+    rows = 32 // itemsize
+    n_cols = min(cols, (256 + px) // stride + 1)
+    return 2 * itemsize * n_cols * (rows * px + 8)
+
+
+def vector_width(itemsize, channels, stride, channel_major, *pointers,
+                 smem_bytes=0):
+    """Elements a thread of K2's kernel owns: 16 bytes' worth (4 f32, 8
+    bf16) when a vector never straddles a patch column (channel-major: the
+    vector runs along x, so ``stride`` must be a multiple of it, and the
+    block's ``smem_bytes``, :func:`bulk_copy_smem_bytes`, must fit) or a
+    site (patch-major: along c, so ``channels`` must be), the accumulator
+    is read and written along c in 16-byte words (``channels % 4 == 0``)
+    and every pointer (cotangents, accumulator) is 16-byte aligned; else
+    1."""
+    v = 16 // itemsize
+    along = stride if channel_major else channels
+    # 16 bytes of static shared memory: the block's two barriers.
+    fits = not channel_major or smem_bytes + 16 <= _cm.MAX_SMEM_BYTES
+    if (along % v == 0 and channels % 4 == 0 and fits
+            and all(p % 16 == 0 for p in pointers)):
+        return v
+    return 1
+
+
 def scatter_grid2d_add(acc, cot, y0, x0, stride, rows):
     """Add the complete-grid patch cotangents ``cot[N, py, px, *tr]`` into
     ``acc[Y, X, *tr]`` in place and return ``acc``.  CUDA tensors launch
@@ -134,19 +176,34 @@ def scatter_grid2d_add(acc, cot, y0, x0, stride, rows):
     y0, x0 = int(y0), int(x0)
     if not acc.is_cuda:
         return scatter_grid2d_add_plain(acc, cot, y0, x0, stride, rows)
-    return _launch_scatter(K2, acc, cot, y0, x0, stride, rows)
+    return _launch_scatter(K2, K2_ROUTE_LAUNCHES, acc, cot, y0, x0, stride,
+                           rows)
 
 
-def _launch_scatter(kernel, acc, cot, y0, x0, stride, rows):
+def _launch_scatter(kernel, routes, acc, cot, y0, x0, stride, rows,
+                    vec=None):
+    """Launch ``kernel`` (K2 or K6) with :func:`vector_width`'s
+    instantiation, or with ``vec=1`` the scalar one (the card tests and
+    chip_smoke compare the two), and count it in ``routes``."""
     _check_cuda_operands(acc, cot, y0, x0, stride, rows)
     channel_major = _channel_major(cot)
     if not channel_major:
         cot = cot.contiguous()
     n, py, px = cot.shape[:3]
     channels = int(np.prod(cot.shape[3:])) if cot.dim() > 3 else 1
-    kernel(0 if cot.dtype == torch.float32 else 1, int(channel_major),
+    widest = vector_width(
+        cot.element_size(), channels, stride, channel_major, cot.data_ptr(),
+        acc.data_ptr(), smem_bytes=bulk_copy_smem_bytes(
+            cot.element_size(), n // rows, px, stride))
+    if vec is None:
+        vec = widest
+    elif vec not in (1, widest):
+        raise ValueError(f'K2 takes {widest} or 1 elements a thread for '
+                         f'these operands, not {vec}')
+    kernel(0 if cot.dtype == torch.float32 else 1, int(channel_major), vec,
            ptr(cot), ptr(acc), rows, n // rows, py, px, channels, stride,
            acc.shape[1], y0, x0)
+    routes['vec' if vec > 1 else 'scalar'] += 1
     return acc
 
 
@@ -193,7 +250,8 @@ def scatter_rowgrid_add_kernel(acc, cot, y0, x0, stride):
     y0, x0 = int(y0), int(x0)
     if not acc.is_cuda:
         return scatter_rowgrid_add(acc, cot, y0, x0, stride)
-    return _launch_scatter(K6, acc, cot, y0, x0, stride, 1)
+    return _launch_scatter(K6, K6_ROUTE_LAUNCHES, acc, cot, y0, x0, stride,
+                           1)
 
 
 # -- K3: the gather ---------------------------------------------------------

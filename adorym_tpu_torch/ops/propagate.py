@@ -335,9 +335,11 @@ def multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
     contract.
     """
     if repeats is not None:
-        raise NotImplementedError('multislice repeats: ROADMAP A.11')
+        raise NotImplementedError('multislice repeats: ROADMAP A, '
+                                  'remaining model families and refinables')
     if backprop:
-        raise NotImplementedError('multislice backprop: ROADMAP A.11')
+        raise NotImplementedError('multislice backprop: ROADMAP A, '
+                                  'remaining model families and refinables')
     lmbda_nm = wavelength_nm(energy_ev)
     dz_cm = psize_cm if slice_spacing_cm is None else slice_spacing_cm
     voxel_nm = (psize_cm * 1e7, psize_cm * 1e7, dz_cm * 1e7)

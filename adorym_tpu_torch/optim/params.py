@@ -13,7 +13,8 @@ import torch
 from ..config import ReconConfig
 from .optimizers import OptSpec
 
-#: Refinements beyond obj/probe (ROADMAP A.11), by their config flag.
+#: Refinements beyond obj/probe (ROADMAP A, remaining model families and
+#: refinables), by their config flag.
 _AUX_FLAGS = ('optimize_probe_defocusing', 'optimize_probe_pos_offset',
               'optimize_prj_pos_offset', 'optimize_all_probe_pos',
               'optimize_slice_pos', 'optimize_free_prop', 'optimize_tilt',
@@ -29,7 +30,8 @@ def build_aux_params(cfg: ReconConfig, n_theta: int, n_pos: int,
     on = [f for f in _AUX_FLAGS if getattr(cfg.refine, f)]
     if on:
         raise NotImplementedError(
-            f'refinables {on}: ROADMAP A.11 (only obj and probe are ported)')
+            f'refinables {on}: ROADMAP A, remaining model families and '
+            'refinables (only obj and probe are ported)')
     return {}
 
 
@@ -48,7 +50,7 @@ def build_opt_specs(cfg: ReconConfig) -> Dict[str, OptSpec]:
     t = cfg.train
     if t.optimizer not in _FIRST_ORDER_KINDS:
         raise NotImplementedError(
-            f'object optimizer {t.optimizer!r}: ROADMAP A.12 '
+            f'object optimizer {t.optimizer!r}: ROADMAP A, API and tools '
             '(second-order optimizers)')
     specs: Dict[str, OptSpec] = {}
     if t.optimize_object:

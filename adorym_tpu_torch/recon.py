@@ -54,28 +54,37 @@ def _check_slice(cfg: ReconConfig):
     geo, t, p, lc = cfg.geometry, cfg.train, cfg.parallel, cfg.loss
     todo = []
     if t.update_scheme != 'per angle' or t.n_batch_per_update > 1:
-        todo.append("update_scheme='immediate' (ROADMAP A.10)")
+        todo.append("update_scheme='immediate' (ROADMAP A, the "
+                    "immediate scheme)")
     if not t.rotate_out_of_loop:
-        todo.append('rotation inside autodiff (ROADMAP A.10)')
+        todo.append('rotation inside autodiff (ROADMAP A, the immediate '
+                    'scheme)')
     if geo.two_d_mode:
-        todo.append('two_d_mode (ROADMAP A.11)')
+        todo.append('two_d_mode (ROADMAP A, remaining model families '
+                    'and refinables)')
     if cfg.refine.tilt_active:
-        todo.append('tilt (ROADMAP A.11)')
+        todo.append('tilt (ROADMAP A, remaining model families and '
+                    'refinables)')
     if (lc.alpha_d or lc.alpha_b or lc.gamma or lc.corr_reg
             or lc.grad_corr_reg):
-        todo.append('regularizers (ROADMAP A.11)')
+        todo.append('regularizers (ROADMAP A, remaining model families '
+                    'and refinables)')
     if p.data_axis > 1 or p.object_axis > 1:
-        todo.append('device meshes (ROADMAP A.13)')
+        todo.append('device meshes (ROADMAP A, multi-GPU and out-of-core)')
     if p.offload_optimizer_state or p.offload_object is True:
-        todo.append('offload (ROADMAP A.13)')
+        todo.append('offload (ROADMAP A, multi-GPU and out-of-core)')
     if t.stream_rotation == 'on':
-        todo.append('streaming rotation (ROADMAP A.6)')
+        todo.append('streaming rotation (ROADMAP A, the rest of the '
+                    'per-angle path)')
     if t.exact_grad_rotation:
-        todo.append('exact gradient rotate-back (ROADMAP A.6)')
+        todo.append('exact gradient rotate-back (ROADMAP A, the rest of '
+                    'the per-angle path)')
     if t.shrink_cycle is not None:
-        todo.append('shrink-wrap (ROADMAP A.9)')
+        todo.append('shrink-wrap (ROADMAP A, remaining model families '
+                    'and refinables)')
     if t.randomize_probe_pos or t.patch_grad:
-        todo.append('scan tables that are not grid rows (ROADMAP A.4)')
+        todo.append('scan tables that are not grid rows (ROADMAP A, the '
+                    'rest of the per-angle path)')
     if todo:
         raise NotImplementedError('not ported yet: ' + '; '.join(todo))
 
@@ -97,7 +106,8 @@ class Reconstructor:
         self.n_theta, self.n_pos = self.data.shape[:2]
         self.probe_pos = np.asarray(probe_pos, dtype=np.float64)
         if self.probe_pos.ndim != 2:
-            raise NotImplementedError('per-angle scan tables: ROADMAP A.4')
+            raise NotImplementedError('per-angle scan tables: ROADMAP A, '
+                                      'the rest of the per-angle path')
         if theta_ls is None:
             theta_ls = np.zeros(self.n_theta)
         self.theta_ls = np.asarray(theta_ls, dtype=np.float32)
@@ -133,7 +143,7 @@ class Reconstructor:
         if self._rowgrid_stride is None:
             raise NotImplementedError(
                 'scan tables whose minibatches are not constant-stride grid '
-                'rows: ROADMAP A.4')
+                'rows: ROADMAP A, the rest of the per-angle path')
         self._prebin = (cfg.train.prebin_z in ('auto', 'on')
                         and geo.binning > 1
                         and cfg.train.unknown_type == 'delta_beta'
@@ -151,7 +161,8 @@ class Reconstructor:
         if (cfg.train.stream_rotation == 'auto'
                 and self._prebin and obj_bytes > hbm * (1.5 / 16)):
             raise NotImplementedError(
-                'objects that need the streaming rotation: ROADMAP A.6')
+                'objects that need the streaming rotation: ROADMAP A, the '
+                'rest of the per-angle path')
         avail = (hbm - _prof.xla_reserve_bytes(hbm)) - 6 * obj_bytes
         kernel_db = (cfg.train.unknown_type == 'delta_beta'
                      and not geo.pure_projection
@@ -174,9 +185,10 @@ class Reconstructor:
             raise NotImplementedError(
                 f'a dataset of {self.data.nbytes / 1e9:.2f} GB does not fit '
                 'on the device next to the working set; staging it from the '
-                'host is ROADMAP A.13')
+                'host is ROADMAP A, multi-GPU and out-of-core')
         # The chunk must be whole grid rows of a complete 2D grid for the
-        # grid scatter (row-by-row scatters are ROADMAP A.4).
+        # grid scatter (row-by-row scatters are ROADMAP A, the rest of the
+        # per-angle path).
         self._grid_scatter_rows = None
         full = patch_ops.detect_full_grid(self.probe_pos, mb, geo.probe_size)
         if full is not None and self.n_pos % mb == 0:
@@ -187,7 +199,7 @@ class Reconstructor:
         if self._grid_scatter_rows is None:
             raise NotImplementedError(
                 'scan tables that are not one complete grid split into '
-                'whole chunks: ROADMAP A.4')
+                'whole chunks: ROADMAP A, the rest of the per-angle path')
         self.i_opt_batch = 0      # optimizer step counter
         self.global_batch = 0     # epoch*n_batch + i_batch, for update gates
         self.loss_history: List[float] = []

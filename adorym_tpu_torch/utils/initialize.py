@@ -58,7 +58,7 @@ def initialize_probe(probe_size, probe_type, *, n_probe_modes=1,
     probe_type:
       'gaussian'  kwargs: probe_mag_sigma, probe_phase_sigma, probe_phase_max
       'plane'     unit amplitude
-    (the other types are ROADMAP A.9).
+    (the other types are ROADMAP A, I/O and initialisation).
     """
     if probe_type == 'gaussian':
         mag, phase = _gaussian_map(
@@ -69,7 +69,8 @@ def initialize_probe(probe_size, probe_type, *, n_probe_modes=1,
         pr = np.ones(probe_size)
         pi = np.zeros(probe_size)
     else:
-        raise NotImplementedError(f'probe_type {probe_type!r}: ROADMAP A.9')
+        raise NotImplementedError(f'probe_type {probe_type!r}: ROADMAP A, '
+                                  'I/O and initialisation')
     probe = np.stack([pr, pi], axis=-1).astype(np.float32)   # [py, px, 2]
     probe = np.tile(probe[None], (n_probe_modes, 1, 1, 1))
     if n_probe_modes > 1:

@@ -254,6 +254,80 @@ def test_grid_scatter_kernel_matches_plain(cuda, dtype, rows, cols, py, px,
                                rtol=1e-5, atol=1e-5)
 
 
+def _grid_cot(rows, cols, py, px, trail, dtype, channel_major, dev,
+              seed=1):
+    rng = np.random.default_rng(seed)
+    cot = rng.normal(size=(rows * cols, py, px) + trail).astype(np.float32)
+    if not channel_major:
+        return torch.from_numpy(cot).to(dev, dtype)
+    lead = tuple(range(3, cot.ndim))
+    cot = torch.from_numpy(np.moveaxis(cot, lead, range(len(lead))).copy())
+    return cot.to(dev, dtype).movedim(tuple(range(len(lead))), lead)
+
+
+#: K2's vector instantiation at small shapes: (rows, cols, py, px, stride,
+#: trail, the elements a thread owns f32 / bf16 channel-major, and
+#: patch-major).  Tx = 48 and 40 end inside a block's X values; C = 40 and
+#: 72 end inside a block of channels; stride 4 takes 4 f32 along x but not
+#: 8 bf16 (C = 8 takes both); Tx = 328 spans two 256-wide windows, and the
+#: patches that straddle them.
+K2_VEC_CASES = [(3, 5, 16, 16, 8, (20, 2), (4, 8), (4, 8)),
+                (2, 3, 24, 24, 8, (36, 2), (4, 8), (4, 8)),
+                (3, 4, 8, 8, 4, (4, 2), (4, 1), (4, 8)),
+                (2, 40, 16, 16, 8, (4, 2), (4, 8), (4, 8))]
+
+
+@pytest.mark.parametrize('channel_major', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('rows,cols,py,px,s,trail,v_cm,v_pm', K2_VEC_CASES)
+def test_grid_scatter_vec_and_scalar_are_bit_equal(cuda, dtype, rows, cols,
+                                                   py, px, s, trail, v_cm,
+                                                   v_pm, channel_major):
+    """The wrapper's instantiation (16 bytes a thread where the shape and
+    pointers allow it) and the scalar one, forced, sum the same values in
+    the same order: equal bit for bit, and both within 1e-5 of the plain
+    version; the launch is counted by instantiation."""
+    cot = _grid_cot(rows, cols, py, px, trail, dtype, channel_major, cuda)
+    assert csg._channel_major(cot) == channel_major
+    ty, tx = csg.tile_shape(cot.shape, s, rows)
+    acc0 = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(ty + 5, tx + 3) + trail).astype(np.float32)).to(cuda)
+    v = (v_cm if channel_major else v_pm)[dtype == torch.bfloat16]
+    routes = csg.K2_ROUTE_LAUNCHES
+    r0 = dict(routes)
+    got = csg.scatter_grid2d_add(acc0.clone(), cot, 2, 1, s, rows)
+    got_s = csg._launch_scatter(csg.K2, routes, acc0.clone(), cot, 2, 1, s,
+                                rows, vec=1)
+    want = {'vec': 1 if v > 1 else 0, 'scalar': 1 if v > 1 else 2}
+    assert {r: routes[r] - r0[r] for r in routes} == want
+    ref = csg.scatter_grid2d_add_plain(acc0.clone(), cot, 2, 1, s, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got_s)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_grid_scatter_misaligned_takes_scalar(cuda):
+    """A contiguous cotangent that starts 4 bytes off a 16-byte boundary
+    takes the scalar instantiation; the vector one, asked for, raises."""
+    rows, cols, py, px, s, trail = 2, 3, 16, 16, 8, (4, 2)
+    n = rows * cols * py * px * 8
+    flat = torch.randn(n + 1, device=cuda)
+    cot = flat[1:].view((rows * cols, py, px) + trail)
+    acc0 = torch.randn((40, 40) + trail, device=cuda)
+    assert csg.vector_width(4, 8, s, False, cot.data_ptr()) == 1
+    n0 = csg.K2_ROUTE_LAUNCHES['scalar']
+    got = csg.scatter_grid2d_add(acc0.clone(), cot, 0, 0, s, rows)
+    assert csg.K2_ROUTE_LAUNCHES['scalar'] == n0 + 1
+    ref = csg.scatter_grid2d_add_plain(acc0.clone(), cot, 0, 0, s, rows)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match='elements a thread'):
+        csg._launch_scatter(csg.K2, csg.K2_ROUTE_LAUNCHES, acc0.clone(), cot,
+                            0, 0, s, rows, vec=4)
+
+
 @pytest.mark.parametrize('unknown_type,fresnel_approx,free_prop_cm,bf16', [
     ('delta_beta', True, 'inf', False), ('delta_beta', True, 'inf', True),
     ('real_imag', True, 'inf', False), ('delta_beta', False, 1e-5, False)])

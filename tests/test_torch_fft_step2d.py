@@ -73,7 +73,7 @@ def test_step_table_rows_follow_the_stage_order(n):
     """Pass B's forward half leaves the y frequency ``k1 + n1 k2`` at row
     ``n2 k1 + k2``: the two stages written out (``_radix_dfts``) against
     the FFT taken in natural order and gathered by ``_stage_order``; the
-    table's row ``l`` is ``H[k(l)] / (ny nx)``."""
+    table's row ``l`` is ``H[k(l)]``."""
     n1 = cm.fft_radix(n)
     n2 = n // n1
     x = torch.from_numpy(_complex(np.random.default_rng(n), 2, n))
@@ -83,7 +83,7 @@ def test_step_table_rows_follow_the_stage_order(n):
     assert _rel(staged.reshape(2, n), torch.fft.fft(x)[:, order]) < 1e-6
     h = _kernel(tprop, (n, 16), 'non_paraxial')
     table = cmf.step_table(h)
-    assert torch.equal(table, (h[order] / (n * 16)).contiguous())
+    assert torch.equal(table, h[order].contiguous())
 
 
 def test_step_table_is_built_once_per_kernel():
@@ -206,12 +206,12 @@ def test_k5_fft_route_against_float64_truth():
     with the non-paraxial transfer function at 5 keV, 72^2: the f32 stage
     model of the FFT route and the f32 DFT-matmul form of the dense route,
     each against the same sweep in complex128 (the f32 H and t upcast),
-    forward and both gradients.  Measured on the CPU: the FFT model 2.0e-6,
-    2.1e-6 and 1.8e-6 of the largest values (forward, gt, gw), the
-    DFT-matmul form (summed by the CPU's BLAS) 2.2e-6, 1.9e-6 and 1.8e-6.
-    The FFT route is held no farther from the truth than the dense form,
-    within 20% (each error mostly the f32 rounding of H and t, which both
-    forms share)."""
+    forward and both gradients.  Measured on the CPU: the FFT model 1.7e-6,
+    1.5e-6 and 1.4e-6 of the largest values (forward, gt, gw; with the
+    1/(ny nx) in the table, 2.0e-6, 2.1e-6 and 1.8e-6), the DFT-matmul
+    form (summed by the CPU's BLAS) 2.2e-6, 1.9e-6 and 1.8e-6.  The FFT
+    route is held no farther from the truth than the dense form, within
+    20%."""
     n, S = 72, 32
     lmbda = 1240.0 / 5000.0
     h = tprop.fresnel_kernel((n, n), (1.0, 1.0, 1.0), lmbda, 8.0,
@@ -246,6 +246,168 @@ def test_k5_fft_route_against_float64_truth():
           + ' '.join(f'{e:.3e}' for e in e_dense))
     assert max(e_fft) < 1e-5 and max(e_dense) < 1e-5
     assert all(a < 1.2 * b for a, b in zip(e_fft, e_dense))
+
+
+def _truth_inputs(seed, n=72, S=32):
+    """The real_imag chunk's sweep operands (two patches, one mode) from
+    ``seed``, as in :func:`test_k5_fft_route_against_float64_truth`, with
+    the complex128 truth of the sweep."""
+    lmbda = 1240.0 / 5000.0
+    h = tprop.fresnel_kernel((n, n), (1.0, 1.0, 1.0), lmbda, 8.0,
+                             fresnel_approx=False)
+    rng = np.random.default_rng(seed)
+    k1 = 2 * np.pi / lmbda
+    d = rng.uniform(0, 1e-2, (S, 2, n, n))
+    b = rng.uniform(0, 1e-3, (S, 2, n, n))
+    t64 = torch.from_numpy(np.exp(-k1 * b) * np.exp(-1j * k1 * d))
+    w64 = torch.from_numpy(rng.normal(size=(1, 2, n, n))
+                           + 1j * rng.normal(size=(1, 2, n, n)))
+    g64 = torch.from_numpy(rng.normal(size=(1, 2, n, n))
+                           + 1j * rng.normal(size=(1, 2, n, n)))
+    t32, w32, g32 = (x.to(torch.complex64) for x in (t64, w64, g64))
+    h64 = h.to(torch.complex128)
+    truth = _sweep(lambda x, tr: (torch.fft.fft2(torch.fft.ifft2(x) * h64)
+                                  if tr else
+                                  torch.fft.ifft2(torch.fft.fft2(x) * h64)),
+                   t32.to(torch.complex128), w32.to(torch.complex128),
+                   g32.to(torch.complex128))
+    return h, (t32, w32, g32), truth
+
+
+def _scaled_step(h, where):
+    """The FFT route's step with the ``1 / (ny nx)`` of its two transforms
+    back taken where C.2's suspect (a) puts it: ``'table'``, the former
+    form, folded into the table (``H / (ny nx)`` rounded to f32); ``'after'``,
+    one f32 ``1 / (ny nx)`` after both transforms back; ``'per_axis'``,
+    the kernels' form (:func:`cmf.fft_step2d_plain`), ``1 / nx`` after the
+    x transform back and ``1 / ny`` after the y one."""
+    ny, nx = h.shape
+    ry, rx = cm.fft_radix(ny), cm.fft_radix(nx)
+    hh = h.to(torch.complex64)
+    if where == 'table':
+        hh = hh / (ny * nx)
+
+    def step(w, transpose):
+        inv = transpose
+        x = cm.fft_stages_plain(w.transpose(-1, -2), ry, ny // ry,
+                                inv).transpose(-1, -2)
+        x = cm.fft_stages_plain(x, rx, nx // rx, inv) * hh
+        x = cm.fft_stages_back_plain(x, rx, nx // rx, not inv)
+        if where == 'per_axis':
+            x = x * np.float32(1.0 / nx)
+        x = cm.fft_stages_back_plain(x.transpose(-1, -2), ry, ny // ry,
+                                     not inv).transpose(-1, -2)
+        if where == 'table':
+            return x
+        return x * np.float32(1.0 / ny if where == 'per_axis'
+                              else 1.0 / (ny * nx))
+    return step
+
+
+def _mirrored(step):
+    """Suspect (b) of C.2: the step whose ``P^T`` is the transposes of
+    ``step``'s ``P`` passes in reverse order, which is what autograd runs
+    for its ``P`` (JAX's unconjugated transpose: ``conj(vjp(conj(a)))``)."""
+    def mirrored(a, transpose):
+        if not transpose:
+            return step(a, False)
+        x = torch.zeros_like(a, requires_grad=True)
+        g, = torch.autograd.grad(step(x, False), x, torch.conj_physical(a))
+        return torch.conj_physical(g)
+    return mirrored
+
+
+#: The seeds of C.2's measurement over draws (its largest error is one
+#: element of one draw).
+C2_SEEDS = (100, 101, 102, 103, 104)
+
+
+def test_k5_fft_route_against_float64_truth_over_seeds():
+    """C.2 on the CPU model: the sweep of
+    :func:`test_k5_fft_route_against_float64_truth` over five draws, for
+    the FFT route's stage model with the ``1 / (ny nx)`` where suspect (a)
+    puts it (in the table as before, after the transforms back, or per
+    axis as the kernels take it now), for suspect (b) (the table form's
+    ``P^T`` as the mirror of its ``P``'s passes) and for the dense route's
+    DFT-matmul form; each error of the largest value and of the rms value
+    (``-s`` prints them).  Measured: the table form's median gt is 1.12x
+    the dense form's largest error (rms 1.03x); after 1.08x (0.99x); per
+    axis 0.88x (0.86x); (b) is the table form's ``P^T`` bit for bit, so it
+    changes nothing.  Every form is within 1e-5 of the truth, and the
+    kernels' form's median gt within 1.2x of the dense form's."""
+    out = {k: [] for k in ('table', 'after', 'per_axis', 'mirror',
+                           'dense')}
+    for seed in C2_SEEDS:
+        h, (t32, w32, g32), truth = _truth_inputs(seed)
+        table = cmf.step_table(h)
+        f = torch.from_numpy(dft_matrix(h.shape[0]))
+        forms = {
+            'table': _scaled_step(h, 'table'),
+            'after': _scaled_step(h, 'after'),
+            'per_axis': lambda x, tr: cmf.fft_step2d_plain(
+                x, table, 'PT' if tr else 'P'),
+            'mirror': _mirrored(_scaled_step(h, 'table')),
+            'dense': lambda x, tr: _dense_step(x, f, f, h, tr)}
+        sweeps = {name: _sweep(step, t32, w32, g32)
+                  for name, step in forms.items()}
+        for name, got in sweeps.items():
+            out[name].append(
+                [_rel(a.numpy(), b.numpy()) for a, b in zip(got, truth)]
+                + [float((a.to(b.dtype) - b).norm() / b.norm())
+                   for a, b in zip(got, truth)])
+        assert all(torch.equal(a, b) for a, b in zip(sweeps['table'],
+                                                     sweeps['mirror']))
+        assert all(torch.equal(a, b) for a, b in zip(
+            sweeps['per_axis'],
+            _sweep(_scaled_step(h, 'per_axis'), t32, w32, g32)))
+    errs = {k: np.array(v) for k, v in out.items()}
+    for k, e in errs.items():
+        ratio = np.median(e / errs['dense'], axis=0)
+        print(f'C.2 {k}: per seed (fwd, gt, gw max; fwd, gt, gw rms) '
+              + '; '.join(' '.join(f'{x:.3e}' for x in row) for row in e)
+              + '; median ratio to dense ' + ' '.join(f'{x:.3f}'
+                                                      for x in ratio))
+        assert e.max() < 1e-5
+    gt_ratio = np.median(errs['per_axis'][:, 1] / errs['dense'][:, 1])
+    assert gt_ratio < 1.2
+
+
+def test_k5_fft_step_gain_bias():
+    """Why the FFT route's error differs from the dense route's: one step
+    of each f32 form against the complex128 step on 64 random planes, as a
+    gain bias (the error's part along the exact result, ``<P x, P~ x> /
+    |P x|^2 - 1``, which adds up step after step) and an rms error (the
+    rest, which adds up as a random walk).  The stage model's rounded roots
+    give it a bias of about -3e-8 a step (-4.2e-8 with the 1/(ny nx) in
+    the table; the dense form's is under 1e-8) and a smaller rms error
+    (1.9e-7 against 3.1e-7): after 31 steps the bias is worth about 1e-6
+    of the FFT route's 1.6e-6 rms error."""
+    n = 72
+    h = tprop.fresnel_kernel((n, n), (1.0, 1.0, 1.0), 1240.0 / 5000.0, 8.0,
+                             fresnel_approx=False).to(torch.complex64)
+    table = cmf.step_table(h)
+    f = torch.from_numpy(dft_matrix(n))
+    x = torch.from_numpy(_complex(np.random.default_rng(7), 64, n, n))
+    h64 = h.to(torch.complex128)
+    x64 = x.to(torch.complex128)
+    for transpose in (False, True):
+        ref = (torch.fft.fft2(torch.fft.ifft2(x64) * h64) if transpose else
+               torch.fft.ifft2(torch.fft.fft2(x64) * h64))
+        stats = {}
+        for name, y in (
+                ('fft', cmf.fft_step2d_plain(x, table,
+                                             'PT' if transpose else 'P')),
+                ('dense', _dense_step(x, f, f, h, transpose))):
+            y = y.to(torch.complex128)
+            gain = (ref.conj() * y).sum() / (ref.abs() ** 2).sum() - 1
+            stats[name] = (float(gain.real),
+                           float((y - ref).norm() / ref.norm()))
+        print(f"C.2 one step {'P^T' if transpose else 'P'}: gain bias, rms "
+              f"error: FFT model {stats['fft'][0]:+.3e} {stats['fft'][1]:.3e}"
+              f"; dense form {stats['dense'][0]:+.3e} "
+              f"{stats['dense'][1]:.3e}")
+        assert stats['fft'][0] < -2e-8 and abs(stats['dense'][0]) < 1e-8
+        assert stats['fft'][1] < stats['dense'][1] < 5e-7
 
 
 # -- Routes and shared memory ----------------------------------------------

@@ -85,6 +85,69 @@ def test_channel_major_layout_detected():
                                3).numpy())
 
 
+@pytest.mark.parametrize('dtype', [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize('trail,zmajor', [((32, 2), True),
+                                          ((256, 2), False)])
+def test_scatter_flagship_widths_match_pallas(trail, zmajor, dtype):
+    """The plain version at the flagship chunks' trailing shapes, cut to
+    2x3 patches of 24^2 at stride 8: the delta_beta chunk's z-major
+    gradient ``[32, 2, N, py, px]`` viewed as ``[N, py, px, 32, 2]`` and
+    the real_imag chunk's patch-major ``[N, py, px, 256, 2]``, f32 and bf16
+    cotangents into an f32 accumulator, against
+    ``scatter_grid2d_add_pallas`` (interpret mode)."""
+    rows, cols, py, px, s = 2, 3, 24, 24, 8
+    cot = np.array(jnp.asarray(_cot(rows, cols, py, px, trail, seed=10))
+                   .astype(dtype).astype(jnp.float32))
+    ty, tx = csg.tile_shape(cot.shape, s, rows)
+    acc = np.random.default_rng(11).normal(
+        size=(ty + 3, tx + 2) + trail).astype(np.float32)
+    want = np.asarray(psg.scatter_grid2d_add_pallas(
+        jnp.asarray(acc), jnp.asarray(cot).astype(dtype), 2, 1, s, rows,
+        interpret=True))
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    cot_t = torch.from_numpy(cot).to(tdtype)
+    if zmajor:
+        cot_t = cot_t.permute(3, 4, 0, 1, 2).contiguous().permute(
+            2, 3, 4, 0, 1)
+        assert csg._channel_major(cot_t)
+    got = csg.scatter_grid2d_add(torch.from_numpy(acc.copy()), cot_t, 2, 1,
+                                 s, rows)
+    assert got.dtype == torch.float32
+    # The same f32 values (bf16 upcast exactly), <= 9 terms, other orders.
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize('itemsize,channels,stride,channel_major,ptrs,want', [
+    (4, 64, 8, True, (0, 4096), 4),      # delta_beta: along x, stride 8
+    (2, 64, 8, True, (0, 4096), 8),
+    (4, 512, 8, False, (256, 512), 4),   # real_imag: along c
+    (2, 512, 8, False, (256, 512), 8),
+    (4, 64, 4, True, (0, 0), 4),         # stride 4 takes 4 f32 ...
+    (2, 64, 4, True, (0, 0), 1),         # ... but not 8 bf16
+    (2, 4, 8, False, (0, 0), 1),         # 4 bf16 channels: not 8
+    (4, 6, 8, True, (0, 0), 1),          # C % 4: the accumulator's words
+    (4, 33, 8, False, (0, 0), 1),        # an odd site
+    (4, 64, 8, True, (4, 0), 1),         # a cotangent pointer off 16 bytes
+    (4, 512, 8, False, (0, 8), 1)])      # an accumulator pointer likewise
+def test_vector_width(itemsize, channels, stride, channel_major, ptrs,
+                      want):
+    """K2's instantiation: 16 bytes a thread where the vector divides the
+    stride (channel-major, whose block's bulk copies must fit in shared
+    memory: 105 KB at the flagship, 227 KB at most) or the site
+    (patch-major), the site is a whole number of the accumulator's 16-byte
+    words and both pointers are 16-byte aligned; one element otherwise."""
+    flagship = csg.bulk_copy_smem_bytes(itemsize, 23, 72, stride)
+    assert flagship == 2 * itemsize * 23 * (32 // itemsize * 72 + 8)
+    assert csg.vector_width(itemsize, channels, stride, channel_major,
+                            *ptrs, smem_bytes=flagship) == want
+    # Patch rows too long for the buffers take the scalar instantiation.
+    big = csg.bulk_copy_smem_bytes(itemsize, 60, 256, stride)
+    assert big > 232448
+    assert csg.vector_width(itemsize, channels, stride, channel_major,
+                            *ptrs, smem_bytes=big) == (
+                                1 if channel_major else want)
+
+
 @pytest.mark.parametrize('n,py,px,s,trail', [(5, 16, 16, 8, (4, 2)),
                                              (3, 8, 16, 4, (3,))])
 def test_rowgrid_scatter_matches_pallas_and_xla(n, py, px, s, trail):
