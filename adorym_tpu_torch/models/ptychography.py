@@ -1,17 +1,21 @@
-"""Ptychography / ptychotomography forward model, main-path subset of
+"""Ptychography / ptychotomography forward model, subset of
 ``adorym_tpu/models/ptychography.py``: a shared probe, no probe
 refinements, the plain multislice branch (delta_beta or real_imag) with the
-detector propagation handed to the propagator."""
+detector propagation handed to the propagator; :func:`predict` rotates the
+object inside autograd for the generic immediate step."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ..config import ReconConfig
 from ..constants import wavelength_nm
+from ..ops import patches as patch_ops
 from ..ops import propagate as prop
+from ..ops.rotate import rotate
 from .base import incoherent_mode_sum
 
 
@@ -41,6 +45,20 @@ def prepare_probe(params: Dict, batch: Dict, cfg: ReconConfig):
     return complex_probe(select_probe(params, batch))
 
 
+def rotated_object(params: Dict, batch: Dict, cfg: ReconConfig):
+    """The object at the view angle: as it is in 2D mode or with the
+    rotation out of the loop (the Reconstructor rotates), else rotated by
+    ``batch['theta']`` (a Python float), differentiably.  Tilt is ROADMAP
+    A, remaining model families and refinables."""
+    obj = params['obj']
+    if cfg.geometry.two_d_mode or cfg.train.rotate_out_of_loop:
+        return obj
+    if cfg.refine.tilt_active:
+        raise NotImplementedError('tilt: ROADMAP A, remaining model '
+                                  'families and refinables')
+    return rotate(obj, batch['theta'], method=cfg.train.interpolation)
+
+
 def shifted_probes(probe, params: Dict, batch: Dict, cfg: ReconConfig):
     """The shared probe for every spot (per-spot position correction is
     ROADMAP A, remaining model families and refinables)."""
@@ -48,6 +66,24 @@ def shifted_probes(probe, params: Dict, batch: Dict, cfg: ReconConfig):
         raise NotImplementedError('probe position refinement: ROADMAP A, '
                                   'remaining model families and refinables')
     return probe
+
+
+def predict(params: Dict, batch: Dict, cfg: ReconConfig,
+            pad_arr: Optional[np.ndarray] = None):
+    """Detected magnitudes ``[N, py, px]`` of one minibatch: rotate the
+    object, pad it, extract the windows at ``round(batch['pos_batch'])``
+    (a host ``[N, 2]`` table; windows past the padded edge see vacuum)
+    and run :func:`predict_from_patches`."""
+    geo = cfg.geometry
+    if pad_arr is None:
+        pad_arr = np.zeros((2, 2), dtype=np.int64)
+    obj = patch_ops.pad_object(rotated_object(params, batch, cfg), pad_arr,
+                               cfg.train.unknown_type)
+    pos = (np.round(np.asarray(batch['pos_batch'], np.float32))
+           .astype(np.int64) + np.asarray([pad_arr[0][0], pad_arr[1][0]]))
+    subobj = patch_ops.extract_patches_vacuum(
+        obj, pos, geo.probe_size, unknown_type=cfg.train.unknown_type)
+    return predict_from_patches(params, batch, subobj, cfg)
 
 
 def predict_from_patches(params: Dict, batch: Dict, subobj, cfg: ReconConfig,

@@ -13,7 +13,7 @@ band gather behind ``grid2d_extract`` (``:118``) and
 object, K2's exact transpose.  It is forward only: the Reconstructor
 differentiates with respect to the patches, and K2 carries their gradient
 back.  K6, ``scatter_rowgrid_add_pallas`` (``:193``), is K2's kernel for one
-grid row; the Reconstructor does not route to it.
+grid row; the immediate scheme's band step launches it once a minibatch.
 
 K2's kernel has two instantiations for each dtype and layout: ``'vec'``,
 in which a thread owns 16 bytes of contiguous cotangent elements (4 f32
@@ -243,10 +243,10 @@ def scatter_rowgrid_add_kernel(acc, cot, y0, x0, stride):
     """Counterpart of ``scatter_rowgrid_add_pallas``
     (``pallas_scatter_grid.py:193``): one grid row through K2's kernel with
     ``rows=1``, fused with the accumulator update, counted in :data:`K6`.
-    The Reconstructor does not route to it, as the JAX package's
-    Reconstructor does not (a row at a time costs one launch and one tile
-    update per row where the complete-grid scatter pays one per chunk).
-    CPU tensors run :func:`scatter_rowgrid_add`."""
+    The immediate scheme's band step scatters each minibatch's row with it
+    (the z-major gradient read in place), where the JAX package's band
+    step calls the plain form, since per-row Pallas launches lost on the
+    TPU.  CPU tensors run :func:`scatter_rowgrid_add`."""
     y0, x0 = int(y0), int(x0)
     if not acc.is_cuda:
         return scatter_rowgrid_add(acc, cot, y0, x0, stride)

@@ -77,6 +77,33 @@ def extract_patches_zmajor(obj_zm, positions, probe_size):
     return obj_zm[:, :, iy[:, :, None], ix[:, None, :]]
 
 
+def extract_patches_vacuum(obj, positions, probe_size,
+                           unknown_type='delta_beta'):
+    """:func:`extract_patches` for windows that may reach past the edge of
+    ``obj[y, x, ...]``: what lies outside is vacuum, 0 (delta_beta) or
+    (1, 0) (real_imag), as in the reference's off-edge chunk reads.  The
+    gradient of the vacuum part is dropped.  ``positions[N, 2]``: host
+    ints, any range."""
+    py, px = int(probe_size[0]), int(probe_size[1])
+    pos = np.asarray(positions, dtype=np.int64)
+    iy = pos[:, :1] + np.arange(py)
+    ix = pos[:, 1:] + np.arange(px)
+    valid = (((iy >= 0) & (iy < obj.shape[0]))[:, :, None]
+             & ((ix >= 0) & (ix < obj.shape[1]))[:, None, :])
+    dev = obj.device
+    iy = torch.from_numpy(np.clip(iy, 0, obj.shape[0] - 1)).to(dev)
+    ix = torch.from_numpy(np.clip(ix, 0, obj.shape[1] - 1)).to(dev)
+    patch = obj[iy[:, :, None], ix[:, None, :]]
+    if valid.all():
+        return patch
+    valid = torch.from_numpy(valid).to(dev).reshape(
+        valid.shape + (1,) * (obj.dim() - 2))
+    vac = torch.zeros_like(patch)
+    if unknown_type == 'real_imag':
+        vac[..., 0] = 1.0
+    return torch.where(valid, patch, vac)
+
+
 def detect_row_grid(pos_table, minibatch_size, probe_size):
     """Stride when every minibatch of the static scan table is one
     constant-stride grid row (same y, x = x0 + s*j, ``s`` dividing the
@@ -101,6 +128,33 @@ def detect_row_grid(pos_table, minibatch_size, probe_size):
     if s > int(probe_size[1]) or int(probe_size[1]) % s:
         return None
     return s
+
+
+def detect_row_grid_ragged(pos_table, minibatch_size, probe_size):
+    """:func:`detect_row_grid` that also takes a final partial row: the
+    full rows must pass the strict check and the tail must be one run at
+    the same stride (one spot passes as it is).  Returns ``(stride,
+    n_last)``, ``n_last`` the spots of the last row (``minibatch_size``
+    when the table divides), or None."""
+    pos = np.round(np.asarray(pos_table)).astype(np.int64)
+    if pos.ndim != 2 or len(pos) == 0 or minibatch_size < 2:
+        return None
+    n_full = len(pos) // minibatch_size
+    n_last = len(pos) - n_full * minibatch_size
+    if n_full == 0:
+        return None
+    s = detect_row_grid(pos[:n_full * minibatch_size], minibatch_size,
+                        probe_size)
+    if s is None:
+        return None
+    if n_last == 0:
+        return s, minibatch_size
+    tail = pos[n_full * minibatch_size:]
+    if not np.all(tail[:, 0] == tail[0, 0]):
+        return None
+    if n_last >= 2 and not np.all(np.diff(tail[:, 1]) == s):
+        return None
+    return s, n_last
 
 
 def detect_full_grid(pos_table, minibatch_size, probe_size):

@@ -1,16 +1,22 @@
 """3D rotation of the object about the y axis by bilinear (or nearest)
-gather.
+gather, and its exact transpose.
 
-Main-path subset of ``adorym_tpu/ops/rotate.py``, with its coordinate math
-(not ``F.grid_sample``): rotation of the (x, z) planes about the array
-center ``(s-1)/2``, source coordinates edge-clamped, bilinear weights.  The
-per-angle scheme rotates outside autograd, so these are plain gathers with
-no backward.
+Subset of ``adorym_tpu/ops/rotate.py``, with its coordinate math (not
+``F.grid_sample``): rotation of the (x, z) planes about the array center
+``(s-1)/2``, source coordinates edge-clamped, bilinear weights.  The
+rotations are index gathers, so autograd differentiates them (the generic
+immediate step rotates the whole object inside autograd); the band step
+applies the transpose explicitly, either through autograd
+(:func:`rotate_adjoint`) or as the 9-tap gather of
+:func:`rotate_adjoint_taps`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .propagate import bin_z_sum
 
 
 def _rotation_source_coords(shape2, theta, device):
@@ -100,3 +106,103 @@ def rotate_expanded_from_binned_z(g_binned, theta, binning, nz_full,
             out = vals * wt if out is None else out + vals * wt
     return out.reshape((g_binned.shape[0], s1, nz_full)
                        + tuple(g_binned.shape[3:]))
+
+
+def rotate_and_bin_z(obj, theta, binning, method='bilinear'):
+    """``bin_z_sum(rotate(obj, theta), binning)``: ``obj[y, x, z, 2]``
+    (delta/beta channels, the bin identity is 0) to ``[y, x,
+    ceil(z/binning), 2]``.  The one-chunk form of the JAX package's
+    function; its streaming split over y is ROADMAP A, the rest of the
+    per-angle path."""
+    return bin_z_sum(rotate(obj, theta, method=method), binning, axis=2)
+
+
+def rotate_adjoint(cotangent, theta, method='bilinear'):
+    """Transpose of :func:`rotate` at the same ``theta``, by autograd
+    through the rotation's gathers (on CUDA their backward sorts the
+    indices and sums each target's terms in sorted order).  The linear-map transpose, not a rotation by ``-theta``."""
+    x = torch.zeros_like(cotangent, requires_grad=True)
+    with torch.enable_grad():
+        y = rotate(x, theta, method=method)
+        return torch.autograd.grad(y, x, cotangent)[0]
+
+
+def _taps_margin(s1: int, s2: int) -> int:
+    """Extension margin covering every theta: the rotated grid's sample
+    coordinates overshoot an axis by at most ``sqrt(a^2 + b^2) - a``
+    (half-extents a, b), plus slack for the +-1 tap window and f32
+    rounding of the inverse-map centers."""
+    a, b = (s1 - 1) / 2.0, (s2 - 1) / 2.0
+    return int(np.ceil(float(np.hypot(a, b)) - min(a, b))) + 2
+
+
+def rotate_adjoint_taps(cot, theta, binning: int = 1, nz_full: int = None):
+    """Exact transpose of ``rotate(., theta, method='bilinear')`` as a pure
+    gather: 9 weighted tap gathers, no scatter (the JAX package's form for
+    the TPU, where the scatter of the gathers' transpose serialises).
+
+    Edge-clamped bilinear sampling of ``src`` equals unclamped sampling of
+    the edge-replicated extension of ``src``, so the adjoint is the
+    unclamped adjoint on the extended grid followed by the transpose of the
+    replication (the margin strips summed into the edge lines).  The
+    unclamped adjoint at extended texel ``e`` sums the output points ``p``
+    with ``|c(p) - e| < 1`` per axis, all inside the 3x3 window around
+    ``round(R^-1 e)``.  The tap weights recompute ``c(p)`` with the f32
+    expression of :func:`_rotation_source_coords`, so they equal the
+    forward's weights.
+
+    ``cot``: the rotated-frame cotangent ``[Y, S1, S2, *rest]``; with
+    ``binning > 1`` it is z-binned (``[Y, S1, ceil(nz_full/binning),
+    *rest]``) and read as its piecewise-constant expansion to ``nz_full``.
+    Returns the source-frame cotangent at full depth."""
+    dev = cot.device
+    s1 = cot.shape[1]
+    s2 = int(nz_full) if binning > 1 else cot.shape[2]
+    m1 = _taps_margin(s1, s2)
+    m2 = _taps_margin(s2, s1)
+    ctr1 = (s1 - 1) / 2.0
+    ctr2 = (s2 - 1) / 2.0
+    th = torch.tensor(theta, dtype=torch.float32, device=dev)
+    cos_t = torch.cos(th)
+    sin_t = torch.sin(th)
+    # Inverse-map centers of every extended texel (they only locate the
+    # tap window, so their rounding cannot break exactness).
+    e1 = (torch.arange(s1 + 2 * m1, dtype=torch.float32, device=dev)[:, None]
+          - m1 - ctr1)
+    e2 = (torch.arange(s2 + 2 * m2, dtype=torch.float32, device=dev)[None, :]
+          - m2 - ctr2)
+    b1 = torch.round(cos_t * e1 + sin_t * e2 + ctr1).long()
+    b2 = torch.round(-sin_t * e1 + cos_t * e2 + ctr2).long()
+    e1_idx = e1 + ctr1          # the source index each texel holds
+    e2_idx = e2 + ctr2
+    v = cot.movedim(0, 2)       # [S1, S2 (binned), Y, *rest]
+    acc = None
+    for d1 in (-1, 0, 1):
+        for d2 in (-1, 0, 1):
+            t1 = b1 + d1
+            t2 = b2 + d2
+            valid = (t1 >= 0) & (t1 < s1) & (t2 >= 0) & (t2 < s2)
+            t1 = torch.clamp(t1, 0, s1 - 1)
+            t2 = torch.clamp(t2, 0, s2 - 1)
+            # The forward coordinates of the tap's output point, in the
+            # f32 expression of _rotation_source_coords.
+            g1 = t1.float() - ctr1
+            g2 = t2.float() - ctr2
+            c1t = cos_t * g1 - sin_t * g2 + ctr1
+            c2t = sin_t * g1 + cos_t * g2 + ctr2
+            w = (torch.clamp(1.0 - torch.abs(c1t - e1_idx), min=0.0)
+                 * torch.clamp(1.0 - torch.abs(c2t - e2_idx), min=0.0)
+                 * valid)
+            t2v = t2 // binning if binning > 1 else t2
+            vals = v[t1.ravel(), t2v.ravel()]          # [n, Y, *rest]
+            w = w.reshape((-1,) + (1,) * (vals.dim() - 1)).to(vals.dtype)
+            acc = vals * w if acc is None else acc + vals * w
+    ext = acc.reshape((s1 + 2 * m1, s2 + 2 * m2) + tuple(acc.shape[1:]))
+    # The replication's transpose: the margin strips into the edge lines.
+    core = ext[m1:m1 + s1].clone()
+    core[0] += ext[:m1].sum(0)
+    core[s1 - 1] += ext[m1 + s1:].sum(0)
+    core2 = core[:, m2:m2 + s2].clone()
+    core2[:, 0] += core[:, :m2].sum(1)
+    core2[:, s2 - 1] += core[:, m2 + s2:].sum(1)
+    return core2.movedim(2, 0).contiguous()     # [Y, S1, S2, *rest]

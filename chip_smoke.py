@@ -19,32 +19,41 @@ Phases (any failure raises and exits nonzero):
      flagship's chunk (256 steps, three modes, physical absorption) on its
      FFT route, also against K1's plain version on 64 of its patches, and
      on its dense route, checked and timed beside it; K6, one grid row at
-     a time through K2's kernel; then both routes of K1, K4 and K5 and
-     their plain versions against a complex128 sweep on 64 patches (K5
-     over five draws, with each route's gain bias over one step);
+     a time through K2's kernel, patch-major; the immediate path's shapes:
+     K1 at one grid row (N = 23), K6 on the row's z-major gradient, and
+     the band's exact backward in both forms (the tap gather and the
+     autograd transpose), held to each other and timed; then both routes
+     of K1, K4 and K5 and their plain versions against a complex128 sweep
+     on 64 patches (K5 over five draws, with each route's gain bias over
+     one step);
   4. the delta_beta flagship epoch (256^3 object, 23x23 scan of 72^2
      patterns at stride 8, binning 8, Fraunhofer, Adam, per-angle updates
      with the rotation out of the loop; 4 angles of random data) through
      ``Reconstructor``, f32 and bf16: a warmup epoch and 3 timed epochs,
      with each kernel's launch count (by route and instantiation: K2's
-     vector one on every path) read after the run, then one f32 epoch
-     under torch.profiler for the device time by kernel;
+     and K6's vector one on every path) read after the run, then one f32
+     epoch under torch.profiler for the device time by kernel;
   4b. the same for the real_imag flagship (the object starts as vacuum,
      1 in the real channel and 0 in the imaginary one), through K3, K5 on
      its FFT route and K2; its profile must show no product backward (the
      z binning is one autograd Function);
   4c. the same for the multi-mode flagship (three probe modes refined with
      the object, binning 1, so 256 steps), through K4 on its FFT route and
-     K2; then, f32
-     only, one warmup and one timed epoch at binning 8, through K1 at three
-     modes;
+     K2; then, f32 only, one warmup and one timed epoch at binning 8,
+     through K1 at three modes;
+  4d. the same for the immediate flagship (the flagship's geometry with
+     the reference's default scheme: one Adam update a grid row with the
+     rotation in the loop, 92 updates an epoch), through the band step:
+     K1 at 23 patches and K6 once a row, 23 of each an angle;
   5. a small configuration trained on CUDA and on the CPU (through K1's
      FFT route at 16^2): the per-epoch losses must agree;
   5b. the same for a small real_imag configuration and for a delta_beta
      one with a non-paraxial transfer function at a finite distance;
   5c. the same for a small multi-mode configuration (three refined probe
      modes, binning 1), with K4 forced (on its FFT route at 16^2) and then
-     through K1.
+     through K1;
+  5d. the same for the immediate scheme: the band step and the generic
+     step (a jittered table), each delta_beta and real_imag.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -109,19 +118,21 @@ def flagship_positions():
 
 # -- phase 3 -----------------------------------------------------------------
 
-def check_multislice(dtype, tol_fwd, tol_bwd, M=1):
+def check_multislice(dtype, tol_fwd, tol_bwd, M=1, N=529):
     """K1 forward and backward against the plain version at one flagship
-    gradient chunk: S=32 binned steps, N=529 patches of 72x72, M probe
-    modes (M=1 on the delta_beta flagship, 3 on the binned multi-mode
-    one).  The shape takes K1's FFT route (72 = 8 x 9), which the main
-    path runs; the dense route (the folded step mats), forced, is held
+    gradient chunk: S=32 binned steps, N patches of 72x72, M probe modes
+    (M=1 on the delta_beta flagship, 3 on the binned multi-mode one; N=529,
+    a whole angle, on the per-angle paths, and N=23, one grid row, on the
+    immediate one).  The shape takes K1's FFT route (72 = 8 x 9), which the
+    main path runs; the dense route (the folded step mats), forced, is held
     against the same plain version with the same tolerances and timed
     beside it in turns (fft, dense, dense, fft)."""
     from adorym_tpu_torch.ops import cuda_multislice as cm
     from adorym_tpu_torch.ops import propagate as prop
-    S, N, n = 32, 529, 72
+    S, n = 32, 72
     dev = torch.device('cuda')
-    gen = torch.Generator(device=dev).manual_seed(0 if M == 1 else 10 + M)
+    gen = torch.Generator(device=dev).manual_seed(
+        (0 if M == 1 else 10 + M) + (N != 529))
     db = (torch.rand((S, 2, N, n, n), device=dev, generator=gen)
           * 0.01).to(dtype)
     wave = torch.randn((M, N, n, n), dtype=torch.complex64, device=dev,
@@ -144,7 +155,7 @@ def check_multislice(dtype, tol_fwd, tol_bwd, M=1):
             out, (d, w), g, retain_graph=True))
 
     tag = str(dtype).split('.')[-1]
-    modes = f' M={M}' if M > 1 else ''
+    modes = (f' M={M}' if M > 1 else '') + (f' N={N}' if N != 529 else '')
     route = cm.k1_route(n, n)
     if route != 'fft':
         raise AssertionError(f'K1 takes the {route} route at {n}x{n}')
@@ -204,7 +215,8 @@ def check_multislice(dtype, tol_fwd, tol_bwd, M=1):
     b_b, by_b = bound(cm.bytes_moved(S, M, N, n, n, isz, backward=True),
                       cm.flops(S, M, N, n, n, backward=True))
     src = 'adorym_tpu_torch/csrc/multislice_db_stored.cu'
-    path = 'delta_beta' if M == 1 else 'multimode_binned'
+    path = ('immediate' if N != 529 else 'delta_beta' if M == 1
+            else 'multimode_binned')
     recs = [
         record(f'K1f multislice_db_stored forward{modes} ({tag})', src,
                'adorym_tpu/ops/pallas_multislice.py:353', e_fwd, r_fwd,
@@ -862,9 +874,9 @@ def check_rowgrid_scatter():
     """K6 against its plain version at the delta_beta flagship's chunk, one
     grid row at a time: 23 rows of 23 patch cotangents [72, 72, 32, 2]
     (patch-major, so each row's patches are contiguous) into the padded
-    accumulator [260, 260, 32, 2].  The Reconstructor does not route to
-    K6 (as the JAX package's does not): its launches on the main
-    path are 0, and this is its only run.  Library yardstick: ``F.fold``
+    accumulator [260, 260, 32, 2].  No path gives K6 this layout (the
+    immediate path gives it the z-major gradient, :func:`check_rowgrid_
+    scatter_zmajor`): this is its only run.  Library yardstick: ``F.fold``
     of one row, 23 times."""
     from adorym_tpu_torch.ops import cuda_scatter_grid as csg
     dev = torch.device('cuda')
@@ -908,21 +920,141 @@ def check_rowgrid_scatter():
                  'adorym_tpu/ops/pallas_scatter_grid.py:193', err, rel, tol,
                  ms, plain, b, by, lib, 'K6', None)
     rec.update(instantiation='vec', launches_note=(
-        'not routed by the Reconstructor, as in the JAX package '
-        '(pallas_scatter_grid.py:198-203): checked here against its plain '
-        'version only'))
+        'patch-major rows are on no path (the immediate path gives K6 the '
+        'z-major gradient): checked here against its plain version only'))
     return [rec]
+
+
+#: The immediate flagship's band: the 23x23 grid's x table padded by 4 on
+#: the left (its first column sits at x = -4), so the band accumulator is
+#: [72, 256 + 4, 32, 2].
+BAND_X, BAND_PAD = 256, 4
+
+
+def check_rowgrid_scatter_zmajor(dtype):
+    """K6 at the immediate flagship's layout: one grid row of 23 patch
+    cotangents, the multislice kernel's z-major gradient [32, 2, 23, 72,
+    72] read in place, into the band accumulator [72, 260, 32, 2] at x = 0
+    (the row's first window).  The vector instantiation (the path's) and
+    the scalar one, forced, must agree bit for bit; both are held to the
+    plain version at 1e-5.  Library yardstick: ``F.fold`` of the row, on a
+    pre-permuted f32 input."""
+    from adorym_tpu_torch.ops import cuda_scatter_grid as csg
+    dev = torch.device('cuda')
+    cols, s, n, zb = 23, 8, 72, 32
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cot = torch.randn((zb, 2, cols, n, n), device=dev,
+                      generator=gen).to(dtype).permute(2, 3, 4, 0, 1)
+    if not csg._channel_major(cot):
+        raise AssertionError('K6: the z-major view is not read in place')
+    acc0 = torch.randn((n, BAND_X + BAND_PAD, zb, 2), device=dev,
+                       generator=gen)
+    routes = csg.K6_ROUTE_LAUNCHES
+    r0 = dict(routes)
+    got = csg.scatter_rowgrid_add_kernel(acc0.clone(), cot, 0, 0, s)
+    took = {r: routes[r] - r0[r] for r in routes}
+
+    def scalar(acc):
+        return csg._launch_scatter(csg.K6, routes, acc, cot, 0, 0, s, 1,
+                                   vec=1)
+    got_s = scalar(acc0.clone())
+    ref = csg.scatter_rowgrid_add(acc0.clone(), cot, 0, 0, s)
+    torch.cuda.synchronize()
+    tag = str(dtype).split('.')[-1]
+    equal = torch.equal(got, got_s)
+    err, rel = rel_err(got, ref)
+    tol = 1e-5           # the same f32 values, <= 9 terms, other orders
+    log(f'K6 z-major {tag} (one row): max_abs {err:.3e} rel {rel:.3e} (tol '
+        f'{tol}); instantiations launched {took}; vec and scalar bit-equal: '
+        f'{equal}')
+    if took != {'vec': 1, 'scalar': 0}:
+        raise AssertionError(f'K6 {tag}: instantiations launched {took}, '
+                             'expected the vector one')
+    if not (equal and rel < tol):
+        raise AssertionError(f'K6 z-major {tag}: kernel disagrees with its '
+                             'plain version or its scalar instantiation')
+    del got, got_s, ref
+    acc = acc0.clone()
+    ms = time_ms(lambda: csg.scatter_rowgrid_add_kernel(acc, cot, 0, 0, s),
+                 20)
+    ms_s = time_ms(lambda: scalar(acc), 20)
+    ms = (ms + time_ms(lambda: csg.scatter_rowgrid_add_kernel(
+        acc, cot, 0, 0, s), 20)) / 2
+    plain = time_ms(lambda: csg.scatter_rowgrid_add(acc, cot, 0, 0, s), 5)
+    tx = (cols - 1) * s + n
+    cols_in = cot.float().reshape(cols, n * n, 2 * zb).permute(
+        2, 1, 0).reshape(1, 2 * zb * n * n, cols).contiguous()
+    lib = time_ms(lambda: torch.nn.functional.fold(
+        cols_in, (n, tx), (n, n), stride=s), 20)
+    del cols_in
+    b, by = bound(csg.bytes_moved(cot.shape, s, 1, cot.element_size()),
+                  float(cot.numel()))
+    log(f'K6 z-major {tag}: vec {ms:.4f} ms, scalar {ms_s:.4f} ms, bound '
+        f'{b:.4f} ms ({100 * b / ms:.1f}%), F.fold {lib:.4f} ms')
+    rec = record(f'K6 scatter_rowgrid z-major ({tag})',
+                 'adorym_tpu_torch/csrc/grid_scatter.cu',
+                 'adorym_tpu/ops/pallas_scatter_grid.py:193', err, rel, tol,
+                 ms, plain, b, by, lib, 'K6', 'immediate')
+    rec.update(instantiation='vec', scalar_ms=ms_s)
+    return [rec]
+
+
+def check_band_adjoint():
+    """The immediate flagship band's exact backward in its two forms: the
+    9-tap gather (``rotate_adjoint_taps``, reading the binned accumulator)
+    and the transpose through autograd (the bins expanded, then the
+    rotation's gathers differentiated, their backward sorting the indices).
+    A random band accumulator [72, 256, 32, 2] (the x padding cropped) at
+    theta = 0.7 to [72, 256, 256, 2]; the two held to each other at 1e-5 of
+    the largest value, and timed in turns (taps, transpose, transpose,
+    taps).  Returns {form: ms}."""
+    from adorym_tpu_torch.ops import rotate as rot
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(19)
+    acc = torch.randn((72, BAND_X + BAND_PAD, 32, 2), device=dev,
+                      generator=gen)
+    gb = acc[:, BAND_PAD:]
+    theta, binning, nz = 0.7, 8, 256
+
+    def taps():
+        return rot.rotate_adjoint_taps(gb, theta, binning=binning,
+                                       nz_full=nz)
+
+    def transpose():
+        full = torch.repeat_interleave(gb, binning, dim=2)[:, :, :nz]
+        return rot.rotate_adjoint(full, theta)
+    a, b = taps(), transpose()
+    torch.cuda.synchronize()
+    err, rel = rel_err(a, b)
+    tol = 1e-5
+    log(f'band adjoint (72 x 256 x 256 x 2, binning 8): taps against the '
+        f'autograd transpose max_abs {err:.3e} rel {rel:.3e} (tol {tol})')
+    if not rel < tol:
+        raise AssertionError('band adjoint: the tap gather and the autograd '
+                             'transpose disagree')
+    del a, b
+    ms = {'taps': time_ms(taps, 10), 'transpose': time_ms(transpose, 10)}
+    ms['transpose'] = (ms['transpose'] + time_ms(transpose, 10)) / 2
+    ms['taps'] = (ms['taps'] + time_ms(taps, 10)) / 2
+    log(f"band adjoint: taps {ms['taps']:.3f} ms, autograd transpose "
+        f"{ms['transpose']:.3f} ms")
+    return ms
 
 
 # -- phase 4 -----------------------------------------------------------------
 
 #: The flagship paths: the object's kind, probe modes (refined with the
-#: object when more than one) and z binning of each.
+#: object when more than one), z binning and update scheme of each.  The
+#: per-angle paths rotate the object out of the autodiff loop; the
+#: immediate one (the reference's default) updates after every grid row
+#: with the rotation in the loop, through the band step.
 PATHS = {'delta_beta': dict(unknown_type='delta_beta', n_modes=1, binning=8),
          'real_imag': dict(unknown_type='real_imag', n_modes=1, binning=8),
          'multimode': dict(unknown_type='delta_beta', n_modes=3, binning=1),
          'multimode_binned': dict(unknown_type='delta_beta', n_modes=3,
-                                  binning=8)}
+                                  binning=8),
+         'immediate': dict(unknown_type='delta_beta', n_modes=1, binning=8,
+                           immediate=True)}
 
 
 def probe_modes(n, n_modes, seed=11):
@@ -947,8 +1079,11 @@ def flagship_config(bf16, path='delta_beta'):
                              energy_ev=f['energy_ev'], psize_cm=f['psize_cm'],
                              free_prop_cm='inf', binning=p['binning']),
         train=pt.TrainConfig(minibatch_size=f['mb'], learning_rate=1e-7,
-                             optimizer='adam', rotate_out_of_loop=True,
-                             update_scheme='per angle', run_bfloat16=bf16,
+                             optimizer='adam',
+                             rotate_out_of_loop=not p.get('immediate'),
+                             update_scheme=('immediate' if p.get('immediate')
+                                            else 'per angle'),
+                             run_bfloat16=bf16,
                              unknown_type=p['unknown_type'],
                              n_probe_modes=p['n_modes']),
         refine=pt.RefineConfig(optimize_probe=p['n_modes'] > 1))
@@ -992,17 +1127,21 @@ def launch_counts():
     return counts
 
 
-#: The kernels each flagship path launches once per angle; the others
-#: must not launch on it.  K6 is on no path (the Reconstructor does not
-#: route to it, as the JAX package's does not).  K1, K4 and K5 take their
-#: FFT route (K1_FFT, K4_FFT and K5_FFT count the forward and backward
-#: launches together), K2 its vector instantiation.
+#: The kernels each flagship path launches once per gradient chunk; the
+#: others must not launch on it.  A per-angle path's chunk is the whole
+#: angle; the immediate path's is one grid row (23 an angle), scattered by
+#: K6, which no per-angle path launches.  K1, K4 and K5 take their FFT
+#: route (K1_FFT, K4_FFT and K5_FFT count the forward and backward
+#: launches together), K2 and K6 their vector instantiation.
 PATH_KERNELS = {'delta_beta': ('K1_FWD', 'K1_BWD', 'K2', 'K2_VEC', 'K1_FFT'),
                 'real_imag': ('K3', 'K5_FWD', 'K5_BWD', 'K2', 'K2_VEC',
                               'K5_FFT'),
                 'multimode': ('K4_FWD', 'K4_BWD', 'K2', 'K2_VEC', 'K4_FFT'),
                 'multimode_binned': ('K1_FWD', 'K1_BWD', 'K2', 'K2_VEC',
-                                     'K1_FFT')}
+                                     'K1_FFT'),
+                'immediate': ('K1_FWD', 'K1_BWD', 'K6', 'K6_VEC', 'K1_FFT')}
+#: Gradient chunks an angle, where more than one.
+CHUNKS_PER_ANGLE = {'immediate': 23}
 
 
 def run_flagship(bf16, path='delta_beta', n_timed=3):
@@ -1025,8 +1164,12 @@ def run_flagship(bf16, path='delta_beta', n_timed=3):
                            probe_pos=pos, theta_ls=theta, obj_init=obj0,
                            probe_init=probe0)
     del obj0
-    if rec.device.type != 'cuda' or rec._grid_scatter_rows != 23:
-        raise AssertionError('flagship: not one whole-angle chunk on CUDA')
+    if rec.device.type != 'cuda':
+        raise AssertionError('flagship: not on CUDA')
+    if p.get('immediate') and rec._rowgrid_stride != 8:
+        raise AssertionError('immediate flagship: not the band step')
+    if not p.get('immediate') and rec._grid_scatter_rows != 23:
+        raise AssertionError('flagship: not one whole-angle chunk')
     tag = f"{path} {'bf16' if bf16 else 'f32'}"
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1049,7 +1192,7 @@ def run_flagship(bf16, path='delta_beta', n_timed=3):
         f'launches {launches}')
     if not all(np.isfinite(losses)):
         raise AssertionError(f'flagship {tag}: non-finite loss {losses}')
-    want = n_epochs * f['n_theta']           # one of each per angle
+    want = n_epochs * f['n_theta'] * CHUNKS_PER_ANGLE.get(path, 1)
     expect = {k: want if k in PATH_KERNELS[path] else 0 for k in launches}
     for k in ('K1_FFT', 'K4_FFT', 'K5_FFT'):
         expect[k] *= 2                       # forward and backward
@@ -1105,6 +1248,12 @@ def profile_epoch(rec, i_epoch):
             log(f'  host {e.cpu_time_total / 1e3:9.3f} ms device '
                 f'{e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x '
                 f'{e.key[:80]}')
+    # The host's own time by op (self time, outside its children): where
+    # the gaps between the device's work come from.
+    for e in sorted(prof.key_averages(),
+                    key=lambda e: -e.self_cpu_time_total)[:12]:
+        log(f'  host self {e.self_cpu_time_total / 1e3:9.3f} ms '
+            f'{e.count:6d}x {e.key[:80]}')
     return {e.key for e in prof.key_averages() if e.device_time_total > 0}
 
 
@@ -1112,19 +1261,26 @@ def profile_epoch(rec, i_epoch):
 
 def small_config_agrees(unknown_type='delta_beta', fresnel_approx=True,
                         free_prop_cm='inf', expect=None, n_modes=1,
-                        binning=2, lr=1e-3, force_invertible=False):
+                        binning=2, lr=1e-3, force_invertible=False,
+                        immediate=False, jitter=False):
     """32^3 object, 3 angles, a 4x4 grid of 16^2 patterns, GD: 2 epochs on
     CUDA (kernels) and on the CPU (plain FFT path).  A real_imag object
     starts near vacuum.  With ``n_modes`` > 1 the distinct probe modes are
     refined too, and ``force_invertible`` sets the stored/invertible
-    switch so that both runs take K4.  ``expect`` maps launch counters to
-    the launches the two runs must make (the CPU run makes none)."""
+    switch so that both runs take K4.  ``immediate``: the immediate scheme
+    (one update a grid row) with the rotation in the loop, through the band
+    step, or with ``jitter`` (the grid's positions moved by up to 2 pixels,
+    so no longer grid rows) through the generic step.  ``expect`` maps
+    launch counters to the launches the two runs must make (the CPU run
+    makes none)."""
     import adorym_tpu_torch as pt
     from adorym_tpu_torch.ops import propagate as prop
     rng = np.random.default_rng(0)
     xs = np.arange(4) * 4
     yy, xx = np.meshgrid(xs, xs, indexing='ij')
     pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+    if jitter:
+        pos += np.random.default_rng(1).integers(-2, 3, pos.shape)
     data = rng.random((3, 16, 16, 16)).astype(np.float32)
     theta = np.linspace(0, np.pi, 3, endpoint=False)
     obj0 = (rng.random((32, 32, 32, 2)) * 1e-3).astype(np.float32)
@@ -1136,8 +1292,9 @@ def small_config_agrees(unknown_type='delta_beta', fresnel_approx=True,
                              free_prop_cm=free_prop_cm, binning=binning,
                              fresnel_approx=fresnel_approx),
         train=pt.TrainConfig(minibatch_size=4, learning_rate=lr,
-                             optimizer='gd', rotate_out_of_loop=True,
-                             update_scheme='per angle',
+                             optimizer='gd', rotate_out_of_loop=not immediate,
+                             update_scheme=('immediate' if immediate
+                                            else 'per angle'),
                              unknown_type=unknown_type,
                              n_probe_modes=n_modes),
         refine=pt.RefineConfig(optimize_probe=n_modes > 1,
@@ -1160,7 +1317,8 @@ def small_config_agrees(unknown_type='delta_beta', fresnel_approx=True,
     launches = launch_counts()
     name = (f'small {unknown_type} fresnel_approx={fresnel_approx} '
             f'free_prop_cm={free_prop_cm} modes={n_modes} '
-            f'binning={binning} invertible={force_invertible}')
+            f'binning={binning} invertible={force_invertible} '
+            f'immediate={immediate} jitter={jitter}')
     if expect and any(launches[k] != v for k, v in expect.items()):
         raise AssertionError(f'{name}: launches {launches}, expected '
                              f'{expect}')
@@ -1197,6 +1355,10 @@ def main():
         # f32: 32 steps of 72-deep sums in other orders than cuBLAS.  bf16:
         # the kernel rounds its records and gdb to bf16, autograd does not.
         kernels += check_multislice(dtype, 1e-4, tol_bwd)
+        # The immediate path's shapes: K1 at one grid row, K6 on its
+        # z-major gradient.
+        kernels += check_multislice(dtype, 1e-4, tol_bwd, N=23)
+        kernels += check_rowgrid_scatter_zmajor(dtype)
         kernels += check_grid_extract(dtype)
         for case in K2_CASES:
             kernels += check_grid_scatter(dtype, *case)
@@ -1213,12 +1375,13 @@ def main():
         kernels += check_invertible(dtype)
         torch.cuda.empty_cache()
     kernels += check_rowgrid_scatter()
+    adjoint_ms = check_band_adjoint()
     # The f32 kernels of K1 and K4 against the complex128 sweep, each route.
     truth = check_truth()
     for k in kernels:
         which = k['name'][:2]
         if (which in truth and k['name'].endswith('(float32)')
-                and ' M=' not in k['name']):
+                and ' M=' not in k['name'] and ' N=' not in k['name']):
             i = slice(0, 1) if 'forward' in k['name'] else slice(1, 3)
             k['truth_rel_err'] = {form: max(e[i]) for form, e in
                                   truth[which].items()}
@@ -1230,22 +1393,20 @@ def main():
             f"{k['plain_ms']:.4f} bound_ms {k['bound_ms']:.4f} "
             f"({k['bound_by']}) library_ms {lib}{dense}")
 
+    # Phases 4-4c, then 4d: the immediate flagship.  Each run checks its
+    # launches: K6 on the immediate path only.
     runs = [(path, bf16, 3) for path in ('delta_beta', 'real_imag',
                                          'multimode')
-            for bf16 in (False, True)] + [('multimode_binned', False, 1)]
-    k6_launches = 0
+            for bf16 in (False, True)] + [('multimode_binned', False, 1)] + [
+        ('immediate', bf16, 3) for bf16 in (False, True)]
     for path, bf16, n_timed in runs:
         rate, launches = run_flagship(bf16, path, n_timed)
-        k6_launches += launches['K6']
         tag = '(bfloat16)' if bf16 else '(float32)'
         for k in kernels:
             if k['path'] == path and k['name'].endswith(tag):
                 k['launches'] = launches[k['counter']]
     for k in kernels:
-        if k['counter'] == 'K6':
-            # Checked 0 by every run above: on no path of the Reconstructor.
-            k['launches'] = k6_launches
-        elif k['path'] is None:
+        if k['path'] is None:
             k['launches'] = 0
     if not all(k.get('launches') for k in kernels if k['path']):
         raise AssertionError('a kernel has no launch count from the '
@@ -1274,6 +1435,20 @@ def main():
     small_config_agrees(**multimode,
                         expect={'K1_FWD': 6, 'K1_BWD': 6, 'K1_FFT': 12,
                                 'K1_DENSE': 0, 'K4_FWD': 0})
+    # Phase 5d: the immediate scheme, one update a grid row (4 an angle, 24
+    # over the two epochs): the band step (K6 once a row) and, on the
+    # jittered table, the generic step (the whole object's rotation
+    # through autograd), each delta_beta (K1) and real_imag (K5).
+    for unknown_type, pair in (('delta_beta', 'K1'), ('real_imag', 'K5')):
+        for jitter in (False, True):
+            small_config_agrees(
+                unknown_type, immediate=True, jitter=jitter,
+                expect={f'{pair}_FWD': 24, f'{pair}_BWD': 24,
+                        f'{pair}_FFT': 48, 'K6': 0 if jitter else 24,
+                        'K6_VEC': 0 if jitter else 24, 'K2': 0, 'K3': 0})
+    log(f"band adjoint at the immediate flagship: taps "
+        f"{adjoint_ms['taps']:.3f} ms, autograd transpose "
+        f"{adjoint_ms['transpose']:.3f} ms")
 
     for k in kernels:
         del k['counter'], k['path']

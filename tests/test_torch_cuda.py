@@ -403,6 +403,85 @@ def test_rowgrid_scatter_kernel_matches_plain(cuda):
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize('dtype,tol_fwd,tol_grad', MULTISLICE_TOLS)
+def test_multislice_one_grid_row_matches_plain(cuda, dtype, tol_fwd,
+                                               tol_grad):
+    """K1 at the immediate flagship's shape, one grid row a launch: N = 23
+    patches of 72^2 over 32 binned steps with the far field, on its FFT
+    route (23 blocks on 132 SMs)."""
+    args = _multislice_inputs(32, 1, 23, 72, 72, dtype, True, cuda)
+    r0 = dict(cm.K1_ROUTE_LAUNCHES)
+    out_k, gdb_k, gw_k = _run(cm.multislice_db_stored_packed, *args)
+    assert {r: cm.K1_ROUTE_LAUNCHES[r] - r0[r] for r in r0} == {
+        'fft': 2, 'dense': 0}
+    out_p, gdb_p, gw_p = _run(cm.multislice_db_stored_plain, *args)
+    torch.cuda.synchronize()
+    assert _rel(out_k, out_p) < tol_fwd
+    assert _rel(gdb_k, gdb_p) < tol_grad
+    assert _rel(gw_k, gw_p) < tol_grad
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_rowgrid_scatter_zmajor_matches_plain(cuda, dtype):
+    """K6 at the immediate path's layout: one grid row's z-major gradient
+    ``[zb, 2, N, py, px]`` read in place into a band accumulator ``[py,
+    X + pad, zb, 2]`` (cut to 7 patches of 24^2 at stride 8, zb = 8).  Its
+    vector instantiation equals its scalar one bit for bit, and both the
+    plain version to 1e-5."""
+    rng = np.random.default_rng(8)
+    zm = torch.from_numpy(rng.normal(size=(8, 2, 7, 24, 24))
+                          .astype(np.float32)).to(cuda, dtype)
+    cot = zm.permute(2, 3, 4, 0, 1)
+    assert csg._channel_major(cot)
+    acc0 = torch.from_numpy(rng.normal(size=(24, 90, 8, 2))
+                            .astype(np.float32)).to(cuda)
+    routes = csg.K6_ROUTE_LAUNCHES
+    r0 = dict(routes)
+    got = csg.scatter_rowgrid_add_kernel(acc0.clone(), cot, 0, 5, 8)
+    got_s = csg._launch_scatter(csg.K6, routes, acc0.clone(), cot, 0, 5, 8,
+                                1, vec=1)
+    assert {r: routes[r] - r0[r] for r in routes} == {'vec': 1, 'scalar': 1}
+    ref = csg.scatter_rowgrid_add(acc0.clone(), cot, 0, 5, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got_s)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('jitter,unknown_type', [
+    (False, 'delta_beta'), (False, 'real_imag'), (True, 'delta_beta')])
+def test_immediate_epoch_cuda_matches_cpu(cuda, jitter, unknown_type):
+    """A small immediate run on the card against the CPU: the band step
+    (K1, or K5 for real_imag, and K6 once per batch) on a row-grid table,
+    the generic step (the whole object's rotation through autograd) on a
+    jittered one.  Losses to 1e-4."""
+    import adorym_tpu_torch as pt
+    rng = np.random.default_rng(0)
+    xs = np.arange(4) * 4
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+    if jitter:
+        pos += rng.integers(-2, 3, pos.shape)
+    data = rng.random((3, 16, 16, 16)).astype(np.float32)
+    obj0 = (rng.random((24, 24, 24, 2)) * 1e-3).astype(np.float32)
+    if unknown_type == 'real_imag':
+        obj0[..., 0] += 1.0
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(24, 24, 24), probe_size=(16, 16),
+                             free_prop_cm='inf', binning=2),
+        train=pt.TrainConfig(minibatch_size=4, learning_rate=1e-3,
+                             optimizer='gd', unknown_type=unknown_type))
+    losses = {}
+    k6 = csg.K6.launches
+    for dev in ('cuda', 'cpu'):
+        rec = pt.Reconstructor(cfg, data=data, probe_pos=pos,
+                               theta_ls=np.linspace(0, np.pi, 3),
+                               obj_init=obj0.copy(), device=dev)
+        losses[dev] = [rec.run_epoch(e) for e in range(2)]
+    assert csg.K6.launches - k6 == (0 if jitter else 24)
+    np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-4)
+
+
 def test_grid_scatter_rejects_tile_outside(cuda):
     cot = torch.zeros((4, 8, 8, 2), device=cuda)
     acc = torch.zeros((10, 10, 2), device=cuda)
