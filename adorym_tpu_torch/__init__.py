@@ -1,12 +1,12 @@
 """adorym_tpu_torch — the PyTorch and CUDA port of adorym_tpu.
 
 Automatic-differentiation imaging reconstruction (here: multislice
-ptychotomography) on NVIDIA Hopper cards.  The layout mirrors
-``adorym_tpu`` (``ops/``, ``models/``, ``optim/``, ``utils/``,
-``recon.py``) so each module's counterpart is found by name; the hot loops
-run in hand-written CUDA kernels (``csrc/``), each with a plain PyTorch
-version beside it.  Entry points run on CUDA unless the caller passes
-``device='cpu'``.
+ptychotomography and 2D ptychography) on NVIDIA Hopper cards.  The layout
+mirrors ``adorym_tpu`` (``api.py``, ``io/``, ``ops/``, ``models/``,
+``optim/``, ``utils/``, ``recon.py``, ``simulate.py``) so each module's
+counterpart is found by name; the hot loops run in hand-written CUDA
+kernels (``csrc/``), each with a plain PyTorch version beside it.  Entry
+points run on CUDA unless the caller passes ``device='cpu'``.
 """
 
 import torch
@@ -20,4 +20,9 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .config import (Geometry, IOConfig, LossConfig, ParallelConfig,  # noqa: E402,F401
                      ReconConfig, RefineConfig, TrainConfig)
+from .api import reconstruct_ptychography  # noqa: E402,F401
+from .models.regularizers import (CorrRegularizer, GradCorrRegularizer,  # noqa: E402,F401
+                                  L1Regularizer, ReweightedL1Regularizer,
+                                  TVRegularizer)
 from .recon import Reconstructor  # noqa: E402,F401
+from .simulate import simulate, simulate_to_file  # noqa: E402,F401

@@ -1,8 +1,9 @@
-"""Carry parameters and optimizer state between the JAX package and the
-port.  Both keep the same layouts — obj ``[y, x, z, 2]``, probe
-``[n_modes, py, px, 2]``, Adam ``m``/``v`` per leaf, momentum ``v`` — so
-the conversion is a change of array type and device; the optimizer's
-step counter travels as a plain int."""
+"""Carry parameters, optimizer state and whole checkpoints between the JAX
+package and the port.  Both keep the same layouts — obj ``[y, x, z, 2]``,
+probe ``[n_modes, py, px, 2]``, Adam ``m``/``v`` per leaf, momentum ``v``
+— so the conversion is a change of array type and device.  The optimizer
+step counts are the Reconstructor's ``i_opt_batch`` and ``global_batch``,
+plain ints in both packages and in a checkpoint's ``extra``."""
 
 from __future__ import annotations
 
@@ -11,14 +12,17 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .io import checkpoint as ckpt_lib
+
 
 def params_from_jax(params_np: Dict[str, Any],
                     opt_state_np: Optional[Dict[str, Dict[str, Any]]] = None,
                     device='cuda'
                     ) -> Tuple[Dict[str, torch.Tensor],
                                Optional[Dict[str, Dict[str, torch.Tensor]]]]:
-    """JAX-package parameters (and optimizer state), as numpy arrays or
-    anything ``np.asarray`` takes, to float32 tensors on ``device``."""
+    """JAX-package parameters (and optimizer state: each leaf's Adam or
+    momentum moments, none for GD), as numpy arrays or anything
+    ``np.asarray`` takes, to float32 tensors on ``device``."""
     def to_t(a):
         return torch.as_tensor(np.array(a, dtype=np.float32),
                                device=device)
@@ -41,3 +45,23 @@ def params_to_numpy(params: Dict[str, torch.Tensor],
         return out, None
     return out, {k: {n: a.detach().cpu().numpy() for n, a in st.items()}
                  for k, st in opt_state.items()}
+
+
+def load_checkpoint(folder: str, device='cuda') -> Optional[Dict[str, Any]]:
+    """The checkpoint in ``folder`` (``<output_folder>/checkpoint``),
+    written by either package, as the port's run state: ``params`` and
+    ``opt_state`` as tensors on ``device``, the NEXT ``(i_epoch,
+    i_batch)`` to run, the step counts ``i_opt_batch`` and
+    ``global_batch``, and ``extra`` (the remaining numpy entries, e.g. a
+    shrink-wrapped support mask); None when there is none."""
+    restored = ckpt_lib.restore_checkpoint(folder)
+    if restored is None:
+        return None
+    params_np, state_np, i_epoch, i_batch, extra = restored
+    params, state = params_from_jax(params_np, state_np, device=device)
+    extra = dict(extra)
+    return {'params': params, 'opt_state': state,
+            'i_epoch': int(i_epoch), 'i_batch': int(i_batch),
+            'i_opt_batch': int(extra.pop('i_opt_batch', 0)),
+            'global_batch': int(extra.pop('global_batch', 0)),
+            'extra': extra}

@@ -69,11 +69,12 @@ def shifted_probes(probe, params: Dict, batch: Dict, cfg: ReconConfig):
 
 
 def predict(params: Dict, batch: Dict, cfg: ReconConfig,
-            pad_arr: Optional[np.ndarray] = None):
+            pad_arr: Optional[np.ndarray] = None, return_wave: bool = False):
     """Detected magnitudes ``[N, py, px]`` of one minibatch: rotate the
     object, pad it, extract the windows at ``round(batch['pos_batch'])``
     (a host ``[N, 2]`` table; windows past the padded edge see vacuum)
-    and run :func:`predict_from_patches`."""
+    and run :func:`predict_from_patches`.  ``return_wave``: the complex
+    exit waves ``[n_modes, N, py, px]`` before detection instead."""
     geo = cfg.geometry
     if pad_arr is None:
         pad_arr = np.zeros((2, 2), dtype=np.int64)
@@ -83,7 +84,8 @@ def predict(params: Dict, batch: Dict, cfg: ReconConfig,
            .astype(np.int64) + np.asarray([pad_arr[0][0], pad_arr[1][0]]))
     subobj = patch_ops.extract_patches_vacuum(
         obj, pos, geo.probe_size, unknown_type=cfg.train.unknown_type)
-    return predict_from_patches(params, batch, subobj, cfg)
+    return predict_from_patches(params, batch, subobj, cfg,
+                                return_wave=return_wave)
 
 
 def predict_from_patches(params: Dict, batch: Dict, subobj, cfg: ReconConfig,

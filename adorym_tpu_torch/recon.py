@@ -28,22 +28,43 @@ one optimizer update per minibatch:
   - ``step``, for any other scan table: autograd through the whole
     object's rotation (``models.ptychography.predict``).
 
+In 2D (``two_d_mode``) nothing rotates: the immediate scheme takes
+``step`` and the per-angle scheme ``angle_step`` without the rotations.
+
+Regularizers act on the whole object: the band step adds their own
+gradient by the sum rule, ``step`` adds them to its loss, and the
+per-angle step takes them once an angle on the rotated object, scaled by
+the angle's batch count.  A finite support mask constrains every update
+and shrinks on the reference's cadence (shrink-wrap).
+
+``run`` drives the epochs (``n_epochs='auto'`` stops when the loss falls
+by less than ``crit_conv_rate``).  With an ``output_folder`` it writes the
+reference's output tree, checkpoints every ``n_batch_per_checkpoint``
+batches (each naming the NEXT batch to run) and resumes from one.
+
 The measured data lives on the device.  Per-batch losses stay on the
-device until the epoch ends.  Runs outside these paths raise
+device until the epoch ends; only a batch that writes a checkpoint or an
+intermediate dump visits the host.  Runs outside these paths raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import os
+import time
 import warnings
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from . import convert
 from .config import ReconConfig
+from .io import checkpoint as ckpt_lib
+from .io import output as out_lib
 from .models import base as model_base
 from .models import ptychography as ptycho_model
+from .models import regularizers as regs
 from .ops import patches as patch_ops
 from .ops import propagate as prop
 from .ops.cuda_scatter_grid import (scatter_grid2d_add,
@@ -59,6 +80,28 @@ from .utils.initialize import initialize_object, initialize_probe
 _REST = ('ROADMAP A, the rest of the per-angle path and of the immediate '
          'scheme')
 
+#: Batches between two refreshes of the reweighted-L1 weights on the
+#: immediate scheme, as in the reference.
+WEIGHT_L1_INTERVAL = 10
+
+
+def build_regularizers(cfg: ReconConfig) -> List[regs.Regularizer]:
+    """The regularizers that the loss weights of ``cfg`` switch on."""
+    ls: List[regs.Regularizer] = []
+    lc = cfg.loss
+    ut = cfg.train.unknown_type
+    if lc.alpha_d or lc.alpha_b:
+        kind = (regs.ReweightedL1Regularizer if lc.reweighted_l1
+                else regs.L1Regularizer)
+        ls.append(kind(ut, lc.alpha_d, lc.alpha_b))
+    if lc.gamma:
+        ls.append(regs.TVRegularizer(ut, lc.gamma))
+    if lc.corr_reg:
+        ls.append(regs.CorrRegularizer(ut, lc.corr_reg))
+    if lc.grad_corr_reg:
+        ls.append(regs.GradCorrRegularizer(ut, lc.grad_corr_reg))
+    return ls
+
 
 def resolve_device(device=None) -> torch.device:
     """The run's device: ``None`` means CUDA, which must then exist — the
@@ -72,7 +115,7 @@ def resolve_device(device=None) -> torch.device:
 
 def _check_slice(cfg: ReconConfig):
     """Raise for configurations outside the ported paths."""
-    geo, t, p, lc = cfg.geometry, cfg.train, cfg.parallel, cfg.loss
+    geo, t, p = cfg.geometry, cfg.train, cfg.parallel
     per_angle = t.update_scheme == 'per angle'
     todo = []
     if t.update_scheme not in ('immediate', 'per angle'):
@@ -83,29 +126,24 @@ def _check_slice(cfg: ReconConfig):
                          f'got {t.imm_grad_rotation!r}')
     if t.n_batch_per_update > 1:
         todo.append(f'n_batch_per_update > 1 ({_REST})')
-    if not per_angle and t.rotate_out_of_loop:
+    # In 2D nothing rotates, so rotate_out_of_loop means nothing there.
+    rotates = not geo.two_d_mode
+    if not per_angle and t.rotate_out_of_loop and rotates:
         todo.append("update_scheme='immediate' with rotate_out_of_loop=True "
                     f'({_REST})')
-    if per_angle and not t.rotate_out_of_loop:
+    if per_angle and not t.rotate_out_of_loop and rotates:
         todo.append("update_scheme='per angle' with the rotation inside "
                     f'autodiff ({_REST})')
-    if geo.two_d_mode:
-        todo.append('two_d_mode (ROADMAP A, remaining model families '
-                    'and refinables)')
     if cfg.refine.tilt_active:
         todo.append('tilt (ROADMAP A, remaining model families and '
                     'refinables)')
-    if (lc.alpha_d or lc.alpha_b or lc.gamma or lc.corr_reg
-            or lc.grad_corr_reg):
-        todo.append('regularizers (ROADMAP A, remaining model families '
-                    'and refinables)')
     if p.data_axis > 1 or p.object_axis > 1:
         todo.append('device meshes (ROADMAP A, multi-GPU and out-of-core)')
     if p.offload_optimizer_state or p.offload_object is True:
         todo.append('offload (ROADMAP A, multi-GPU and out-of-core)')
-    if t.shrink_cycle is not None:
-        todo.append('shrink-wrap (ROADMAP A, remaining model families '
-                    'and refinables)')
+    if cfg.io.use_orbax:
+        todo.append("orbax checkpoints (a JAX library's format; the port "
+                    'writes the npz form)')
     if per_angle and t.stream_rotation == 'on':
         todo.append(f'streaming rotation ({_REST})')
     if per_angle and t.exact_grad_rotation:
@@ -190,13 +228,21 @@ def _band_grad_back(acc, theta, cfg, px0, X, nz):
 
 class Reconstructor:
     """Owns the parameters, the optimizer state and the steps of one run
-    (per angle, or immediate).  ``device``: where it runs; ``None`` means
-    CUDA and raises when there is none."""
+    (per angle, or immediate).  ``finite_support_mask``: ``[y, x, z]``,
+    0 outside the object's support; ``reg_list``: regularizers in place of
+    the ones the config's loss weights switch on; ``output_folder``: where
+    the reference's output tree, the loss log and the checkpoints go
+    (nothing is written without one).  ``device``: where it runs; ``None``
+    means CUDA and raises when there is none."""
 
     def __init__(self, cfg: ReconConfig, *, data: np.ndarray,
                  probe_pos: np.ndarray, theta_ls: Optional[np.ndarray] = None,
                  obj_init: Optional[np.ndarray] = None,
-                 probe_init: Optional[np.ndarray] = None, device=None):
+                 probe_init: Optional[np.ndarray] = None,
+                 beamstop: Optional[np.ndarray] = None,
+                 finite_support_mask: Optional[np.ndarray] = None,
+                 reg_list=None, output_folder: Optional[str] = None,
+                 device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         _check_slice(cfg)
@@ -244,8 +290,11 @@ class Reconstructor:
             raise NotImplementedError(
                 'per-angle scan tables whose minibatches are not '
                 f'constant-stride grid rows: {_REST}')
+        # The band step: the immediate scheme on grid rows, in 3D.
+        self._band = (self._immediate and self._rowgrid_stride is not None
+                      and not geo.two_d_mode)
         if (cfg.train.imm_grad_rotation == 'interp' and self._immediate
-                and self._rowgrid_stride is None):
+                and not self._band):
             # The knob reaches the band step only; the generic step
             # differentiates through the rotation (exact).
             warnings.warn("imm_grad_rotation='interp' requires the "
@@ -308,10 +357,79 @@ class Reconstructor:
                 raise NotImplementedError(
                     'scan tables that are not one complete grid split into '
                     f'whole chunks: {_REST}')
+        bs = model_base.make_beamstop_mask(beamstop)
+        self.beamstop_mask = (None if bs is None
+                              else torch.as_tensor(bs, device=dev))
+        self.finite_support_mask = None
+        if finite_support_mask is not None:
+            # A 2D mask ([y, x], as a one-page TIFF gives it) spans z.
+            m = np.asarray(finite_support_mask, np.float32)
+            m = np.broadcast_to(m.reshape(m.shape + (1,) * (3 - m.ndim)),
+                                tuple(geo.obj_size))
+            self.finite_support_mask = torch.as_tensor(m.copy(), device=dev)
+        self.reg_list = (list(reg_list) if reg_list is not None
+                         else build_regularizers(cfg))
+        self._needs_weight_l1 = any(
+            isinstance(r, regs.ReweightedL1Regularizer) for r in self.reg_list)
+        self.weight_l1 = (torch.ones_like(self.params['obj'])
+                          if self._needs_weight_l1 else None)
         self.i_opt_batch = 0      # optimizer step counter
         self.global_batch = 0     # epoch*n_batch + i_batch, for update gates
         self.loss_history: List[float] = []
+        self.epoch_seconds: List[float] = []    # run()'s epoch walls
         self._data_dev = None
+        self.stop_requested = False
+        self._t_start = time.time()
+        self._ckpt_seconds = 0.0
+        self._ckpt_count = 0
+        self._ckpt_warned = False
+        self.timers = _prof.Timers()
+        self.verbose = False
+
+        # -- outputs, checkpoints and resume (only with an output folder) --
+        self.output_folder = output_folder
+        self._logger = None
+        self._stdout_f = None
+        self._start_epoch = 0
+        self._start_batch = 0
+        if output_folder is not None:
+            os.makedirs(output_folder, exist_ok=True)
+            if cfg.io.save_stdout:
+                # Tee the progress lines to a timestamped file; asking for
+                # the tee turns the lines on.
+                ts = time.strftime('%Y%m%d_%H%M%S')
+                self._stdout_f = open(
+                    os.path.join(output_folder, f'stdout_{ts}.txt'), 'a')
+                self.verbose = True
+            out_lib.write_summary(cfg, output_folder)
+            if cfg.io.use_checkpoint:
+                self._restore(os.path.join(output_folder, 'checkpoint'))
+            self._logger = out_lib.LossLogger(
+                output_folder,
+                append=self._start_epoch > 0 or self._start_batch > 0)
+
+    def _restore(self, folder: str):
+        """Continue from the checkpoint in ``folder``, written by either
+        package: parameters, optimizer state, step counts, the NEXT (epoch,
+        batch) to run, and the shrink-wrapped support mask where the
+        checkpoint holds one."""
+        ck = convert.load_checkpoint(folder, device=self.device)
+        if ck is None:
+            if self.cfg.io.force_to_use_checkpoint:
+                raise FileNotFoundError(
+                    'force_to_use_checkpoint set but no checkpoint found')
+            return
+        self.params = ck['params']
+        # A GD leaf has no state and so no entry in the file.
+        self.opt_state = {k: ck['opt_state'].get(k, v)
+                          for k, v in self.opt_state.items()}
+        self._start_epoch, self._start_batch = ck['i_epoch'], ck['i_batch']
+        self.i_opt_batch = ck['i_opt_batch']
+        self.global_batch = ck['global_batch']
+        mask = ck['extra'].get('finite_support_mask')
+        if mask is not None and self.finite_support_mask is not None:
+            self.finite_support_mask = torch.as_tensor(
+                np.asarray(mask, np.float32), device=self.device)
 
     # ------------------------------------------------------------------
     def make_batches(self, rng: np.random.Generator):
@@ -406,7 +524,7 @@ class Reconstructor:
             per_item = model_base.mismatch_loss(
                 pred, measured, cfg.loss.loss_function_type,
                 cfg.loss.raw_data_type, cfg.loss.poisson_multiplier,
-                per_item=True)
+                self.beamstop_mask, per_item=True)
             per_batch = per_item.reshape(groups, -1).mean(1)
             grads = torch.autograd.grad(per_batch.sum(),
                                         [sub] + [aux[k] for k in aux_names])
@@ -459,7 +577,7 @@ class Reconstructor:
 
     def apply_step(self, grads, i_opt_batch: int, global_batch: int):
         """Optimizer update of every spec'd leaf (the probe inside its
-        update window), then the constraints."""
+        update window), then the constraints, the support mask included."""
         cfg = self.cfg
         mask = {}
         if 'probe' in self.specs:
@@ -468,33 +586,80 @@ class Reconstructor:
             self.specs, self.params, grads, self.opt_state, i_opt_batch,
             update_mask=mask)
         params = param_lib.apply_param_constraints(params, cfg)
-        params['obj'] = param_lib.apply_object_constraints(params['obj'],
-                                                            cfg)
+        params['obj'] = param_lib.apply_object_constraints(
+            params['obj'], cfg, self.finite_support_mask)
         self.params = params
 
+    # -- regularizers and the support ------------------------------------
+    @staticmethod
+    def _weight_l1_refresh(obj):
+        """Reweighted-L1 weights ``max(obj) / (|obj| + 1e-4 mean(obj))``;
+        ones until the object is first nonzero."""
+        denom = torch.abs(obj) + 1e-4 * torch.mean(obj)
+        w = torch.where(denom > 0, torch.max(obj) / denom,
+                        torch.ones_like(obj))
+        return torch.nan_to_num(w, nan=1.0, posinf=1.0)
+
+    def _reg_value_and_grad(self, obj):
+        """The regularizers' value and gradient at ``obj``, by autograd."""
+        o = obj.detach().requires_grad_(True)
+        with torch.enable_grad():
+            rv = regs.total_regularization(self.reg_list, o,
+                                           weight_l1=self.weight_l1)
+            if not torch.is_tensor(rv):        # every weight zero
+                return torch.zeros((), device=o.device), torch.zeros_like(o)
+            g, = torch.autograd.grad(rv, o)
+        return rv.detach(), g
+
+    def _shrink(self):
+        """Shrink-wrap: drop the support where delta fell below
+        ``shrink_threshold``."""
+        keep = self.params['obj'][..., 0] >= self.cfg.train.shrink_threshold
+        self.finite_support_mask = self.finite_support_mask * keep
+
+    # ------------------------------------------------------------------
     @torch.no_grad()
     def angle_step(self, i_theta: int, inds_list) -> torch.Tensor:
         """One angle: rotate, pad and bin the object, accumulate the
         chunks' gradients, rotate the gradient back (expanding the bins in
-        the same gather) and update.  Returns the per-batch losses of the
-        angle, on the device."""
+        the same gather) and update; in 2D nothing rotates.  Regularizers
+        are taken once on the rotated object and count once a batch; they
+        need the full-depth gradient, so the bins expand by ``repeat``
+        before the rotate-back.  Returns the per-batch losses of the angle,
+        on the device."""
         cfg = self.cfg
         geo = cfg.geometry
+        rotates = not geo.two_d_mode
         theta = float(self.theta_ls[i_theta])
         inds, pos = self._stage_angle(inds_list)
         measured = self._measured(i_theta, inds)
         method = cfg.train.interpolation
-        obj_pad = patch_ops.pad_object(
-            rotate(self.params['obj'], theta, method=method), self.pad_arr,
-            cfg.train.unknown_type)
+        obj_rot = self.params['obj']
+        if rotates:
+            obj_rot = rotate(obj_rot, theta, method=method)
+        obj_pad = patch_ops.pad_object(obj_rot, self.pad_arr,
+                                       cfg.train.unknown_type)
+        if not self.reg_list:
+            obj_rot = None
         if self._prebin:
             obj_pad = prop.bin_z_sum(obj_pad, geo.binning, axis=2)
         acc_obj, acc_aux, losses = self.patch_accum(
             obj_pad, theta, i_theta, pos, measured)
+        del obj_pad
         p = self.pad_arr
         g_rot = acc_obj[p[0][0]:acc_obj.shape[0] - p[0][1],
                         p[1][0]:acc_obj.shape[1] - p[1][1]]
-        if self._prebin:
+        if self.reg_list:
+            if self._prebin:
+                g_rot = torch.repeat_interleave(
+                    g_rot, geo.binning, dim=2)[:, :, :geo.obj_size[2]]
+            rv, g_reg = self._reg_value_and_grad(obj_rot)
+            g_rot = g_rot + len(inds_list) * g_reg
+            losses = losses + rv
+        del obj_rot
+        if not rotates:
+            g_obj = g_rot
+        elif self._prebin and not self.reg_list:
             g_obj = rotate_expanded_from_binned_z(
                 g_rot, -theta, geo.binning, geo.obj_size[2], method=method)
         else:
@@ -512,8 +677,9 @@ class Reconstructor:
         is rotated, and its gradient is rotated back, the same linear
         chain autograd applies to the whole object (rotation acts on each
         y plane alone).  Band rows outside the object are vacuum going in
-        and are dropped coming back.  Returns the batch's loss, on the
-        device."""
+        and are dropped coming back.  The regularizers' gradient on the
+        whole object adds by the sum rule.  Returns the batch's loss, on
+        the device."""
         cfg = self.cfg
         geo = cfg.geometry
         Y, X, nz = geo.obj_size
@@ -549,21 +715,29 @@ class Reconstructor:
         scatter_rowgrid_add_kernel(acc, g_sub, 0, int(x0s[0]),
                                    self._rowgrid_stride)
         g_band = _band_grad_back(acc, theta, cfg, px0, X, nz)
-        g_obj = torch.zeros_like(obj)
-        g_obj[lo:hi] = g_band[lo - y0:hi - y0]
+        if self.reg_list:
+            rv, g_obj = self._reg_value_and_grad(obj)
+            loss = loss + rv
+        else:
+            g_obj = torch.zeros_like(obj)
+        g_obj[lo:hi] += g_band[lo - y0:hi - y0]
         self.apply_step({**g_aux, 'obj': g_obj}, self.i_opt_batch,
                         self.global_batch)
         return loss[0]
 
     def loss_fn(self, params, batch, measured):
-        """The minibatch's data-mismatch loss of :func:`models.ptychography.
-        predict` (regularizers are ROADMAP A, remaining model families and
-        refinables)."""
+        """The minibatch's loss: the data mismatch of
+        :func:`models.ptychography.predict` plus the regularizers."""
         cfg = self.cfg
         pred = ptycho_model.predict(params, batch, cfg, self.pad_arr)
-        return model_base.mismatch_loss(
+        loss = model_base.mismatch_loss(
             pred, measured, cfg.loss.loss_function_type,
-            cfg.loss.raw_data_type, cfg.loss.poisson_multiplier)
+            cfg.loss.raw_data_type, cfg.loss.poisson_multiplier,
+            self.beamstop_mask)
+        if self.reg_list:
+            loss = loss + regs.total_regularization(
+                self.reg_list, params['obj'], weight_l1=self.weight_l1)
+        return loss
 
     @torch.no_grad()
     def step(self, i_theta: int, inds, measured) -> torch.Tensor:
@@ -582,41 +756,250 @@ class Reconstructor:
                         self.global_batch)
         return loss.detach()
 
-    def epoch_fused(self, batches) -> torch.Tensor:
-        """An immediate epoch: one update per minibatch, through
-        :meth:`step_band` where the scan table is grid rows, else
-        :meth:`step`.  The batches' rows of the device-resident dataset
-        are gathered by one index table moved to the device once.  Returns
-        the per-batch losses ``[n_b]``, on the device."""
-        step = self.step_band if self._rowgrid_stride is not None else self.step
+    # -- epochs ------------------------------------------------------------
+    def epoch_fused(self, batches, i_epoch: int = 0,
+                    skip: int = 0) -> torch.Tensor:
+        """An immediate epoch from batch ``skip`` on: one update per
+        minibatch, through :meth:`step_band` where the scan table is grid
+        rows (in 3D), else :meth:`step`.  The batches' rows of the
+        device-resident dataset are gathered by one index table moved to
+        the device once.  The reweighted-L1 weights refresh every
+        :data:`WEIGHT_L1_INTERVAL` batches and the support shrinks every
+        ``shrink_cycle``, both on the device.  Returns the per-batch
+        losses, on the device."""
+        t = self.cfg.train
+        step = self.step_band if self._band else self.step
         inds_dev = torch.as_tensor(np.stack([inds for _, inds in batches]),
                                    device=self.device)
         data = self._dataset()
+        n_b = len(batches)
         losses = []
-        for i, (i_theta, inds) in enumerate(batches):
-            losses.append(step(i_theta, inds, data[i_theta][inds_dev[i]]))
+        for i_batch in range(skip, n_b):
+            i_theta, inds = batches[i_batch]
+            if self._needs_weight_l1 and i_batch % WEIGHT_L1_INTERVAL == 0:
+                self.weight_l1 = self._weight_l1_refresh(self.params['obj'])
+            losses.append(step(i_theta, inds,
+                               data[i_theta][inds_dev[i_batch]]))
             self.i_opt_batch += 1
             self.global_batch += 1
+            if (self.finite_support_mask is not None
+                    and t.shrink_cycle is not None and i_batch > 0
+                    and i_batch % t.shrink_cycle == 0):
+                self._shrink()
+            nxt = ((i_epoch + 1, 0) if i_batch + 1 == n_b
+                   else (i_epoch, i_batch + 1))
+            every = self.cfg.io.n_batch_per_checkpoint
+            self._host_visits(i_epoch, i_batch, nxt,
+                              (i_batch + 1) % every == 0)
+            if self.stop_requested:
+                break
         return torch.stack(losses)
 
+    def angles_epoch(self, batches, i_epoch: int = 0, skip: int = 0):
+        """A per-angle epoch: one :meth:`angle_step` an angle, skipping the
+        whole leading angles of the first ``skip`` batches (a resume;
+        checkpoints fall on angle boundaries).  Per angle, before the
+        step, the reweighted-L1 weights refresh; after it, the support
+        shrinks when the epoch's batch count crossed a multiple of
+        ``shrink_cycle``.  Returns ``(losses on the device, the index of
+        the first batch run)``."""
+        t = self.cfg.train
+        groups = self._group_batches(batches)
+        n_b_epoch = len(batches)
+        done = 0
+        while groups and done + len(groups[0][1]) <= skip:
+            done += len(groups.pop(0)[1])
+        first = done
+        losses = []
+        for i_theta, inds_list in groups:
+            if self._needs_weight_l1:
+                self.weight_l1 = self._weight_l1_refresh(self.params['obj'])
+            losses.append(self.angle_step(i_theta, inds_list))
+            prev, done = done, done + len(inds_list)
+            if (self.finite_support_mask is not None
+                    and t.shrink_cycle is not None
+                    and done // t.shrink_cycle > prev // t.shrink_cycle):
+                self._shrink()
+            nxt = (i_epoch + 1, 0) if done == n_b_epoch else (i_epoch, done)
+            every = max(1, self.cfg.io.n_batch_per_checkpoint
+                        // max(1, len(inds_list)))
+            self._host_visits(i_epoch, done - 1, nxt,
+                              self.i_opt_batch % every == 0)
+            if self.stop_requested:
+                break
+        return torch.cat(losses), first
+
+    def _host_visits(self, i_epoch: int, i_batch: int, nxt, ckpt_due: bool):
+        """After a batch (or an angle): the batch-level intermediate dump,
+        the checkpoint when ``ckpt_due`` (at ``nxt``, the NEXT (epoch,
+        batch) to run), and the ``t_max_min`` wall-time stop, which
+        checkpoints first.  Without an output folder only the stop
+        applies."""
+        io = self.cfg.io
+        if self.output_folder is not None:
+            if io.save_intermediate and io.save_intermediate_level == 'batch':
+                self._save_intermediate(i_epoch, i_batch)
+            if io.store_checkpoint and ckpt_due:
+                self.save_checkpoint(*nxt)
+        if (io.t_max_min is not None
+                and (time.time() - self._t_start) / 60 > io.t_max_min):
+            if self.output_folder is not None:
+                self.save_checkpoint(*nxt)
+            self.stop_requested = True
+
     def run_epoch(self, i_epoch: int,
-                  rng: Optional[np.random.Generator] = None) -> float:
+                  rng: Optional[np.random.Generator] = None,
+                  callback=None) -> float:
         """One epoch over every angle; returns the mean per-batch loss,
-        the same number the JAX package's ``run_epoch`` returns."""
+        the same number the JAX package's ``run_epoch`` returns.  The
+        first epoch after a resume skips the batches the checkpoint had
+        finished.  ``callback(i_epoch, i_batch, loss)`` and the loss log
+        see each batch once the epoch's losses reach the host."""
         if rng is None:
             rng = np.random.default_rng(self.cfg.train.seed + i_epoch)
         batches = self.make_batches(rng)
-        if self._immediate:
-            losses = self.epoch_fused(batches)
-        else:
-            losses = torch.cat([self.angle_step(i_theta, inds_list)
-                                for i_theta, inds_list
-                                in self._group_batches(batches)])
-        mean_loss = float(losses.double().mean().cpu())
+        skip = 0
+        if i_epoch == self._start_epoch and self._start_batch:
+            skip = min(self._start_batch, len(batches))
+            self._start_batch = 0
+        timer = 'train_step' if self._immediate else 'angle_step'
+        with self.timers.time(timer):
+            if self._immediate:
+                losses, first = self.epoch_fused(batches, i_epoch, skip), skip
+            else:
+                losses, first = self.angles_epoch(batches, i_epoch, skip)
+            losses = losses.double().cpu().numpy()
+        if callback is not None or self._logger is not None:
+            for b, loss in enumerate(losses, start=first):
+                if callback is not None:
+                    callback(i_epoch, b, float(loss))
+                if self._logger is not None:
+                    self._logger.log(i_epoch, b, float(loss))
+        mean_loss = float(np.mean(losses))
         self.loss_history.append(mean_loss)
+        if self.verbose:
+            n_patterns = len(losses) * self.cfg.train.minibatch_size
+            dt = self.timers.total.get(timer, 0.0) or 1e-9
+            mem = _prof.device_memory_stats(self.device)
+            mem_s = (f"; device memory {mem['bytes_in_use_mb']:.0f}/"
+                     f"{mem['peak_bytes_mb']:.0f} MB peak" if mem else '')
+            self._print(f'[epoch {i_epoch}] loss={mean_loss:.4e} '
+                        f'{n_patterns / dt:.1f} patterns/s; '
+                        f'{self.timers.summary()}{mem_s}')
+            self.timers.reset()
         return mean_loss
+
+    def run(self, n_epochs: Optional[int] = None,
+            callback=None) -> Dict[str, Any]:
+        """Run the epochs, from a restored checkpoint's position where
+        there is one, and return :meth:`results`.  ``n_epochs='auto'`` in
+        the config runs up to ``max_nepochs`` and stops once an epoch's
+        loss fell by less than ``crit_conv_rate`` of the last.  With an
+        output folder: the epoch-level intermediate dumps, then the final
+        object and probe TIFFs and the final checkpoint at the next
+        epoch."""
+        t = self.cfg.train
+        io = self.cfg.io
+        if n_epochs is None:
+            n_epochs = (t.max_nepochs if t.n_epochs == 'auto'
+                        else int(t.n_epochs))
+        auto = t.n_epochs == 'auto'
+        rng = np.random.default_rng(t.seed)
+        # A resumed run replays the skipped epochs' draws, so each epoch's
+        # shuffle is the uninterrupted run's.
+        for _ in range(self._start_epoch):
+            self.make_batches(rng)
+        i_epoch = self._start_epoch - 1
+        for i_epoch in range(self._start_epoch, n_epochs):
+            t0 = time.perf_counter()
+            loss = self.run_epoch(i_epoch, rng, callback=callback)
+            self.epoch_seconds.append(time.perf_counter() - t0)
+            if (self.output_folder is not None and io.save_intermediate
+                    and io.save_intermediate_level != 'batch'):
+                self._save_intermediate(i_epoch, -1)
+            if self.stop_requested:
+                break
+            if auto and len(self.loss_history) >= 2:
+                prev = self.loss_history[-2]
+                if prev > 0 and (prev - loss) / abs(prev) < t.crit_conv_rate:
+                    break
+        if self.output_folder is not None:
+            out_lib.output_object(self.obj, self.output_folder,
+                                  t.unknown_type)
+            out_lib.output_probe(self.params['probe'].cpu().numpy(),
+                                 self.output_folder)
+            if io.store_checkpoint and not self.stop_requested:
+                self.save_checkpoint(i_epoch + 1, 0)
+        return self.results()
+
+    # -- outputs -----------------------------------------------------------
+    def _print(self, msg: str):
+        print(msg, flush=True)
+        if self._stdout_f is not None:
+            self._stdout_f.write(f'[{time.strftime("%H:%M:%S")}] {msg}\n')
+            self._stdout_f.flush()
+
+    def _save_intermediate(self, i_epoch: int, i_batch: int):
+        """Intermediate object and probe TIFFs under ``intermediate/``:
+        with ``save_history`` each dump keeps an ``_{epoch}`` or
+        ``_{epoch}_{batch}`` suffix, else the same files are
+        overwritten."""
+        inter = os.path.join(self.output_folder, 'intermediate')
+        if not self.cfg.io.save_history:
+            suffix = ''
+        elif i_batch < 0:   # epoch-level dump
+            suffix = f'_{i_epoch}'
+        else:
+            suffix = f'_{i_epoch}_{i_batch}'
+        out_lib.output_object(self.obj, inter, self.cfg.train.unknown_type,
+                              name_suffix=suffix)
+        out_lib.output_probe(self.params['probe'].cpu().numpy(), inter,
+                             name_suffix=suffix)
+
+    def save_checkpoint(self, i_epoch: int, i_batch: int) -> str:
+        """Write ``checkpoint/checkpoint.npz`` naming ``(i_epoch,
+        i_batch)``, the NEXT batch to run: the parameters, the optimizer
+        state, the step counts and, under shrink-wrap, the support mask.
+        Each one moves the whole state to the host; once checkpoints have
+        taken more than half of the run's wall time (and a minute), a
+        warning says so."""
+        t0 = time.time()
+        params, state = convert.params_to_numpy(self.params, self.opt_state)
+        extra = {'i_opt_batch': np.asarray(self.i_opt_batch),
+                 'global_batch': np.asarray(self.global_batch)}
+        if (self.finite_support_mask is not None
+                and self.cfg.train.shrink_cycle is not None):
+            extra['finite_support_mask'] = (
+                self.finite_support_mask.cpu().numpy())
+        path = ckpt_lib.save_checkpoint(
+            os.path.join(self.output_folder, 'checkpoint'), params, state,
+            i_epoch, i_batch, extra=extra)
+        self._ckpt_seconds += time.time() - t0
+        self._ckpt_count += 1
+        if (not self._ckpt_warned and self._ckpt_seconds > 60
+                and self._ckpt_seconds > 0.5 * (time.time() - self._t_start)):
+            warnings.warn(
+                'checkpointing has taken more than half the wall time '
+                f'({self._ckpt_seconds:.0f} s): raise n_batch_per_checkpoint '
+                'or set store_checkpoint=False (each checkpoint moves the '
+                'parameters and the optimizer state to the host)')
+            self._ckpt_warned = True
+        return path
+
+    def results(self) -> Dict[str, Any]:
+        """The parameters as numpy arrays and the per-epoch loss
+        history."""
+        out = {k: v.detach().cpu().numpy() for k, v in self.params.items()}
+        out['loss_history'] = np.asarray(self.loss_history)
+        return out
 
     @property
     def obj(self) -> np.ndarray:
         """The object ``[y, x, z, 2]`` as a host array."""
         return self.params['obj'].detach().cpu().numpy()
+
+    @property
+    def probe(self) -> np.ndarray:
+        """The probe as a complex host array ``[n_modes, py, px]``."""
+        p = self.params['probe'].detach().cpu().numpy()
+        return p[..., 0] + 1j * p[..., 1]

@@ -1,8 +1,8 @@
-"""Device-memory budget for the Reconstructor's working-set heuristics.
+"""Timers, device memory, and the memory budget of the Reconstructor's
+working-set heuristics (``adorym_tpu/utils/profiling.py``).
 
-Counterpart of the budget half of ``adorym_tpu/utils/profiling.py``.  The
-capacity comes from the card (``torch.cuda.get_device_properties``); on
-the CPU the JAX package's 16e9 default keeps the heuristics, and so the
+The capacity comes from the card (``torch.cuda.get_device_properties``);
+on the CPU the JAX package's 16e9 default keeps the heuristics, and so the
 gradient chunking, identical to the reference package's CPU runs.  The
 reserves keep the JAX package's formulas: they scale with the capacity
 and are capped at absolute sizes tied to the program's working set, not
@@ -11,7 +11,54 @@ to the device.
 
 from __future__ import annotations
 
+import contextlib
+import time
+from collections import defaultdict
+from typing import Dict, Optional
+
 import torch
+
+
+class Timers:
+    """Accumulating named wall-clock timers.  A phase that does not end in
+    a host sync measures the time to queue its kernels; the epoch's loss
+    fetch is the sync that makes epoch-level numbers whole."""
+
+    def __init__(self):
+        self.total: Dict[str, float] = defaultdict(float)
+        self.count: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def time(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.total[name] += time.perf_counter() - t0
+            self.count[name] += 1
+
+    def summary(self) -> str:
+        return '; '.join(
+            f'{name}: {self.total[name]:.3f}s ({self.count[name]}x, '
+            f'{self.total[name] / self.count[name] * 1e3:.1f}ms avg)'
+            for name in sorted(self.total))
+
+    def reset(self):
+        self.total.clear()
+        self.count.clear()
+
+
+def device_memory_stats(device=None) -> Optional[Dict[str, float]]:
+    """A CUDA device's memory in MB: in use, the peak since the last
+    ``torch.cuda.reset_peak_memory_stats``, and the capacity; None off the
+    card."""
+    device = torch.device('cuda' if device is None else device)
+    if device.type != 'cuda' or not torch.cuda.is_available():
+        return None
+    return {'bytes_in_use_mb': torch.cuda.memory_allocated(device) / 2 ** 20,
+            'peak_bytes_mb': torch.cuda.max_memory_allocated(device) / 2 ** 20,
+            'bytes_limit_mb': torch.cuda.get_device_properties(
+                device).total_memory / 2 ** 20}
 
 #: Capacity assumed off the card (the JAX package's CPU default).
 DEFAULT_DEVICE_BYTES = 16e9

@@ -617,3 +617,87 @@ def test_fused_fft_route_needs_the_split(cuda):
     mats = {'route': 'fft', 'fy': None, 'fx': None, 'h': h}
     with pytest.raises(RuntimeError, match='k5_fwd launch failed'):
         cmf.MultisliceFused.apply(t, wave, mats)
+
+
+@pytest.mark.parametrize('dtype,tol_fwd,tol_grad', MULTISLICE_TOLS)
+def test_multislice_one_patch_unfolded_matches_plain(cuda, dtype, tol_fwd,
+                                                     tol_grad):
+    """K1 at the adhesin configuration's shape: one patch (minibatch 1) of
+    64^2 through 64 steps with no far field folded in (``free_prop_cm=0``),
+    on its FFT route (64 = 8 x 8): one block on one SM."""
+    args = _multislice_inputs(64, 1, 1, 64, 64, dtype, False, cuda, seed=3)
+    assert cm.k1_route(64, 64) == 'fft'
+    r0 = dict(cm.K1_ROUTE_LAUNCHES)
+    out_k, gdb_k, gw_k = _run(cm.multislice_db_stored_packed, *args)
+    assert {r: cm.K1_ROUTE_LAUNCHES[r] - r0[r] for r in r0} == {
+        'fft': 2, 'dense': 0}
+    out_p, gdb_p, gw_p = _run(cm.multislice_db_stored_plain, *args)
+    torch.cuda.synchronize()
+    assert _rel(out_k, out_p) < tol_fwd
+    assert _rel(gdb_k, gdb_p) < tol_grad
+    assert _rel(gw_k, gw_p) < tol_grad
+
+
+@pytest.mark.parametrize('scheme', ['immediate', 'per angle'])
+def test_run_with_regularizers_and_resume_cuda_matches_cpu(cuda, tmp_path,
+                                                           scheme):
+    """``run()`` with TV and reweighted L1, a cylindrical support with
+    shrink-wrap and checkpoints, on the card and on the CPU: losses to
+    1e-4.  Then the card's run killed right after its mid-epoch checkpoint
+    of epoch 1 and resumed from the folder ends where the uninterrupted
+    card run ends (the object to 1e-5 of its largest entry)."""
+    import adorym_tpu_torch as pt
+    rng = np.random.default_rng(4)
+    xs = np.arange(4) * 4
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+    data = rng.random((5, 16, 16, 16)).astype(np.float32)
+    obj0 = (rng.random((24, 24, 24, 2)) * 1e-3).astype(np.float32)
+    xx, zz = np.meshgrid(np.arange(24) - 11.5, np.arange(24) - 11.5,
+                         indexing='ij')
+    mask = np.broadcast_to((xx ** 2 + zz ** 2 <= 81)[None],
+                           (24, 24, 24)).astype(np.float32)
+    per_angle = scheme == 'per angle'
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(24, 24, 24), probe_size=(16, 16),
+                             free_prop_cm='inf', binning=2),
+        loss=pt.LossConfig(gamma=1e-2, alpha_d=1e-2, alpha_b=1e-3,
+                           reweighted_l1=True),
+        train=pt.TrainConfig(n_epochs=3, minibatch_size=4,
+                             learning_rate=2e-5, optimizer='gd',
+                             shrink_cycle=4, shrink_threshold=3e-4,
+                             update_scheme=scheme,
+                             rotate_out_of_loop=per_angle),
+        io=pt.IOConfig(n_batch_per_checkpoint=4 if per_angle else 10))
+    kill_at = (1, 8) if per_angle else (1, 10)
+
+    class Killed(Exception):
+        pass
+
+    def run(dev, folder, kill=False):
+        rec = pt.Reconstructor(cfg, data=data, probe_pos=pos,
+                               theta_ls=np.linspace(0, np.pi, 5),
+                               obj_init=obj0.copy(), finite_support_mask=mask,
+                               output_folder=str(folder), device=dev)
+        if kill:
+            save = rec.save_checkpoint
+
+            def save_then_die(i_epoch, i_batch):
+                save(i_epoch, i_batch)
+                if (i_epoch, i_batch) == kill_at:
+                    raise Killed
+            rec.save_checkpoint = save_then_die
+        rec.run()
+        return rec
+
+    gpu = run('cuda', tmp_path / 'cuda')
+    cpu = run('cpu', tmp_path / 'cpu')
+    assert len(gpu.loss_history) == 3
+    np.testing.assert_allclose(gpu.loss_history, cpu.loss_history, rtol=1e-4)
+    with pytest.raises(Killed):
+        run('cuda', tmp_path / 'b', kill=True)
+    resumed = run('cuda', tmp_path / 'b')
+    ref = gpu.obj
+    assert (np.max(np.abs(resumed.obj - ref))
+            <= 1e-5 * np.max(np.abs(ref)))
+    assert resumed.finite_support_mask.sum() < mask.sum()
