@@ -7,12 +7,20 @@ The port's own keywords: ``device`` (CUDA unless ``'cpu'`` is passed) and
 ``dataset``, a :class:`~adorym_tpu_torch.io.data.RawDataset`-like object
 read instead of the file (an ``ArrayDataset`` where ``h5py`` is missing).
 
+Multi-distance data (a ``free_prop_cm`` of several distances) pick the
+multi-distance model under ``forward_model='auto'``; a model module may
+also be passed.  The refined leaves come back in the results dict beside
+the object and the probe (``results['probe_pos_correction']``,
+``results['free_prop_cm']``, ...).  ``distribution_mode`` on one card
+follows the JAX package: ``'distributed_object'`` without object sharding
+warns and runs unsharded, an unknown mode warns and is ignored.
+
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
 item: ePIE and the external (CTF) update (A.6, ``conventional.py``),
-multi-distance data and other forward models (A.5), device meshes and
-``distribution_mode`` (A.7), the refinables beyond the object and the
-probe (A.5), and orbax checkpoints (a JAX library's format).  Reference
-keywords that have no meaning here are ignored; unknown ones warn.
+device meshes and ``distribution_mode='shared_file'`` (A.7), slice
+positions, tilt, kappa and the CTF forward algorithm (A.5 (c)), and orbax
+checkpoints (a JAX library's format).  Reference keywords that have no
+meaning here are ignored; unknown ones warn.
 """
 
 from __future__ import annotations
@@ -50,7 +58,8 @@ _PROBE_KWARGS = {'probe_mag_sigma', 'probe_phase_sigma', 'probe_phase_max',
                  'probe_mag_max', 'aperture_radius', 'beamstop_radius',
                  'probe_defocus_cm'}
 
-_A5 = 'ROADMAP A.5, remaining model families and refinables'
+_A5C = 'ROADMAP A.5 (c), remaining model families and refinables'
+_A7 = 'ROADMAP A.7, multi-GPU and out-of-core'
 
 
 def _optimizer_kind(value, kwarg_name):
@@ -156,12 +165,24 @@ def reconstruct_ptychography(
     if use_epie or update_using_external_algorithm is not None:
         raise NotImplementedError('ePIE and the external (CTF) object '
                                   'update: ROADMAP A.6, conventional.py')
-    if forward_model != 'auto':
-        raise NotImplementedError(f'forward_model={forward_model!r}: {_A5}')
-    if (distribution_mode is not None
-            or parallel_data_axis * parallel_object_axis > 1):
-        raise NotImplementedError('device meshes and distribution_mode: '
-                                  'ROADMAP A.7, multi-GPU and out-of-core')
+    if isinstance(forward_model, str) and forward_model != 'auto':
+        raise NotImplementedError(
+            f'forward_model={forward_model!r}: pass \'auto\' or a model '
+            f'module (other model families: {_A5C})')
+    if parallel_data_axis * parallel_object_axis > 1:
+        raise NotImplementedError(f'device meshes: {_A7}')
+    if distribution_mode == 'shared_file':
+        raise NotImplementedError(
+            "distribution_mode='shared_file' (the optimizer state and the "
+            f'object offloaded to the host): {_A7}')
+    if distribution_mode == 'distributed_object':
+        warnings.warn("distribution_mode='distributed_object' maps onto "
+                      'object sharding over a mesh: pass '
+                      'parallel_object_axis>1 (z-slab analog) — running '
+                      'unsharded')
+    elif distribution_mode is not None:
+        warnings.warn(f'unknown distribution_mode {distribution_mode!r} '
+                      'ignored')
 
     if dataset is None:
         from .io.data import RawDataset
@@ -202,13 +223,18 @@ def reconstruct_ptychography(
     probe_pos = np.asarray(probe_pos, dtype=np.float64)
 
     fp = free_prop_cm
-    if fp is not None and not isinstance(fp, str) and np.size(fp) > 1:
-        raise NotImplementedError(f'multi-distance data: {_A5}')
+    is_multi_dist = (fp is not None and not isinstance(fp, str)
+                     and np.size(fp) > 1)
+    n_dists = int(np.size(fp)) if is_multi_dist else 1
     if fp is None or isinstance(fp, str):
         fp_cfg = fp
-    else:
+    elif np.size(fp) == 1:
         fp_cfg = float(np.ravel(fp)[0])
-    probe_size = tuple(data.shape[-2:])
+    else:
+        fp_cfg = tuple(float(x) for x in np.ravel(fp))
+    # A multi-distance probe is the full field.
+    probe_size = (tuple(obj_size[:2]) if is_multi_dist
+                  else tuple(data.shape[-2:]))
 
     reg_list = (None if regularizers is None
                 else _regularizers(regularizers, unknown_type))
@@ -222,7 +248,9 @@ def reconstruct_ptychography(
         slice_pos_cm_ls=(tuple(slice_pos_cm_ls)
                          if slice_pos_cm_ls is not None
                          and np.size(slice_pos_cm_ls) > 1 else None),
-        n_dists=1, safe_zone_width=safe_zone_width or 0)
+        n_dists=n_dists,
+        safe_zone_width=safe_zone_width if safe_zone_width else (
+            None if is_multi_dist else 0))
     loss_cfg = LossConfig(
         loss_function_type=loss_function_type, raw_data_type=raw_data_type,
         poisson_multiplier=poisson_multiplier, normalize_fft=normalize_fft,
@@ -300,6 +328,11 @@ def reconstruct_ptychography(
         save_stdout=save_stdout)
     cfg = ReconConfig(geometry=geometry, loss=loss_cfg, refine=refine,
                       train=train, parallel=ParallelConfig(), io=io_cfg)
+    if forward_model == 'auto':
+        from .models import multidist, ptychography
+        model = multidist if is_multi_dist else ptychography
+    else:
+        model = forward_model
 
     from .utils.initialize import initialize_object, initialize_probe
     obj_init = initialize_object(
@@ -362,7 +395,7 @@ def reconstruct_ptychography(
             cfg_l, data=data_l, probe_pos=pos_l, theta_ls=theta_ls,
             obj_init=obj_l, probe_init=probe_l, beamstop=beamstop,
             finite_support_mask=mask if ds_level == 1 else None,
-            reg_list=reg_list,
+            reg_list=reg_list, model=model,
             output_folder=out_folder if ds_level == 1 else None,
             device=device)
         results = rec.run()

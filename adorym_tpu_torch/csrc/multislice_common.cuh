@@ -13,6 +13,15 @@
 // whatever M is.  The backward sweeps need gt = sum_m a_m w_m across the
 // blocks of a patch: they launch as a thread-block cluster of the patch's M
 // blocks (see cross_mode_sum).
+//
+// The global route (route 2) takes a plane whose block fits no shared-memory
+// route (K1 from 88x88, K4 from 80x80 without the FFT split): the same
+// kernels with kGlobal, the block's planes in a slice of a device-memory
+// workspace (ws, `planes` ny*nx planes a block, blockIdx.x-major) and the
+// folded mats read where they lie.  Nothing else changes: the matmuls take
+// generic pointers, and a block's threads share its SM's L1, which holds
+// the planes it works on; __syncthreads orders the block's device-memory
+// accesses as it orders shared memory.
 
 #pragma once
 
@@ -738,20 +747,25 @@ __device__ __forceinline__ void fft_propagate2d(float2* w, float2* scr,
 // Streaming stores (st.global.cs) in their place measured the same on an
 // H100 (K1f 1.498 against 1.497 ms at the delta_beta chunk,
 // tools/ab_k4_routes.py).
-template <typename T, bool kRecords, bool kFft = false>
+template <typename T, bool kRecords, bool kFft = false, bool kGlobal = false>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const T* __restrict__ db, const float2* __restrict__ w0,
                const float2* __restrict__ ay, const float2* __restrict__ bx,
                const float2* __restrict__ fay, const float2* __restrict__ fbx,
                float2* __restrict__ out, T* __restrict__ rec, int S, int M,
-               int N, int ny, int nx, float neg_k1, float neg_sk1) {
+               int N, int ny, int nx, float neg_k1, float neg_sk1,
+               float2* __restrict__ ws) {
   extern __shared__ float2 smem[];
   const int P = ny * nx;
   const int Q = kFft ? ny * fft_row_stride(nx) : P;
-  float2* w = smem;
+  float2* w = kGlobal ? ws + (size_t)blockIdx.x * 2 * P : smem;
   float2* scr = w + Q;
   float2* may = scr + Q;
   float2* mbx = may + ny * ny;
+  // The mats the dense steps read: the slots, or on the global route the
+  // step's (then the far field's) mats in device memory.
+  const float2* my = kGlobal ? ay : may;
+  const float2* mx = kGlobal ? bx : mbx;
   const int n = blockIdx.x / M;
   const int m = blockIdx.x - n * M;
   const size_t wave_off = ((size_t)m * N + n) * P;
@@ -764,7 +778,7 @@ __global__ void __launch_bounds__(kThreads)
     stage_async(stage + P, db + ((size_t)N + n) * P, P);
     plan = fft_plan(mbx + nx * nx, ay, bx, ny, nx);
     stage_wait();
-  } else {
+  } else if constexpr (!kGlobal) {
     copy_to_smem(may, ay, ny * ny);
     copy_to_smem(mbx, bx, nx * nx);
   }
@@ -802,12 +816,17 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (z == S - 1) {
       if (fay == nullptr) break;
-      // No thread reads the step mats after the barrier above.
-      copy_to_smem(may, fay, ny * ny);
-      copy_to_smem(mbx, fbx, nx * nx);
-      __syncthreads();
+      if constexpr (kGlobal) {
+        my = fay;
+        mx = fbx;
+      } else {
+        // No thread reads the step mats after the barrier above.
+        copy_to_smem(may, fay, ny * ny);
+        copy_to_smem(mbx, fbx, nx * nx);
+        __syncthreads();
+      }
     }
-    propagate<false, true>(w, scr, may, mbx, ny, nx);
+    propagate<false, true>(w, scr, my, mx, ny, nx);
   }
 
   for (int e = threadIdx.x; e < P; e += blockDim.x) out[wave_off + e] = w[e];
@@ -832,11 +851,14 @@ __device__ __forceinline__ void store_slice_grad(T* gd, T* gb, int p,
 // in mode order and in f32, and stores gdb there; the second barrier keeps
 // every plane alive until all blocks have read it.  No atomics: the result
 // does not depend on timing.  t is recomputed from db for the block's
-// pixels (L2 holds the step's planes).
-template <typename T>
+// pixels (L2 holds the step's planes).  On the global route (kGlobal) the
+// planes lie in the workspace, block r's `peer` elements after block 0's,
+// and are read through L2 (__ldcg: the other blocks ran on other SMs, whose
+// writes the cluster barrier's release and acquire make visible there).
+template <typename T, bool kGlobal = false>
 __device__ void cross_mode_sum(float2* part, const T* d, const T* b, T* gd,
                                T* gb, int P, int M, int m, float neg_k1,
-                               float neg_sk1, float sk1) {
+                               float neg_sk1, float sk1, size_t peer = 0) {
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   const int share = (P + M - 1) / M;
@@ -845,7 +867,12 @@ __device__ void cross_mode_sum(float2* part, const T* d, const T* b, T* gd,
   for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
     float2 gt = make_float2(0.f, 0.f);
     for (int r = 0; r < M; ++r) {
-      const float2 v = cluster.map_shared_rank(part, r)[p];
+      float2 v;
+      if constexpr (kGlobal) {
+        v = __ldcg(part + ((ptrdiff_t)r - m) * (ptrdiff_t)peer + p);
+      } else {
+        v = cluster.map_shared_rank(part, r)[p];
+      }
       gt.x += v.x;
       gt.y += v.y;
     }
@@ -883,15 +910,22 @@ int launch(void (*kernel)(KArgs...), int N, int M, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// The step routes, as the entry points of K1 and K4 number them.
+// The step routes, as the entry points of K1, K4 and K5 number them.
 constexpr int kRouteDense = 0;
 constexpr int kRouteFft = 1;
+constexpr int kRouteGlobal = 2;
 
 // The kernel of `route`, with its shared memory for a block of `planes`
-// planes, or false when the shape does not take the route.
+// planes, or false when the shape does not take the route.  The global
+// route takes any shape and no dynamic shared memory.
 template <typename K>
 bool pick_route(int route, int planes, int ny, int nx, K dense, K fft,
-                K* kernel, size_t* smem) {
+                K global, K* kernel, size_t* smem) {
+  if (route == kRouteGlobal) {
+    *kernel = global;
+    *smem = 0;
+    return true;
+  }
   if (route == kRouteDense) {
     *kernel = dense;
     *smem = smem_bytes(planes, ny, nx);

@@ -53,6 +53,11 @@
 //         times the FFT count; the backward serves a with the transposed
 //         mats (Py^T, Px) and v with the same conjugated on load, since
 //         P^-1 = conj(P^T) (207 KB at 72x72).
+//   global (route 2; a shape whose dense block passes the 227 KB of shared
+//         memory, 80x80 and up for the backward): the dense route's kernels
+//         with the block's planes (two forward, three backward) in a
+//         device-memory workspace and the mats read where they lie
+//         (multislice_common.cuh).
 
 #include "multislice_common.cuh"
 
@@ -60,13 +65,16 @@ namespace {
 
 using namespace msdb;
 
+constexpr int kFwdPlanes = 2;
+constexpr int kBwdPlanes = 3;
+
 // db [S, 2, N, P]; out, g, gw [M, N, P] complex (g and gw in PyTorch's
 // convention); gdb [S, 2, N, P] in T.  ay/bx: the TRANSPOSED step mats
 // (Py^T, Px), or with kFft the step's vectors hy/ny and hx/nx.  fay/fbx:
 // the transposed far-field mats (Fy^T, Fx); iay/ibx: the far field's exact
 // inverse in the orientation of the forward (Fy^-1, (Fx^-1)^T).  The
 // far-field pointers are all null or all set.
-template <typename T, bool kFft>
+template <typename T, bool kFft, bool kGlobal = false>
 __global__ void __launch_bounds__(kThreads)
     bwd_kernel(const T* __restrict__ db, const float2* __restrict__ out,
                const float2* __restrict__ g, const float2* __restrict__ ay,
@@ -75,15 +83,19 @@ __global__ void __launch_bounds__(kThreads)
                const float2* __restrict__ iay,
                const float2* __restrict__ ibx, T* __restrict__ gdb,
                float2* __restrict__ gw, int S, int M, int N, int ny, int nx,
-               float neg_k1, float neg_sk1, float sk1) {
+               float neg_k1, float neg_sk1, float sk1,
+               float2* __restrict__ ws) {
   extern __shared__ float2 smem[];
   const int P = ny * nx;
   const int Q = kFft ? ny * fft_row_stride(nx) : P;
-  float2* a = smem;
+  float2* a = kGlobal ? ws + (size_t)blockIdx.x * kBwdPlanes * P : smem;
   float2* v = a + Q;
   float2* scr = v + Q;
   float2* may = scr + Q;
   float2* mbx = may + ny * ny;
+  // The dense steps' mats: the slots, or on the global route in place.
+  const float2* my = kGlobal ? ay : may;
+  const float2* mx = kGlobal ? bx : mbx;
   const int n = blockIdx.x / M;
   const int m = blockIdx.x - n * M;
   const size_t wave_off = ((size_t)m * N + n) * P;
@@ -101,19 +113,27 @@ __global__ void __launch_bounds__(kThreads)
     v[e] = out[wave_off + e];
   }
   if (fay != nullptr) {
-    copy_to_smem(may, fay, ny * ny);
-    copy_to_smem(mbx, fbx, nx * nx);
-    __syncthreads();
-    propagate(a, scr, may, mbx, ny, nx);
-    copy_to_smem(may, iay, ny * ny);
-    copy_to_smem(mbx, ibx, nx * nx);
-    __syncthreads();
-    propagate(v, scr, may, mbx, ny, nx);
+    if constexpr (kGlobal) {
+      __syncthreads();
+      propagate(a, scr, fay, fbx, ny, nx);
+      propagate(v, scr, iay, ibx, ny, nx);
+    } else {
+      copy_to_smem(may, fay, ny * ny);
+      copy_to_smem(mbx, fbx, nx * nx);
+      __syncthreads();
+      propagate(a, scr, may, mbx, ny, nx);
+      copy_to_smem(may, iay, ny * ny);
+      copy_to_smem(mbx, ibx, nx * nx);
+      __syncthreads();
+      propagate(v, scr, may, mbx, ny, nx);
+    }
   }
   if constexpr (kFft) {
     stage_async(stage, db + ((size_t)(2 * S - 2) * N + n) * P, P);
     stage_async(stage + P, db + ((size_t)(2 * S - 1) * N + n) * P, P);
     stage_wait();
+  } else if constexpr (kGlobal) {
+    __syncthreads();
   } else {
     copy_to_smem(may, ay, ny * ny);
     copy_to_smem(mbx, bx, nx * nx);
@@ -134,8 +154,8 @@ __global__ void __launch_bounds__(kThreads)
         fft_propagate<kStepPT, true, kStepPInv>(a, scr, plan, v, may);
         stage_wait();
       } else {
-        propagate(a, scr, may, mbx, ny, nx);
-        propagate<true>(v, scr, may, mbx, ny, nx);
+        propagate(a, scr, my, mx, ny, nx);
+        propagate<true>(v, scr, my, mx, ny, nx);
       }
     }
     if constexpr (kFft) {
@@ -160,7 +180,8 @@ __global__ void __launch_bounds__(kThreads)
     if (M == 1) {
       __syncthreads();
     } else {
-      cross_mode_sum(scr, d, b, gd, gb, P, M, m, neg_k1, neg_sk1, sk1);
+      cross_mode_sum<T, kGlobal>(scr, d, b, gd, gb, P, M, m, neg_k1, neg_sk1,
+                                 sk1, (size_t)kBwdPlanes * P);
     }
   }
 
@@ -173,18 +194,16 @@ __global__ void __launch_bounds__(kThreads)
 // The forward block holds the wave and a scratch plane, the backward block
 // the cotangent, the rebuilt wave and a scratch plane; both one pair of
 // mat slots (and on the FFT route the table).
-constexpr int kFwdPlanes = 2;
-constexpr int kBwdPlanes = 3;
-
 template <typename T>
 int launch_fwd(int route, const void* db, const void* w0, const void* ay,
                const void* bx, const void* fay, const void* fbx, void* out,
                int S, int M, int N, int ny, int nx, float neg_k1,
-               float neg_sk1, cudaStream_t stream) {
+               float neg_sk1, void* ws, cudaStream_t stream) {
   decltype(&fwd_kernel<T, false>) kernel;
   size_t smem;
   if (!pick_route(route, kFwdPlanes, ny, nx, &fwd_kernel<T, false>,
-                  &fwd_kernel<T, false, true>, &kernel, &smem)) {
+                  &fwd_kernel<T, false, true>,
+                  &fwd_kernel<T, false, false, true>, &kernel, &smem)) {
     return (int)cudaErrorInvalidValue;
   }
   return launch(kernel, N, M, smem, false, stream, static_cast<const T*>(db),
@@ -192,7 +211,8 @@ int launch_fwd(int route, const void* db, const void* w0, const void* ay,
                 static_cast<const float2*>(ay), static_cast<const float2*>(bx),
                 static_cast<const float2*>(fay),
                 static_cast<const float2*>(fbx), static_cast<float2*>(out),
-                static_cast<T*>(nullptr), S, M, N, ny, nx, neg_k1, neg_sk1);
+                static_cast<T*>(nullptr), S, M, N, ny, nx, neg_k1, neg_sk1,
+                static_cast<float2*>(ws));
 }
 
 template <typename T>
@@ -200,12 +220,13 @@ int launch_bwd(int route, const void* db, const void* out, const void* g,
                const void* ay, const void* bx, const void* fay,
                const void* fbx, const void* iay, const void* ibx, void* gdb,
                void* gw, int S, int M, int N, int ny, int nx, float neg_k1,
-               float neg_sk1, float sk1, cudaStream_t stream) {
+               float neg_sk1, float sk1, void* ws, cudaStream_t stream) {
   if (M > kMaxModes) return (int)cudaErrorInvalidValue;
   decltype(&bwd_kernel<T, false>) kernel;
   size_t smem;
   if (!pick_route(route, kBwdPlanes, ny, nx, &bwd_kernel<T, false>,
-                  &bwd_kernel<T, true>, &kernel, &smem)) {
+                  &bwd_kernel<T, true>, &bwd_kernel<T, false, true>, &kernel,
+                  &smem)) {
     return (int)cudaErrorInvalidValue;
   }
   return launch(kernel, N, M, smem, true, stream, static_cast<const T*>(db),
@@ -216,26 +237,29 @@ int launch_bwd(int route, const void* db, const void* out, const void* g,
                 static_cast<const float2*>(iay),
                 static_cast<const float2*>(ibx), static_cast<T*>(gdb),
                 static_cast<float2*>(gw), S, M, N, ny, nx, neg_k1, neg_sk1,
-                sk1);
+                sk1, static_cast<float2*>(ws));
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (db and gdb).  route: 0 dense (ay, bx
 // the folded step mats), 1 FFT (ay, bx the step's vectors hy/ny, hx/nx;
-// refused for a shape without its radix split).  The far-field pointers
-// may be null (no far field folded into the last step).  Returns the CUDA
-// error code of the launch (0 on success).
+// refused for a shape without its radix split), 2 global (as dense; ws a
+// workspace of N M ny nx complex planes, two a block forward and three
+// backward, else unused).  The far-field pointers may be null (no far field
+// folded into the last step).  Returns the CUDA error code of the launch (0
+// on success).
 extern "C" int k4_fwd(int dtype, int route, const void* db, const void* w0,
                       const void* ay, const void* bx, const void* fay,
                       const void* fbx, void* out, int S, int M, int N, int ny,
-                      int nx, float neg_k1, float neg_sk1, void* stream) {
+                      int nx, float neg_k1, float neg_sk1, void* ws,
+                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_fwd<float>(route, db, w0, ay, bx, fay, fbx, out, S, M, N,
-                             ny, nx, neg_k1, neg_sk1, st);
+                             ny, nx, neg_k1, neg_sk1, ws, st);
   return launch_fwd<__nv_bfloat16>(route, db, w0, ay, bx, fay, fbx, out, S,
-                                   M, N, ny, nx, neg_k1, neg_sk1, st);
+                                   M, N, ny, nx, neg_k1, neg_sk1, ws, st);
 }
 
 extern "C" int k4_bwd(int dtype, int route, const void* db, const void* out,
@@ -243,13 +267,13 @@ extern "C" int k4_bwd(int dtype, int route, const void* db, const void* out,
                       const void* fay, const void* fbx, const void* iay,
                       const void* ibx, void* gdb, void* gw, int S, int M,
                       int N, int ny, int nx, float neg_k1, float neg_sk1,
-                      float sk1, void* stream) {
+                      float sk1, void* ws, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_bwd<float>(route, db, out, g, ay, bx, fay, fbx, iay, ibx,
                              gdb, gw, S, M, N, ny, nx, neg_k1, neg_sk1, sk1,
-                             st);
+                             ws, st);
   return launch_bwd<__nv_bfloat16>(route, db, out, g, ay, bx, fay, fbx, iay,
                                    ibx, gdb, gw, S, M, N, ny, nx, neg_k1,
-                                   neg_sk1, sk1, st);
+                                   neg_sk1, sk1, ws, st);
 }

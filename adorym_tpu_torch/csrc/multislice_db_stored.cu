@@ -52,6 +52,10 @@
 //         count); each thread owns four output rows of one column, so every
 //         matrix element it loads feeds four complex multiply-adds.  166 KB
 //         at 72x72.
+//   global (route 2; a shape whose dense block passes the 227 KB of shared
+//         memory, 88x88 and up): the dense route's kernels with the block's
+//         two planes in a device-memory workspace (N M planes of 2 ny nx
+//         complex) and the mats read where they lie (multislice_common.cuh).
 
 #include "multislice_common.cuh"
 
@@ -59,25 +63,33 @@ namespace {
 
 using namespace msdb;
 
+// One block holds the wave (or cotangent), a scratch plane and the mat
+// slots (and on the FFT route the table).
+constexpr int kPlanes = 2;
+
 // g, gw [M, N, P] complex in PyTorch's convention (the conjugate of
 // JAX's cotangent); gdb [S, 2, N, P] in T.  ay/bx are the TRANSPOSED step
 // mats (Py^T, Px), or with kFft the step's vectors hy/ny and hx/nx; fay/fbx
 // the transposed far-field mats (Fy^T, Fx).
-template <typename T, bool kFft>
+template <typename T, bool kFft, bool kGlobal = false>
 __global__ void __launch_bounds__(kThreads)
     bwd_kernel(const T* __restrict__ db, const T* __restrict__ rec,
                const float2* __restrict__ g, const float2* __restrict__ ay,
                const float2* __restrict__ bx, const float2* __restrict__ fay,
                const float2* __restrict__ fbx, T* __restrict__ gdb,
                float2* __restrict__ gw, int S, int M, int N, int ny, int nx,
-               float neg_k1, float neg_sk1, float sk1) {
+               float neg_k1, float neg_sk1, float sk1,
+               float2* __restrict__ ws) {
   extern __shared__ float2 smem[];
   const int P = ny * nx;
   const int Q = kFft ? ny * fft_row_stride(nx) : P;
-  float2* a = smem;
+  float2* a = kGlobal ? ws + (size_t)blockIdx.x * kPlanes * P : smem;
   float2* scr = a + Q;
   float2* may = scr + Q;
   float2* mbx = may + ny * ny;
+  // The dense steps' mats: the slots, or on the global route in place.
+  const float2* my = kGlobal ? ay : may;
+  const float2* mx = kGlobal ? bx : mbx;
   const int n = blockIdx.x / M;
   const int m = blockIdx.x - n * M;
   const size_t wave_off = ((size_t)m * N + n) * P;
@@ -94,10 +106,15 @@ __global__ void __launch_bounds__(kThreads)
     a[e] = make_float2(v.x, -v.y);
   }
   if (fay != nullptr) {
-    copy_to_smem(may, fay, ny * ny);
-    copy_to_smem(mbx, fbx, nx * nx);
-    __syncthreads();
-    propagate(a, scr, may, mbx, ny, nx);
+    if constexpr (kGlobal) {
+      __syncthreads();
+      propagate(a, scr, fay, fbx, ny, nx);
+    } else {
+      copy_to_smem(may, fay, ny * ny);
+      copy_to_smem(mbx, fbx, nx * nx);
+      __syncthreads();
+      propagate(a, scr, may, mbx, ny, nx);
+    }
   }
   if constexpr (kFft) {
     stage_async(stage, db + ((size_t)(2 * S - 2) * N + n) * P, P);
@@ -105,6 +122,8 @@ __global__ void __launch_bounds__(kThreads)
     stage_async(stage + 2 * P,
                 rec + (((size_t)(S - 1) * M + m) * N + n) * P * 2, 2 * P);
     stage_wait();
+  } else if constexpr (kGlobal) {
+    __syncthreads();
   } else {
     copy_to_smem(may, ay, ny * ny);
     copy_to_smem(mbx, bx, nx * nx);
@@ -126,7 +145,7 @@ __global__ void __launch_bounds__(kThreads)
         fft_propagate<kStepPT>(a, scr, plan);
         stage_wait();
       } else {
-        propagate(a, scr, may, mbx, ny, nx);
+        propagate(a, scr, my, mx, ny, nx);
       }
     }
     if constexpr (kFft) {
@@ -150,7 +169,8 @@ __global__ void __launch_bounds__(kThreads)
     if (M == 1) {
       __syncthreads();
     } else {
-      cross_mode_sum(scr, d, b, gd, gb, P, M, m, neg_k1, neg_sk1, sk1);
+      cross_mode_sum<T, kGlobal>(scr, d, b, gd, gb, P, M, m, neg_k1, neg_sk1,
+                                 sk1, (size_t)kPlanes * P);
     }
   }
 
@@ -160,19 +180,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block holds the wave (or cotangent), a scratch plane and the mat
-// slots (and on the FFT route the table).
-constexpr int kPlanes = 2;
-
 template <typename T>
 int launch_fwd(int route, const void* db, const void* w0, const void* ay,
                const void* bx, const void* fay, const void* fbx, void* out,
                void* rec, int S, int M, int N, int ny, int nx, float neg_k1,
-               float neg_sk1, cudaStream_t stream) {
+               float neg_sk1, void* ws, cudaStream_t stream) {
   decltype(&fwd_kernel<T, true>) kernel;
   size_t smem;
   if (!pick_route(route, kPlanes, ny, nx, &fwd_kernel<T, true>,
-                  &fwd_kernel<T, true, true>, &kernel, &smem)) {
+                  &fwd_kernel<T, true, true>,
+                  &fwd_kernel<T, true, false, true>, &kernel, &smem)) {
     return (int)cudaErrorInvalidValue;
   }
   return launch(kernel, N, M, smem, false, stream, static_cast<const T*>(db),
@@ -180,7 +197,8 @@ int launch_fwd(int route, const void* db, const void* w0, const void* ay,
                 static_cast<const float2*>(ay), static_cast<const float2*>(bx),
                 static_cast<const float2*>(fay),
                 static_cast<const float2*>(fbx), static_cast<float2*>(out),
-                static_cast<T*>(rec), S, M, N, ny, nx, neg_k1, neg_sk1);
+                static_cast<T*>(rec), S, M, N, ny, nx, neg_k1, neg_sk1,
+                static_cast<float2*>(ws));
 }
 
 template <typename T>
@@ -188,12 +206,13 @@ int launch_bwd(int route, const void* db, const void* rec, const void* g,
                const void* ay, const void* bx, const void* fay,
                const void* fbx, void* gdb, void* gw, int S, int M, int N,
                int ny, int nx, float neg_k1, float neg_sk1, float sk1,
-               cudaStream_t stream) {
+               void* ws, cudaStream_t stream) {
   if (M > kMaxModes) return (int)cudaErrorInvalidValue;
   decltype(&bwd_kernel<T, false>) kernel;
   size_t smem;
   if (!pick_route(route, kPlanes, ny, nx, &bwd_kernel<T, false>,
-                  &bwd_kernel<T, true>, &kernel, &smem)) {
+                  &bwd_kernel<T, true>, &bwd_kernel<T, false, true>, &kernel,
+                  &smem)) {
     return (int)cudaErrorInvalidValue;
   }
   return launch(kernel, N, M, smem, true, stream, static_cast<const T*>(db),
@@ -202,39 +221,40 @@ int launch_bwd(int route, const void* db, const void* rec, const void* g,
                 static_cast<const float2*>(fay),
                 static_cast<const float2*>(fbx), static_cast<T*>(gdb),
                 static_cast<float2*>(gw), S, M, N, ny, nx, neg_k1, neg_sk1,
-                sk1);
+                sk1, static_cast<float2*>(ws));
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (db, records and gdb).  route: 0 dense
 // (ay, bx the folded step mats), 1 FFT (ay, bx the step's vectors hy/ny,
-// hx/nx; refused for a shape without its radix split).  fay/fbx may be null
-// (no far field folded into the last step).  Returns the CUDA error code of
-// the launch (0 on success).
+// hx/nx; refused for a shape without its radix split), 2 global (as dense;
+// ws a workspace of N M kPlanes ny nx complex, else unused).  fay/fbx may be
+// null (no far field folded into the last step).  Returns the CUDA error
+// code of the launch (0 on success).
 extern "C" int k1_fwd(int dtype, int route, const void* db, const void* w0,
                       const void* ay, const void* bx, const void* fay,
                       const void* fbx, void* out, void* rec, int S, int M,
                       int N, int ny, int nx, float neg_k1, float neg_sk1,
-                      void* stream) {
+                      void* ws, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_fwd<float>(route, db, w0, ay, bx, fay, fbx, out, rec, S, M,
-                             N, ny, nx, neg_k1, neg_sk1, st);
+                             N, ny, nx, neg_k1, neg_sk1, ws, st);
   return launch_fwd<__nv_bfloat16>(route, db, w0, ay, bx, fay, fbx, out, rec,
-                                   S, M, N, ny, nx, neg_k1, neg_sk1, st);
+                                   S, M, N, ny, nx, neg_k1, neg_sk1, ws, st);
 }
 
 extern "C" int k1_bwd(int dtype, int route, const void* db, const void* rec,
                       const void* g, const void* ay, const void* bx,
                       const void* fay, const void* fbx, void* gdb, void* gw,
                       int S, int M, int N, int ny, int nx, float neg_k1,
-                      float neg_sk1, float sk1, void* stream) {
+                      float neg_sk1, float sk1, void* ws, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_bwd<float>(route, db, rec, g, ay, bx, fay, fbx, gdb, gw, S,
-                             M, N, ny, nx, neg_k1, neg_sk1, sk1, st);
+                             M, N, ny, nx, neg_k1, neg_sk1, sk1, ws, st);
   return launch_bwd<__nv_bfloat16>(route, db, rec, g, ay, bx, fay, fbx, gdb,
                                    gw, S, M, N, ny, nx, neg_k1, neg_sk1, sk1,
-                                   st);
+                                   ws, st);
 }

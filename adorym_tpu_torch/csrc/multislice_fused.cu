@@ -56,6 +56,12 @@
 //         of one column.  G is applied from F by conjugating on the fly and
 //         scaling by 1/n at the store, and H at the store of the forward y
 //         pass, so a propagation needs no extra pass over the plane.
+//   global (route 2; a shape whose dense block passes the 227 KB of shared
+//         memory, e.g. 128x128, or 96x96 at 3 modes): the dense route's
+//         kernels with the block's M + 1 planes in a device-memory
+//         workspace (N (M + 1) ny nx complex) and the DFT matrices read
+//         where they lie, as K1's and K4's global route
+//         (multislice_common.cuh).
 
 #include "multislice_common.cuh"
 
@@ -157,6 +163,7 @@ __device__ const float2* load_mats(float2* sfy, const float2* fy,
 
 // t [S, N, P], w0 and out [M, N, P], rec [S, M, N, P], all complex64;
 // fy [ny, ny], fx [nx, nx] DFT matrices; H [ny, nx].
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
     dense_fwd_kernel(const float2* __restrict__ t,
                      const float2* __restrict__ w0,
@@ -164,19 +171,20 @@ __global__ void __launch_bounds__(kThreads)
                      const float2* __restrict__ fx,
                      const float2* __restrict__ H, float2* __restrict__ out,
                      float2* __restrict__ rec, int S, int M, int N, int ny,
-                     int nx) {
+                     int nx, float2* __restrict__ ws) {
   extern __shared__ float2 smem[];
   const int P = ny * nx;
-  float2* w = smem;
-  float2* scr = w + M * P;
-  float2* sfy = scr + P;
   const int n = blockIdx.x;
+  float2* w = kGlobal ? ws + (size_t)n * (M + 1) * P : smem;
+  float2* scr = w + M * P;
+  float2* slots = scr + P;  // the matrices' (not on the global route)
 
   for (int e = threadIdx.x; e < M * P; e += blockDim.x) {
     const int m = e / P;
     w[e] = w0[((size_t)m * N + n) * P + (e - m * P)];
   }
-  const float2* sfx = load_mats(sfy, fy, fx, ny, nx);
+  const float2* sfx = kGlobal ? fx : load_mats(slots, fy, fx, ny, nx);
+  const float2* sfy = kGlobal ? fy : slots;
   __syncthreads();
 
   for (int z = 0; z < S; ++z) {
@@ -204,6 +212,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // g, gw [M, N, P] and gt [S, N, P] complex64 in PyTorch's convention (the
 // conjugates of JAX's cotangents).
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
     dense_bwd_kernel(const float2* __restrict__ t,
                      const float2* __restrict__ rec,
@@ -212,19 +221,20 @@ __global__ void __launch_bounds__(kThreads)
                      const float2* __restrict__ fx,
                      const float2* __restrict__ H, float2* __restrict__ gt,
                      float2* __restrict__ gw, int S, int M, int N, int ny,
-                     int nx) {
+                     int nx, float2* __restrict__ ws) {
   extern __shared__ float2 smem[];
   const int P = ny * nx;
-  float2* a = smem;
-  float2* scr = a + M * P;
-  float2* sfy = scr + P;
   const int n = blockIdx.x;
+  float2* a = kGlobal ? ws + (size_t)n * (M + 1) * P : smem;
+  float2* scr = a + M * P;
+  float2* slots = scr + P;  // the matrices' (not on the global route)
 
   for (int e = threadIdx.x; e < M * P; e += blockDim.x) {
     const int m = e / P;
     a[e] = conj2(g[((size_t)m * N + n) * P + (e - m * P)]);
   }
-  const float2* sfx = load_mats(sfy, fy, fx, ny, nx);
+  const float2* sfx = kGlobal ? fx : load_mats(slots, fy, fx, ny, nx);
+  const float2* sfy = kGlobal ? fy : slots;
   __syncthreads();
 
   for (int z = S - 1; z >= 0; --z) {
@@ -423,6 +433,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Launches a dense-route kernel (kGlobal: the global route's) over N
+// blocks.  Returns the CUDA error code.
+template <typename K, typename... Args>
+int launch_dense(K kernel, bool global, int M, int N, int ny, int nx,
+                 cudaStream_t stream, Args... args) {
+  const size_t smem = global ? 0 : dense_smem_bytes(M, ny, nx);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<N, kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 // The FFT-route kernel of a block holding `staged` planes, with its shared
 // memory: the step table in shared memory where it fits, else through L2.
 // False when the shape has no radix split.
@@ -443,25 +466,23 @@ bool pick_fft(int staged, int ny, int nx, K with_table, K without_table,
 
 // route: 0 dense (fy, fx the DFT matrices, fx may equal fy; h the transfer
 // function H), 1 FFT (fy, fx unused; h the step table; refused for a shape
-// without its radix split).  Returns the CUDA error code of the launch (0
-// on success).
+// without its radix split), 2 global (as dense; ws a workspace of N (M + 1)
+// ny nx complex, else unused).  Returns the CUDA error code of the launch
+// (0 on success).
 extern "C" int k5_fwd(int route, const void* t, const void* w0,
                       const void* fy, const void* fx, const void* h,
                       void* out, void* rec, int S, int M, int N, int ny,
-                      int nx, void* stream) {
+                      int nx, void* ws, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route == kRouteDense) {
-    const size_t smem = dense_smem_bytes(M, ny, nx);
-    cudaError_t err = cudaFuncSetAttribute(
-        dense_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dense_fwd_kernel<<<N, kThreads, smem, st>>>(
-        static_cast<const float2*>(t), static_cast<const float2*>(w0),
-        static_cast<const float2*>(fy), static_cast<const float2*>(fx),
-        static_cast<const float2*>(h), static_cast<float2*>(out),
-        static_cast<float2*>(rec), S, M, N, ny, nx);
-    return (int)cudaGetLastError();
+  if (route == kRouteDense || route == kRouteGlobal) {
+    const bool global = route == kRouteGlobal;
+    return launch_dense(
+        global ? &dense_fwd_kernel<true> : &dense_fwd_kernel<false>, global,
+        M, N, ny, nx, st, static_cast<const float2*>(t),
+        static_cast<const float2*>(w0), static_cast<const float2*>(fy),
+        static_cast<const float2*>(fx), static_cast<const float2*>(h),
+        static_cast<float2*>(out), static_cast<float2*>(rec), S, M, N, ny,
+        nx, static_cast<float2*>(ws));
   }
   decltype(&fft_fwd_kernel<true>) kernel;
   size_t smem;
@@ -479,20 +500,17 @@ extern "C" int k5_fwd(int route, const void* t, const void* w0,
 extern "C" int k5_bwd(int route, const void* t, const void* rec,
                       const void* g, const void* fy, const void* fx,
                       const void* h, void* gt, void* gw, int S, int M, int N,
-                      int ny, int nx, void* stream) {
+                      int ny, int nx, void* ws, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route == kRouteDense) {
-    const size_t smem = dense_smem_bytes(M, ny, nx);
-    cudaError_t err = cudaFuncSetAttribute(
-        dense_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dense_bwd_kernel<<<N, kThreads, smem, st>>>(
-        static_cast<const float2*>(t), static_cast<const float2*>(rec),
-        static_cast<const float2*>(g), static_cast<const float2*>(fy),
-        static_cast<const float2*>(fx), static_cast<const float2*>(h),
-        static_cast<float2*>(gt), static_cast<float2*>(gw), S, M, N, ny, nx);
-    return (int)cudaGetLastError();
+  if (route == kRouteDense || route == kRouteGlobal) {
+    const bool global = route == kRouteGlobal;
+    return launch_dense(
+        global ? &dense_bwd_kernel<true> : &dense_bwd_kernel<false>, global,
+        M, N, ny, nx, st, static_cast<const float2*>(t),
+        static_cast<const float2*>(rec), static_cast<const float2*>(g),
+        static_cast<const float2*>(fy), static_cast<const float2*>(fx),
+        static_cast<const float2*>(h), static_cast<float2*>(gt),
+        static_cast<float2*>(gw), S, M, N, ny, nx, static_cast<float2*>(ws));
   }
   if (M > kMaxModes) return (int)cudaErrorInvalidValue;
   decltype(&fft_bwd_kernel<true>) kernel;

@@ -4,7 +4,9 @@
     convergence/loss_rank_0.txt     i_epoch,i_batch,loss,time
     delta_ds_1.tiff, beta_ds_1.tiff (obj_mag / obj_phase for real_imag)
     probe_mag_ds_1.tiff, probe_phase_ds_1.tiff
-    intermediate/ ...               the same names, dumped during the run
+    intermediate/ ...               the same names, dumped during the run,
+                                    and the refined parameters' history
+                                    (probe_pos/, prj_affine/, ...)
     summary.txt
 
 TIFFs are float32, single- or multi-page, through Pillow (mode ``'F'``),
@@ -82,6 +84,40 @@ def output_probe(probe, output_folder, ds_level=1, name_suffix=''):
                 output_folder, f'probe_mag_ds_{ds_level}{name_suffix}')),
             write_tiff(ph, os.path.join(
                 output_folder, f'probe_phase_ds_{ds_level}{name_suffix}'))]
+
+
+def output_refined_params(params, names, inter, i_epoch, i_batch):
+    """The refined auxiliary parameters' history under ``inter``
+    (``intermediate/``), in the reference's layout: the per-angle offsets
+    append one line a dump to ``<name>/<name>.txt``; ``prj_affine_ls``
+    writes ``prj_affine/prj_affine_<epoch>.txt``,
+    ``probe_pos_correction`` ``probe_pos/probe_pos_correction_<epoch>.txt``
+    and any other leaf ``<name>/<name>_<epoch>.txt``.  ``params``: numpy
+    arrays by name; ``names``: the refined leaves to write."""
+    ep = max(i_epoch, 0)
+    folders = {'prj_affine_ls': 'prj_affine',
+               'probe_pos_correction': 'probe_pos'}
+    for name in names:
+        if name in ('obj', 'probe'):
+            continue
+        arr = np.asarray(params[name])
+        d = os.path.join(inter, folders.get(name, name))
+        os.makedirs(d, exist_ok=True)
+        if name in ('probe_pos_offset', 'prj_pos_offset'):
+            mode = 'a' if (i_epoch > 0 or i_batch > 0) else 'w'
+            with open(os.path.join(d, f'{name}.txt'), mode) as f:
+                f.write(f'{i_epoch:4d}, {max(i_batch, 0):4d}, '
+                        f'{list(arr.flatten())}\n')
+        elif name == 'prj_affine_ls':
+            np.savetxt(os.path.join(d, f'prj_affine_{ep}.txt'),
+                       np.concatenate(arr, 0))
+        elif name == 'probe_pos_correction':
+            np.savetxt(os.path.join(d, f'probe_pos_correction_{ep}.txt'),
+                       arr.reshape(-1, arr.shape[-1]))
+        else:
+            np.savetxt(os.path.join(d, f'{name}_{ep}.txt'),
+                       arr.reshape(arr.shape[0], -1) if arr.ndim > 1
+                       else np.atleast_1d(arr))
 
 
 class LossLogger:

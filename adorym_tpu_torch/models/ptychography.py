@@ -1,8 +1,12 @@
-"""Ptychography / ptychotomography forward model, subset of
-``adorym_tpu/models/ptychography.py``: a shared probe, no probe
-refinements, the plain multislice branch (delta_beta or real_imag) with the
-detector propagation handed to the propagator; :func:`predict` rotates the
-object inside autograd for the generic immediate step."""
+"""Ptychography / ptychotomography forward model
+(``adorym_tpu/models/ptychography.py``): the probe with its refinements
+(defocus, per-angle position offset, per-spot position correction as
+per-spot waves), the plain multislice branch (delta_beta or real_imag)
+with the detector propagation handed to the propagator where nothing sits
+between the exit wave and the detector, and the exit wave's refined
+projection offset and propagation distance where something does;
+:func:`predict` rotates the object inside autograd for the generic
+immediate step."""
 
 from __future__ import annotations
 
@@ -15,8 +19,12 @@ from ..config import ReconConfig
 from ..constants import wavelength_nm
 from ..ops import patches as patch_ops
 from ..ops import propagate as prop
+from ..ops.fourier import fft2, fourier_shift, ifft2, shift_phase_ramp
 from ..ops.rotate import rotate
 from .base import incoherent_mode_sum
+
+#: The ROADMAP item of the branches this model does not port yet.
+A5C = 'ROADMAP A.5 (c), remaining model families and refinables'
 
 
 def complex_probe(probe):
@@ -33,39 +41,76 @@ def select_probe(params, batch):
     return probe
 
 
+def defocus_probe(probe, params: Dict, cfg: ReconConfig):
+    """The probe propagated by the refined defocus
+    ``params['probe_defocus_mm'][0]`` (a differentiable Fresnel step)."""
+    geo = cfg.geometry
+    voxel_nm = (geo.psize_cm * 1e7,) * 3
+    dist_nm = params['probe_defocus_mm'][0] * 1e6
+    h = prop.fresnel_kernel(probe.shape[-2:], voxel_nm,
+                            wavelength_nm(geo.energy_ev), dist_nm,
+                            fresnel_approx=geo.fresnel_approx,
+                            sign_convention=geo.sign_convention,
+                            device=probe.device)
+    return ifft2(fft2(probe) * h)
+
+
 def prepare_probe(params: Dict, batch: Dict, cfg: ReconConfig):
-    """The complex probe ``[n_modes, py, px]``; probe defocus and position
-    offset refinement are ROADMAP A, remaining model families and
-    refinables."""
-    if (cfg.refine.optimize_probe_defocusing
-            or cfg.refine.optimize_probe_pos_offset):
-        raise NotImplementedError('probe defocus / position-offset '
-                                  'refinement: ROADMAP A, remaining model '
-                                  'families and refinables')
-    return complex_probe(select_probe(params, batch))
+    """The complex probe ``[n_modes, py, px]`` with the global refinements:
+    the refined defocus, then the angle's refined position offset
+    (``params['probe_pos_offset'][i_theta]``, a Fourier shift)."""
+    probe = complex_probe(select_probe(params, batch))
+    if cfg.refine.optimize_probe_defocusing:
+        probe = defocus_probe(probe, params, cfg)
+    if cfg.refine.optimize_probe_pos_offset:
+        probe = fourier_shift(probe,
+                              params['probe_pos_offset'][batch['i_theta']])
+    return probe
 
 
 def rotated_object(params: Dict, batch: Dict, cfg: ReconConfig):
     """The object at the view angle: as it is in 2D mode or with the
     rotation out of the loop (the Reconstructor rotates), else rotated by
-    ``batch['theta']`` (a Python float), differentiably.  Tilt is ROADMAP
-    A, remaining model families and refinables."""
+    ``batch['theta']`` (a Python float), differentiably.  Tilt is
+    ROADMAP A.5 (c)."""
     obj = params['obj']
     if cfg.geometry.two_d_mode or cfg.train.rotate_out_of_loop:
         return obj
     if cfg.refine.tilt_active:
-        raise NotImplementedError('tilt: ROADMAP A, remaining model '
-                                  'families and refinables')
+        raise NotImplementedError(f'tilt: {A5C}')
     return rotate(obj, batch['theta'], method=cfg.train.interpolation)
 
 
+def batch_indices(batch: Dict, device) -> torch.Tensor:
+    """The batch's spot indices ``batch['ind_batch']`` as a long tensor on
+    ``device``."""
+    ind = batch['ind_batch']
+    if torch.is_tensor(ind):
+        return ind.to(device=device, dtype=torch.long)
+    return torch.as_tensor(np.asarray(ind, np.int64), device=device)
+
+
 def shifted_probes(probe, params: Dict, batch: Dict, cfg: ReconConfig):
-    """The shared probe for every spot (per-spot position correction is
-    ROADMAP A, remaining model families and refinables)."""
-    if cfg.refine.optimize_all_probe_pos:
-        raise NotImplementedError('probe position refinement: ROADMAP A, '
-                                  'remaining model families and refinables')
-    return probe
+    """Per-spot probes ``[N, n_modes, py, px]``, each shifted by its
+    refined sub-pixel correction ``params['probe_pos_correction'][i_theta,
+    ind_batch]`` through one batched phase ramp on the probe's spectrum;
+    without position refinement the shared probe ``[n_modes, py, px]``."""
+    if not cfg.refine.optimize_all_probe_pos:
+        return probe
+    ppc = params['probe_pos_correction']
+    shifts = ppc[batch['i_theta'], batch_indices(batch, ppc.device)]
+    ramp = shift_phase_ramp(probe.shape[-2:], shifts)          # [N, py, px]
+    return ifft2(fft2(probe)[None] * ramp[:, None])
+
+
+def unfolded_far_field(cfg: ReconConfig) -> bool:
+    """Whether the detector propagation stays out of the multislice: it is
+    off by configuration, or something sits between the exit wave and the
+    detector (the projection offset's shift) or the distance is refined
+    (its gradient flows through the propagation)."""
+    return (cfg.train.fuse_farfield == 'off'
+            or cfg.refine.optimize_prj_pos_offset
+            or cfg.refine.optimize_free_prop)
 
 
 def predict(params: Dict, batch: Dict, cfg: ReconConfig,
@@ -98,15 +143,11 @@ def predict_from_patches(params: Dict, batch: Dict, subobj, cfg: ReconConfig,
     geo = cfg.geometry
     if geo.pure_projection or geo.slice_pos_cm_ls is not None:
         raise NotImplementedError('pure-projection and sparse forward '
-                                  'models: ROADMAP A, remaining model '
-                                  'families and refinables')
-    if (cfg.refine.optimize_ctf_lg_kappa or cfg.refine.optimize_prj_pos_offset
-            or cfg.refine.optimize_free_prop):
-        raise NotImplementedError('kappa, projection-offset and '
-                                  'free-propagation refinement: ROADMAP A, '
-                                  'remaining model families and refinables')
-    probe = shifted_probes(prepare_probe(params, batch, cfg), params, batch,
-                           cfg)
+                                  f'models: {A5C}')
+    if cfg.refine.optimize_ctf_lg_kappa:
+        raise NotImplementedError(f'kappa refinement: {A5C}')
+    probes = shifted_probes(prepare_probe(params, batch, cfg), params, batch,
+                            cfg)
     if cfg.train.run_bfloat16:
         # bf16 storage of the packed patches (a no-op when they were
         # extracted from the bf16 copy); the two channels are views of it.
@@ -117,13 +158,17 @@ def predict_from_patches(params: Dict, batch: Dict, subobj, cfg: ReconConfig,
     else:
         delta = subobj[..., 0]
         beta = subobj[..., 1]
-    # The shared probe broadcast to the [n_modes, N, py, px] stack.
-    wave = probe[:, None].expand(probe.shape[0], delta.shape[0],
-                                 *probe.shape[-2:])
+    if probes.dim() == 4:
+        # Per-spot probes [N, n_modes, py, px] -> [n_modes, N, py, px].
+        wave = probes.transpose(0, 1)
+    else:
+        # The shared probe broadcast to the [n_modes, N, py, px] stack.
+        wave = probes[:, None].expand(probes.shape[0], delta.shape[0],
+                                      *probes.shape[-2:])
     fused = {'auto': 'auto', 'on': True, 'off': False}[
         cfg.train.fused_multislice]
     final_prop = None
-    if cfg.train.fuse_farfield != 'off':
+    if not unfolded_far_field(cfg):
         final_prop = {'free_prop_cm': geo.free_prop_cm,
                       'normalize_fft': cfg.loss.normalize_fft}
     out = prop.multislice_propagate(
@@ -137,11 +182,18 @@ def predict_from_patches(params: Dict, batch: Dict, subobj, cfg: ReconConfig,
         db_stack=None if zmajor else subobj,
         db_zmajor=subobj if zmajor else None)
     if final_prop is None:
+        if cfg.refine.optimize_prj_pos_offset:
+            out = fourier_shift(out,
+                                params['prj_pos_offset'][batch['i_theta']])
+        free_prop_cm = geo.free_prop_cm
+        if cfg.refine.optimize_free_prop:
+            free_prop_cm = params['free_prop_cm'][0]
         dz_cm = (geo.psize_cm if geo.slice_spacing_cm is None
                  else geo.slice_spacing_cm)
         voxel_nm = (geo.psize_cm * 1e7, geo.psize_cm * 1e7, dz_cm * 1e7)
         out = prop.free_space_propagate(
-            out, geo.free_prop_cm, wavelength_nm(geo.energy_ev), voxel_nm,
+            out.to(torch.complex64), free_prop_cm,
+            wavelength_nm(geo.energy_ev), voxel_nm,
             sign_convention=geo.sign_convention,
             normalize_fft=cfg.loss.normalize_fft,
             fresnel_approx=geo.fresnel_approx)

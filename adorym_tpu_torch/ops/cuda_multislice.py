@@ -21,12 +21,15 @@ inverting the steps, at two propagations per step instead of one.
 ``propagate.multislice_propagate`` picks K4 when K1's records would pass
 one eighth of the device's memory.
 
-Both pairs take each step by one of two routes, chosen from the shape
+Both pairs take each step by one of three routes, chosen from the shape
 alone (:func:`k1_route`, :func:`k4_route`): ``'fft'`` when both sides split
 as ``n1 * n2`` with ``2 <= n1 <= n2 <= 9`` (72 = 8 x 9) and the block fits,
 where the kernels run the step unfolded, as two-stage FFTs in shared
 memory with the step's vectors of :func:`fft_step_vectors`; ``'dense'``
-otherwise, the folded matrices.  :func:`fft_stages_plain`,
+otherwise, the folded matrices, while the block's planes and matrices fit
+in shared memory; ``'global'`` for larger planes (K1 from 88^2, K4 from
+80^2), the dense route's kernels with the block's planes in a workspace in
+device memory and the matrices read where they lie.  :func:`fft_stages_plain`,
 :func:`fft_stages_back_plain` and :func:`fft_step_plain` model the FFT
 route's stages, roots and orders in PyTorch for the tests.
 
@@ -58,21 +61,21 @@ _F = ctypes.c_float
 _I = ctypes.c_int
 _P = ctypes.c_void_p
 K1_FWD = Kernel('multislice_db_stored.cu', 'k1_fwd',
-                [_I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F])
+                [_I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F, _P])
 K1_BWD = Kernel('multislice_db_stored.cu', 'k1_bwd',
-                [_I, _I] + [_P] * 9 + [_I] * 5 + [_F, _F, _F])
+                [_I, _I] + [_P] * 9 + [_I] * 5 + [_F, _F, _F, _P])
 K4_FWD = Kernel('multislice_db.cu', 'k4_fwd',
-                [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _F])
+                [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _F, _P])
 K4_BWD = Kernel('multislice_db.cu', 'k4_bwd',
-                [_I, _I] + [_P] * 11 + [_I] * 5 + [_F, _F, _F])
-#: The step routes, as the C entry points of K1 and K4 number them.
-STEP_ROUTES = {'dense': 0, 'fft': 1}
+                [_I, _I] + [_P] * 11 + [_I] * 5 + [_F, _F, _F, _P])
+#: The step routes, as the C entry points of K1, K4 and K5 number them.
+STEP_ROUTES = {'dense': 0, 'fft': 1, 'global': 2}
 #: K1 launches (forward and backward) by route, counted beside
 #: ``K1_FWD.launches`` and ``K1_BWD.launches``.
-K1_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0}
+K1_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0, 'global': 0}
 #: K4 launches (forward and backward) by route, counted beside
 #: ``K4_FWD.launches`` and ``K4_BWD.launches``.
-K4_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0}
+K4_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0, 'global': 0}
 #: The largest radix of the FFT route's two stages (``csrc`` kMaxRadix).
 MAX_RADIX = 9
 
@@ -111,19 +114,24 @@ def _step_route(ny, nx, planes):
     if (fft_radix(ny) and fft_radix(nx)
             and smem_bytes(ny, nx, planes, 'fft') <= MAX_SMEM_BYTES):
         return 'fft'
-    return 'dense'
+    if smem_bytes(ny, nx, planes, 'dense') <= MAX_SMEM_BYTES:
+        return 'dense'
+    return 'global'
 
 
 def k1_route(ny, nx):
     """K1's route for ``ny x nx`` planes: ``'fft'`` when both sides take
     the radix split and its two-plane block fits in shared memory with the
-    FFT route's padding and table, else ``'dense'``."""
+    FFT route's padding and table, else ``'dense'`` when the dense route's
+    two planes and folded mats fit, else ``'global'`` (88^2 and larger
+    without the split)."""
     return _step_route(ny, nx, 2)
 
 
 def k4_route(ny, nx):
     """K4's route for ``ny x nx`` planes: as :func:`k1_route`, with the
-    backward's three-plane block."""
+    backward's three-plane block (``'global'`` from 80^2 without the
+    split)."""
     return _step_route(ny, nx, 3)
 
 
@@ -331,11 +339,24 @@ def smem_bytes(ny, nx, planes=2, route='dense'):
     adds the rebuilt wave) and the two per-axis matrices.  The FFT route
     pads the planes' rows to an odd length, takes the slot region of
     :func:`fft_slot_elems`, and adds the step vectors and both axes' roots
-    of unity (``msdb::fft_smem_bytes``)."""
+    of unity (``msdb::fft_smem_bytes``).  The global route takes none: its
+    planes lie in :func:`workspace`."""
+    if route == 'global':
+        return 0
     if route == 'fft':
         return 8 * (planes * ny * (nx | 1) + fft_slot_elems(planes, ny, nx)
                     + 2 * (ny + nx))
     return 8 * (planes * ny * nx + ny * ny + nx * nx)
+
+
+def workspace(route, planes, m, n, ny, nx, device):
+    """The global route's device-memory planes, ``planes`` complex64
+    ``ny x nx`` planes for each of the ``m * n`` blocks (None on the other
+    routes, whose planes lie in shared memory)."""
+    if route != 'global':
+        return None
+    return torch.empty((m * n * planes, ny, nx), dtype=torch.complex64,
+                       device=device)
 
 
 def _dtype_code(dtype):
@@ -367,7 +388,8 @@ class MultisliceDbStored(torch.autograd.Function):
                ptr(wave), ptr(mats['fwd_y']), ptr(mats['fwd_x']),
                ptr(mats.get('ffwd_y')), ptr(mats.get('ffwd_x')),
                ptr(out), ptr(rec), n_steps, m, n, ny, nx,
-               -k1, -s * k1)
+               -k1, -s * k1, ptr(workspace(route, 2, m, n, ny, nx,
+                                           db.device)))
         K1_ROUTE_LAUNCHES[route] += 1
         ctx.save_for_backward(db, rec)
         ctx.mats = mats
@@ -390,7 +412,8 @@ class MultisliceDbStored(torch.autograd.Function):
                ptr(g), ptr(mats['bwd_y']), ptr(mats['bwd_x']),
                ptr(mats.get('fbwd_y')), ptr(mats.get('fbwd_x')),
                ptr(gdb), ptr(gw), n_steps, m, n, ny, nx,
-               -k1, -s * k1, s * k1)
+               -k1, -s * k1, s * k1,
+               ptr(workspace(route, 2, m, n, ny, nx, db.device)))
         K1_ROUTE_LAUNCHES[route] += 1
         return gdb, gw, None, None, None
 
@@ -414,7 +437,8 @@ class MultisliceDb(torch.autograd.Function):
         K4_FWD(_dtype_code(db.dtype), STEP_ROUTES[route], ptr(db),
                ptr(wave), ptr(mats['fwd_y']), ptr(mats['fwd_x']),
                ptr(mats.get('ffwd_y')), ptr(mats.get('ffwd_x')),
-               ptr(out), n_steps, m, n, ny, nx, -k1, -s * k1)
+               ptr(out), n_steps, m, n, ny, nx, -k1, -s * k1,
+               ptr(workspace(route, 2, m, n, ny, nx, db.device)))
         K4_ROUTE_LAUNCHES[route] += 1
         ctx.save_for_backward(db, out)
         ctx.mats = mats
@@ -439,7 +463,8 @@ class MultisliceDb(torch.autograd.Function):
                ptr(mats.get('fbwd_y')), ptr(mats.get('fbwd_x')),
                ptr(mats.get('finv_y')), ptr(mats.get('finv_x')),
                ptr(gdb), ptr(gw), n_steps, m, n, ny, nx,
-               -k1, -s * k1, s * k1)
+               -k1, -s * k1, s * k1,
+               ptr(workspace(route, 3, m, n, ny, nx, db.device)))
         K4_ROUTE_LAUNCHES[route] += 1
         return gdb, gw, None, None, None
 
@@ -476,7 +501,8 @@ def prop_mats(kernel, fay=None, fax=None, fayi=None, faxi=None,
     mats (with K4 their exact inverses too), each in the orientation of the
     kernel that reads it, on ``kernel``'s device.  On the ``'fft'`` route
     the step slots hold the step's vectors (:func:`fft_step_vectors`),
-    which serve both directions."""
+    which serve both directions; the ``'global'`` route takes the dense
+    route's matrices."""
     if route == 'fft':
         vy, vx = fft_step_vectors(kernel)
         mats = {'fwd_y': vy, 'fwd_x': vx, 'bwd_y': vy, 'bwd_x': vx}

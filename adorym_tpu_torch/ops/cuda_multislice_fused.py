@@ -18,13 +18,16 @@ transmission is the object's channels themselves, and the non-paraxial
 transfer function.  The kernels compute and record in f32 whatever the
 object's storage type.
 
-The kernels take each step by one of two routes, chosen from the shape
+The kernels take each step by one of three routes, chosen from the shape
 alone (:func:`k5_route`), as K1 and K4 do: ``'fft'`` when both sides split
 as ``n1 * n2`` with ``2 <= n1 <= n2 <= 9`` (72 = 8 x 9), where each step
 is a 2-D FFT in shared memory with the transfer function applied from the
 step table of :func:`step_table`; ``'dense'`` otherwise, four DFT matmuls a
-step.  :func:`fft_step2d_plain` models the FFT route's step in PyTorch for
-the tests.
+step, while the block's waves and matrices fit in shared memory;
+``'global'`` for larger planes (128^2, or 96^2 at three modes), the dense
+route's kernels with the block's planes in a device-memory workspace.
+:func:`fft_step2d_plain` models the FFT route's step in PyTorch for the
+tests.
 
 :func:`multislice_fused` routes by device: CUDA tensors go through the
 kernels (an autograd Function whose backward is the second kernel), CPU
@@ -47,11 +50,13 @@ from .fourier import dft_matrix, fft2, ifft2
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p
-K5_FWD = Kernel('multislice_fused.cu', 'k5_fwd', [_I] + [_P] * 7 + [_I] * 5)
-K5_BWD = Kernel('multislice_fused.cu', 'k5_bwd', [_I] + [_P] * 8 + [_I] * 5)
+K5_FWD = Kernel('multislice_fused.cu', 'k5_fwd',
+                [_I] + [_P] * 7 + [_I] * 5 + [_P])
+K5_BWD = Kernel('multislice_fused.cu', 'k5_bwd',
+                [_I] + [_P] * 8 + [_I] * 5 + [_P])
 #: K5 launches (forward and backward) by step route, counted beside
 #: ``K5_FWD.launches`` and ``K5_BWD.launches``.
-K5_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0}
+K5_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0, 'global': 0}
 
 
 def multislice_fused_plain(t, wave, kernel):
@@ -71,7 +76,10 @@ def smem_bytes(n_modes, ny, nx, route='dense', backward=False):
     length, the staged t plane (and in the backward the staged record
     plane), both axes' roots of unity and, where the block still fits, the
     step table; else the table is read through L2
-    (``multislice_fused.cu``, ``fft2d_smem_bytes``)."""
+    (``multislice_fused.cu``, ``fft2d_smem_bytes``).  The global route
+    takes none: its planes lie in device memory."""
+    if route == 'global':
+        return 0
     if route == 'dense':
         return 8 * ((n_modes + 1) * ny * nx + ny * ny
                     + (0 if nx == ny else nx * nx))
@@ -80,17 +88,21 @@ def smem_bytes(n_modes, ny, nx, route='dense', backward=False):
     return with_table if with_table <= _cm.MAX_SMEM_BYTES else 8 * planes
 
 
-def k5_route(ny, nx):
+def k5_route(ny, nx, n_modes=1):
     """K5's route for ``ny x nx`` planes: ``'fft'`` when both sides take
     the radix split (:func:`.cuda_multislice.fft_radix`) and the backward's
     block fits in shared memory (with the step table through L2 if need
-    be), else ``'dense'``.  The number of modes does not enter: the FFT
-    route runs one block per mode."""
+    be), else ``'dense'`` when the dense block of ``n_modes`` waves fits,
+    else ``'global'`` (e.g. 128^2).  The FFT route runs one block per mode,
+    so the modes enter only the dense route's check."""
     if (_cm.fft_radix(ny) and _cm.fft_radix(nx)
             and smem_bytes(1, ny, nx, 'fft', backward=True)
             <= _cm.MAX_SMEM_BYTES):
         return 'fft'
-    return 'dense'
+    if (smem_bytes(n_modes, ny, nx, 'dense', backward=True)
+            <= _cm.MAX_SMEM_BYTES):
+        return 'dense'
+    return 'global'
 
 
 def _stage_order(n):
@@ -165,15 +177,20 @@ def _dft_mats(ny, nx, device):
 
 def step_mats(kernel, route):
     """The step operands the kernels take on ``route``: on ``'fft'`` the
-    step table (:func:`step_table`); on ``'dense'`` the DFT matrices and
-    the transfer function itself."""
+    step table (:func:`step_table`); on ``'dense'`` and ``'global'`` the
+    DFT matrices and the transfer function itself."""
     if route == 'fft':
         return {'route': 'fft', 'fy': None, 'fx': None,
                 'h': step_table(kernel)}
     ny, nx = kernel.shape
     fy, fx = _dft_mats(ny, nx, kernel.device)
-    return {'route': 'dense', 'fy': fy, 'fx': fx,
-            'h': kernel.contiguous()}
+    return {'route': route, 'fy': fy, 'fx': fx, 'h': kernel.contiguous()}
+
+
+def _workspace(route, m, n, ny, nx, device):
+    """The global route's device-memory planes: the M waves and a scratch
+    plane of each of the ``n`` blocks (None on the other routes)."""
+    return _cm.workspace(route, m + 1, 1, n, ny, nx, device)
 
 
 class MultisliceFused(torch.autograd.Function):
@@ -192,7 +209,7 @@ class MultisliceFused(torch.autograd.Function):
         route = mats['route']
         K5_FWD(_cm.STEP_ROUTES[route], ptr(t), ptr(wave), ptr(mats['fy']),
                ptr(mats['fx']), ptr(mats['h']), ptr(out), ptr(rec), n_steps,
-               m, n, ny, nx)
+               m, n, ny, nx, ptr(_workspace(route, m, n, ny, nx, t.device)))
         K5_ROUTE_LAUNCHES[route] += 1
         ctx.save_for_backward(t, rec)
         ctx.mats = mats
@@ -211,7 +228,8 @@ class MultisliceFused(torch.autograd.Function):
         route = mats['route']
         K5_BWD(_cm.STEP_ROUTES[route], ptr(t), ptr(rec), ptr(g),
                ptr(mats['fy']), ptr(mats['fx']), ptr(mats['h']), ptr(gt),
-               ptr(gw), n_steps, m, n, ny, nx)
+               ptr(gw), n_steps, m, n, ny, nx,
+               ptr(_workspace(route, m, n, ny, nx, t.device)))
         K5_ROUTE_LAUNCHES[route] += 1
         return gt, gw, None
 
@@ -252,7 +270,7 @@ def multislice_fused(t, wave, kernel):
     tensors the plain version."""
     if not t.is_cuda:
         return multislice_fused_plain(t, wave, kernel)
-    route = k5_route(*t.shape[-2:])
+    route = k5_route(*t.shape[-2:], wave.shape[0])
     _check_cuda_operands(t, wave, kernel, route)
     return MultisliceFused.apply(t.contiguous(), wave.contiguous(),
                                  step_mats(kernel, route))

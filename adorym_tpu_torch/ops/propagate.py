@@ -13,6 +13,10 @@ the general fused scan (real_imag, or a non-paraxial transfer function),
 which runs the kernel of :mod:`.cuda_multislice_fused`.  Each kernel's
 plain version runs on the CPU.  The remaining branches raise ``NotImplementedError`` naming their
 ROADMAP item.
+
+Distances may be tensors (a refined ``free_prop_cm`` or probe defocus):
+:func:`fresnel_kernel` and :func:`free_space_propagate` then stay
+differentiable in them.
 """
 
 from __future__ import annotations
@@ -50,7 +54,9 @@ def _freq_mesh_np(voxel_nm: tuple, shape: tuple):
 def fresnel_kernel(shape, voxel_nm, lmbda_nm, dist_nm, fresnel_approx=True,
                    sign_convention=1, device='cpu'):
     """Unshifted Fresnel transfer function H(u, v), complex64 on
-    ``device``; the non-paraxial form masks evanescent modes."""
+    ``device``; the non-paraxial form masks evanescent modes.  ``dist_nm``
+    may be a float32 tensor on ``device`` (a refined distance): H is then
+    differentiable in it."""
     uu, vv = _freq_mesh_np(tuple(float(v) for v in voxel_nm[:2]),
                            tuple(int(s) for s in shape[:2]))
     u = torch.from_numpy(uu).to(device)
@@ -71,7 +77,9 @@ def _step_kernel(shape, voxel_nm, lmbda_nm, dist_nm, fresnel_approx,
                  sign_convention, device):
     """The multislice step's transfer function, one tensor per geometry and
     device: the kernels' step operands built from it (K5's step table) are
-    then built once, not per chunk.  Read only."""
+    then built once, not per chunk.  Read only.  The distance is geometry,
+    a float: a refined (tensor) distance goes through
+    :func:`fresnel_kernel`."""
     return fresnel_kernel(shape, voxel_nm, lmbda_nm, dist_nm,
                           fresnel_approx=fresnel_approx,
                           sign_convention=sign_convention, device=device)
@@ -151,7 +159,8 @@ def free_space_propagate(wave, free_prop_cm, lmbda_nm, voxel_nm,
     """Object-to-detector propagation: ``'inf'`` is the Fraunhofer far
     field (fftshifted FFT2, IFFT2 for the opposite sign convention,
     unnormalized unless ``normalize_fft``); a finite distance uses the
-    Fresnel TF method."""
+    Fresnel TF method.  A tensor distance (a refined ``free_prop_cm``)
+    keeps the propagation differentiable in it."""
     if free_prop_cm is None or (isinstance(free_prop_cm, (int, float))
                                 and free_prop_cm == 0):
         return wave
@@ -160,8 +169,10 @@ def free_space_propagate(wave, free_prop_cm, lmbda_nm, voxel_nm,
         if sign_convention == 1:
             return fft2_and_shift(wave, norm=norm)
         return ifft2_and_shift(wave, norm=norm)
-    return fresnel_propagate(wave, float(free_prop_cm) * 1e7, lmbda_nm,
-                             voxel_nm, fresnel_approx=fresnel_approx,
+    dist_nm = (free_prop_cm * 1e7 if torch.is_tensor(free_prop_cm)
+               else float(free_prop_cm) * 1e7)
+    return fresnel_propagate(wave, dist_nm, lmbda_nm, voxel_nm,
+                             fresnel_approx=fresnel_approx,
                              sign_convention=sign_convention)
 
 

@@ -1,7 +1,17 @@
-"""Refinable parameters, optimizer specs, constraints and update gates:
-the obj/probe subset of ``adorym_tpu/optim/params.py``.  Every parameter
-is a real float32 tensor (complex quantities are ``[..., 2]`` pairs):
-obj ``[y, x, z, 2]``, probe ``[n_modes, py, px, 2]``."""
+"""Refinable parameters, optimizer specs, constraints and update gates
+(``adorym_tpu/optim/params.py``).  Every parameter is a real float32
+tensor (complex quantities are ``[..., 2]`` pairs):
+
+  obj                  [y, x, z, 2]
+  probe                [n_modes, py, px, 2]
+  probe_defocus_mm     [1]
+  probe_pos_offset     [n_theta, 2]
+  prj_pos_offset       [n_theta, 2]
+  probe_pos_correction [n_theta, n_pos, 2]   ([n_dists, 2] multi-distance)
+  free_prop_cm         [n_dists]
+  prj_affine_ls        [n_dists, 2, 3]
+
+Slice positions, tilt and the CTF's kappa are ROADMAP A.5 (c)."""
 
 from __future__ import annotations
 
@@ -13,26 +23,63 @@ import torch
 from ..config import ReconConfig
 from .optimizers import OptSpec
 
-#: Refinements beyond obj/probe (ROADMAP A, remaining model families and
-#: refinables), by their config flag.
-_AUX_FLAGS = ('optimize_probe_defocusing', 'optimize_probe_pos_offset',
-              'optimize_prj_pos_offset', 'optimize_all_probe_pos',
-              'optimize_slice_pos', 'optimize_free_prop', 'optimize_tilt',
-              'fixed_tilt', 'optimize_prj_affine', 'optimize_ctf_lg_kappa')
+#: Refinables not ported yet (ROADMAP A.5 (c)), by their config flag.
+_A5C_FLAGS = ('optimize_slice_pos', 'optimize_tilt', 'fixed_tilt',
+              'optimize_ctf_lg_kappa')
 
 _FIRST_ORDER_KINDS = ('adam', 'momentum', 'gd')
 
+_EYE_2X3 = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+
 
 def build_aux_params(cfg: ReconConfig, n_theta: int, n_pos: int,
-                     device='cpu') -> Dict[str, torch.Tensor]:
-    """The auxiliary refinable parameters beyond obj/probe: none in this
-    slice; a run that asks for one raises."""
-    on = [f for f in _AUX_FLAGS if getattr(cfg.refine, f)]
+                     device='cpu', probe_pos_correction_init=None,
+                     free_prop_cm=None, prj_affine_init=None
+                     ) -> Dict[str, torch.Tensor]:
+    """The auxiliary refinable parameters beyond obj/probe that the config
+    switches on, at their initial values on ``device``: zeros for the
+    defocus and the offsets; ``probe_pos_correction`` from its ``_init``
+    or zeros (``[n_dists, 2]`` with several distances, else ``[n_theta,
+    n_pos, 2]``); ``free_prop_cm`` from ``free_prop_cm`` or the geometry's
+    distances; ``prj_affine_ls`` from its ``_init`` or the identity at each
+    distance."""
+    r = cfg.refine
+    geo = cfg.geometry
+    on = [f for f in _A5C_FLAGS if getattr(r, f)]
     if on:
         raise NotImplementedError(
-            f'refinables {on}: ROADMAP A, remaining model families and '
-            'refinables (only obj and probe are ported)')
-    return {}
+            f'refinables {on}: ROADMAP A.5 (c), remaining model families '
+            'and refinables')
+
+    def t(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+
+    params: Dict[str, torch.Tensor] = {}
+    if r.optimize_probe_defocusing:
+        params['probe_defocus_mm'] = t(np.zeros(1))
+    if r.optimize_probe_pos_offset:
+        params['probe_pos_offset'] = t(np.zeros((n_theta, 2)))
+    if r.optimize_prj_pos_offset:
+        params['prj_pos_offset'] = t(np.zeros((n_theta, 2)))
+    if r.optimize_all_probe_pos:
+        if probe_pos_correction_init is not None:
+            params['probe_pos_correction'] = t(probe_pos_correction_init)
+        elif geo.n_dists > 1:
+            # One registration shift per distance.
+            params['probe_pos_correction'] = t(np.zeros((geo.n_dists, 2)))
+        else:
+            params['probe_pos_correction'] = t(np.zeros((n_theta, n_pos, 2)))
+    if r.optimize_free_prop:
+        fp = free_prop_cm if free_prop_cm is not None else geo.free_prop_cm
+        if isinstance(fp, str):
+            raise ValueError('optimize_free_prop needs a finite '
+                             f'free_prop_cm, got {fp!r}')
+        params['free_prop_cm'] = t(np.atleast_1d(np.asarray(fp)))
+    if r.optimize_prj_affine:
+        params['prj_affine_ls'] = t(
+            prj_affine_init if prj_affine_init is not None
+            else np.tile(np.asarray(_EYE_2X3)[None], (geo.n_dists, 1, 1)))
+    return params
 
 
 def _aux_spec(name: str, kind: str, lr: float) -> OptSpec:
@@ -44,8 +91,8 @@ def _aux_spec(name: str, kind: str, lr: float) -> OptSpec:
 
 
 def build_opt_specs(cfg: ReconConfig) -> Dict[str, OptSpec]:
-    """Per-leaf optimizer specs: the object's configured optimizer and,
-    when refined, the probe's."""
+    """Per-leaf optimizer specs: the object's configured optimizer; each
+    refined auxiliary leaf its own first-order kind and learning rate."""
     r = cfg.refine
     t = cfg.train
     if t.optimizer not in _FIRST_ORDER_KINDS:
@@ -55,17 +102,44 @@ def build_opt_specs(cfg: ReconConfig) -> Dict[str, OptSpec]:
     specs: Dict[str, OptSpec] = {}
     if t.optimize_object:
         specs['obj'] = OptSpec(kind=t.optimizer, step_size=t.learning_rate)
-    if r.optimize_probe:
-        specs['probe'] = _aux_spec('probe', r.probe_optimizer,
-                                   r.probe_learning_rate)
+    aux = [
+        ('probe', r.optimize_probe, r.probe_optimizer,
+         r.probe_learning_rate),
+        ('probe_defocus_mm', r.optimize_probe_defocusing,
+         r.probe_defocusing_optimizer, r.probe_defocusing_learning_rate),
+        ('probe_pos_offset', r.optimize_probe_pos_offset,
+         r.probe_pos_offset_optimizer, r.probe_pos_offset_learning_rate),
+        ('prj_pos_offset', r.optimize_prj_pos_offset,
+         r.prj_pos_offset_optimizer, r.prj_pos_offset_learning_rate),
+        ('probe_pos_correction', r.optimize_all_probe_pos,
+         r.all_probe_pos_optimizer, r.all_probe_pos_learning_rate),
+        ('free_prop_cm', r.optimize_free_prop,
+         r.free_prop_optimizer, r.free_prop_learning_rate),
+        ('prj_affine_ls', r.optimize_prj_affine,
+         r.prj_affine_optimizer, r.prj_affine_learning_rate),
+    ]
+    for name, on, kind, lr in aux:
+        if on:
+            specs[name] = _aux_spec(name, kind, lr)
     return specs
 
 
 def apply_param_constraints(params: Dict[str, torch.Tensor],
                             cfg: ReconConfig) -> Dict[str, torch.Tensor]:
-    """Post-update stabilizers of the auxiliary refinables; obj and probe
-    have none, so this returns ``params`` as they are."""
-    return dict(params)
+    """Post-update stabilizers of the auxiliary refinables:
+    ``probe_pos_correction`` loses its mean over all leading axes (the
+    positions cannot drift together), and distance 0's ``prj_affine_ls``
+    stays the identity."""
+    params = dict(params)
+    if 'probe_pos_correction' in params:
+        ppc = params['probe_pos_correction']
+        params['probe_pos_correction'] = ppc - ppc.mean(
+            dim=tuple(range(ppc.dim() - 1)), keepdim=True)
+    if 'prj_affine_ls' in params:
+        aff = params['prj_affine_ls'].clone()
+        aff[0] = torch.tensor(_EYE_2X3, dtype=aff.dtype, device=aff.device)
+        params['prj_affine_ls'] = aff
+    return params
 
 
 def apply_object_constraints(obj: torch.Tensor, cfg: ReconConfig,

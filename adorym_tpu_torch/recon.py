@@ -31,6 +31,15 @@ one optimizer update per minibatch:
 In 2D (``two_d_mode``) nothing rotates: the immediate scheme takes
 ``step`` and the per-angle scheme ``angle_step`` without the rotations.
 
+Every step takes the gradient of every refined leaf: the object, the
+probe and the auxiliary refinables (defocus, offsets, per-spot positions,
+distances, affines), each with its own optimizer; the batch carries its
+spot indices (``ind_batch``) for the per-spot positions.  ``model=`` takes
+another forward model with the ptychography model's ``predict`` and, as
+hooks, ``compute_pad``, ``transform_measured`` and ``expand_indices``: the
+multi-distance model (:mod:`.models.multidist`) runs on the generic
+immediate step; the band and per-angle steps stay ptychography's.
+
 Regularizers act on the whole object: the band step adds their own
 gradient by the sum rule, ``step`` adds them to its loss, and the
 per-angle step takes them once an angle on the rotated object, scaled by
@@ -79,6 +88,11 @@ from .utils.initialize import initialize_object, initialize_probe
 #: The ROADMAP item that ports what the two schemes still leave out.
 _REST = ('ROADMAP A, the rest of the per-angle path and of the immediate '
          'scheme')
+
+#: ``aux_init``'s names and the ``build_aux_params`` keyword each sets.
+_AUX_INIT_KW = {'free_prop_cm': 'free_prop_cm',
+                'probe_pos_correction': 'probe_pos_correction_init',
+                'prj_affine_ls': 'prj_affine_init'}
 
 #: Batches between two refreshes of the reweighted-L1 weights on the
 #: immediate scheme, as in the reference.
@@ -135,8 +149,13 @@ def _check_slice(cfg: ReconConfig):
         todo.append("update_scheme='per angle' with the rotation inside "
                     f'autodiff ({_REST})')
     if cfg.refine.tilt_active:
-        todo.append('tilt (ROADMAP A, remaining model families and '
-                    'refinables)')
+        todo.append(f'tilt ({ptycho_model.A5C})')
+    if geo.pure_projection or geo.slice_pos_cm_ls is not None:
+        todo.append('pure-projection and sparse forward models '
+                    f'({ptycho_model.A5C})')
+    if t.forward_algorithm != 'fresnel':
+        todo.append(f'forward_algorithm={t.forward_algorithm!r} '
+                    f'({ptycho_model.A5C})')
     if p.data_axis > 1 or p.object_axis > 1:
         todo.append('device meshes (ROADMAP A, multi-GPU and out-of-core)')
     if p.offload_optimizer_state or p.offload_object is True:
@@ -232,8 +251,11 @@ class Reconstructor:
     0 outside the object's support; ``reg_list``: regularizers in place of
     the ones the config's loss weights switch on; ``output_folder``: where
     the reference's output tree, the loss log and the checkpoints go
-    (nothing is written without one).  ``device``: where it runs; ``None``
-    means CUDA and raises when there is none."""
+    (nothing is written without one).  ``aux_init``: initial values of
+    auxiliary refinables by name (``probe_pos_correction``,
+    ``free_prop_cm``, ``prj_affine_ls``).  ``model``: the forward model
+    (default :mod:`.models.ptychography`).  ``device``: where it runs;
+    ``None`` means CUDA and raises when there is none."""
 
     def __init__(self, cfg: ReconConfig, *, data: np.ndarray,
                  probe_pos: np.ndarray, theta_ls: Optional[np.ndarray] = None,
@@ -242,10 +264,19 @@ class Reconstructor:
                  beamstop: Optional[np.ndarray] = None,
                  finite_support_mask: Optional[np.ndarray] = None,
                  reg_list=None, output_folder: Optional[str] = None,
+                 aux_init: Optional[Dict[str, Any]] = None, model=None,
                  device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         _check_slice(cfg)
+        # A model is a namespace with predict(params, batch, cfg, pad_arr)
+        # and optional hooks: compute_pad, transform_measured (refinements
+        # applied to the data) and expand_indices (a batch's blocks to its
+        # measurement rows).
+        self.model = model or ptycho_model
+        self.transform_measured = getattr(self.model, 'transform_measured',
+                                          None)
+        self.expand_indices = getattr(self.model, 'expand_indices', None)
         geo = cfg.geometry
         self.data = np.abs(np.asarray(data)).astype(np.float32)
         self.n_theta, self.n_pos = self.data.shape[:2]
@@ -273,19 +304,33 @@ class Reconstructor:
             'probe': torch.as_tensor(np.asarray(probe_init, np.float32),
                                      device=dev),
         }
+        aux_kw = {'free_prop_cm': (None if isinstance(geo.free_prop_cm, str)
+                                    else geo.free_prop_cm)}
+        for k, v in (aux_init or {}).items():
+            if k not in _AUX_INIT_KW:
+                raise ValueError(f'aux_init: unknown refinable {k!r}')
+            aux_kw[_AUX_INIT_KW[k]] = v
         self.params.update(param_lib.build_aux_params(
-            cfg, self.n_theta, self.n_pos, device=dev))
+            cfg, self.n_theta, self.n_pos, device=dev, **aux_kw))
         self.specs = param_lib.build_opt_specs(cfg)
         self.opt_state = opt_lib.tree_init(self.specs, self.params)
 
         # -- statics -------------------------------------------------------
         self._immediate = cfg.train.update_scheme == 'immediate'
-        self.pad_arr = patch_ops.calculate_pad(geo.obj_size[:2],
-                                               self.probe_pos, geo.probe_size)
+        compute_pad = getattr(self.model, 'compute_pad', None)
+        if compute_pad is not None:
+            self.pad_arr = compute_pad(cfg, geo.obj_size[:2], self.probe_pos)
+        else:
+            self.pad_arr = patch_ops.calculate_pad(
+                geo.obj_size[:2], self.probe_pos, geo.probe_size)
         mb = cfg.train.minibatch_size
         self._rowgrid_stride = (
-            None if cfg.train.randomize_probe_pos else
+            None if (cfg.train.randomize_probe_pos
+                     or self.model is not ptycho_model) else
             patch_ops.detect_row_grid(self.probe_pos, mb, geo.probe_size))
+        if self.model is not ptycho_model and not self._immediate:
+            raise NotImplementedError(
+                f'the per-angle scheme with another forward model: {_REST}')
         if self._rowgrid_stride is None and not self._immediate:
             raise NotImplementedError(
                 'per-angle scan tables whose minibatches are not '
@@ -504,20 +549,22 @@ class Reconstructor:
                 and cfg.train.unknown_type == 'delta_beta'
                 and not geo.pure_projection and geo.slice_pos_cm_ls is None)
 
-    def _patch_grads(self, sub, i_theta, theta, measured, zm, groups):
+    def _patch_grads(self, sub, i_theta, theta, inds, measured, zm, groups):
         """Forward model and loss of the patches ``sub`` (z-major when
-        ``zm``) against ``measured``, and the gradient of the sum of the
-        ``groups`` minibatches' mean losses with respect to ``sub`` and the
-        refined probe.  Returns ``(losses [groups], g_sub, {name:
-        grad})``; ``g_sub`` is in the scatter layout ``[N, py, px, zb, 2]``
-        (for z-major patches, a view of the z-major gradient, which the
-        scatter kernels read in place)."""
+        ``zm``) of the spots ``inds`` against ``measured``, and the
+        gradient of the sum of the ``groups`` minibatches' mean losses with
+        respect to ``sub`` and every refined leaf but the object (the
+        probe, the auxiliary refinables).  Returns ``(losses [groups],
+        g_sub, {name: grad})``; ``g_sub`` is in the scatter layout ``[N,
+        py, px, zb, 2]`` (for z-major patches, a view of the z-major
+        gradient, which the scatter kernels read in place)."""
         cfg = self.cfg
         aux_names = [k for k in self.specs if k != 'obj']
         sub.requires_grad_(True)
-        aux = {'probe': self.params['probe'].detach().requires_grad_(
-            'probe' in aux_names)}
-        batch = {'i_theta': i_theta, 'theta': theta}
+        aux = {k: v.detach().requires_grad_(k in aux_names)
+               for k, v in self.params.items() if k != 'obj'}
+        batch = {'i_theta': i_theta, 'theta': theta,
+                 'ind_batch': np.asarray(inds).reshape(-1)}
         with torch.enable_grad():
             pred = ptycho_model.predict_from_patches(
                 aux, batch, sub, cfg, prebinned_z=self._prebin, zmajor=zm)
@@ -533,12 +580,14 @@ class Reconstructor:
             g_sub = g_sub.permute(2, 3, 4, 0, 1)
         return per_batch.detach(), g_sub, dict(zip(aux_names, grads[1:]))
 
-    def patch_accum(self, obj_pad, theta, i_theta, pos_all, measured_all):
-        """Scan the angle's gradient chunks at patch granularity, adding
-        the patch gradients into an ``obj_pad``-shaped f32 accumulator with
-        the grid scatter.  The chunk objective is the sum of its batches'
-        mean losses.  Returns ``(acc_obj, acc_aux, losses [n_c, g])``;
-        ``acc_aux`` holds the probe gradient when the probe is refined."""
+    def patch_accum(self, obj_pad, theta, i_theta, inds_all, pos_all,
+                    measured_all):
+        """Scan the angle's gradient chunks (spots ``inds_all[c]`` at
+        ``pos_all[c]``) at patch granularity, adding the patch gradients
+        into an ``obj_pad``-shaped f32 accumulator with the grid scatter.
+        The chunk objective is the sum of its batches' mean losses.
+        Returns ``(acc_obj, acc_aux, losses [n_c, g])``; ``acc_aux`` holds
+        the gradients of the other refined leaves."""
         cfg = self.cfg
         geo = cfg.geometry
         g = self._grid_scatter_rows
@@ -566,7 +615,7 @@ class Reconstructor:
                     self._rowgrid_stride, g, cfg.train.minibatch_size,
                     geo.probe_size)
             per_batch, g_sub, g_aux = self._patch_grads(
-                sub, i_theta, theta, measured_all[c], zm, g)
+                sub, i_theta, theta, inds_all[c], measured_all[c], zm, g)
             scatter_grid2d_add(
                 acc_obj, g_sub, pos_int[0, 0], pos_int[0, 1],
                 self._rowgrid_stride, g)
@@ -577,11 +626,17 @@ class Reconstructor:
 
     def apply_step(self, grads, i_opt_batch: int, global_batch: int):
         """Optimizer update of every spec'd leaf (the probe inside its
-        update window), then the constraints, the support mask included."""
+        update window, the auxiliary leaves after
+        ``other_params_update_delay`` batches), then the constraints, the
+        support mask included."""
         cfg = self.cfg
         mask = {}
         if 'probe' in self.specs:
             mask['probe'] = param_lib.probe_update_gate(cfg, global_batch)
+        aux_on = param_lib.aux_update_gate(cfg, global_batch)
+        for k in self.specs:
+            if k not in ('obj', 'probe'):
+                mask[k] = aux_on
         params, self.opt_state = opt_lib.tree_apply(
             self.specs, self.params, grads, self.opt_state, i_opt_batch,
             update_mask=mask)
@@ -644,7 +699,7 @@ class Reconstructor:
         if self._prebin:
             obj_pad = prop.bin_z_sum(obj_pad, geo.binning, axis=2)
         acc_obj, acc_aux, losses = self.patch_accum(
-            obj_pad, theta, i_theta, pos, measured)
+            obj_pad, theta, i_theta, inds, pos, measured)
         del obj_pad
         p = self.pad_arr
         g_rot = acc_obj[p[0][0]:acc_obj.shape[0] - p[0][1],
@@ -708,7 +763,7 @@ class Reconstructor:
                 rb.permute(2, 3, 0, 1).contiguous(), posi, geo.probe_size)
         else:
             sub = patch_ops.extract_patches(rb, posi, geo.probe_size)
-        loss, g_sub, g_aux = self._patch_grads(sub, i_theta, theta,
+        loss, g_sub, g_aux = self._patch_grads(sub, i_theta, theta, inds,
                                                measured, zm, 1)
         acc = torch.zeros((py, X + px0 + px1, nzb) + tuple(obj.shape[3:]),
                           dtype=torch.float32, device=obj.device)
@@ -726,10 +781,13 @@ class Reconstructor:
         return loss[0]
 
     def loss_fn(self, params, batch, measured):
-        """The minibatch's loss: the data mismatch of
-        :func:`models.ptychography.predict` plus the regularizers."""
+        """The minibatch's loss: the data mismatch of the model's
+        ``predict`` (against the measured data as the model's
+        ``transform_measured`` registers them) plus the regularizers."""
         cfg = self.cfg
-        pred = ptycho_model.predict(params, batch, cfg, self.pad_arr)
+        pred = self.model.predict(params, batch, cfg, self.pad_arr)
+        if self.transform_measured is not None:
+            measured = self.transform_measured(params, batch, measured, cfg)
         loss = model_base.mismatch_loss(
             pred, measured, cfg.loss.loss_function_type,
             cfg.loss.raw_data_type, cfg.loss.poisson_multiplier,
@@ -748,7 +806,8 @@ class Reconstructor:
         params = {k: v.detach().requires_grad_(k in self.specs)
                   for k, v in self.params.items()}
         batch = {'i_theta': i_theta, 'theta': float(self.theta_ls[i_theta]),
-                 'pos_batch': self.probe_pos[inds].astype(np.float32)}
+                 'pos_batch': self.probe_pos[inds].astype(np.float32),
+                 'ind_batch': np.asarray(inds)}
         with torch.enable_grad():
             loss = self.loss_fn(params, batch, measured)
             grads = torch.autograd.grad(loss, [params[k] for k in names])
@@ -769,8 +828,10 @@ class Reconstructor:
         losses, on the device."""
         t = self.cfg.train
         step = self.step_band if self._band else self.step
-        inds_dev = torch.as_tensor(np.stack([inds for _, inds in batches]),
-                                   device=self.device)
+        rows = [inds if self.expand_indices is None
+                else self.expand_indices(inds, self.n_pos, self.cfg)
+                for _, inds in batches]
+        inds_dev = torch.as_tensor(np.stack(rows), device=self.device)
         data = self._dataset()
         n_b = len(batches)
         losses = []
@@ -955,6 +1016,9 @@ class Reconstructor:
                               name_suffix=suffix)
         out_lib.output_probe(self.params['probe'].cpu().numpy(), inter,
                              name_suffix=suffix)
+        out_lib.output_refined_params(
+            {k: v.detach().cpu().numpy() for k, v in self.params.items()},
+            list(self.specs), inter, i_epoch, i_batch)
 
     def save_checkpoint(self, i_epoch: int, i_batch: int) -> str:
         """Write ``checkpoint/checkpoint.npz`` naming ``(i_epoch,

@@ -1,7 +1,8 @@
 """Forward simulation of measurement data (``adorym_tpu/simulate.py``):
-the port's forward model on a known object, without autograd, on the
-run's device (CUDA unless the caller passes ``device='cpu'``), written to
-the reference's HDF5 layout by :func:`simulate_to_file`."""
+the port's forward model (ptychography, or with ``model=`` the
+multi-distance model's holograms) on a known object, without autograd, on
+the run's device (CUDA unless the caller passes ``device='cpu'``), written
+to the reference's HDF5 layout by :func:`simulate_to_file`."""
 
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from .recon import resolve_device
 def simulate(cfg: ReconConfig, obj: np.ndarray, probe: np.ndarray,
              probe_pos: np.ndarray, theta_ls: Optional[np.ndarray] = None,
              return_wave: bool = False, minibatch_size: int = 0,
-             device=None) -> np.ndarray:
+             model=None, device=None) -> np.ndarray:
     """Diffraction data for every (angle, scan position):
     ``[n_theta, n_pos, py, px]`` float32 magnitudes, or with
     ``return_wave`` mode 0's complex exit waves.
@@ -29,14 +30,19 @@ def simulate(cfg: ReconConfig, obj: np.ndarray, probe: np.ndarray,
     ``obj`` ``[y, x, z, 2]``, ``probe`` ``[n_modes, py, px, 2]``,
     ``probe_pos`` ``[n_pos, 2]`` pixels, ``theta_ls`` in rad (default one
     angle at 0).  The bare forward model runs: the config's refinements
-    are switched off.  Multi-distance models are ROADMAP A, remaining
-    model families and refinables."""
+    are switched off.  ``model``: the forward model (default ptychography;
+    a geometry of several distances needs :mod:`.models.multidist`, whose
+    batches of blocks give the holograms of every distance, so that a
+    batch of all ``n_pos`` blocks lays them out as the data file does,
+    ``[n_theta, n_dists * n_pos, sy, sx]``)."""
     geo = cfg.geometry
-    if geo.n_dists > 1 or (geo.free_prop_cm is not None
-                           and not isinstance(geo.free_prop_cm, str)
-                           and np.size(geo.free_prop_cm) > 1):
-        raise NotImplementedError('multi-distance simulation: ROADMAP A, '
-                                  'remaining model families and refinables')
+    model = model or ptycho_model
+    if model is ptycho_model and (
+            geo.n_dists > 1 or (geo.free_prop_cm is not None
+                                and not isinstance(geo.free_prop_cm, str)
+                                and np.size(geo.free_prop_cm) > 1)):
+        raise ValueError('several distances: pass '
+                         'model=adorym_tpu_torch.models.multidist')
     cfg = dataclasses.replace(cfg, refine=RefineConfig())
     obj = np.asarray(obj)
     probe = np.asarray(probe)
@@ -50,8 +56,12 @@ def simulate(cfg: ReconConfig, obj: np.ndarray, probe: np.ndarray,
     dev = resolve_device(device)
     probe_pos = np.asarray(probe_pos, dtype=np.float64)
     n_pos = len(probe_pos)
-    pad_arr = patch_ops.calculate_pad(geo.obj_size[:2], probe_pos,
-                                      geo.probe_size)
+    compute_pad = getattr(model, 'compute_pad', None)
+    if compute_pad is not None:
+        pad_arr = compute_pad(cfg, geo.obj_size[:2], probe_pos)
+    else:
+        pad_arr = patch_ops.calculate_pad(geo.obj_size[:2], probe_pos,
+                                          geo.probe_size)
     params = {'obj': torch.as_tensor(obj, dtype=torch.float32, device=dev),
               'probe': torch.as_tensor(probe, dtype=torch.float32,
                                        device=dev)}
@@ -68,9 +78,10 @@ def simulate(cfg: ReconConfig, obj: np.ndarray, probe: np.ndarray,
             for b0 in range(0, n_pos, mb):
                 inds = np.arange(b0, min(b0 + mb, n_pos))
                 batch = {'i_theta': i_theta, 'theta': float(theta),
-                         'pos_batch': probe_pos[inds].astype(np.float32)}
-                pred = ptycho_model.predict(params, batch, cfg, pad_arr,
-                                            return_wave=return_wave)
+                         'pos_batch': probe_pos[inds].astype(np.float32),
+                         'ind_batch': inds}
+                pred = model.predict(params, batch, cfg, pad_arr,
+                                     return_wave=return_wave)
                 if return_wave:
                     pred = pred[0]       # mode 0's complex wave
                 per_angle.append(pred.cpu().numpy())

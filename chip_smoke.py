@@ -71,7 +71,30 @@ Phases (any failure raises and exits nonzero):
      ``reconstruct_ptychography``, 3 epochs on CUDA and on the CPU, the
      per-epoch losses within 1e-4, with the phantom correlation;
   6c. the per-angle flagship with the same regularizers and support: a
-     warmup and 2 timed epochs.
+     warmup and 2 timed epochs;
+  7b. the immediate flagship with the per-spot probe positions refined
+     (K1 at N=23 with per-spot waves, K6), f32, a warmup and 2 timed
+     epochs, beside 4d's plain cell;
+  7c. the per-angle flagship with the positions and the projection offset
+     refined (K1 at N=529 with the far field left out, K2), f32, a warmup,
+     2 timed epochs and a profiled one, beside 4's plain cell;
+  7. small configurations of each new path on CUDA and on the CPU (2-D
+     positions with two refined probe modes; the band step and the
+     per-angle step with positions; the multi-distance model with its
+     distances, affines and shifts refined): losses within 1e-4;
+  7a. BASELINE #2 (``demos/2d_ptychography_experimental_data.py``) at the
+     demo's size through ``reconstruct_ptychography``, 30 epochs, with the
+     mean position residual before and after; 3 epochs of it held against
+     the CPU (losses and refined positions); 200 epochs with the position
+     updates held back 50, the residual falling below its start;
+  7d. BASELINE #4 (``demos/2d_multidist_holography_w_affine.py``) at the
+     demo's size, 200 epochs, with the distance error before and after.
+Phase 3 also holds K1 with per-spot waves (made by position refinement's
+phase ramps; N=23 with the far field folded, N=529 without), and K1, K4
+and K5 on their global route at planes no shared-memory route takes (96^2,
+96^2 at three modes, 128^2) against their plain versions, then runs those
+planes through ``multislice_propagate`` under ``fused='auto'`` against the
+plain FFT scan, with the launches counted.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -92,6 +115,10 @@ import torch
 #: H100 SXM data sheet: HBM3 bandwidth and f32 rate outside tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+
+#: The card's name and power limit, as nvidia-smi prints them (set by
+#: main); the phase 7 summaries print it beside their numbers.
+CARD = ''
 
 FLAGSHIP = dict(n_obj=256, n_probe=72, mb=23, binning=8, stride=8,
                 energy_ev=5000.0, psize_cm=1e-7, n_theta=4)
@@ -189,7 +216,7 @@ def check_multislice(dtype, tol_fwd, tol_bwd, M=1, N=529):
     out_d, gd_d, gw_d, bwd_d = run(dense)
     out_p, gd_p, gw_p, bwd_p = run(cm.multislice_db_stored_plain)
     torch.cuda.synchronize()
-    if took != {'fft': 2, 'dense': 0}:
+    if took != {'fft': 2, 'dense': 0, 'global': 0}:
         raise AssertionError(f'K1{modes} {tag}: launches by route {took}')
     errs = {}
     for name, (out_r, gd_r, gw_r) in (('fft', (out_k, gd_k, gw_k)),
@@ -287,7 +314,7 @@ def check_multislice_unfolded():
     took = {r: cm.K1_ROUTE_LAUNCHES[r] - r0[r] for r in r0}
     out_p, gd_p, gw_p, bwd_p = run(cm.multislice_db_stored_plain)
     torch.cuda.synchronize()
-    if took != {'fft': 2, 'dense': 0}:
+    if took != {'fft': 2, 'dense': 0, 'global': 0}:
         raise AssertionError(f'K1 N=1 S=64: launches by route {took}')
     tol_fwd, tol_bwd = 1e-4, 1e-3
     e_fwd, r_fwd = rel_err(out_k, out_p)
@@ -414,7 +441,7 @@ def check_invertible(dtype):
     out_d, gd_d, gw_d, bwd_d = run(dense, db, wave, g, fm)
     out_p, gd_p, gw_p, bwd_p = run(cm.multislice_db_plain, db, wave, g, fm)
     torch.cuda.synchronize()
-    if took != {'fft': 2, 'dense': 0}:
+    if took != {'fft': 2, 'dense': 0, 'global': 0}:
         raise AssertionError(f'K4 {tag}: launches by route {took}')
     tol_fwd, tol_bwd = 1e-4, 1e-3
     tol_gd = tol_bwd
@@ -925,7 +952,7 @@ def check_fused_multislice(tol_fwd, tol_bwd, M=1):
         lambda tt, w, _: cmf.MultisliceFused.apply(tt, w, mats_d))
     out_p, gt_p, gw_p, bwd_p = run(cmf.multislice_fused_plain)
     torch.cuda.synchronize()
-    if took != {'fft': 2, 'dense': 0}:
+    if took != {'fft': 2, 'dense': 0, 'global': 0}:
         raise AssertionError(f'K5{modes}: launches by route {took}')
     errs = {}
     for name, (out_r, gt_r, gw_r) in (('fft', (out_k, gt_k, gw_k)),
@@ -1172,7 +1199,17 @@ PATHS = {'delta_beta': dict(unknown_type='delta_beta', n_modes=1, binning=8),
          'multimode_binned': dict(unknown_type='delta_beta', n_modes=3,
                                   binning=8),
          'immediate': dict(unknown_type='delta_beta', n_modes=1, binning=8,
-                           immediate=True)}
+                           immediate=True),
+         # Phase 7b and 7c: the immediate and the per-angle flagship with
+         # the per-spot positions refined (and, per angle, the projection
+         # offset, which leaves the far field out of K1).
+         'immediate_pos': dict(unknown_type='delta_beta', n_modes=1,
+                               binning=8, immediate=True,
+                               refine=dict(optimize_all_probe_pos=True)),
+         'delta_beta_pos': dict(unknown_type='delta_beta', n_modes=1,
+                                binning=8,
+                                refine=dict(optimize_all_probe_pos=True,
+                                            optimize_prj_pos_offset=True))}
 
 
 def probe_modes(n, n_modes, seed=11):
@@ -1204,7 +1241,8 @@ def flagship_config(bf16, path='delta_beta'):
                              run_bfloat16=bf16,
                              unknown_type=p['unknown_type'],
                              n_probe_modes=p['n_modes']),
-        refine=pt.RefineConfig(optimize_probe=p['n_modes'] > 1))
+        refine=pt.RefineConfig(optimize_probe=p['n_modes'] > 1,
+                               **p.get('refine', {})))
 
 
 def counters():
@@ -1235,10 +1273,9 @@ def reset_counts():
 
 def launch_counts():
     """Each kernel's launches, K1's, K4's and K5's (forward and backward
-    together) by step route as ``K1_FFT``, ``K1_DENSE``, ``K4_FFT``,
-    ``K4_DENSE``, ``K5_FFT`` and ``K5_DENSE``, and K2's and K6's by
-    instantiation as ``K2_VEC``, ``K2_SCALAR``, ``K6_VEC`` and
-    ``K6_SCALAR``."""
+    together) by step route as ``K1_FFT``, ``K1_DENSE``, ``K1_GLOBAL``
+    and the same for K4 and K5, K2's and K6's by instantiation as
+    ``K2_VEC``, ``K2_SCALAR``, ``K6_VEC`` and ``K6_SCALAR``."""
     counts = {k: c.launches for k, c in counters().items()}
     for name, routes in route_counters().items():
         counts.update({f'{name}_{r.upper()}': v for r, v in routes.items()})
@@ -1260,13 +1297,16 @@ PATH_KERNELS = {'delta_beta': ('K1_FWD', 'K1_BWD', 'K2', 'K2_VEC', 'K1_FFT'),
                                      'K1_FFT'),
                 'immediate': ('K1_FWD', 'K1_BWD', 'K6', 'K6_VEC', 'K1_FFT'),
                 'adhesin': ('K1_FWD', 'K1_BWD', 'K1_FFT')}
+PATH_KERNELS['immediate_pos'] = PATH_KERNELS['immediate']
+PATH_KERNELS['delta_beta_pos'] = PATH_KERNELS['delta_beta']
 #: Gradient chunks an angle, where more than one.
-CHUNKS_PER_ANGLE = {'immediate': 23}
+CHUNKS_PER_ANGLE = {'immediate': 23, 'immediate_pos': 23}
 
 
-def run_flagship(bf16, path='delta_beta', n_timed=3):
+def run_flagship(bf16, path='delta_beta', n_timed=3, profile=True):
     """Warmup + timed epochs of the flagship through Reconstructor on the
-    card; returns (median patterns/s, launches per counter)."""
+    card, then (f32, ``profile``) one epoch under the profiler; returns
+    (median patterns/s, launches per counter)."""
     import adorym_tpu_torch as pt
     f = FLAGSHIP
     p = PATHS[path]
@@ -1278,8 +1318,10 @@ def run_flagship(bf16, path='delta_beta', n_timed=3):
     obj0 = np.zeros((f['n_obj'],) * 3 + (2,), np.float32)
     if p['unknown_type'] == 'real_imag':
         obj0[..., 0] = 1.0                  # vacuum
-    probe0 = (probe_modes(f['n_probe'], p['n_modes']) if p['n_modes'] > 1
-              else None)
+    # A refined position needs a probe with structure: a plane wave does
+    # not move under a shift.
+    probe0 = (probe_modes(f['n_probe'], p['n_modes'])
+              if p['n_modes'] > 1 or 'refine' in p else None)
     rec = pt.Reconstructor(flagship_config(bf16, path), data=data,
                            probe_pos=pos, theta_ls=theta, obj_init=obj0,
                            probe_init=probe0)
@@ -1288,6 +1330,10 @@ def run_flagship(bf16, path='delta_beta', n_timed=3):
         raise AssertionError('flagship: not on CUDA')
     if p.get('immediate') and rec._rowgrid_stride != 8:
         raise AssertionError('immediate flagship: not the band step')
+    from adorym_tpu_torch.models import ptychography
+    if (p.get('refine', {}).get('optimize_prj_pos_offset')
+            and not ptychography.unfolded_far_field(rec.cfg)):
+        raise AssertionError('flagship: the far field is folded')
     if not p.get('immediate') and rec._grid_scatter_rows != 23:
         raise AssertionError('flagship: not one whole-angle chunk')
     tag = f"{path} {'bf16' if bf16 else 'f32'}"
@@ -1319,7 +1365,12 @@ def run_flagship(bf16, path='delta_beta', n_timed=3):
     if launches != expect:
         raise AssertionError(f'flagship {tag}: launches {launches}, '
                              f'expected {expect}')
-    if not bf16:
+    if 'probe_pos_correction' in rec.params:
+        ppc = rec.params['probe_pos_correction']
+        log(f'flagship {tag}: refined positions {tuple(ppc.shape)}, largest '
+            f'{float(ppc.abs().max()):.3e} px, mean '
+            f'{float(ppc.mean()):.1e}')
+    if not bf16 and profile:
         ops = profile_epoch(rec, n_epochs)
         # The real_imag z binning is one autograd Function: no product
         # backward or cumulative product runs on the device.
@@ -1811,6 +1862,695 @@ def run_per_angle_regularized():
     return statistics.median(rates), peak
 
 
+
+def check_per_spot_multislice(N, folded):
+    """K1f/K1b with distinct per-spot waves, as position refinement makes
+    them: the waves come from ``models.ptychography.shifted_probes`` (the
+    probe's spectrum times each spot's phase ramp), so the wave gradient
+    flows on into the probe and each spot's shift.  N=23 with the far field
+    folded in (the immediate path with positions, 7b) or N=529 with it left
+    out (the per-angle path with the projection offset, 7c).  Kernel and
+    plain version held on the real leaves (db, the probe's [.., 2] pairs,
+    the shifts) at K1's tolerances; the launch timed alone at the shape."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.models import ptychography as pm
+    from adorym_tpu_torch.ops import cuda_multislice as cm
+    from adorym_tpu_torch.ops import propagate as prop
+    S, n = 32, 72
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(40 + N + folded)
+    db = torch.rand((S, 2, N, n, n), device=dev, generator=gen) * 0.01
+    probe = torch.from_numpy(probe_modes(n, 1)).to(dev)
+    shifts = (torch.rand((1, N, 2), device=dev, generator=gen) - 0.5) * 3
+    g = torch.randn((1, N, n, n), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    cfg = pt.ReconConfig(geometry=pt.Geometry(obj_size=(n, n, S),
+                                              probe_size=(n, n)),
+                         refine=pt.RefineConfig(optimize_all_probe_pos=True))
+    batch = {'i_theta': 0, 'ind_batch': np.arange(N)}
+    lmbda = 1240.0 / FLAGSHIP['energy_ev']
+    voxel = (1.0, 1.0, 1.0)
+    k1 = 2 * np.pi * 1.0 / lmbda
+    h = prop.fresnel_kernel((n, n), voxel, lmbda, 8.0, device=dev)
+    far = (prop.final_prop_mats((n, n), voxel, lmbda, 'inf', device=dev)[:2]
+           if folded else ())
+
+    def run(fn):
+        d = db.detach().requires_grad_()
+        p = probe.detach().requires_grad_()
+        s = shifts.detach().requires_grad_()
+        wave = pm.shifted_probes(pm.complex_probe(p),
+                                 {'probe_pos_correction': s}, batch,
+                                 cfg).transpose(0, 1)
+        out = fn(d, wave, h, k1, 1.0, *far)
+        return (out,) + torch.autograd.grad(out, (d, p, s), g)
+
+    r0 = dict(cm.K1_ROUTE_LAUNCHES)
+    got_k = run(cm.multislice_db_stored_packed)
+    took = {r: cm.K1_ROUTE_LAUNCHES[r] - r0[r] for r in r0}
+    got_p = run(cm.multislice_db_stored_plain)
+    torch.cuda.synchronize()
+    if took != {'fft': 2, 'dense': 0, 'global': 0}:
+        raise AssertionError(f'K1 per-spot N={N}: launches by route {took}')
+    errs = [rel_err(a, b) for a, b in zip(got_k, got_p)]
+    tag = f" per-spot waves N={N}{' far field folded' if folded else ''}"
+    tol_fwd, tol_bwd = 1e-4, 1e-3
+    log(f'K1{tag} float32: fwd rel {errs[0][1]:.3e} (tol {tol_fwd}); gdb rel '
+        f'{errs[1][1]:.3e}, probe gradient rel {errs[2][1]:.3e}, shift '
+        f'gradient rel {errs[3][1]:.3e} (tol {tol_bwd})')
+    if not (errs[0][1] < tol_fwd
+            and max(e[1] for e in errs[1:]) < tol_bwd):
+        raise AssertionError(f'K1{tag} disagrees with its plain version')
+    with torch.no_grad():
+        wave = pm.shifted_probes(pm.complex_probe(probe),
+                                 {'probe_pos_correction': shifts}, batch,
+                                 cfg).transpose(0, 1).contiguous()
+        mats = cm.prop_mats(h, *far, route='fft')
+        ms_f = time_ms(lambda: cm.MultisliceDbStored.apply(
+            db, wave, mats, k1, 1.0), 10)
+        plain_f = time_ms(lambda: cm.multislice_db_stored_plain(
+            db, wave, h, k1, 1.0, *far), 5)
+    d = db.detach().requires_grad_()
+    w = wave.detach().requires_grad_()
+    out = cm.MultisliceDbStored.apply(d, w, mats, k1, 1.0)
+    ms_b = time_ms(lambda: torch.autograd.grad(out, (d, w), g,
+                                               retain_graph=True), 10)
+    out_p = cm.multislice_db_stored_plain(d, w, h, k1, 1.0, *far)
+    plain_b = time_ms(lambda: torch.autograd.grad(out_p, (d, w), g,
+                                                  retain_graph=True), 5)
+    b_f, by_f = bound(cm.bytes_moved(S, 1, N, n, n, 4),
+                      cm.flops(S, 1, N, n, n, final=folded))
+    b_b, by_b = bound(cm.bytes_moved(S, 1, N, n, n, 4, backward=True),
+                      cm.flops(S, 1, N, n, n, final=folded, backward=True))
+    log(f'K1{tag}: forward {ms_f:.4f} ms (plain {plain_f:.3f}, bound '
+        f'{b_f:.4f}), backward {ms_b:.4f} ms (plain {plain_b:.3f}, bound '
+        f'{b_b:.4f})')
+    src = 'adorym_tpu_torch/csrc/multislice_db_stored.cu'
+    path = 'immediate_pos' if N == 23 else 'delta_beta_pos'
+    e_b = max(errs[1:], key=lambda e: e[1])
+    return [
+        record(f'K1f multislice_db_stored forward{tag} (float32)', src,
+               'adorym_tpu/ops/pallas_multislice.py:353', errs[0][0],
+               errs[0][1], tol_fwd, ms_f, plain_f, b_f, by_f, None, 'K1_FWD',
+               path),
+        record(f'K1b multislice_db_stored backward{tag} (float32)', src,
+               'adorym_tpu/ops/pallas_multislice.py:422', e_b[0], e_b[1],
+               tol_bwd, ms_b, plain_b, b_b, by_b, None, 'K1_BWD', path)]
+
+
+#: The large planes of ROADMAP B.12: (pair, plane side, probe modes, its
+#: ``multislice_propagate`` keywords).  No shared-memory route of the pair
+#: fits the plane, so it takes its global route: K1 and K4 (the invertible
+#: switch forced) on 96^2 delta_beta planes, K5 on 128^2 real_imag ones.
+LARGE_PLANES = (('K1', 96, 1, {}), ('K4', 96, 3, {}),
+                ('K5', 128, 1, {'unknown_type': 'real_imag'}))
+#: Patches, z slices and binning of each large-plane chunk (16 steps).
+LARGE_N, LARGE_NZ, LARGE_BIN = 64, 32, 2
+
+
+def large_plane_inputs(n, m, seed, real_imag=False):
+    """A large-plane chunk's object channels ``[N, n, n, nz]`` (delta and
+    beta, or near-vacuum real and imaginary parts), waves and cotangents
+    ``[m, N, n, n]``."""
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (LARGE_N, n, n, LARGE_NZ)
+    a = torch.rand(shape, device=dev, generator=gen) * 1e-3
+    b = torch.rand(shape, device=dev, generator=gen) * 1e-5
+    if real_imag:
+        a = 1.0 - a
+    wave = torch.randn((m, LARGE_N, n, n), dtype=torch.complex64,
+                       device=dev, generator=gen)
+    g = torch.randn((m, LARGE_N, n, n), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    return a, b, wave, g
+
+
+def run_large_planes():
+    """R2's main path: each large plane through ``multislice_propagate``
+    under ``fused='auto'``, forward and backward, with the Fraunhofer far
+    field, the counts set to 0 just before and read just after.  Each
+    output and gradient is held against the plain FFT scan
+    (``fused=False``): the output within 1e-5 of its largest value, the
+    gradients within 1e-3 (K1's bound: 16 steps of sums in other orders
+    than cuFFT's).  Returns the launches."""
+    from adorym_tpu_torch.ops import propagate as prop
+    kw = dict(energy_ev=FLAGSHIP['energy_ev'], psize_cm=1e-7,
+              binning=LARGE_BIN,
+              final_prop={'free_prop_cm': 'inf', 'normalize_fft': False})
+    switch = prop._db_stored_max_bytes
+    reset_counts()
+    try:
+        for i, (pair, n, m, extra) in enumerate(LARGE_PLANES):
+            a, b, wave, g = large_plane_inputs(
+                n, m, 96 + i, 'unknown_type' in extra)
+            prop._db_stored_max_bytes = ((lambda device: -1.0)
+                                         if pair == 'K4' else switch)
+            got = {}
+            for fused in ('auto', False):
+                leaves = [x.detach().requires_grad_() for x in (a, b, wave)]
+                out = prop.multislice_propagate(*leaves, fused=fused, **kw,
+                                                **extra)
+                got[fused] = (out.detach(),) + torch.autograd.grad(
+                    out, leaves, g)
+            e_out = rel_err(got['auto'][0], got[False][0])[1]
+            e_grad = max(rel_err(x, y)[1] for x, y in
+                         zip(got['auto'][1:], got[False][1:]))
+            log(f'R2 {pair} {n}^2 (M={m}) under auto: against the plain FFT '
+                f'scan, output rel {e_out:.3e} (tol 1e-5), gradients rel '
+                f'{e_grad:.3e} (tol 1e-3)')
+            if not (e_out < 1e-5 and e_grad < 1e-3):
+                raise AssertionError(f'R2: {pair} at {n}^2 disagrees with '
+                                     'the plain FFT scan')
+    finally:
+        prop._db_stored_max_bytes = switch
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {'K1_FWD': 1, 'K1_BWD': 1, 'K1_GLOBAL': 2, 'K4_FWD': 1,
+            'K4_BWD': 1, 'K4_GLOBAL': 2, 'K5_FWD': 1, 'K5_BWD': 1,
+            'K5_GLOBAL': 2, 'K1_FFT': 0, 'K1_DENSE': 0, 'K4_FFT': 0,
+            'K4_DENSE': 0, 'K5_FFT': 0, 'K5_DENSE': 0}
+    log(f'R2 launches: {launches}')
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f'R2: launches {launches}, expected {want}')
+    return launches
+
+
+def check_large_planes():
+    """The global route of K1, K4 and K5 against each pair's plain version
+    at the large planes (:data:`LARGE_PLANES`, 16 steps of 64 patches, the
+    Fraunhofer far field for K1 and K4), forward and backward, timed; then
+    their main path (:func:`run_large_planes`), whose launches the records
+    report.  Tolerances as the pairs' flagship rows: the output 1e-4, the
+    gradients 1e-3."""
+    from adorym_tpu_torch.ops import cuda_multislice as cm
+    from adorym_tpu_torch.ops import cuda_multislice_fused as cmf
+    from adorym_tpu_torch.ops import propagate as prop
+    routes = {n: (cm.k1_route(n, n), cm.k4_route(n, n), cmf.k5_route(n, n),
+                  cmf.k5_route(n, n, 3))
+              for n in (64, 72, 80, 88, 96, 128)}
+    log(f'routes (K1, K4, K5, K5 at 3 modes) by plane: {routes}')
+    S = LARGE_NZ // LARGE_BIN
+    lmbda = 1240.0 / FLAGSHIP['energy_ev']
+    voxel = (1.0, 1.0, 1.0)
+    k1 = 2 * np.pi / lmbda
+    recs = []
+    for i, (pair, n, m, extra) in enumerate(LARGE_PLANES):
+        a, b, wave, g = large_plane_inputs(n, m, 196 + i,
+                                           'unknown_type' in extra)
+        dev = wave.device
+        if pair == 'K5':
+            t = torch.complex(a, b)[..., ::LARGE_BIN].permute(3, 0, 1, 2)
+            operands = (t.contiguous(),)
+            h = prop.fresnel_kernel((n, n), voxel, lmbda, 1.0 * LARGE_BIN,
+                                    device=dev)
+            fns = (cmf.multislice_fused, cmf.multislice_fused_plain)
+            extra_args = ()
+        else:
+            db = torch.stack([a, b], 0)[..., ::LARGE_BIN].permute(
+                4, 0, 1, 2, 3).contiguous()
+            operands = (db,)
+            h = prop.fresnel_kernel((n, n), voxel, lmbda, 1.0 * LARGE_BIN,
+                                    device=dev)
+            fm = prop.final_prop_mats((n, n), voxel, lmbda, 'inf',
+                                      device=dev)
+            if pair == 'K1':
+                fns = (cm.multislice_db_stored_packed,
+                       cm.multislice_db_stored_plain)
+                extra_args = (k1, 1.0) + tuple(fm[:2])
+            else:
+                fns = (cm.multislice_db_packed, cm.multislice_db_plain)
+                extra_args = (k1, 1.0) + tuple(fm)
+
+        def run(fn):
+            leaves = [x.detach().requires_grad_() for x in operands + (wave,)]
+            out = fn(*leaves, h, *extra_args)
+            grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
+            return out.detach(), grads, (lambda: torch.autograd.grad(
+                out, leaves, g, retain_graph=True))
+
+        routes_of = {'K1': cm.K1_ROUTE_LAUNCHES, 'K4': cm.K4_ROUTE_LAUNCHES,
+                     'K5': cmf.K5_ROUTE_LAUNCHES}[pair]
+        r0 = routes_of['global']
+        out_k, g_k, bwd_k = run(fns[0])
+        out_p, g_p, bwd_p = run(fns[1])
+        torch.cuda.synchronize()
+        if routes_of['global'] - r0 != 2:
+            raise AssertionError(f'{pair} at {n}^2 did not take its global '
+                                 'route')
+        e_fwd, r_fwd = rel_err(out_k, out_p)
+        e_bwd = max(rel_err(x, y)[0] for x, y in zip(g_k, g_p))
+        r_bwd = max(rel_err(x, y)[1] for x, y in zip(g_k, g_p))
+        log(f'{pair} global route {n}^2 M={m} S={S} N={LARGE_N}: fwd max_abs '
+            f'{e_fwd:.3e} rel {r_fwd:.3e} (tol 1e-4); grads max_abs '
+            f'{e_bwd:.3e} rel {r_bwd:.3e} (tol 1e-3)')
+        if not (r_fwd < 1e-4 and r_bwd < 1e-3):
+            raise AssertionError(f'{pair} global route at {n}^2 disagrees '
+                                 'with its plain version')
+        del out_k, g_k, out_p, g_p
+        with torch.no_grad():
+            ms_f = time_ms(lambda: fns[0](*operands, wave, h, *extra_args),
+                           5)
+            plain_f = time_ms(lambda: fns[1](*operands, wave, h,
+                                             *extra_args), 3)
+        ms_b = time_ms(bwd_k, 5)
+        plain_b = time_ms(bwd_p, 3)
+        del bwd_k, bwd_p
+        if pair == 'K5':
+            b_f = bound(cmf.bytes_moved(S, m, LARGE_N, n, n),
+                        cmf.flops(S, m, LARGE_N, n, n))
+            b_b = bound(cmf.bytes_moved(S, m, LARGE_N, n, n, backward=True),
+                        cmf.flops(S, m, LARGE_N, n, n, backward=True))
+            src = 'adorym_tpu_torch/csrc/multislice_fused.cu'
+            names = ('K5f multislice_fused forward',
+                     'K5b multislice_fused backward')
+            lines = (184, 222)
+        else:
+            inv = pair == 'K4'
+            b_f = bound(cm.bytes_moved(S, m, LARGE_N, n, n, 4,
+                                       records=not inv),
+                        cm.flops(S, m, LARGE_N, n, n))
+            b_b = bound(cm.bytes_moved(S, m, LARGE_N, n, n, 4, backward=True,
+                                       records=not inv),
+                        cm.flops(S, m, LARGE_N, n, n, backward=True,
+                                 invertible=inv))
+            src = ('adorym_tpu_torch/csrc/multislice_db.cu' if inv
+                   else 'adorym_tpu_torch/csrc/multislice_db_stored.cu')
+            names = (('K4f multislice_db forward',
+                      'K4b multislice_db backward') if inv
+                     else ('K1f multislice_db_stored forward',
+                           'K1b multislice_db_stored backward'))
+            lines = (294, 495) if inv else (353, 422)
+        log(f'{pair} global route {n}^2: forward {ms_f:.3f} ms (plain '
+            f'{plain_f:.3f}, bound {b_f[0]:.3f}), backward {ms_b:.3f} ms '
+            f'(plain {plain_b:.3f}, bound {b_b[0]:.3f}); {CARD}')
+        tag = f' {n}^2' + (f' M={m}' if m > 1 else '') + ' (float32)'
+        for name, line, err, rel, tol, ms, plain, (bms, by), counter in (
+                (names[0], lines[0], e_fwd, r_fwd, 1e-4, ms_f, plain_f, b_f,
+                 f'{pair}_FWD'),
+                (names[1], lines[1], e_bwd, r_bwd, 1e-3, ms_b, plain_b, b_b,
+                 f'{pair}_BWD')):
+            rec = record(name + tag, src,
+                         f'adorym_tpu/ops/pallas_multislice.py:{line}', err,
+                         rel, tol, ms, plain, bms, by, None, counter,
+                         'large_plane')
+            rec['step_route'] = 'global'
+            recs.append(rec)
+        del a, b, wave, g, operands
+        torch.cuda.empty_cache()
+    launches = run_large_planes()
+    for rec in recs:
+        rec['launches'] = launches[rec['counter']]
+    return recs
+
+
+# -- phase 7 -----------------------------------------------------------------
+
+#: BASELINE #2 (``demos/2d_ptychography_experimental_data.py``): the
+#: Siemens-star geometry at the demo's size.
+SIEMENS = dict(n=256, pn=72, energy_ev=8801.121930115722,
+               psize_cm=1.32789376566526e-06, stride=12)
+#: Its ``reconstruct_ptychography`` keywords (the demo's, ``:93-110``).
+SIEMENS_KW = dict(
+    obj_size=(256, 256, 1), two_d_mode=True, free_prop_cm='inf',
+    minibatch_size=35, random_guess_means_sigmas=(1., 0., 0.001, 0.002),
+    probe_type='aperture_defocus', n_probe_modes=5, aperture_radius=10,
+    beamstop_radius=5, probe_defocus_cm=0.0069, rescale_probe_intensity=True,
+    raw_data_type='intensity', optimizer='adam', learning_rate=1e-3,
+    optimize_probe=True, probe_learning_rate=1e-3,
+    optimize_all_probe_pos=True, all_probe_pos_learning_rate=1e-2,
+    update_scheme='immediate', unknown_type='real_imag',
+    loss_function_type='lsq', use_checkpoint=False, save_intermediate=False)
+
+
+def siemens_star(n, spokes=24):
+    """The demo's spoke phantom: a binary star in an annulus, smoothed."""
+    from scipy.ndimage import gaussian_filter
+    yy, xx = np.mgrid[0:n, 0:n].astype(float) - n / 2
+    r = np.hypot(yy, xx)
+    star = (np.sin(spokes * np.arctan2(yy, xx)) > 0).astype(float)
+    star *= (r > 6) & (r < n * 0.45)
+    return gaussian_filter(star, 1.0)
+
+
+def epoch_rates(out_dir):
+    """Patterns/s of each epoch from the run's ``stdout_*.txt`` (the
+    Reconstructor's progress lines under ``save_stdout``)."""
+    import re
+    rates = []
+    for f in sorted(Path(out_dir).glob('stdout_*.txt')):
+        rates += [float(m) for m in re.findall(r'([0-9.]+) patterns/s',
+                                               f.read_text())]
+    return rates
+
+
+def siemens_data():
+    """BASELINE #2's data at the demo's size: simulated on the card at
+    jittered positions with a perturbed probe, intensities, the nominal
+    grid recorded (the demo's ``:62-91``), as an ``ArrayDataset``.
+    Returns (dataset, the true offsets less their mean, simulate s)."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.io import data as io_data
+    from adorym_tpu_torch.utils.initialize import initialize_probe
+    s = SIEMENS
+    n, pn = s['n'], s['pn']
+    rng = np.random.default_rng(0)
+    xs = np.arange(0, n - pn + 1, s['stride'])
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    nominal = np.stack([yy.ravel(), xx.ravel()], -1).astype(float)
+    star = siemens_star(n)
+    ph, mag = 0.4 * star, 1.0 - 0.25 * star
+    obj = np.stack([mag * np.cos(ph), mag * np.sin(ph)],
+                   -1)[:, :, None, :].astype(np.float32)
+    probe = initialize_probe(
+        (pn, pn), 'aperture_defocus', n_probe_modes=5,
+        energy_ev=s['energy_ev'], psize_cm=s['psize_cm'], aperture_radius=10,
+        beamstop_radius=5, probe_defocus_cm=0.0069, seed=0)
+    prng = np.random.default_rng(1)
+    probe = probe + 0.05 * np.abs(probe).max() * prng.normal(
+        size=probe.shape).astype(np.float32)
+    true = nominal + rng.uniform(-1.5, 1.5, nominal.shape)
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(n, n, 1), probe_size=(pn, pn),
+                             energy_ev=s['energy_ev'],
+                             psize_cm=s['psize_cm'], free_prop_cm='inf',
+                             two_d_mode=True),
+        train=pt.TrainConfig(minibatch_size=35, unknown_type='real_imag'))
+    t0 = time.perf_counter()
+    data = pt.simulate(cfg, obj, probe, true) ** 2
+    sim_s = time.perf_counter() - t0
+    ds = io_data.ArrayDataset(data, theta=np.zeros(1), probe_pos_px=nominal,
+                              energy_ev=s['energy_ev'],
+                              psize_cm=s['psize_cm'])
+    err = true - nominal
+    return ds, err - err.mean(0), sim_s
+
+
+def run_siemens(work, n_epochs=30):
+    """Phase 7a: BASELINE #2 at the demo's size through
+    ``reconstruct_ptychography`` (:func:`siemens_data`); ``n_epochs``
+    epochs (the first is the warmup), 8 generic steps an epoch (256 spots
+    in minibatches of 35), five probe modes and the positions refined with
+    the object.  One slice: no kernel runs.  Then the same configuration
+    held against the CPU (:func:`siemens_cuda_matches_cpu`) and the
+    refinement after the object has formed (:func:`siemens_refinement`).
+    Returns {metric: value}."""
+    import adorym_tpu_torch as pt
+    ds, err, sim_s = siemens_data()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = work / 'siemens'
+    t0 = time.perf_counter()
+    res = pt.reconstruct_ptychography(
+        fname='data.h5', save_path=str(work), output_folder='siemens',
+        n_epochs=n_epochs, save_stdout=True, dataset=ds, **SIEMENS_KW)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rates = epoch_rates(out)
+    before = float(np.abs(err).mean())
+    after = float(np.abs(res['probe_pos_correction'][0] - err).mean())
+    log(f'7a BASELINE #2 (Siemens star, 256^2, 72^2 probe, 5 modes, '
+        f'minibatch 35, positions and probe refined): simulate {sim_s:.2f} '
+        f's; losses {list(res["loss_history"])}; patterns/s by epoch '
+        f'{rates} (warmup first); call wall {wall:.2f} s; mean position '
+        f'residual {before:.4f} px before, {after:.4f} px after '
+        f'{n_epochs} epochs; peak memory {peak:.2f} GB; launches {launches}')
+    if not np.all(np.isfinite(res['loss_history'])):
+        raise AssertionError('7a: non-finite loss')
+    if any(launches[k] for k in counters()):
+        raise AssertionError(f'7a: a kernel ran on the 2D path {launches}')
+    if res['probe_pos_correction'].shape != (1, len(err), 2):
+        raise AssertionError('7a: no per-spot positions in the results')
+    siemens_cuda_matches_cpu(work, ds)
+    trend = siemens_refinement(work, ds, err)
+    return {'patterns_s': rates[1:], 'residual': (before, after),
+            'peak_gb': peak, 'refined': trend}
+
+
+def siemens_cuda_matches_cpu(work, ds, n_epochs=3):
+    """7a's configuration, unchanged, for ``n_epochs`` epochs on the card
+    and on the CPU: the losses within rtol 1e-3 and the refined positions
+    within two Adam steps (0.02 px), as ``tests/test_torch_refinables_api.py``
+    holds the port against the JAX package (Adam turns f32 noise into sign
+    flips of single steps)."""
+    import adorym_tpu_torch as pt
+    got = {}
+    for dev in ('cuda', 'cpu'):
+        t0 = time.perf_counter()
+        extra = {} if dev == 'cuda' else {'device': 'cpu'}
+        res = pt.reconstruct_ptychography(
+            fname='data.h5', save_path=str(work),
+            output_folder=f'siemens_{dev}', n_epochs=n_epochs, dataset=ds,
+            **SIEMENS_KW, **extra)
+        got[dev] = (np.asarray(res['loss_history']),
+                    np.asarray(res['probe_pos_correction']),
+                    time.perf_counter() - t0)
+    loss_rel = float(np.max(np.abs(got['cuda'][0] - got['cpu'][0])
+                            / np.abs(got['cpu'][0])))
+    pos_diff = float(np.max(np.abs(got['cuda'][1] - got['cpu'][1])))
+    moved = float(np.max(np.abs(got['cpu'][1])))
+    log(f'7a CUDA against the CPU, {n_epochs} epochs at the demo size: '
+        f'losses rel {loss_rel:.3e} (tol 1e-3); positions max diff '
+        f'{pos_diff:.4f} px (tol 0.02) of corrections up to {moved:.4f} px; '
+        f'wall {got["cuda"][2]:.2f} s card, {got["cpu"][2]:.2f} s CPU')
+    if not (loss_rel < 1e-3 and pos_diff <= 0.02 and moved > 0):
+        raise AssertionError('7a: the card and the CPU disagree')
+
+
+def siemens_refinement(work, ds, err, delay_epochs=50, n_epochs=200):
+    """7a's configuration with the position updates held back until the
+    object has formed (``other_params_update_delay``, ``delay_epochs``
+    epochs of 8 batches), ``n_epochs`` epochs, the refined positions read
+    each epoch from ``intermediate/probe_pos``.  The residual must fall
+    below its start and the corrections correlate with the true offsets
+    (the demo's own settings move the positions before the object has
+    formed, and the JAX package's run of them drifts the same way: PERF.md
+    section 6).  Returns [(epoch, mean residual px, correlation)]."""
+    import re
+    import adorym_tpu_torch as pt
+    kw = dict(SIEMENS_KW, save_intermediate=True,
+              other_params_update_delay=8 * delay_epochs)
+    pt.reconstruct_ptychography(
+        fname='data.h5', save_path=str(work), output_folder='siemens_refine',
+        n_epochs=n_epochs, dataset=ds, **kw)
+    trend = []
+    files = (work / 'siemens_refine' / 'intermediate' / 'probe_pos').glob(
+        'probe_pos_correction_*.txt')
+    for f in sorted(files, key=lambda f: int(re.findall(r'_(\d+)\.txt',
+                                                        f.name)[0])):
+        ep = int(re.findall(r'_(\d+)\.txt', f.name)[0])
+        c = np.loadtxt(f).reshape(-1, 2)
+        corr = (float(np.corrcoef(c.ravel(), err.ravel())[0, 1])
+                if np.any(c) else 0.0)
+        trend.append((ep, float(np.abs(c - err).mean()), corr))
+    before = float(np.abs(err).mean())
+    log(f'7a refinement after a {delay_epochs}-epoch delay: mean residual '
+        f'{before:.4f} px before; by epoch (residual px, correlation) '
+        f'{[t for t in trend if t[0] % 25 == 24 or t is trend[-1]]}; {CARD}')
+    if not (len(trend) == n_epochs and trend[-1][1] < before
+            and trend[-1][2] > 0.3):
+        raise AssertionError('7a: the refined positions do not approach the '
+                             'true offsets')
+    return trend
+
+
+def small_refinables_agree(kind):
+    """CUDA against the CPU on a small configuration of each phase 7 path,
+    2 epochs of GD, the per-epoch losses within 1e-4 (as phase 5e):
+    ``'2d'`` the generic step with refined positions and two refined probe
+    modes (7a); ``'band'`` the band step with refined positions (7b, K1 and
+    K6); ``'angle'`` the per-angle step with refined positions and
+    projection offset (7c, K1 unfolded and K2); ``'multidist'`` the
+    multi-distance model with refined distances, affines and per-distance
+    shifts (7d).  Returns the CUDA run's launches."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.models import multidist
+    rng = np.random.default_rng(3)
+    theta = np.linspace(0, np.pi, 3, endpoint=False)
+    model = None
+    probe0 = None
+    aux_init = None
+    if kind == 'multidist':
+        n = 32
+        dists = (0.05, 0.12, 0.3, 0.7)
+        size, pos = (n, n, 1), np.array([[0.0, 0.0]])
+        data = 1 + 0.1 * rng.random((1, 4, n, n)).astype(np.float32)
+        obj0 = np.stack([np.ones(size), np.zeros(size)], -1).astype(
+            np.float32) + 0.01 * rng.random(size + (2,)).astype(np.float32)
+        geo = pt.Geometry(obj_size=size, probe_size=(n, n),
+                          energy_ev=17500., psize_cm=1e-5,
+                          free_prop_cm=dists, n_dists=4, two_d_mode=True,
+                          safe_zone_width=0)
+        train = pt.TrainConfig(minibatch_size=1, learning_rate=1e-2,
+                               optimizer='gd', unknown_type='real_imag')
+        refine = pt.RefineConfig(
+            optimize_free_prop=True, free_prop_learning_rate=1e-5,
+            free_prop_optimizer='gd', optimize_prj_affine=True,
+            prj_affine_learning_rate=1e-4, prj_affine_optimizer='gd',
+            optimize_all_probe_pos=True, all_probe_pos_learning_rate=1e-1,
+            all_probe_pos_optimizer='gd')
+        model, theta = multidist, np.zeros(1)
+        aux_init = {'free_prop_cm': np.asarray(dists) * 1.06}
+    else:
+        xs = np.arange(4) * 4
+        yy, xx = np.meshgrid(xs, xs, indexing='ij')
+        pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+        two_d = kind == '2d'
+        if two_d:
+            pos = pos + rng.uniform(-1, 1, pos.shape)
+            theta = np.zeros(1)
+        size = (32, 32, 1) if two_d else (32, 32, 32)
+        data = rng.random((len(theta), 16, 16, 16)).astype(np.float32)
+        obj0 = (rng.random(size + (2,)) * 1e-3).astype(np.float32)
+        if two_d:
+            obj0[..., 0] += 1.0
+        geo = pt.Geometry(obj_size=size, probe_size=(16, 16),
+                          energy_ev=5000., psize_cm=1e-7,
+                          free_prop_cm='inf', binning=1 if two_d else 2,
+                          two_d_mode=two_d)
+        train = pt.TrainConfig(
+            minibatch_size=5 if two_d else 4, learning_rate=1e-3,
+            optimizer='gd', update_scheme=('per angle' if kind == 'angle'
+                                           else 'immediate'),
+            rotate_out_of_loop=kind == 'angle',
+            unknown_type='real_imag' if two_d else 'delta_beta',
+            n_probe_modes=2 if two_d else 1)
+        # A probe with structure: a plane wave does not move under a shift.
+        probe0 = probe_modes(16, 2 if two_d else 1)
+        refine = pt.RefineConfig(
+            optimize_all_probe_pos=True, all_probe_pos_learning_rate=1e-1,
+            all_probe_pos_optimizer='gd', optimize_probe=two_d,
+            probe_optimizer='gd', probe_learning_rate=1e-2,
+            optimize_prj_pos_offset=kind == 'angle',
+            prj_pos_offset_optimizer='gd',
+            prj_pos_offset_learning_rate=1e-1)
+    cfg = pt.ReconConfig(geometry=geo, train=train, refine=refine)
+    out, leaves = {}, {}
+    reset_counts()
+    for dev in ('cuda', 'cpu'):
+        rec = pt.Reconstructor(cfg, data=data, probe_pos=pos, theta_ls=theta,
+                               obj_init=obj0.copy(), probe_init=probe0,
+                               aux_init=aux_init, model=model, device=dev)
+        out[dev] = [rec.run_epoch(e) for e in range(2)]
+        if dev == 'cuda':
+            launches = launch_counts()
+        leaves[dev] = {k: v.detach().cpu().numpy()
+                       for k, v in rec.params.items() if k != 'obj'}
+    rel = np.max(np.abs(np.subtract(out['cuda'], out['cpu']))
+                 / np.abs(out['cpu']))
+    moved = {k: float(np.max(np.abs(leaves['cuda'][k] - leaves['cpu'][k])))
+             for k in leaves['cpu']}
+    log(f'7 small {kind}: losses cuda {out["cuda"]} cpu {out["cpu"]} rel '
+        f'{rel:.3e} (tol 1e-4); refined leaves CUDA - CPU max abs {moved}; '
+        f'launches {launches}')
+    if not rel < 1e-4:
+        raise AssertionError(f'7 small {kind}: CUDA and CPU losses disagree')
+    return launches
+
+
+#: BASELINE #4 (``demos/2d_multidist_holography_w_affine.py``) at the
+#: demo's size: its true distances and per-distance affines.
+HOLO = dict(n=128, energy_ev=17500.0, psize_cm=1e-5,
+            dists=(0.05, 0.12, 0.3, 0.7),
+            affines=np.array([
+                [[1.000, 0.000, 0.0], [0.000, 1.000, 0.0]],
+                [[1.004, 0.002, 0.6], [-0.002, 1.004, -0.4]],
+                [[0.996, -0.003, -0.5], [0.003, 0.996, 0.7]],
+                [[1.006, 0.001, 0.3], [-0.001, 0.994, 0.5]]]))
+
+
+def holo_phantom(n, seed=3):
+    """The demo's band-limited phantom (a difference of Gaussians)."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(n, n, 1))
+    ph = gaussian_filter(base, (2, 2, 0)) - gaussian_filter(base, (6, 6, 0))
+    ph = ph / np.abs(ph).max() * 0.5
+    mg = rng.random((n, n, 1))
+    mag = np.clip(1.0 - (gaussian_filter(mg, (2, 2, 0))
+                         - gaussian_filter(mg, (6, 6, 0))), 0.7, 1.0)
+    return np.stack([mag * np.cos(ph), mag * np.sin(ph)],
+                    -1).astype(np.float32)
+
+
+def run_multidist(work, n_epochs=200):
+    """Phase 7d: BASELINE #4 at the demo's size through
+    ``reconstruct_ptychography``: four distances' holograms of the demo's
+    phantom simulated on the card by the multi-distance model, each warped
+    by its true affine (scipy, as the demo), as intensities in an
+    ``ArrayDataset``; the run starts from distances 6% long and refines
+    them with the affines (minibatch 1, ``randomize_probe_pos``, real_imag,
+    Adam), ``n_epochs`` one-step epochs.  One slice: no kernel runs.
+    Returns {metric: value}."""
+    import adorym_tpu_torch as pt
+    from scipy.ndimage import affine_transform
+    from adorym_tpu_torch.io import data as io_data
+    from adorym_tpu_torch.models import multidist
+    from adorym_tpu_torch.utils.initialize import initialize_probe
+    h = HOLO
+    n, dists = h['n'], h['dists']
+    obj = holo_phantom(n)
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(n, n, 1), probe_size=(n, n),
+                             energy_ev=h['energy_ev'], psize_cm=h['psize_cm'],
+                             free_prop_cm=dists, n_dists=len(dists),
+                             two_d_mode=True, safe_zone_width=0),
+        train=pt.TrainConfig(minibatch_size=1, unknown_type='real_imag'))
+    pos = np.array([[0.0, 0.0]])
+    data = pt.simulate(cfg, obj, initialize_probe((n, n), 'plane'), pos,
+                       model=multidist)
+    for d in range(1, len(dists)):
+        a = h['affines'][d]
+        data[0, d] = affine_transform(data[0, d], a[:, :2], offset=a[:, 2],
+                                      order=1, mode='nearest')
+    ds = io_data.ArrayDataset(data ** 2, theta=np.zeros(1), probe_pos_px=pos,
+                              energy_ev=h['energy_ev'],
+                              psize_cm=h['psize_cm'])
+    wrong = tuple(d * 1.06 for d in dists)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = pt.reconstruct_ptychography(
+        fname='data.h5', save_path=str(work), output_folder='holo',
+        obj_size=(n, n, 1), two_d_mode=True, free_prop_cm=wrong,
+        safe_zone_width=0, n_epochs=n_epochs, minibatch_size=1,
+        random_guess_means_sigmas=(1., 0., 0., 0.01), probe_type='plane',
+        optimize_probe=False, optimizer='adam', learning_rate=1e-2,
+        optimize_free_prop=True, free_prop_learning_rate=1e-3,
+        optimize_prj_affine=True, prj_affine_learning_rate=1e-3,
+        randomize_probe_pos=True, update_scheme='immediate',
+        unknown_type='real_imag', raw_data_type='intensity',
+        loss_function_type='lsq', use_checkpoint=False,
+        save_intermediate=False, save_stdout=True, dataset=ds)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rates = epoch_rates(work / 'holo')
+    err0 = float(np.abs(np.asarray(wrong) - dists).mean())
+    err1 = float(np.abs(res['free_prop_cm'] - dists).mean())
+    s_epoch = [1.0 / r for r in rates[1:]]       # one pattern block an epoch
+    phase = np.arctan2(res['obj'][..., 0, 1], res['obj'][..., 0, 0])
+    truth = np.arctan2(obj[..., 0, 1], obj[..., 0, 0])
+    sl = slice(8, n - 8)
+    corr = float(np.corrcoef(phase[sl, sl].ravel(),
+                             truth[sl, sl].ravel())[0, 1])
+    log(f'7d BASELINE #4 (128^2, 4 distances, free_prop_cm and '
+        f'prj_affine_ls refined): losses {list(res["loss_history"][:3])} .. '
+        f'{list(res["loss_history"][-3:])}; s an epoch median '
+        f'{statistics.median(s_epoch):.5f} (call wall {wall:.2f} s for '
+        f'{n_epochs} epochs); distance error {err0:.5f} cm before, '
+        f'{err1:.5f} after; affines {res["prj_affine_ls"].tolist()}; phase '
+        f'correlation {corr:.4f}; peak memory {peak:.3f} GB; launches '
+        f'{launches}')
+    if not np.all(np.isfinite(res['loss_history'])):
+        raise AssertionError('7d: non-finite loss')
+    if any(launches[k] for k in counters()):
+        raise AssertionError(f'7d: a kernel ran on the 2D path {launches}')
+    return {'s_epoch': s_epoch, 'dist_err': (err0, err1), 'corr': corr,
+            'peak_gb': peak}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1820,6 +2560,8 @@ def main():
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(smi)
+    global CARD
+    CARD = smi
     log(f'python {sys.version.split()[0]} torch {torch.__version__} '
         f'cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}')
 
@@ -1830,6 +2572,13 @@ def main():
     log(f'kernels built in {build_s:.2f} s')
 
     kernels = []
+    # This slice's shapes of K1: per-spot waves at one grid row with the
+    # far field folded (7b) and at a whole angle without it (7c); then the
+    # large planes, which K1, K4 and K5 take on their global route (R2).
+    kernels += check_per_spot_multislice(23, True)
+    kernels += check_per_spot_multislice(529, False)
+    torch.cuda.empty_cache()
+    kernels += check_large_planes()
     for dtype, tol_bwd in ((torch.float32, 1e-3), (torch.bfloat16, 3e-2)):
         # f32: 32 steps of 72-deep sums in other orders than cuBLAS.  bf16:
         # the kernel rounds its records and gdb to bf16, autograd does not.
@@ -1863,7 +2612,8 @@ def main():
     for k in kernels:
         which = k['name'][:2]
         if (which in truth and k['name'].endswith('(float32)')
-                and ' M=' not in k['name'] and ' N=' not in k['name']):
+                and ' M=' not in k['name'] and ' N=' not in k['name']
+                and '^2' not in k['name']):
             i = slice(0, 1) if 'forward' in k['name'] else slice(1, 3)
             k['truth_rel_err'] = {form: max(e[i]) for form, e in
                                   truth[which].items()}
@@ -1882,11 +2632,9 @@ def main():
             for bf16 in (False, True)] + [('multimode_binned', False, 1)] + [
         ('immediate', bf16, 3) for bf16 in (False, True)]
     for path, bf16, n_timed in runs:
-        rate, launches = run_flagship(bf16, path, n_timed)
-        tag = '(bfloat16)' if bf16 else '(float32)'
-        for k in kernels:
-            if k['path'] == path and k['name'].endswith(tag):
-                k['launches'] = launches[k['counter']]
+        run_path(kernels, path, bf16, n_timed)
+    # Phases 7b and 7c: the same flagships with the positions refined.
+    slice_flagships(kernels)
 
     # Phase 5: 16^2 patterns take K1's FFT route, one pair per angle and
     # epoch.
@@ -1951,6 +2699,7 @@ def main():
         work = Path(work)
         imm = run_immediate_api(work)
         adhesin_launches = run_adhesin(work)
+        slice_api_runs(work)
     angle_rate, angle_peak = run_per_angle_regularized()
     log(f"phase 6: immediate with checkpoints "
         f"{statistics.median(imm['patterns_s']):.1f} patterns/s, without "
@@ -1960,13 +2709,66 @@ def main():
     for k in kernels:
         if k['path'] == 'adhesin':
             k['launches'] = adhesin_launches[k['counter']]
-        if k['path'] is None:
-            k['launches'] = 0
+    return finish(kernels, smi)
+
+
+def run_path(kernels, path, bf16, n_timed, profile=True):
+    """One flagship run; its launches go to the kernel records of its path
+    and storage type.  Returns its median patterns/s."""
+    rate, launches = run_flagship(bf16, path, n_timed, profile)
+    tag = '(bfloat16)' if bf16 else '(float32)'
+    for k in kernels:
+        if k['path'] == path and k['name'].endswith(tag):
+            k['launches'] = launches[k['counter']]
+    return rate
+
+
+def slice_flagships(kernels):
+    """Phases 7b and 7c, f32: the immediate flagship with the per-spot
+    positions refined (K1 at N=23 with per-spot waves, K6), and the
+    per-angle flagship with the positions and the projection offset
+    refined (K1 at N=529 with the far field left out, K2), each beside
+    its plain cell in the same call (those ran in phases 4 and 4d)."""
+    imm = run_path(kernels, 'immediate_pos', False, 2, profile=False)
+    ang = run_path(kernels, 'delta_beta_pos', False, 2)
+    log(f'7b immediate flagship + positions {imm:.1f} patterns/s; 7c '
+        f'per-angle flagship + positions + projection offset {ang:.1f} '
+        f'patterns/s (their plain cells: phases 4d and 4 above); {CARD}')
+
+
+def slice_api_runs(work):
+    """Phase 7: the small CUDA-CPU agreements of each new path, then 7a
+    and 7d through ``reconstruct_ptychography``."""
+    want = {'2d': {}, 'band': {'K1_FWD': 24, 'K1_BWD': 24, 'K6': 24},
+            'angle': {'K1_FWD': 6, 'K1_BWD': 6, 'K2': 6, 'K6': 0},
+            'multidist': {}}
+    for kind, expect in want.items():
+        launches = small_refinables_agree(kind)
+        expect = expect or {k: 0 for k in counters()}
+        if any(launches[k] != v for k, v in expect.items()):
+            raise AssertionError(f'7 small {kind}: launches {launches}, '
+                                 f'expected {expect}')
+    siemens = run_siemens(work)
+    holo = run_multidist(work)
+    log(f"phase 7: 7a {statistics.median(siemens['patterns_s']):.1f} "
+        f"patterns/s, residual {siemens['residual'][0]:.4f} -> "
+        f"{siemens['residual'][1]:.4f} px (after the delay "
+        f"{siemens['refined'][-1][1]:.4f} px, correlation "
+        f"{siemens['refined'][-1][2]:.3f}), peak {siemens['peak_gb']:.2f} GB;"
+        f" 7d {statistics.median(holo['s_epoch']):.5f} s an epoch, distance "
+        f"error {holo['dist_err'][0]:.5f} -> {holo['dist_err'][1]:.5f} cm, "
+        f"peak {holo['peak_gb']:.3f} GB; {CARD}")
+
+
+def finish(kernels, smi):
+    """Check every recorded kernel has launches from its path's run, then
+    print the card, the kernels' JSON line and the last line."""
     if not all(k.get('launches') for k in kernels if k['path']):
         raise AssertionError('a kernel has no launch count from the '
                              'flagship run')
-
     for k in kernels:
+        if k['path'] is None:
+            k['launches'] = 0
         del k['counter'], k['path']
     log(smi)
     log(json.dumps({'kernels': kernels}))

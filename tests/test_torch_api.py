@@ -277,7 +277,7 @@ def test_adhesin_configuration_matches_jax(tmp_path):
     (dict(use_epie=True), 'A.6'),
     (dict(update_using_external_algorithm='ctf'), 'A.6'),
     (dict(forward_model='multidist'), 'A.5'),
-    (dict(free_prop_cm=[1e-5, 2e-5]), 'A.5'),
+    (dict(forward_algorithm='ctf'), 'A.5'),
     (dict(distribution_mode='shared_file'), 'A.7'),
     (dict(parallel_object_axis=2), 'A.7'),
     (dict(use_orbax=True), 'orbax'),

@@ -112,7 +112,7 @@ def test_multislice_dense_route_matches_plain(cuda, dtype, tol_fwd, tol_grad,
     r0 = dict(cm.K1_ROUTE_LAUNCHES)
     out_k, gdb_k, gw_k = _run(_stored_dense, *args)
     assert {r: cm.K1_ROUTE_LAUNCHES[r] - r0[r] for r in r0} == {
-        'dense': 2, 'fft': 0}
+        'dense': 2, 'fft': 0, 'global': 0}
     out_p, gdb_p, gw_p = _run(cm.multislice_db_stored_plain, *args)
     torch.cuda.synchronize()
     assert _rel(out_k, out_p) < tol_fwd
@@ -137,17 +137,37 @@ def test_multislice_rejects_too_many_modes(cuda, fn):
         fn(db, wave, h, 25.0, 1.0)
 
 
-@pytest.mark.parametrize('fn,side', [(cm.multislice_db_stored_packed, 88),
-                                     (cm.multislice_db_packed, 80)])
-def test_multislice_rejects_planes_beyond_shared_memory(cuda, fn, side):
-    """K1's block holds two planes and the mats (above 232,448 bytes from
-    88x88); K4's backward block three (from 80x80, which K1 takes)."""
-    db, wave, h, _, _ = _multislice_inputs(2, 1, 1, side, side,
-                                           torch.float32, False, cuda)
-    with pytest.raises(ValueError, match='shared memory'):
-        fn(db, wave, h, 25.0, 1.0)
-    if side == 80:
-        cm.multislice_db_stored_packed(db, wave, h, 25.0, 1.0)
+@pytest.mark.parametrize('pair,side,M', [('K1', 88, 1), ('K1', 96, 3),
+                                         ('K4', 80, 1), ('K4', 96, 3)])
+@pytest.mark.parametrize('final', [False, True])
+def test_multislice_global_route_matches_plain(cuda, pair, side, M, final):
+    """Beyond shared memory (K1's block of two planes and the mats passes
+    232,448 bytes from 88x88, K4's backward block of three from 80x80) the
+    pairs take the global route, the block's planes in device memory; from
+    two modes on the backward's cluster sums the modes from there."""
+    fn, plain, routes = {
+        'K1': (cm.multislice_db_stored_packed, cm.multislice_db_stored_plain,
+               cm.K1_ROUTE_LAUNCHES),
+        'K4': (cm.multislice_db_packed, cm.multislice_db_plain,
+               cm.K4_ROUTE_LAUNCHES)}[pair]
+    assert (cm.k1_route if pair == 'K1' else cm.k4_route)(side, side) == \
+        'global'
+    db, wave, h, fm, g = _multislice_inputs(3, M, 3, side, side,
+                                            torch.float32, final, cuda)
+    if pair == 'K4':
+        db = db * 0.1   # physical absorption for the rebuilt waves
+        fm = (prop.final_prop_mats((side, side), (1.0, 1.0), 0.1, 'inf',
+                                   device=cuda) if final
+              else (None,) * 4)
+    r0 = dict(routes)
+    got = _run(fn, db, wave, h, fm, g)
+    assert {r: routes[r] - r0[r] for r in r0} == {
+        r: 2 if r == 'global' else 0 for r in r0}
+    ref = _run(plain, db, wave, h, fm, g)
+    torch.cuda.synchronize()
+    assert _rel(got[0], ref[0]) < 1e-4
+    for a, b in zip(got[1:], ref[1:]):
+        assert _rel(a, b) < 1e-3
 
 
 def test_stored_fft_route_needs_the_split(cuda):
@@ -413,7 +433,7 @@ def test_multislice_one_grid_row_matches_plain(cuda, dtype, tol_fwd,
     r0 = dict(cm.K1_ROUTE_LAUNCHES)
     out_k, gdb_k, gw_k = _run(cm.multislice_db_stored_packed, *args)
     assert {r: cm.K1_ROUTE_LAUNCHES[r] - r0[r] for r in r0} == {
-        'fft': 2, 'dense': 0}
+        'fft': 2, 'dense': 0, 'global': 0}
     out_p, gdb_p, gw_p = _run(cm.multislice_db_stored_plain, *args)
     torch.cuda.synchronize()
     assert _rel(out_k, out_p) < tol_fwd
@@ -592,23 +612,37 @@ def test_fused_dense_route_matches_plain(cuda, M):
     got = _fused_run(lambda tt, ww, _: cmf.MultisliceFused.apply(tt, ww, mats),
                      t, wave, h, g)
     assert {r: cmf.K5_ROUTE_LAUNCHES[r] - r0[r] for r in r0} == {
-        'dense': 2, 'fft': 0}
+        'dense': 2, 'fft': 0, 'global': 0}
     ref = _fused_run(cmf.multislice_fused_plain, t, wave, h, g)
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert _rel(a, b) < 1e-4
 
 
-@pytest.mark.parametrize('M,side,match', [(4, 70, 'shared memory'),
-                                          (9, 72, 'probe modes')])
-def test_fused_rejects_too_many_modes(cuda, M, side, match):
-    """The dense route holds a patch's M waves in one block: 4 modes at
-    70^2 (which does not split) pass its shared memory.  The FFT route
-    runs one block per mode and sums the modes across a cluster: 9 modes
-    pass a portable cluster."""
-    t, wave, h, _ = _fused_inputs(2, M, 2, side, side, 'paraxial', cuda)
-    with pytest.raises(ValueError, match=match):
+def test_fused_rejects_too_many_modes(cuda):
+    """The FFT route runs one block per mode and sums the modes across a
+    cluster: 9 modes pass a portable cluster."""
+    t, wave, h, _ = _fused_inputs(2, 9, 2, 72, 72, 'paraxial', cuda)
+    with pytest.raises(ValueError, match='probe modes'):
         cmf.multislice_fused(t, wave, h)
+
+
+@pytest.mark.parametrize('M,side', [(4, 70), (1, 128), (3, 96)])
+def test_fused_global_route_matches_plain(cuda, M, side):
+    """The dense route holds a patch's M waves in one block: 4 modes at
+    70^2 (which does not split), one at 128^2 and three at 96^2 pass its
+    shared memory, and the kernels take the global route, the block's
+    planes in device memory."""
+    assert cmf.k5_route(side, side, M) == 'global'
+    t, wave, h, g = _fused_inputs(2, M, 2, side, side, 'non_paraxial', cuda)
+    r0 = dict(cmf.K5_ROUTE_LAUNCHES)
+    got = _fused_run(cmf.multislice_fused, t, wave, h, g)
+    assert {r: cmf.K5_ROUTE_LAUNCHES[r] - r0[r] for r in r0} == {
+        'dense': 0, 'fft': 0, 'global': 2}
+    ref = _fused_run(cmf.multislice_fused_plain, t, wave, h, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert _rel(a, b) < 1e-4
 
 
 def test_fused_fft_route_needs_the_split(cuda):
@@ -630,7 +664,7 @@ def test_multislice_one_patch_unfolded_matches_plain(cuda, dtype, tol_fwd,
     r0 = dict(cm.K1_ROUTE_LAUNCHES)
     out_k, gdb_k, gw_k = _run(cm.multislice_db_stored_packed, *args)
     assert {r: cm.K1_ROUTE_LAUNCHES[r] - r0[r] for r in r0} == {
-        'fft': 2, 'dense': 0}
+        'fft': 2, 'dense': 0, 'global': 0}
     out_p, gdb_p, gw_p = _run(cm.multislice_db_stored_plain, *args)
     torch.cuda.synchronize()
     assert _rel(out_k, out_p) < tol_fwd
@@ -701,3 +735,122 @@ def test_run_with_regularizers_and_resume_cuda_matches_cpu(cuda, tmp_path,
     assert (np.max(np.abs(resumed.obj - ref))
             <= 1e-5 * np.max(np.abs(ref)))
     assert resumed.finite_support_mask.sum() < mask.sum()
+
+
+@pytest.mark.parametrize('N,folded', [(23, True), (64, False)])
+def test_multislice_per_spot_waves_match_plain(cuda, N, folded):
+    """K1f/K1b with distinct per-spot waves made by
+    ``models.ptychography.shifted_probes`` (each spot's phase ramp on the
+    probe's spectrum), with the far field folded in or left out: the
+    kernel against the plain version on the real leaves (db, the probe's
+    pairs, the shifts), at K1's f32 tolerances."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.models import ptychography as pm
+    rng = np.random.default_rng(N)
+    S, n = 8, 16
+    db = torch.tensor(rng.uniform(0, 0.02, (S, 2, N, n, n)).astype(
+        np.float32), device=cuda)
+    probe = torch.tensor(rng.normal(size=(1, n, n, 2)).astype(np.float32),
+                         device=cuda)
+    shifts = torch.tensor(rng.uniform(-1.5, 1.5, (1, N, 2)).astype(
+        np.float32), device=cuda)
+    g = torch.view_as_complex(torch.tensor(rng.normal(
+        size=(1, N, n, n, 2)).astype(np.float32), device=cuda))
+    h = prop.fresnel_kernel((n, n), (1.0, 1.0, 1.0), 0.1, 20.0, device=cuda)
+    far = (prop.final_prop_mats((n, n), (1.0, 1.0), 0.1, 'inf',
+                                device=cuda)[:2] if folded else ())
+    cfg = pt.ReconConfig(geometry=pt.Geometry(obj_size=(n, n, S),
+                                              probe_size=(n, n)),
+                         refine=pt.RefineConfig(optimize_all_probe_pos=True))
+    batch = {'i_theta': 0, 'ind_batch': np.arange(N)}
+
+    def run(fn):
+        leaves = [t.detach().requires_grad_() for t in (db, probe, shifts)]
+        wave = pm.shifted_probes(pm.complex_probe(leaves[1]),
+                                 {'probe_pos_correction': leaves[2]}, batch,
+                                 cfg).transpose(0, 1)
+        out = fn(leaves[0], wave, h, 25.0, 1.0, *far)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, g))
+
+    r0 = dict(cm.K1_ROUTE_LAUNCHES)
+    got = run(cm.multislice_db_stored_packed)
+    assert cm.K1_ROUTE_LAUNCHES['fft'] - r0['fft'] == 2
+    want = run(cm.multislice_db_stored_plain)
+    assert _rel(got[0], want[0]) < 1e-4
+    for a, b in zip(got[1:], want[1:]):
+        assert _rel(a, b) < 1e-3
+
+
+def test_large_plane_auto_runs_the_global_route(cuda):
+    """A 3-D delta_beta multislice on 96^2 planes, which no shared-memory
+    route of K1 takes, under ``fused='auto'`` and ``True`` runs K1's global
+    route and equals the plain FFT scan within 1e-5."""
+    rng = np.random.default_rng(96)
+    delta = torch.tensor(rng.random((3, 96, 96, 8)).astype(np.float32)
+                         * 1e-3, device=cuda)
+    beta = torch.tensor(rng.random((3, 96, 96, 8)).astype(np.float32)
+                        * 1e-5, device=cuda)
+    wave = torch.ones((1, 3, 96, 96), dtype=torch.complex64, device=cuda)
+    kw = dict(energy_ev=5000.0, psize_cm=1e-7, binning=2,
+              final_prop={'free_prop_cm': 'inf', 'normalize_fft': False})
+    n0 = cm.K1_ROUTE_LAUNCHES['global']
+    a = prop.multislice_propagate(delta, beta, wave, fused='auto', **kw)
+    on = prop.multislice_propagate(delta, beta, wave, fused=True, **kw)
+    assert cm.K1_ROUTE_LAUNCHES['global'] - n0 == 2
+    b = prop.multislice_propagate(delta, beta, wave, fused=False, **kw)
+    assert _rel(a, b) < 1e-5
+    assert torch.equal(a, on)
+
+
+def test_position_correction_and_multidist_cuda_match_cpu(cuda):
+    """A 2-D position-correction run (two refined probe modes) and a
+    multi-distance run (distances, affines and shifts refined) on the
+    card and on the CPU: 2 GD epochs' losses to 1e-4."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.models import multidist
+    rng = np.random.default_rng(11)
+    xs = np.arange(4) * 4
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([yy.ravel(), xx.ravel()], -1) + rng.uniform(-1, 1, (16, 2))
+    spot = np.exp(-((np.mgrid[:16, :16] - 7.5) ** 2).sum(0) / 32)
+    probe = np.stack([np.stack([w * spot, 0.1 * spot], -1)
+                      for w in (1.0, 0.3)]).astype(np.float32)
+    obj = np.stack([1 + 1e-2 * rng.random((32, 32, 1)),
+                    1e-2 * rng.random((32, 32, 1))], -1).astype(np.float32)
+    cases = [
+        (pt.ReconConfig(
+            geometry=pt.Geometry(obj_size=(32, 32, 1), probe_size=(16, 16),
+                                 two_d_mode=True),
+            train=pt.TrainConfig(minibatch_size=5, learning_rate=1e-3,
+                                 optimizer='gd', unknown_type='real_imag',
+                                 n_probe_modes=2),
+            refine=pt.RefineConfig(optimize_all_probe_pos=True,
+                                   all_probe_pos_optimizer='gd',
+                                   all_probe_pos_learning_rate=1.0,
+                                   optimize_probe=True, probe_optimizer='gd',
+                                   probe_learning_rate=1e-3)),
+         dict(data=rng.random((1, 16, 16, 16)).astype(np.float32),
+              probe_pos=pos, probe_init=probe, obj_init=obj)),
+        (pt.ReconConfig(
+            geometry=pt.Geometry(obj_size=(32, 32, 1), probe_size=(32, 32),
+                                 energy_ev=17500., psize_cm=1e-5,
+                                 free_prop_cm=(0.05, 0.12, 0.3),
+                                 n_dists=3, two_d_mode=True,
+                                 safe_zone_width=0),
+            train=pt.TrainConfig(minibatch_size=1, learning_rate=1e-2,
+                                 optimizer='gd', unknown_type='real_imag'),
+            refine=pt.RefineConfig(
+                optimize_free_prop=True, free_prop_optimizer='gd',
+                free_prop_learning_rate=1e-3, optimize_prj_affine=True,
+                prj_affine_optimizer='gd', prj_affine_learning_rate=1e-1,
+                optimize_all_probe_pos=True, all_probe_pos_optimizer='gd',
+                all_probe_pos_learning_rate=1e3)),
+         dict(data=1 + 0.1 * rng.random((1, 3, 32, 32)).astype(np.float32),
+              probe_pos=np.zeros((1, 2)), obj_init=obj, model=multidist,
+              aux_init={'free_prop_cm': np.array([0.053, 0.127, 0.318])}))]
+    for cfg, kw in cases:
+        losses = {}
+        for dev in ('cuda', 'cpu'):
+            rec = pt.Reconstructor(cfg, device=dev, **kw)
+            losses[dev] = [rec.run_epoch(e) for e in range(2)]
+        np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-4)

@@ -110,10 +110,12 @@ def test_fft_radix(n, n1):
 
 @pytest.mark.parametrize('ny,nx,route', [(72, 72, 'fft'), (16, 16, 'fft'),
                                          (12, 20, 'fft'), (13, 17, 'dense'),
-                                         (72, 13, 'dense'), (81, 81, 'dense')])
+                                         (72, 13, 'dense'), (81, 81, 'global')])
 def test_k4_route(ny, nx, route):
-    """FFT where both sides split and the backward block fits (81^2 splits
-    as 9 x 9 but three planes of it do not fit)."""
+    """FFT where both sides split and the backward block fits; 81^2 splits
+    as 9 x 9, but three planes of it fit neither the FFT route's block nor
+    the dense one's, so it takes the global route (planes in device
+    memory)."""
     assert cm.k4_route(ny, nx) == route
 
 
@@ -249,10 +251,11 @@ def test_fft_step_nearer_float64_truth_than_folded_mats(depth, step):
 
 @pytest.mark.parametrize('ny,nx,route', [(72, 72, 'fft'), (16, 16, 'fft'),
                                          (12, 20, 'fft'), (13, 17, 'dense'),
-                                         (81, 81, 'fft'), (88, 88, 'dense')])
+                                         (81, 81, 'fft'), (88, 88, 'global')])
 def test_k1_route(ny, nx, route):
     """FFT where both sides split and K1's two-plane block fits: 81^2
-    takes it (K4 does not), 88 = 8 x 11 does not split."""
+    takes it (K4 does not); 88 = 8 x 11 does not split, and the dense
+    route's block does not fit at 88^2, so it takes the global route."""
     assert cm.k1_route(ny, nx) == route
 
 

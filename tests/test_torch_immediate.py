@@ -371,9 +371,9 @@ def test_default_train_config_runs_the_band_step():
 
 @pytest.mark.parametrize('kw,match', [
     (dict(refine=dict(optimize_slice_pos=True)), 'refinables'),
-    (dict(refine=dict(optimize_prj_affine=True)), 'refinables'),
+    (dict(train=dict(forward_algorithm='ctf')), 'A.5'),
     (dict(refine=dict(fixed_tilt=True)), 'tilt'),
-    (dict(refine=dict(optimize_probe_defocusing=True)), 'refinables'),
+    (dict(refine=dict(optimize_ctf_lg_kappa=True)), 'refinables'),
     (dict(train=dict(optimizer='cg')), 'second-order'),
     (dict(train=dict(n_batch_per_update=3)), 'n_batch_per_update'),
     (dict(train=dict(rotate_out_of_loop=True)), 'rotate_out_of_loop=True')])

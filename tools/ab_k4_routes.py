@@ -44,11 +44,13 @@ from adorym_tpu_torch.utils import cuda_build  # noqa: E402
 OUT = REPO / 'build' / 'ab_k4_routes'
 _F, _I, _P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 SOURCES = {'k4': 'multislice_db.cu', 'k1': 'multislice_db_stored.cu'}
+#: The entry points' signatures since the global route (a workspace
+#: pointer before the stream; copies of ``csrc`` from before it lack it).
 ARGTYPES = {
-    'k4_fwd': [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _F, _P],
-    'k4_bwd': [_I, _I] + [_P] * 11 + [_I] * 5 + [_F] * 3 + [_P],
-    'k1_fwd': [_I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F, _P],
-    'k1_bwd': [_I, _I] + [_P] * 9 + [_I] * 5 + [_F] * 3 + [_P],
+    'k4_fwd': [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _F, _P, _P],
+    'k4_bwd': [_I, _I] + [_P] * 11 + [_I] * 5 + [_F] * 3 + [_P, _P],
+    'k1_fwd': [_I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F, _P, _P],
+    'k1_bwd': [_I, _I] + [_P] * 9 + [_I] * 5 + [_F] * 3 + [_P, _P],
 }
 
 
@@ -173,26 +175,27 @@ def entries(lib, kernel, route, ops, outs):
         def fwd():
             assert lib.k4_fwd(0, code, ptr(db), ptr(wave), ptr(m['fwd_y']),
                               ptr(m['fwd_x']), ptr(m['ffwd_y']),
-                              ptr(m['ffwd_x']), ptr(out), *shape, st) == 0
+                              ptr(m['ffwd_x']), ptr(out), *shape, None,
+                              st) == 0
 
         def bwd():
             assert lib.k4_bwd(0, code, ptr(db), ptr(out), ptr(g),
                               ptr(m['bwd_y']), ptr(m['bwd_x']),
                               ptr(m['fbwd_y']), ptr(m['fbwd_x']),
                               ptr(m['finv_y']), ptr(m['finv_x']), ptr(gdb),
-                              ptr(gw), *shape, k1, st) == 0
+                              ptr(gw), *shape, k1, None, st) == 0
     else:
         def fwd():
             assert lib.k1_fwd(0, code, ptr(db), ptr(wave), ptr(m['fwd_y']),
                               ptr(m['fwd_x']), ptr(m['ffwd_y']),
                               ptr(m['ffwd_x']), ptr(out), ptr(rec), *shape,
-                              st) == 0
+                              None, st) == 0
 
         def bwd():
             assert lib.k1_bwd(0, code, ptr(db), ptr(rec), ptr(g),
                               ptr(m['bwd_y']), ptr(m['bwd_x']),
                               ptr(m['fbwd_y']), ptr(m['fbwd_x']), ptr(gdb),
-                              ptr(gw), *shape, k1, st) == 0
+                              ptr(gw), *shape, k1, None, st) == 0
     return fwd, bwd
 
 

@@ -71,11 +71,13 @@ def build():
     libs = {}
     for name in VARIANTS:
         k1 = ctypes.CDLL(str(OUT / name / 'multislice_db_stored.so'))
-        k1.k1_fwd.argtypes = [_I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F, _P]
-        k1.k1_bwd.argtypes = [_I, _I] + [_P] * 9 + [_I] * 5 + [_F] * 3 + [_P]
+        k1.k1_fwd.argtypes = [_I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F, _P, _P]
+        k1.k1_bwd.argtypes = ([_I, _I] + [_P] * 9 + [_I] * 5 + [_F] * 3
+                              + [_P, _P])
         k4 = ctypes.CDLL(str(OUT / name / 'multislice_db.so'))
-        k4.k4_fwd.argtypes = [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _F, _P]
-        k4.k4_bwd.argtypes = [_I, _I] + [_P] * 11 + [_I] * 5 + [_F] * 3 + [_P]
+        k4.k4_fwd.argtypes = [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _F, _P, _P]
+        k4.k4_bwd.argtypes = ([_I, _I] + [_P] * 11 + [_I] * 5 + [_F] * 3
+                              + [_P, _P])
         libs[name] = (k1, k4)
     return libs
 
@@ -120,19 +122,19 @@ def entry_points(S, M, records, N=529, n=72):
         'K1f': lambda k1lib, _: k1lib.k1_fwd(
             0, DENSE, ptr(db), ptr(wave), ptr(m['fwd_y']), ptr(m['fwd_x']),
             ptr(m['ffwd_y']), ptr(m['ffwd_x']), ptr(out), ptr(rec), *shape,
-            st),
+            None, st),
         'K1b': lambda k1lib, _: k1lib.k1_bwd(
             0, DENSE, ptr(db), ptr(rec), ptr(g), ptr(m['bwd_y']),
             ptr(m['bwd_x']),
             ptr(m['fbwd_y']), ptr(m['fbwd_x']), ptr(gdb), ptr(gw), *shape,
-            k1, st),
+            k1, None, st),
         'K4f': lambda _, k4lib: k4lib.k4_fwd(
             0, DENSE, ptr(db), ptr(wave), ptr(m['fwd_y']), ptr(m['fwd_x']),
-            ptr(m['ffwd_y']), ptr(m['ffwd_x']), ptr(out), *shape, st),
+            ptr(m['ffwd_y']), ptr(m['ffwd_x']), ptr(out), *shape, None, st),
         'K4b': lambda _, k4lib: k4lib.k4_bwd(
             0, DENSE, ptr(db), ptr(out), ptr(g), ptr(m['bwd_y']), ptr(m['bwd_x']),
             ptr(m['fbwd_y']), ptr(m['fbwd_x']), ptr(m['finv_y']),
-            ptr(m['finv_x']), ptr(gdb), ptr(gw), *shape, k1, st),
+            ptr(m['finv_x']), ptr(gdb), ptr(gw), *shape, k1, None, st),
     }
 
 
