@@ -15,11 +15,18 @@ the object and the probe (``results['probe_pos_correction']``,
 follows the JAX package: ``'distributed_object'`` without object sharding
 warns and runs unsharded, an unknown mode warns and is ignored.
 
+The model families and refinables of the reference map as the JAX
+package maps them: ``slice_pos_cm_ls`` (sparse multislice, refined with
+``optimize_slice_pos``), ``pure_projection`` and ``is_minus_logged``,
+``forward_algorithm='ctf'`` with ``ctf_lg_kappa`` (refined with
+``optimize_ctf_lg_kappa``, starting at the given value), and
+``initial_tilt`` (known tilts, ``tilt_ls`` as given) or ``optimize_tilt``.
+
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
 item: ePIE and the external (CTF) update (A.6, ``conventional.py``),
-device meshes and ``distribution_mode='shared_file'`` (A.7), slice
-positions, tilt, kappa and the CTF forward algorithm (A.5 (c)), and orbax
-checkpoints (a JAX library's format).  Reference keywords that have no
+device meshes and ``distribution_mode='shared_file'`` (A.7), model
+families passed by name (``forward_model`` other than ``'auto'`` or a
+module), and orbax checkpoints (a JAX library's format).  Reference keywords that have no
 meaning here are ignored; unknown ones warn.
 """
 
@@ -58,7 +65,7 @@ _PROBE_KWARGS = {'probe_mag_sigma', 'probe_phase_sigma', 'probe_phase_max',
                  'probe_mag_max', 'aperture_radius', 'beamstop_radius',
                  'probe_defocus_cm'}
 
-_A5C = 'ROADMAP A.5 (c), remaining model families and refinables'
+_A5 = 'ROADMAP A.5, remaining model families and refinables'
 _A7 = 'ROADMAP A.7, multi-GPU and out-of-core'
 
 
@@ -168,7 +175,7 @@ def reconstruct_ptychography(
     if isinstance(forward_model, str) and forward_model != 'auto':
         raise NotImplementedError(
             f'forward_model={forward_model!r}: pass \'auto\' or a model '
-            f'module (other model families: {_A5C})')
+            f'module (other model families: {_A5})')
     if parallel_data_axis * parallel_object_axis > 1:
         raise NotImplementedError(f'device meshes: {_A7}')
     if distribution_mode == 'shared_file':
@@ -364,6 +371,13 @@ def reconstruct_ptychography(
             mask = np.moveaxis(mask, 0, -1)
     out_folder = (os.path.join(save_path, output_folder) if output_folder
                   else None)
+    # The refined kappa starts at the user's ctf_lg_kappa; known tilts
+    # are taken as given.
+    aux_init = {}
+    if optimize_ctf_lg_kappa:
+        aux_init['ctf_lg_kappa'] = float(ctf_lg_kappa)
+    if initial_tilt is not None:
+        aux_init['tilt_ls'] = np.asarray(initial_tilt, np.float32)
 
     # The multiscale schedule: coarse levels first, each starting from the
     # previous one's result upsampled.
@@ -397,7 +411,7 @@ def reconstruct_ptychography(
             finite_support_mask=mask if ds_level == 1 else None,
             reg_list=reg_list, model=model,
             output_folder=out_folder if ds_level == 1 else None,
-            device=device)
+            aux_init=aux_init or None, device=device)
         results = rec.run()
         obj = results['obj']
         prev_pass = (obj[..., 0], obj[..., 1])

@@ -150,9 +150,10 @@ class TrainConfig:
     # (not ported: ROADMAP A, the rest of the per-angle path): 'auto' |
     # 'on' | 'off'.
     stream_rotation: str = 'auto'
-    # Gradient rotate-back: False interpolates at -theta like the
-    # reference; True is the exact transpose (not ported: ROADMAP A, the
-    # rest of the per-angle path).
+    # Gradient rotate-back under rotate_out_of_loop: False interpolates at
+    # -theta like the reference; True is the exact transpose (the
+    # accumulate-then-update loop; on the per-angle path not ported:
+    # ROADMAP A, the rest of the per-angle path).
     exact_grad_rotation: bool = False
     # Immediate-scheme band rotate-back (ROADMAP A, the immediate scheme):
     # 'exact' | 'interp'.

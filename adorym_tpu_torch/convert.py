@@ -1,7 +1,9 @@
 """Carry parameters, optimizer state and whole checkpoints between the JAX
 package and the port.  Both keep the same layouts — obj ``[y, x, z, 2]``,
-probe ``[n_modes, py, px, 2]``, Adam ``m``/``v`` per leaf, momentum ``v``
-— so the conversion is a change of array type and device.  The optimizer
+probe ``[n_modes, py, px, 2]``, the auxiliary refinables (positions,
+offsets, distances, ``slice_pos_cm_ls``, ``tilt_ls``, ``prj_affine_ls``,
+``ctf_lg_kappa``), Adam ``m``/``v`` per leaf, momentum ``v`` — so the
+conversion is a change of array type and device.  The optimizer
 step counts are the Reconstructor's ``i_opt_batch`` and ``global_batch``,
 plain ints in both packages and in a checkpoint's ``extra``."""
 

@@ -13,8 +13,11 @@ The registration refinements act on the measured data
 (:func:`transform_measured`): a per-distance affine (``prj_affine_ls``), a
 per-angle offset and per-distance shifts (``probe_pos_correction`` is
 ``[n_dists, 2]`` here).  The refined distances (``free_prop_cm``) enter the
-propagation as tensors.  The ``'ctf'`` forward algorithm is ROADMAP
-A.5 (c).
+propagation as tensors.  Besides the Fresnel multislice, the exit wave may
+come from the projection approximation (``pure_projection``), and
+``forward_algorithm='ctf'`` predicts each distance's hologram by the
+pure-phase CTF; the refined ``ctf_lg_kappa`` enters both as
+``10**ctf_lg_kappa``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from ..ops.fourier import fourier_shift
 from ..ops.rotate import rotate
 from ..ops.warp import affine_transform_2d
 from .base import incoherent_mode_sum
-from .ptychography import A5C, complex_probe, defocus_probe
+from .ptychography import complex_probe, defocus_probe
 
 
 def _safe_zone_width(cfg: ReconConfig) -> int:
@@ -93,12 +96,6 @@ def predict(params: Dict, batch: Dict, cfg: ReconConfig,
     ``[N, 2]`` table; ``[[0, 0]]`` for one full-field block).
     ``return_wave``: the uncropped magnitudes at the tile size."""
     geo = cfg.geometry
-    if cfg.train.forward_algorithm != 'fresnel':
-        raise NotImplementedError(
-            f'forward_algorithm={cfg.train.forward_algorithm!r}: {A5C}')
-    if geo.pure_projection or cfg.refine.optimize_ctf_lg_kappa:
-        raise NotImplementedError('pure projection and kappa refinement in '
-                                  f'the multi-distance model: {A5C}')
     szw = _safe_zone_width(cfg)
     sub = tuple(geo.probe_size)
     tile = (sub[0] + 2 * szw, sub[1] + 2 * szw)
@@ -131,25 +128,46 @@ def predict(params: Dict, batch: Dict, cfg: ReconConfig,
              else geo.slice_spacing_cm)
     voxel_nm = (geo.psize_cm * 1e7, geo.psize_cm * 1e7, dz_cm * 1e7)
     dists_cm = _distances_cm(params, cfg, dev)
-    fused = {'auto': 'auto', 'on': True, 'off': False}[
-        cfg.train.fused_multislice]
-    exit_wave = prop.multislice_propagate(
-        delta, beta, subprobe, geo.energy_ev, geo.psize_cm,
-        slice_spacing_cm=geo.slice_spacing_cm, binning=geo.binning,
-        unknown_type=cfg.train.unknown_type,
-        fresnel_approx=geo.fresnel_approx,
-        sign_convention=geo.sign_convention,
-        scale_ri_by_k=geo.scale_ri_by_k, fused=fused)
-    if cfg.refine.optimize_prj_pos_offset:
-        exit_wave = fourier_shift(exit_wave,
-                                  params['prj_pos_offset'][batch['i_theta']])
-    mags = []
-    for i_dist in range(geo.n_dists):
-        det = prop.fresnel_propagate(exit_wave, dists_cm[i_dist] * 1e7,
-                                     lmbda_nm, voxel_nm,
-                                     fresnel_approx=geo.fresnel_approx,
-                                     sign_convention=geo.sign_convention)
-        mags.append(incoherent_mode_sum(det))
+    if cfg.train.forward_algorithm != 'fresnel':
+        # The pure-phase CTF of each distance, on the refined kappa where
+        # the run holds one, else the configured one.
+        kappa = (10.0 ** params['ctf_lg_kappa'][0]
+                 if 'ctf_lg_kappa' in params else cfg.train.ctf_kappa)
+        mags = [torch.abs(prop.modulate_and_get_ctf(
+                    delta, beta, geo.energy_ev, geo.psize_cm,
+                    dists_cm[i_dist], kappa=kappa))
+                for i_dist in range(geo.n_dists)]
+    else:
+        kappa = None
+        if cfg.refine.optimize_ctf_lg_kappa:
+            kappa = 10.0 ** params['ctf_lg_kappa'][0]
+        if geo.pure_projection:
+            exit_wave = prop.pure_projection_modulate(
+                delta, beta, subprobe, geo.energy_ev, geo.psize_cm,
+                slice_spacing_cm=geo.slice_spacing_cm,
+                unknown_type=cfg.train.unknown_type,
+                sign_convention=geo.sign_convention,
+                scale_ri_by_k=geo.scale_ri_by_k, kappa=kappa)
+        else:
+            fused = {'auto': 'auto', 'on': True, 'off': False}[
+                cfg.train.fused_multislice]
+            exit_wave = prop.multislice_propagate(
+                delta, beta, subprobe, geo.energy_ev, geo.psize_cm,
+                slice_spacing_cm=geo.slice_spacing_cm, binning=geo.binning,
+                unknown_type=cfg.train.unknown_type,
+                fresnel_approx=geo.fresnel_approx,
+                sign_convention=geo.sign_convention,
+                scale_ri_by_k=geo.scale_ri_by_k, kappa=kappa, fused=fused)
+        if cfg.refine.optimize_prj_pos_offset:
+            exit_wave = fourier_shift(
+                exit_wave, params['prj_pos_offset'][batch['i_theta']])
+        mags = []
+        for i_dist in range(geo.n_dists):
+            det = prop.fresnel_propagate(exit_wave, dists_cm[i_dist] * 1e7,
+                                         lmbda_nm, voxel_nm,
+                                         fresnel_approx=geo.fresnel_approx,
+                                         sign_convention=geo.sign_convention)
+            mags.append(incoherent_mode_sum(det))
     out = torch.cat(mags, 0)                       # [n_dists * N, ty, tx]
     if return_wave:
         return out

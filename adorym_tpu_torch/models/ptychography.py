@@ -1,12 +1,16 @@
 """Ptychography / ptychotomography forward model
 (``adorym_tpu/models/ptychography.py``): the probe with its refinements
 (defocus, per-angle position offset, per-spot position correction as
-per-spot waves), the plain multislice branch (delta_beta or real_imag)
+per-spot waves); the plain multislice branch (delta_beta or real_imag)
 with the detector propagation handed to the propagator where nothing sits
-between the exit wave and the detector, and the exit wave's refined
-projection offset and propagation distance where something does;
-:func:`predict` rotates the object inside autograd for the generic
-immediate step."""
+between the exit wave and the detector; the projection approximation
+(with the minus-logged line projections of absorption tomography) and
+sparse multislice at (refinable) slice positions; the single-material
+kappa (``beta = 10**ctf_lg_kappa * delta``); and the exit wave's refined
+projection offset and propagation distance.  :func:`predict` rotates the
+object inside autograd: by the three tilt angles where tilt is on (fixed
+or refined), else by the view angle unless the Reconstructor rotates it
+out of the loop."""
 
 from __future__ import annotations
 
@@ -20,11 +24,8 @@ from ..constants import wavelength_nm
 from ..ops import patches as patch_ops
 from ..ops import propagate as prop
 from ..ops.fourier import fft2, fourier_shift, ifft2, shift_phase_ramp
-from ..ops.rotate import rotate
+from ..ops.rotate import rotate, tilt_rotate
 from .base import incoherent_mode_sum
-
-#: The ROADMAP item of the branches this model does not port yet.
-A5C = 'ROADMAP A.5 (c), remaining model families and refinables'
 
 
 def complex_probe(probe):
@@ -69,15 +70,19 @@ def prepare_probe(params: Dict, batch: Dict, cfg: ReconConfig):
 
 
 def rotated_object(params: Dict, batch: Dict, cfg: ReconConfig):
-    """The object at the view angle: as it is in 2D mode or with the
-    rotation out of the loop (the Reconstructor rotates), else rotated by
-    ``batch['theta']`` (a Python float), differentiably.  Tilt is
-    ROADMAP A.5 (c)."""
+    """The object at the view angle, differentiably: as it is in 2D mode;
+    with tilt on (fixed or refined), rotated by the angle's three tilts
+    ``params['tilt_ls'][:, i_theta]``, always bilinear, whatever
+    ``rotate_out_of_loop`` says (tilt takes precedence); as it is with the
+    rotation out of the loop (the Reconstructor rotates); else rotated by
+    ``batch['theta']`` (a Python float)."""
     obj = params['obj']
-    if cfg.geometry.two_d_mode or cfg.train.rotate_out_of_loop:
+    if cfg.geometry.two_d_mode:
         return obj
     if cfg.refine.tilt_active:
-        raise NotImplementedError(f'tilt: {A5C}')
+        return tilt_rotate(obj, params['tilt_ls'][:, batch['i_theta']])
+    if cfg.train.rotate_out_of_loop:
+        return obj
     return rotate(obj, batch['theta'], method=cfg.train.interpolation)
 
 
@@ -139,13 +144,10 @@ def predict_from_patches(params: Dict, batch: Dict, subobj, cfg: ReconConfig,
     """Detected magnitudes ``[N, py, px]`` from pre-extracted object
     patches ``[N, py, px, z, 2]`` — or, with ``zmajor=True``,
     ``[zb, 2, N, py, px]``, the multislice kernel's operand layout.
-    ``prebinned_z``: the patches' z axis is already bin-summed."""
+    ``prebinned_z``: the patches' z axis is already bin-summed (the plain
+    delta_beta multislice only).  Under ``pure_projection`` with
+    ``is_minus_logged`` the prediction is the image's magnitude."""
     geo = cfg.geometry
-    if geo.pure_projection or geo.slice_pos_cm_ls is not None:
-        raise NotImplementedError('pure-projection and sparse forward '
-                                  f'models: {A5C}')
-    if cfg.refine.optimize_ctf_lg_kappa:
-        raise NotImplementedError(f'kappa refinement: {A5C}')
     probes = shifted_probes(prepare_probe(params, batch, cfg), params, batch,
                             cfg)
     if cfg.train.run_bfloat16:
@@ -165,22 +167,44 @@ def predict_from_patches(params: Dict, batch: Dict, subobj, cfg: ReconConfig,
         # The shared probe broadcast to the [n_modes, N, py, px] stack.
         wave = probes[:, None].expand(probes.shape[0], delta.shape[0],
                                       *probes.shape[-2:])
-    fused = {'auto': 'auto', 'on': True, 'off': False}[
-        cfg.train.fused_multislice]
+    kappa = None
+    if cfg.refine.optimize_ctf_lg_kappa:
+        kappa = 10.0 ** params['ctf_lg_kappa'][0]
     final_prop = None
-    if not unfolded_far_field(cfg):
-        final_prop = {'free_prop_cm': geo.free_prop_cm,
-                      'normalize_fft': cfg.loss.normalize_fft}
-    out = prop.multislice_propagate(
-        delta, beta, wave, geo.energy_ev, geo.psize_cm,
-        slice_spacing_cm=geo.slice_spacing_cm, binning=geo.binning,
-        unknown_type=cfg.train.unknown_type,
-        fresnel_approx=geo.fresnel_approx,
-        sign_convention=geo.sign_convention,
-        scale_ri_by_k=geo.scale_ri_by_k, fused=fused,
-        prebinned=prebinned_z, final_prop=final_prop,
-        db_stack=None if zmajor else subobj,
-        db_zmajor=subobj if zmajor else None)
+    if geo.pure_projection:
+        out = prop.pure_projection_modulate(
+            delta, beta, wave, geo.energy_ev, geo.psize_cm,
+            slice_spacing_cm=geo.slice_spacing_cm,
+            unknown_type=cfg.train.unknown_type,
+            sign_convention=geo.sign_convention,
+            scale_ri_by_k=geo.scale_ri_by_k, kappa=kappa,
+            is_minus_logged=geo.is_minus_logged,
+            return_sqrt=cfg.loss.raw_data_type == 'intensity')
+    elif geo.slice_pos_cm_ls is not None:
+        out = prop.sparse_multislice_propagate(
+            delta, beta, wave, geo.energy_ev, geo.psize_cm,
+            params['slice_pos_cm_ls'] if cfg.refine.optimize_slice_pos
+            else geo.slice_pos_cm_ls,
+            unknown_type=cfg.train.unknown_type,
+            fresnel_approx=geo.fresnel_approx,
+            sign_convention=geo.sign_convention,
+            scale_ri_by_k=geo.scale_ri_by_k)
+    else:
+        fused = {'auto': 'auto', 'on': True, 'off': False}[
+            cfg.train.fused_multislice]
+        if not unfolded_far_field(cfg):
+            final_prop = {'free_prop_cm': geo.free_prop_cm,
+                          'normalize_fft': cfg.loss.normalize_fft}
+        out = prop.multislice_propagate(
+            delta, beta, wave, geo.energy_ev, geo.psize_cm,
+            slice_spacing_cm=geo.slice_spacing_cm, binning=geo.binning,
+            unknown_type=cfg.train.unknown_type,
+            fresnel_approx=geo.fresnel_approx,
+            sign_convention=geo.sign_convention,
+            scale_ri_by_k=geo.scale_ri_by_k, kappa=kappa, fused=fused,
+            prebinned=prebinned_z, final_prop=final_prop,
+            db_stack=None if zmajor else subobj,
+            db_zmajor=subobj if zmajor else None)
     if final_prop is None:
         if cfg.refine.optimize_prj_pos_offset:
             out = fourier_shift(out,
@@ -199,4 +223,7 @@ def predict_from_patches(params: Dict, batch: Dict, subobj, cfg: ReconConfig,
             fresnel_approx=geo.fresnel_approx)
     if return_wave:
         return out
+    if geo.pure_projection and geo.is_minus_logged:
+        # The modulated "wave" is the predicted image itself.
+        return torch.abs(out) if out.dim() == 3 else incoherent_mode_sum(out)
     return incoherent_mode_sum(out)

@@ -1,22 +1,25 @@
-"""Wave-optics propagation: Fresnel kernels, multislice, far field.
+"""Wave-optics propagation: Fresnel kernels, multislice, far field, the
+projection approximation, sparse multislice and the CTF.
 
-Main-path subset of ``adorym_tpu/ops/propagate.py``.  Sign conventions as
-in the reference: ``sign_convention=1`` is the Goodman ``exp(ikz)``
+Counterpart of ``adorym_tpu/ops/propagate.py``.  Sign conventions as in
+the reference: ``sign_convention=1`` is the Goodman ``exp(ikz)``
 convention with ``n = 1 - delta + i*beta``.  Energies in eV, wavelengths
 and voxels in nm, distances in nm unless the name says ``_cm``.
 
-:func:`multislice_propagate` keeps three of the JAX package's branches:
-the plain FFT z scan; the fused delta_beta dispatch, which on CUDA runs
-one of the two multislice kernels of :mod:`.cuda_multislice` (stored
-intermediates, or invertible steps when the records would be large); and
-the general fused scan (real_imag, or a non-paraxial transfer function),
-which runs the kernel of :mod:`.cuda_multislice_fused`.  Each kernel's
-plain version runs on the CPU.  The remaining branches raise ``NotImplementedError`` naming their
-ROADMAP item.
+:func:`multislice_propagate` keeps the JAX package's branches: the plain
+FFT z scan; the fused delta_beta dispatch, which on CUDA runs one of the
+two multislice kernels of :mod:`.cuda_multislice` (stored intermediates,
+or invertible steps when the records would be large); the general fused
+scan (real_imag, or a non-paraxial transfer function), which runs the
+kernel of :mod:`.cuda_multislice_fused`; one slice repeated; and the
+propagation in -z (``backprop``), which hands the kernels the -z step and
+the flipped modulator sign.  Each kernel's plain version runs on the CPU.
+A single-material ``kappa`` (``beta = kappa * delta``) reaches the
+kernels through a freshly packed stack.
 
-Distances may be tensors (a refined ``free_prop_cm`` or probe defocus):
-:func:`fresnel_kernel` and :func:`free_space_propagate` then stay
-differentiable in them.
+Distances may be tensors (a refined ``free_prop_cm``, probe defocus or
+slice position, and the CTF's kappa): the kernels and propagations built
+from them stay differentiable in them.
 """
 
 from __future__ import annotations
@@ -83,6 +86,23 @@ def _step_kernel(shape, voxel_nm, lmbda_nm, dist_nm, fresnel_approx,
     return fresnel_kernel(shape, voxel_nm, lmbda_nm, dist_nm,
                           fresnel_approx=fresnel_approx,
                           sign_convention=sign_convention, device=device)
+
+
+def fresnel_kernel_ir(shape, voxel_nm, lmbda_nm, dist_nm, sign_convention=1,
+                      device='cpu'):
+    """The impulse-response method's Fresnel kernel: the FFT of the
+    sampled real-space response, built in float64 and returned complex64
+    on ``device``."""
+    size_nm = np.asarray(voxel_nm[:2]) * np.asarray(shape[:2])
+    k = 2.0 * PI / lmbda_nm
+    y = np.arange(shape[0], dtype=np.float64) * voxel_nm[0] - size_nm[0] / 2.0
+    x = np.arange(shape[1], dtype=np.float64) * voxel_nm[1] - size_nm[1] / 2.0
+    yy = y[:, None]
+    xx = x[None, :]
+    h = (np.exp(sign_convention * 1j * k * dist_nm) / (1j * lmbda_nm * dist_nm)
+         * np.exp(sign_convention * 1j * k / (2.0 * dist_nm)
+                  * (xx ** 2 + yy ** 2)))
+    return torch.from_numpy(np.fft.fft2(h).astype(np.complex64)).to(device)
 
 
 def fresnel_propagate(wave, dist_nm, lmbda_nm, voxel_nm, fresnel_approx=True,
@@ -325,7 +345,7 @@ def bin_real_imag(stack, binning):
 def multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
                          slice_spacing_cm=None, binning=1,
                          unknown_type='delta_beta', fresnel_approx=True,
-                         sign_convention=1, scale_ri_by_k=True,
+                         sign_convention=1, scale_ri_by_k=True, kappa=None,
                          repeats=None, backprop=False, fused='auto',
                          prebinned=False, final_prop=None, db_stack=None,
                          db_zmajor=None):
@@ -341,22 +361,27 @@ def multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
     ``db_zmajor`` ``[nz, 2, ..., y, x]``: the packed channels the kernel
     consumes; a real_imag ``db_stack`` is binned from the packed layout in
     one pass (:func:`bin_real_imag`).  ``prebinned``: the z axis is already
-    bin-summed.  See
-    ``adorym_tpu.ops.propagate.multislice_propagate`` for the full
-    contract.
+    bin-summed.  ``kappa``: ``beta = kappa * delta`` (a float or a tensor,
+    which then gets its gradient); the packed stacks are then stale and
+    dropped.  ``repeats``: slice 0 applied this many times.
+    ``backprop``: propagate in -z, the slices last to first, with the
+    delta phase's sign flipped (absorption keeps its sign); not with
+    ``final_prop``.  See ``adorym_tpu.ops.propagate.multislice_propagate``
+    for the full contract.
     """
-    if repeats is not None:
-        raise NotImplementedError('multislice repeats: ROADMAP A, '
-                                  'remaining model families and refinables')
-    if backprop:
-        raise NotImplementedError('multislice backprop: ROADMAP A, '
-                                  'remaining model families and refinables')
     lmbda_nm = wavelength_nm(energy_ev)
     dz_cm = psize_cm if slice_spacing_cm is None else slice_spacing_cm
     voxel_nm = (psize_cm * 1e7, psize_cm * 1e7, dz_cm * 1e7)
     delta_nm = voxel_nm[2]
     k1 = 2.0 * PI * delta_nm / lmbda_nm if scale_ri_by_k else 1.0
-    mod_sign = sign_convention
+    prop_sign = -1.0 if backprop else 1.0
+    mod_sign = -sign_convention if backprop else sign_convention
+    if kappa is not None:
+        beta = delta * kappa
+        db_stack = db_zmajor = None
+    if final_prop is not None and backprop:
+        raise ValueError('final_prop is a detector-side propagation; '
+                         'meaningless under backprop')
 
     def to_det(out):
         if final_prop is None:
@@ -367,38 +392,59 @@ def multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
             normalize_fft=final_prop.get('normalize_fft', False),
             fresnel_approx=fresnel_approx)
 
+    if repeats is not None:
+        if binning > 1:
+            raise NotImplementedError('repeats with binning > 1')
+        t = slice_modulator(delta[..., 0], beta[..., 0], k1, unknown_type,
+                            mod_sign)
+        kernel = fresnel_kernel(wave.shape[-2:], voxel_nm, lmbda_nm,
+                                prop_sign * delta_nm,
+                                fresnel_approx=fresnel_approx,
+                                sign_convention=sign_convention,
+                                device=wave.device)
+        for i in range(repeats):
+            wave = wave * t
+            if i < repeats - 1:
+                wave = ifft2(fft2(wave) * kernel)
+        return to_det(wave)
+
+    def z_first(arr, nz_axis=-1):
+        """The z axis in front, padded at the far end to whole bins, in
+        -z order under ``backprop`` (the pad joins the short bin in either
+        direction), and binned."""
+        arr = torch.movedim(arr, nz_axis, 0)
+        if not prebinned:
+            arr = _pad_z_to_multiple(arr, binning, unknown_type)
+        if backprop:
+            arr = torch.flip(arr, (0,))
+        if not prebinned:
+            arr = _bin_slices(arr, binning, unknown_type)
+        return arr
+
     t_all = None
-    if unknown_type == 'real_imag' and db_stack is not None and not prebinned:
+    if (unknown_type == 'real_imag' and db_stack is not None and not prebinned
+            and not backprop):
         # The packed patches to the binned transmissions in one pass: no
         # channel selects or per-channel products for autograd to undo.
         t_all = bin_real_imag(db_stack, binning)
         n_steps, z_dims = t_all.shape[0], t_all.dim()
     else:
-        delta_z = torch.movedim(delta, -1, 0)
-        beta_z = torch.movedim(beta, -1, 0)
-        if not prebinned:
-            delta_z = _bin_slices(_pad_z_to_multiple(delta_z, binning,
-                                                     unknown_type),
-                                  binning, unknown_type)
-            beta_z = _bin_slices(_pad_z_to_multiple(beta_z, binning,
-                                                    unknown_type),
-                                 binning, unknown_type)
+        delta_z = z_first(delta)
+        beta_z = z_first(beta)
         n_steps, z_dims = delta_z.shape[0], delta_z.dim()
 
     db_z = None
     if unknown_type == 'delta_beta':
         if db_zmajor is not None:
-            db_z = db_zmajor
+            db_z = z_first(db_zmajor, 0)
         elif db_stack is not None:
-            db_z = torch.movedim(db_stack, (-2, -1), (0, 1))
-        if db_z is not None and not prebinned:
-            db_z = _bin_slices(_pad_z_to_multiple(db_z, binning,
-                                                  unknown_type),
-                               binning, unknown_type)
+            db_z = z_first(torch.movedim(db_stack, -1, 0))
 
+    # The step's transfer function; in -z its factors per axis still give
+    # the FFT route's step vectors (the route depends on the shape alone).
     kernel = _step_kernel(tuple(int(v) for v in wave.shape[-2:]), voxel_nm,
-                          lmbda_nm, delta_nm * binning, fresnel_approx,
-                          sign_convention, wave.device)
+                          lmbda_nm, prop_sign * delta_nm * binning,
+                          fresnel_approx, sign_convention, wave.device)
     if fused == 'auto':
         fused = wave.is_cuda
     fused = fused and wave.dim() == 4 and z_dims == 4
@@ -450,3 +496,116 @@ def multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
     for t in t_all[:-1]:
         wv = ifft2(fft2(wv * t) * kernel)
     return to_det(wv * t_all[-1])
+
+
+def _as_complex(x):
+    """A real tensor as complex64 with a zero imaginary part."""
+    x = x.float()
+    return torch.complex(x, torch.zeros_like(x))
+
+
+def pure_projection_modulate(delta, beta, wave, energy_ev, psize_cm,
+                             slice_spacing_cm=None, unknown_type='delta_beta',
+                             sign_convention=1, scale_ri_by_k=True,
+                             kappa=None, is_minus_logged=False,
+                             return_sqrt=False, backprop=False):
+    """The projection approximation: ``wave`` times the transmission of the
+    z-summed (delta_beta) or z-multiplied (real_imag) object, no
+    diffraction inside it.  ``is_minus_logged``: the projected beta (or
+    ``-log |t|^2``) is the image itself, its square root with
+    ``return_sqrt`` (intensity data).  ``kappa``: ``beta = kappa * delta``
+    (a float or a tensor)."""
+    lmbda_nm = wavelength_nm(energy_ev)
+    dz_cm = psize_cm if slice_spacing_cm is None else slice_spacing_cm
+    k1 = 2.0 * PI * (dz_cm * 1e7) / lmbda_nm if scale_ri_by_k else 1.0
+    mod_sign = -sign_convention if backprop else sign_convention
+    if unknown_type == 'delta_beta':
+        d = torch.sum(delta, -1)
+        b = d * kappa if kappa is not None else torch.sum(beta, -1)
+        if is_minus_logged:
+            t = _as_complex(torch.sqrt(b + 1e-10) if return_sqrt else b)
+        else:
+            t = slice_modulator(d, b, k1, 'delta_beta', mod_sign)
+    elif unknown_type == 'real_imag':
+        d = torch.prod(delta, -1)
+        b = torch.prod(beta, -1)
+        if is_minus_logged:
+            val = -torch.log(d * d + b * b)
+            t = _as_complex(torch.sqrt(val + 1e-10) if return_sqrt else val)
+        else:
+            t = torch.complex(d.float(), b.float())
+    else:
+        raise ValueError("unknown_type must be 'delta_beta' or 'real_imag'")
+    return wave * t
+
+
+def sparse_multislice_propagate(delta, beta, wave, energy_ev, psize_cm,
+                                slice_pos_cm_ls, unknown_type='delta_beta',
+                                fresnel_approx=True, sign_convention=1,
+                                scale_ri_by_k=True):
+    """Multislice through a few slices ``delta[..., i]`` at arbitrary z
+    positions ``slice_pos_cm_ls`` (a sequence, or a float32 tensor that
+    then gets its gradient: the refined slice positions), one Fresnel
+    propagation between neighbours.  As in the reference, ``k1`` takes the
+    lateral voxel size as the slice thickness."""
+    lmbda_nm = wavelength_nm(energy_ev)
+    voxel_nm = (psize_cm * 1e7,) * 3
+    k1 = 2.0 * PI * voxel_nm[2] / lmbda_nm if scale_ri_by_k else 1.0
+    if not torch.is_tensor(slice_pos_cm_ls):
+        slice_pos_cm_ls = torch.as_tensor(
+            np.asarray(slice_pos_cm_ls, np.float32), device=wave.device)
+    slice_pos_nm = slice_pos_cm_ls * 1e7
+    n_slices = delta.shape[-1]
+    for i in range(n_slices):
+        wave = wave * slice_modulator(delta[..., i], beta[..., i], k1,
+                                      unknown_type, sign_convention)
+        if i < n_slices - 1:
+            wave = fresnel_propagate(
+                wave, slice_pos_nm[i + 1] - slice_pos_nm[i], lmbda_nm,
+                voxel_nm, fresnel_approx=fresnel_approx,
+                sign_convention=sign_convention)
+    return wave
+
+
+def ctf_intensity_spectrum(wave, dist_nm, lmbda_nm, voxel_nm,
+                           sign_convention=1):
+    """The Fourier transform of the propagated intensity, ``F[I] = [Psi'
+    H] * [Psi H']``, the convolution taken by orthonormal FFTs."""
+    f = fft2(wave, norm='ortho')
+    h = fresnel_kernel(wave.shape[-2:], voxel_nm, lmbda_nm, dist_nm,
+                       sign_convention=sign_convention, device=wave.device)
+    a1 = torch.conj(f) * h
+    a2 = f * torch.conj(h)
+    return ifft2(fft2(a1, norm='ortho') * fft2(a2, norm='ortho'),
+                 norm='ortho')
+
+
+def pure_phase_ctf(delta_proj, beta_proj, dist_nm, lmbda_nm, voxel_nm,
+                   kappa=50.0):
+    """The pure-phase CTF: the predicted detected magnitude (complex64, a
+    zero imaginary part) of the projected phase ``delta_proj``; ``kappa``
+    (the delta/beta ratio) and ``dist_nm`` may be tensors."""
+    uu, vv = _freq_mesh_np(tuple(float(v) for v in voxel_nm[:2]),
+                           tuple(int(s) for s in delta_proj.shape[-2:]))
+    dev = delta_proj.device
+    u = torch.from_numpy(uu).to(dev)
+    v = torch.from_numpy(vv).to(dev)
+    f = fft2(_as_complex(delta_proj))
+    xi = PI * lmbda_nm * dist_nm * (u * u + v * v)
+    osc = 2.0 * (torch.sin(xi) + torch.cos(xi) / kappa)
+    img = torch.real(ifft2(osc * f)) + 1.0
+    return _as_complex(torch.sqrt(torch.clamp(img, min=0.0)))
+
+
+def modulate_and_get_ctf(delta, beta, energy_ev, psize_cm, free_prop_cm,
+                         kappa=50.0):
+    """Project the object in z and apply the pure-phase CTF at the
+    distance ``free_prop_cm`` (a float or a tensor)."""
+    lmbda_nm = wavelength_nm(energy_ev)
+    voxel_nm = (psize_cm * 1e7,) * 3
+    if not torch.is_tensor(free_prop_cm):
+        free_prop_cm = torch.tensor(float(free_prop_cm), dtype=torch.float32,
+                                    device=delta.device)
+    d = torch.sum(delta, -1)
+    return pure_phase_ctf(d, None, free_prop_cm * 1e7, lmbda_nm, voxel_nm,
+                          kappa=kappa)

@@ -1,13 +1,13 @@
-"""3D rotation of the object about the y axis by bilinear (or nearest)
-gather, and its exact transpose.
+"""3D rotation of the object about any of its axes by bilinear (or
+nearest) gather, the three-axis tilt sequence, and the exact transpose.
 
-Subset of ``adorym_tpu/ops/rotate.py``, with its coordinate math (not
-``F.grid_sample``): rotation of the (x, z) planes about the array center
-``(s-1)/2``, source coordinates edge-clamped, bilinear weights.  The
-rotations are index gathers, so autograd differentiates them (the generic
-immediate step rotates the whole object inside autograd); the band step
-applies the transpose explicitly, either through autograd
-(:func:`rotate_adjoint`) or as the 9-tap gather of
+Counterpart of ``adorym_tpu/ops/rotate.py``, with its coordinate math (not
+``F.grid_sample``): rotation of the planes across the axis about the array
+center ``(s-1)/2``, source coordinates edge-clamped, bilinear weights.  The
+rotations are index gathers, so autograd differentiates them in the object
+and, under ``'bilinear'``, in the angle (a tensor angle: the refined tilts
+of :func:`tilt_rotate`); the band step applies the transpose explicitly,
+either through autograd (:func:`rotate_adjoint`) or as the 9-tap gather of
 :func:`rotate_adjoint_taps`.
 """
 
@@ -19,16 +19,24 @@ import torch
 from .propagate import bin_z_sum
 
 
+def _angle(theta, device):
+    """``theta`` as a float32 0-d tensor on ``device``; a tensor keeps its
+    graph (a refined angle)."""
+    if torch.is_tensor(theta):
+        return theta.to(device=device, dtype=torch.float32)
+    return torch.tensor(theta, dtype=torch.float32, device=device)
+
+
 def _rotation_source_coords(shape2, theta, device):
     """Source coordinates ``(c1, c2)``, float32 ``shape2``, of each target
     pixel of a plane rotated by ``theta`` (``_rotation_source_coords`` of
-    the JAX package, in f32)."""
+    the JAX package, in f32); differentiable in a tensor ``theta``."""
     s1, s2 = shape2
     ctr1 = (s1 - 1) / 2.0
     ctr2 = (s2 - 1) / 2.0
     g1 = torch.arange(s1, dtype=torch.float32, device=device)[:, None] - ctr1
     g2 = torch.arange(s2, dtype=torch.float32, device=device)[None, :] - ctr2
-    th = torch.tensor(theta, dtype=torch.float32, device=device)
+    th = _angle(theta, device)
     cos_t = torch.cos(th)
     sin_t = torch.sin(th)
     c1 = cos_t * g1 - sin_t * g2 + ctr1
@@ -36,12 +44,23 @@ def _rotation_source_coords(shape2, theta, device):
     return c1, c2
 
 
+def _clip(c, hi):
+    """``c`` clamped to ``[0, hi]``.  Where ``c`` carries an angle's
+    gradient, a point on the edge passes half of it, as the JAX package's
+    ``clip`` (a max and a min, which split ties) does; ``torch.clamp``
+    would pass all of it."""
+    if c.requires_grad:
+        return torch.minimum(torch.maximum(c, c.new_zeros(())),
+                             c.new_full((), hi))
+    return torch.clamp(c, 0.0, hi)
+
+
 def _corners(c1, c2, s1, s2):
     """Flat corner indices and bilinear weights of the sample points
     ``(c1, c2)`` in an ``s1 x s2`` grid, in the JAX package's corner
     order."""
-    c1 = torch.clamp(c1, 0.0, s1 - 1.0)
-    c2 = torch.clamp(c2, 0.0, s2 - 1.0)
+    c1 = _clip(c1, s1 - 1.0)
+    c2 = _clip(c2, s2 - 1.0)
     f1 = torch.floor(c1)
     f2 = torch.floor(c2)
     w1 = c1 - f1
@@ -61,13 +80,18 @@ def _check_method(method):
                          "(expected 'bilinear' or 'nearest')")
 
 
-def rotate(obj, theta, method='bilinear'):
-    """Rotate ``obj[y, x, z, ...]`` about the y axis by ``theta`` rad
-    (a Python float); trailing axes (the delta/beta channels) ride along."""
+def rotate(obj, theta, axis=0, method='bilinear'):
+    """Rotate ``obj[y, x, z, ...]`` about ``axis`` (0, the y axis, by
+    default) by ``theta`` rad, a Python float or a 0-d tensor (under
+    ``'bilinear'`` the result is differentiable in it); trailing axes (the
+    delta/beta channels) ride along.  The plane across the axis may be
+    rectangular."""
     _check_method(method)
-    s1, s2 = obj.shape[1], obj.shape[2]
+    axes = [a for a in range(3) if a != axis]
+    s1, s2 = obj.shape[axes[0]], obj.shape[axes[1]]
     c1, c2 = _rotation_source_coords((s1, s2), theta, obj.device)
-    v = obj.movedim(0, 2)                      # [x, z, y, ...]
+    perm = axes + [axis] + list(range(3, obj.dim()))
+    v = obj.permute(perm)                      # [s1, s2, carried, ...]
     if method == 'nearest':
         i1 = torch.clamp(torch.round(c1), 0, s1 - 1).long().ravel()
         i2 = torch.clamp(torch.round(c2), 0, s2 - 1).long().ravel()
@@ -80,7 +104,17 @@ def rotate(obj, theta, method='bilinear'):
             wt = wt.reshape((-1,) + (1,) * (vals.dim() - 1)).to(vals.dtype)
             out = vals * wt if out is None else out + vals * wt
     out = out.reshape((s1, s2) + tuple(v.shape[2:]))
-    return out.movedim(2, 0).contiguous()
+    return out.permute(list(np.argsort(perm))).contiguous()
+
+
+def tilt_rotate(obj, tilts):
+    """The three-axis tilt sequence: rotate about axes 0, 1 and 2 in turn
+    by ``tilts[0]``, ``tilts[1]``, ``tilts[2]``, always bilinear (the
+    nearest gather has no gradient in the angles); differentiable in a
+    tensor ``tilts``."""
+    obj = rotate(obj, tilts[0], axis=0)
+    obj = rotate(obj, tilts[1], axis=1)
+    return rotate(obj, tilts[2], axis=2)
 
 
 def rotate_expanded_from_binned_z(g_binned, theta, binning, nz_full,
@@ -118,9 +152,10 @@ def rotate_and_bin_z(obj, theta, binning, method='bilinear'):
 
 
 def rotate_adjoint(cotangent, theta, method='bilinear'):
-    """Transpose of :func:`rotate` at the same ``theta``, by autograd
-    through the rotation's gathers (on CUDA their backward sorts the
-    indices and sums each target's terms in sorted order).  The linear-map transpose, not a rotation by ``-theta``."""
+    """Transpose of :func:`rotate` about axis 0 at the same ``theta``, by
+    autograd through the rotation's gathers (on CUDA their backward sorts
+    the indices and sums each target's terms in sorted order).  The
+    linear-map transpose, not a rotation by ``-theta``."""
     x = torch.zeros_like(cotangent, requires_grad=True)
     with torch.enable_grad():
         y = rotate(x, theta, method=method)

@@ -8,10 +8,14 @@ tensor (complex quantities are ``[..., 2]`` pairs):
   probe_pos_offset     [n_theta, 2]
   prj_pos_offset       [n_theta, 2]
   probe_pos_correction [n_theta, n_pos, 2]   ([n_dists, 2] multi-distance)
+  slice_pos_cm_ls      [n_slices]
   free_prop_cm         [n_dists]
+  tilt_ls              [3, n_theta]
   prj_affine_ls        [n_dists, 2, 3]
+  ctf_lg_kappa         [1]
 
-Slice positions, tilt and the CTF's kappa are ROADMAP A.5 (c)."""
+A fixed tilt (``fixed_tilt``) is a ``tilt_ls`` leaf without an optimizer
+spec: the model reads it and nothing updates it."""
 
 from __future__ import annotations
 
@@ -23,10 +27,6 @@ import torch
 from ..config import ReconConfig
 from .optimizers import OptSpec
 
-#: Refinables not ported yet (ROADMAP A.5 (c)), by their config flag.
-_A5C_FLAGS = ('optimize_slice_pos', 'optimize_tilt', 'fixed_tilt',
-              'optimize_ctf_lg_kappa')
-
 _FIRST_ORDER_KINDS = ('adam', 'momentum', 'gd')
 
 _EYE_2X3 = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
@@ -34,22 +34,21 @@ _EYE_2X3 = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
 
 def build_aux_params(cfg: ReconConfig, n_theta: int, n_pos: int,
                      device='cpu', probe_pos_correction_init=None,
-                     free_prop_cm=None, prj_affine_init=None
-                     ) -> Dict[str, torch.Tensor]:
+                     slice_pos_cm_ls=None, free_prop_cm=None,
+                     tilt_init=None, prj_affine_init=None,
+                     ctf_lg_kappa_init=None) -> Dict[str, torch.Tensor]:
     """The auxiliary refinable parameters beyond obj/probe that the config
     switches on, at their initial values on ``device``: zeros for the
     defocus and the offsets; ``probe_pos_correction`` from its ``_init``
     or zeros (``[n_dists, 2]`` with several distances, else ``[n_theta,
-    n_pos, 2]``); ``free_prop_cm`` from ``free_prop_cm`` or the geometry's
-    distances; ``prj_affine_ls`` from its ``_init`` or the identity at each
-    distance."""
+    n_pos, 2]``); ``slice_pos_cm_ls`` from ``slice_pos_cm_ls``;
+    ``free_prop_cm`` from ``free_prop_cm`` or the geometry's distances;
+    ``tilt_ls`` (refined or fixed) from ``tilt_init`` or zeros;
+    ``prj_affine_ls`` from its ``_init`` or the identity at each distance;
+    ``ctf_lg_kappa`` from its ``_init`` or log10 of the configured
+    ``ctf_kappa``."""
     r = cfg.refine
     geo = cfg.geometry
-    on = [f for f in _A5C_FLAGS if getattr(r, f)]
-    if on:
-        raise NotImplementedError(
-            f'refinables {on}: ROADMAP A.5 (c), remaining model families '
-            'and refinables')
 
     def t(a):
         return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
@@ -69,16 +68,27 @@ def build_aux_params(cfg: ReconConfig, n_theta: int, n_pos: int,
             params['probe_pos_correction'] = t(np.zeros((geo.n_dists, 2)))
         else:
             params['probe_pos_correction'] = t(np.zeros((n_theta, n_pos, 2)))
+    if r.optimize_slice_pos:
+        if slice_pos_cm_ls is None:
+            raise ValueError('optimize_slice_pos needs slice_pos_cm_ls')
+        params['slice_pos_cm_ls'] = t(slice_pos_cm_ls)
     if r.optimize_free_prop:
         fp = free_prop_cm if free_prop_cm is not None else geo.free_prop_cm
         if isinstance(fp, str):
             raise ValueError('optimize_free_prop needs a finite '
                              f'free_prop_cm, got {fp!r}')
         params['free_prop_cm'] = t(np.atleast_1d(np.asarray(fp)))
+    if r.tilt_active:
+        params['tilt_ls'] = t(tilt_init if tilt_init is not None
+                              else np.zeros((3, n_theta)))
     if r.optimize_prj_affine:
         params['prj_affine_ls'] = t(
             prj_affine_init if prj_affine_init is not None
             else np.tile(np.asarray(_EYE_2X3)[None], (geo.n_dists, 1, 1)))
+    if r.optimize_ctf_lg_kappa:
+        if ctf_lg_kappa_init is None:
+            ctf_lg_kappa_init = float(np.log10(cfg.train.ctf_kappa))
+        params['ctf_lg_kappa'] = t(np.full(1, ctf_lg_kappa_init))
     return params
 
 
@@ -113,10 +123,15 @@ def build_opt_specs(cfg: ReconConfig) -> Dict[str, OptSpec]:
          r.prj_pos_offset_optimizer, r.prj_pos_offset_learning_rate),
         ('probe_pos_correction', r.optimize_all_probe_pos,
          r.all_probe_pos_optimizer, r.all_probe_pos_learning_rate),
+        ('slice_pos_cm_ls', r.optimize_slice_pos,
+         r.slice_pos_optimizer, r.slice_pos_learning_rate),
         ('free_prop_cm', r.optimize_free_prop,
          r.free_prop_optimizer, r.free_prop_learning_rate),
+        ('tilt_ls', r.optimize_tilt, r.tilt_optimizer, r.tilt_learning_rate),
         ('prj_affine_ls', r.optimize_prj_affine,
          r.prj_affine_optimizer, r.prj_affine_learning_rate),
+        ('ctf_lg_kappa', r.optimize_ctf_lg_kappa,
+         r.ctf_lg_kappa_optimizer, r.ctf_lg_kappa_learning_rate),
     ]
     for name, on, kind, lr in aux:
         if on:
@@ -128,13 +143,16 @@ def apply_param_constraints(params: Dict[str, torch.Tensor],
                             cfg: ReconConfig) -> Dict[str, torch.Tensor]:
     """Post-update stabilizers of the auxiliary refinables:
     ``probe_pos_correction`` loses its mean over all leading axes (the
-    positions cannot drift together), and distance 0's ``prj_affine_ls``
-    stays the identity."""
+    positions cannot drift together), slice 0 of ``slice_pos_cm_ls`` stays
+    at 0, and distance 0's ``prj_affine_ls`` stays the identity."""
     params = dict(params)
     if 'probe_pos_correction' in params:
         ppc = params['probe_pos_correction']
         params['probe_pos_correction'] = ppc - ppc.mean(
             dim=tuple(range(ppc.dim() - 1)), keepdim=True)
+    if 'slice_pos_cm_ls' in params:
+        sp = params['slice_pos_cm_ls']
+        params['slice_pos_cm_ls'] = sp - sp[0]
     if 'prj_affine_ls' in params:
         aff = params['prj_affine_ls'].clone()
         aff[0] = torch.tensor(_EYE_2X3, dtype=aff.dtype, device=aff.device)

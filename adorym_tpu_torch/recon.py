@@ -1,8 +1,9 @@
 """The Reconstructor: the per-angle scheme with the object rotated out of
-the autodiff loop, and the immediate scheme (the reference's default) with
-the rotation inside it.
+the autodiff loop, the immediate scheme (the reference's default) with
+the rotation inside it, and the accumulate-then-update loop that runs the
+other combinations.
 
-Counterpart of ``adorym_tpu/recon.py``'s ``Reconstructor`` on two paths.
+Counterpart of ``adorym_tpu/recon.py``'s ``Reconstructor`` on three paths.
 
 Per angle, ``run_epoch`` -> ``angles_epoch`` -> ``angle_step`` (patch
 mode, prebin, fused rotate-back) -> ``patch_accum`` -> ``apply_step``:
@@ -16,8 +17,8 @@ mode, prebin, fused rotate-back) -> ``patch_accum`` -> ``apply_step``:
   3. crop, expand in z and rotate the accumulated gradient back in one
      gather, and apply the optimizer and the constraints.
 
-Immediate, ``run_epoch`` -> ``epoch_fused`` -> ``step_band`` or ``step``,
-one optimizer update per minibatch:
+Immediate, ``run_epoch`` -> ``epoch_fused`` -> ``step_band`` or
+``accum_step``, one optimizer update per minibatch:
 
   - ``step_band``, where every minibatch is one constant-stride grid row:
     rotate (and bin) only the band of object rows the row's windows cover,
@@ -25,11 +26,24 @@ one optimizer update per minibatch:
     row's patch gradients into a band accumulator with the one-row grid
     scatter (K6), apply the exact transpose of the band's rotation (or,
     opt-in, the -theta interpolation) and update the whole object;
-  - ``step``, for any other scan table: autograd through the whole
-    object's rotation (``models.ptychography.predict``).
+  - ``accum_step`` with an update every batch, for any other scan table:
+    autograd through the whole object's rotation
+    (``models.ptychography.predict``).
+
+Accumulate-then-update, ``run_epoch`` -> ``epoch_fused`` ->
+``accum_step``, for the per-angle scheme with the rotation inside
+autodiff (and with tilt, which turns the rotation out of the loop off),
+the immediate scheme with ``rotate_out_of_loop``, ``n_batch_per_update >
+1`` and the per-angle scheme of another forward model: each batch's
+gradient by autograd through the whole forward model adds into an
+accumulator, applied at the angle's end ('per angle') or every
+``n_batch_per_update`` batches ('immediate').  With the rotation out of
+the loop the object is rotated once an angle (and stays stale within it
+under 'immediate') and only the object's gradient is rotated back.
 
 In 2D (``two_d_mode``) nothing rotates: the immediate scheme takes
-``step`` and the per-angle scheme ``angle_step`` without the rotations.
+``accum_step`` and the per-angle scheme ``angle_step`` without the
+rotations.
 
 Every step takes the gradient of every refined leaf: the object, the
 probe and the auxiliary refinables (defocus, offsets, per-spot positions,
@@ -37,11 +51,11 @@ distances, affines), each with its own optimizer; the batch carries its
 spot indices (``ind_batch``) for the per-spot positions.  ``model=`` takes
 another forward model with the ptychography model's ``predict`` and, as
 hooks, ``compute_pad``, ``transform_measured`` and ``expand_indices``: the
-multi-distance model (:mod:`.models.multidist`) runs on the generic
-immediate step; the band and per-angle steps stay ptychography's.
+multi-distance model (:mod:`.models.multidist`) runs on ``accum_step``;
+the band and per-angle steps stay ptychography's.
 
 Regularizers act on the whole object: the band step adds their own
-gradient by the sum rule, ``step`` adds them to its loss, and the
+gradient by the sum rule, ``accum_step`` adds them to its loss, and the
 per-angle step takes them once an angle on the rotated object, scaled by
 the angle's batch count.  A finite support mask constrains every update
 and shrinks on the reference's cadence (shrink-wrap).
@@ -91,8 +105,11 @@ _REST = ('ROADMAP A, the rest of the per-angle path and of the immediate '
 
 #: ``aux_init``'s names and the ``build_aux_params`` keyword each sets.
 _AUX_INIT_KW = {'free_prop_cm': 'free_prop_cm',
+                'slice_pos_cm_ls': 'slice_pos_cm_ls',
                 'probe_pos_correction': 'probe_pos_correction_init',
-                'prj_affine_ls': 'prj_affine_init'}
+                'tilt_ls': 'tilt_init',
+                'prj_affine_ls': 'prj_affine_init',
+                'ctf_lg_kappa': 'ctf_lg_kappa_init'}
 
 #: Batches between two refreshes of the reweighted-L1 weights on the
 #: immediate scheme, as in the reference.
@@ -127,10 +144,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _check_slice(cfg: ReconConfig):
-    """Raise for configurations outside the ported paths."""
+def rol_active(cfg: ReconConfig) -> bool:
+    """Whether the object is rotated out of the autodiff loop: asked for,
+    in 3D, and without tilt, whose three-axis rotation inside the model
+    takes precedence."""
+    return (cfg.train.rotate_out_of_loop and not cfg.geometry.two_d_mode
+            and not cfg.refine.tilt_active)
+
+
+def _check_slice(cfg: ReconConfig, angles: bool):
+    """Raise for configurations outside the ported paths; ``angles``: the
+    run takes the per-angle path (:meth:`Reconstructor.angle_step`)."""
     geo, t, p = cfg.geometry, cfg.train, cfg.parallel
-    per_angle = t.update_scheme == 'per angle'
     todo = []
     if t.update_scheme not in ('immediate', 'per angle'):
         raise ValueError("update_scheme must be 'immediate' or 'per angle', "
@@ -138,24 +163,8 @@ def _check_slice(cfg: ReconConfig):
     if t.imm_grad_rotation not in ('exact', 'interp'):
         raise ValueError("imm_grad_rotation must be 'exact'|'interp', "
                          f'got {t.imm_grad_rotation!r}')
-    if t.n_batch_per_update > 1:
-        todo.append(f'n_batch_per_update > 1 ({_REST})')
-    # In 2D nothing rotates, so rotate_out_of_loop means nothing there.
-    rotates = not geo.two_d_mode
-    if not per_angle and t.rotate_out_of_loop and rotates:
-        todo.append("update_scheme='immediate' with rotate_out_of_loop=True "
-                    f'({_REST})')
-    if per_angle and not t.rotate_out_of_loop and rotates:
-        todo.append("update_scheme='per angle' with the rotation inside "
-                    f'autodiff ({_REST})')
-    if cfg.refine.tilt_active:
-        todo.append(f'tilt ({ptycho_model.A5C})')
-    if geo.pure_projection or geo.slice_pos_cm_ls is not None:
-        todo.append('pure-projection and sparse forward models '
-                    f'({ptycho_model.A5C})')
-    if t.forward_algorithm != 'fresnel':
-        todo.append(f'forward_algorithm={t.forward_algorithm!r} '
-                    f'({ptycho_model.A5C})')
+    if cfg.refine.tilt_active and geo.two_d_mode:
+        raise NotImplementedError('tilt is not implemented for two_d_mode')
     if p.data_axis > 1 or p.object_axis > 1:
         todo.append('device meshes (ROADMAP A, multi-GPU and out-of-core)')
     if p.offload_optimizer_state or p.offload_object is True:
@@ -163,11 +172,12 @@ def _check_slice(cfg: ReconConfig):
     if cfg.io.use_orbax:
         todo.append("orbax checkpoints (a JAX library's format; the port "
                     'writes the npz form)')
-    if per_angle and t.stream_rotation == 'on':
+    if angles and t.stream_rotation == 'on':
         todo.append(f'streaming rotation ({_REST})')
-    if per_angle and t.exact_grad_rotation:
-        todo.append(f'exact gradient rotate-back ({_REST})')
-    if per_angle and (t.randomize_probe_pos or t.patch_grad):
+    if angles and t.exact_grad_rotation:
+        todo.append(f'exact gradient rotate-back on the per-angle path '
+                    f'({_REST})')
+    if angles and (t.randomize_probe_pos or t.patch_grad):
         todo.append(f'per-angle scan tables that are not grid rows ({_REST})')
     if todo:
         raise NotImplementedError('not ported yet: ' + '; '.join(todo))
@@ -268,7 +278,6 @@ class Reconstructor:
                  device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        _check_slice(cfg)
         # A model is a namespace with predict(params, batch, cfg, pad_arr)
         # and optional hooks: compute_pad, transform_measured (refinements
         # applied to the data) and expand_indices (a batch's blocks to its
@@ -278,6 +287,21 @@ class Reconstructor:
                                           None)
         self.expand_indices = getattr(self.model, 'expand_indices', None)
         geo = cfg.geometry
+        t = cfg.train
+        # Routing, as the JAX package's run_epoch: updates that wait for
+        # more than one batch, or an object rotated out of the loop, take
+        # the accumulate-then-update loop, except the per-angle scheme with
+        # the rotation out of the loop (or in 2D), which takes the
+        # per-angle path (one program an angle).
+        self._rol = rol_active(cfg)
+        accum = (t.update_scheme == 'per angle' or self._rol
+                 or t.n_batch_per_update > 1)
+        self._angles = (accum and t.update_scheme == 'per angle'
+                        and t.n_batch_per_update <= 1
+                        and (self._rol or geo.two_d_mode)
+                        and self.expand_indices is None)
+        self._accum = accum and not self._angles
+        _check_slice(cfg, self._angles)
         self.data = np.abs(np.asarray(data)).astype(np.float32)
         self.n_theta, self.n_pos = self.data.shape[:2]
         self.probe_pos = np.asarray(probe_pos, dtype=np.float64)
@@ -305,10 +329,19 @@ class Reconstructor:
                                      device=dev),
         }
         aux_kw = {'free_prop_cm': (None if isinstance(geo.free_prop_cm, str)
-                                    else geo.free_prop_cm)}
+                                    else geo.free_prop_cm),
+                  'slice_pos_cm_ls': geo.slice_pos_cm_ls}
+        if cfg.refine.tilt_active:
+            # The axis-0 tilt is the view angle, refined around its
+            # nominal value.
+            aux_kw['tilt_init'] = np.stack([self.theta_ls,
+                                            np.zeros_like(self.theta_ls),
+                                            np.zeros_like(self.theta_ls)])
         for k, v in (aux_init or {}).items():
             if k not in _AUX_INIT_KW:
                 raise ValueError(f'aux_init: unknown refinable {k!r}')
+            if k == 'ctf_lg_kappa':
+                v = float(np.ravel(v)[0])
             aux_kw[_AUX_INIT_KW[k]] = v
         self.params.update(param_lib.build_aux_params(
             cfg, self.n_theta, self.n_pos, device=dev, **aux_kw))
@@ -316,7 +349,6 @@ class Reconstructor:
         self.opt_state = opt_lib.tree_init(self.specs, self.params)
 
         # -- statics -------------------------------------------------------
-        self._immediate = cfg.train.update_scheme == 'immediate'
         compute_pad = getattr(self.model, 'compute_pad', None)
         if compute_pad is not None:
             self.pad_arr = compute_pad(cfg, geo.obj_size[:2], self.probe_pos)
@@ -328,18 +360,23 @@ class Reconstructor:
             None if (cfg.train.randomize_probe_pos
                      or self.model is not ptycho_model) else
             patch_ops.detect_row_grid(self.probe_pos, mb, geo.probe_size))
-        if self.model is not ptycho_model and not self._immediate:
+        if self._angles and self.model is not ptycho_model:
             raise NotImplementedError(
-                f'the per-angle scheme with another forward model: {_REST}')
-        if self._rowgrid_stride is None and not self._immediate:
+                'the per-angle path with a forward model that has no '
+                f'patch-granular form: {_REST}')
+        if self._angles and self._rowgrid_stride is None:
             raise NotImplementedError(
                 'per-angle scan tables whose minibatches are not '
                 f'constant-stride grid rows: {_REST}')
-        # The band step: the immediate scheme on grid rows, in 3D.
-        self._band = (self._immediate and self._rowgrid_stride is not None
-                      and not geo.two_d_mode)
-        if (cfg.train.imm_grad_rotation == 'interp' and self._immediate
-                and not self._band):
+        # The band step: the immediate scheme on grid rows, in 3D, with
+        # the view rotation (not tilt) inside the loop, one batch an
+        # update.
+        band_ok = (t.update_scheme == 'immediate' and not self._rol
+                   and self._rowgrid_stride is not None
+                   and not geo.two_d_mode and not cfg.refine.tilt_active)
+        self._band = band_ok and not accum
+        if (cfg.train.imm_grad_rotation == 'interp'
+                and t.update_scheme == 'immediate' and not band_ok):
             # The knob reaches the band step only; the generic step
             # differentiates through the rotation (exact).
             warnings.warn("imm_grad_rotation='interp' requires the "
@@ -352,12 +389,12 @@ class Reconstructor:
             nz_patch = -(-nz_patch // geo.binning)
         # Gradient-chunk budget, the JAX package's formula on this device's
         # capacity: ~6 patch stacks live through forward + backward, plus
-        # the multislice kernel's stored records (2 per probe mode).  The
-        # immediate scheme's chunk is one minibatch.
+        # the multislice kernel's stored records (2 per probe mode).  Off
+        # the per-angle path the chunk is one minibatch.
         patch_bytes = mb * geo.probe_size[0] * geo.probe_size[1] * nz_patch * 8
         obj_bytes = int(np.prod(geo.obj_size)) * 8
         hbm = _prof.hbm_limit_bytes(dev)
-        if (not self._immediate and cfg.train.stream_rotation == 'auto'
+        if (self._angles and cfg.train.stream_rotation == 'auto'
                 and self._prebin and obj_bytes > hbm * (1.5 / 16)):
             raise NotImplementedError(
                 f'objects that need the streaming rotation: {_REST}')
@@ -370,7 +407,7 @@ class Reconstructor:
                               and dev.type == 'cuda')))
         bufs = 6 + 2 * cfg.train.n_probe_modes if kernel_db else 6
         self._fuse_g = 1
-        if not self._immediate:
+        if self._angles:
             self._fuse_g = (int(max(1, min(64, avail // max(
                 1, bufs * patch_bytes)))) if avail > 0 else 1)
             # A smaller chunk that lets the dataset live on the device
@@ -390,7 +427,7 @@ class Reconstructor:
         # for the grid scatter (row-by-row scatters are ROADMAP A, the rest
         # of the per-angle path).
         self._grid_scatter_rows = None
-        if not self._immediate:
+        if self._angles:
             full = patch_ops.detect_full_grid(self.probe_pos, mb,
                                               geo.probe_size)
             if full is not None and self.n_pos % mb == 0:
@@ -778,6 +815,7 @@ class Reconstructor:
         g_obj[lo:hi] += g_band[lo - y0:hi - y0]
         self.apply_step({**g_aux, 'obj': g_obj}, self.i_opt_batch,
                         self.global_batch)
+        self.i_opt_batch += 1
         return loss[0]
 
     def loss_fn(self, params, batch, measured):
@@ -797,51 +835,111 @@ class Reconstructor:
                 self.reg_list, params['obj'], weight_l1=self.weight_l1)
         return loss
 
-    @torch.no_grad()
-    def step(self, i_theta: int, inds, measured) -> torch.Tensor:
-        """One immediate update by autograd through the whole forward
-        model, the object's rotation included.  Returns the batch's loss,
-        on the device."""
+    def _grad_step(self, i_theta: int, inds, measured, obj=None):
+        """The batch's loss (:meth:`loss_fn`) and its gradient in every
+        refined leaf, by autograd through the whole forward model (the
+        object's rotation included where the model rotates).  ``obj``: the
+        object to differentiate at in place of ``params['obj']`` (the
+        object rotated out of the loop).  Returns ``(loss, {name:
+        grad})``, on the device."""
         names = list(self.specs)
         params = {k: v.detach().requires_grad_(k in self.specs)
                   for k, v in self.params.items()}
+        if obj is not None:
+            params['obj'] = obj.detach().requires_grad_('obj' in self.specs)
         batch = {'i_theta': i_theta, 'theta': float(self.theta_ls[i_theta]),
                  'pos_batch': self.probe_pos[inds].astype(np.float32),
                  'ind_batch': np.asarray(inds)}
         with torch.enable_grad():
             loss = self.loss_fn(params, batch, measured)
-            grads = torch.autograd.grad(loss, [params[k] for k in names])
-        self.apply_step(dict(zip(names, grads)), self.i_opt_batch,
-                        self.global_batch)
-        return loss.detach()
+            grads = torch.autograd.grad(loss, [params[k] for k in names],
+                                        allow_unused=True)
+        return loss.detach(), {
+            k: torch.zeros_like(params[k]) if g is None else g
+            for k, g in zip(names, grads)}
+
+    @torch.no_grad()
+    def accum_step(self, acc: Dict[str, Any], i_theta: int, inds, measured,
+                   last_of_angle: bool) -> torch.Tensor:
+        """One batch of the accumulate-then-update loop: its gradient adds
+        into ``acc['grads']`` (the epoch's running state), and the sum is
+        applied as one update at the angle's last batch ('per angle') or
+        after ``n_batch_per_update`` batches ('immediate'; every batch at
+        the default of 1, the generic immediate step).  With the
+        rotation out of the loop the gradient is taken at the object
+        rotated when the angle began (``acc['obj_rot']``, stale within the
+        angle after an update), and only the object's sum is rotated back
+        before the update.  Returns the batch's loss, on the device."""
+        t = self.cfg.train
+        theta = float(self.theta_ls[i_theta])
+        obj_rot = None
+        if self._rol:
+            if acc.get('angle') != i_theta:
+                acc['obj_rot'] = rotate(self.params['obj'], theta,
+                                        method=t.interpolation)
+                acc['angle'] = i_theta
+            obj_rot = acc['obj_rot']
+        loss, grads = self._grad_step(i_theta, inds, measured, obj_rot)
+        if acc.get('grads') is None:
+            acc['grads'], acc['n'] = grads, 0
+        else:
+            for k, g in grads.items():
+                acc['grads'][k].add_(g)
+        acc['n'] += 1
+        if t.update_scheme == 'per angle':
+            due = last_of_angle
+        else:
+            due = last_of_angle or acc['n'] >= t.n_batch_per_update
+        if due:
+            grads = acc.pop('grads')
+            if self._rol and 'obj' in grads:
+                # Back in the object's frame: the exact transpose of the
+                # rotation, or the rotation by -theta (the reference's).
+                g = grads['obj']
+                grads['obj'] = (
+                    rotate_adjoint(g, theta, method=t.interpolation)
+                    if t.exact_grad_rotation
+                    else rotate(g, -theta, method=t.interpolation))
+            self.apply_step(grads, self.i_opt_batch, self.global_batch)
+            self.i_opt_batch += 1
+        return loss
 
     # -- epochs ------------------------------------------------------------
     def epoch_fused(self, batches, i_epoch: int = 0,
                     skip: int = 0) -> torch.Tensor:
-        """An immediate epoch from batch ``skip`` on: one update per
-        minibatch, through :meth:`step_band` where the scan table is grid
-        rows (in 3D), else :meth:`step`.  The batches' rows of the
-        device-resident dataset are gathered by one index table moved to
-        the device once.  The reweighted-L1 weights refresh every
-        :data:`WEIGHT_L1_INTERVAL` batches and the support shrinks every
-        ``shrink_cycle``, both on the device.  Returns the per-batch
+        """An epoch of batch-by-batch steps from batch ``skip`` on: the
+        immediate scheme's one update a minibatch through
+        :meth:`step_band` where the scan table is grid rows (in 3D), else
+        the accumulate-then-update loop (:meth:`accum_step`, which updates
+        every batch unless the configuration accumulates).  The batches'
+        rows of the device-resident
+        dataset are gathered by one index table moved to the device once.
+        The reweighted-L1 weights refresh every :data:`WEIGHT_L1_INTERVAL`
+        batches and the support shrinks every ``shrink_cycle``, both on
+        the device.  Checkpoints fall on batches; one in the middle of an
+        accumulation does not hold the partial sum, so a resume starts a
+        new one (as the JAX package's does).  Returns the per-batch
         losses, on the device."""
         t = self.cfg.train
-        step = self.step_band if self._band else self.step
         rows = [inds if self.expand_indices is None
                 else self.expand_indices(inds, self.n_pos, self.cfg)
                 for _, inds in batches]
         inds_dev = torch.as_tensor(np.stack(rows), device=self.device)
         data = self._dataset()
         n_b = len(batches)
+        acc: Dict[str, Any] = {}
         losses = []
         for i_batch in range(skip, n_b):
             i_theta, inds = batches[i_batch]
             if self._needs_weight_l1 and i_batch % WEIGHT_L1_INTERVAL == 0:
                 self.weight_l1 = self._weight_l1_refresh(self.params['obj'])
-            losses.append(step(i_theta, inds,
-                               data[i_theta][inds_dev[i_batch]]))
-            self.i_opt_batch += 1
+            measured = data[i_theta][inds_dev[i_batch]]
+            if self._band:
+                losses.append(self.step_band(i_theta, inds, measured))
+            else:
+                last = i_batch + 1 == n_b or batches[i_batch + 1][0] != i_theta
+                losses.append(self.accum_step(acc, i_theta, inds, measured,
+                                              last))
             self.global_batch += 1
             if (self.finite_support_mask is not None
                     and t.shrink_cycle is not None and i_batch > 0
@@ -923,12 +1021,12 @@ class Reconstructor:
         if i_epoch == self._start_epoch and self._start_batch:
             skip = min(self._start_batch, len(batches))
             self._start_batch = 0
-        timer = 'train_step' if self._immediate else 'angle_step'
+        timer = 'angle_step' if self._angles else 'train_step'
         with self.timers.time(timer):
-            if self._immediate:
-                losses, first = self.epoch_fused(batches, i_epoch, skip), skip
-            else:
+            if self._angles:
                 losses, first = self.angles_epoch(batches, i_epoch, skip)
+            else:
+                losses, first = self.epoch_fused(batches, i_epoch, skip), skip
             losses = losses.double().cpu().numpy()
         if callback is not None or self._logger is not None:
             for b, loss in enumerate(losses, start=first):

@@ -1,6 +1,8 @@
 """Forward simulation of measurement data (``adorym_tpu/simulate.py``):
 the port's forward model (ptychography, or with ``model=`` the
-multi-distance model's holograms) on a known object, without autograd, on
+multi-distance model's holograms; each with its projection, sparse and
+CTF branches as the geometry and ``forward_algorithm`` select them) on a
+known object, without autograd, on
 the run's device (CUDA unless the caller passes ``device='cpu'``), written
 to the reference's HDF5 layout by :func:`simulate_to_file`."""
 

@@ -62,7 +62,7 @@ Phases (any failure raises and exits nonzero):
   6a. the immediate flagship with the adhesin demo's regularizers scaled
      to 256^3, a support cylinder, shrink-wrap, an output folder and
      checkpoints every 10 batches, through ``Reconstructor.run()``: a
-     warmup and 2 timed epochs (patterns/s, peak memory, seconds a
+     warmup and a timed epoch (patterns/s, peak memory, seconds a
      checkpoint, launches), then a resume from a mid-epoch checkpoint,
      held to the uninterrupted run at 1e-5 (its epochs, without
      checkpoints, timed), and the reference's output file names;
@@ -88,8 +88,29 @@ Phases (any failure raises and exits nonzero):
      the CPU (losses and refined positions); 200 epochs with the position
      updates held back 50, the residual falling below its start;
   7d. BASELINE #4 (``demos/2d_multidist_holography_w_affine.py``) at the
-     demo's size, 200 epochs, with the distance error before and after.
-Phase 3 also holds K1 with per-spot waves (made by position refinement's
+     demo's size, 200 epochs, with the distance error before and after;
+  8. small configurations of each path of the accumulate-then-update loop
+     and each new forward model on CUDA and on the CPU (the rotation
+     inside autodiff per angle, with tilt, immediate with the rotation
+     out of the loop, two batches an update, the band step under a
+     refined kappa, sparse slices, line projections, the multi-distance
+     CTF): losses within 1e-4;
+  8a-8d. the flagship geometry (two angles) through the accumulate loop:
+     per angle with the rotation inside autodiff (8a) and with the tilts
+     refined (8b), immediate with the rotation out of the loop (8c) and
+     with four batches an update (8d): a warmup and a timed epoch, one
+     angle under the profiler, K1's launches an angle;
+  8e. sparse slices at [0, 10e-4] cm over a [256, 256, 2] object at the
+     flagship's probe and scan, the positions refined (the band step: K6
+     on each row's patch-major gradient of the two slices);
+  8f. line-projection tomography of a 256^3 object (minus-logged, 16
+     angles of 256^2);
+  8g. 7d's configuration with the CTF forward algorithm and kappa
+     refined.
+Phase 3 also holds K1 under ``beta = kappa delta`` and in -z (the
+branches of ``multislice_propagate`` that phase 8 adds), K6 at 8e's
+patch-major row of two slices, and K1 with
+per-spot waves (made by position refinement's
 phase ramps; N=23 with the far field folded, N=529 without), and K1, K4
 and K5 on their global route at planes no shared-memory route takes (96^2,
 96^2 at three modes, 128^2) against their plain versions, then runs those
@@ -126,6 +147,15 @@ FLAGSHIP = dict(n_obj=256, n_probe=72, mb=23, binning=8, stride=8,
 
 def log(*a):
     print(*a, flush=True)
+
+
+#: perf_counter at the start of main; :func:`stamp` logs the time since.
+T0 = time.perf_counter()
+
+
+def stamp(what):
+    """Log the seconds since the script started, at the end of a phase."""
+    log(f'time: {what} done at {time.perf_counter() - T0:.1f} s')
 
 
 def time_ms(fn, reps):
@@ -1021,8 +1051,9 @@ def check_rowgrid_scatter():
     (patch-major, so each row's patches are contiguous) into the padded
     accumulator [260, 260, 32, 2].  No path gives K6 this layout (the
     immediate path gives it the z-major gradient, :func:`check_rowgrid_
-    scatter_zmajor`): this is its only run.  Library yardstick: ``F.fold``
-    of one row, 23 times."""
+    scatter_zmajor`; phase 8e patch-major rows of 2 slices, :func:`check_
+    rowgrid_scatter_sparse`): this is its only run.  Library yardstick:
+    ``F.fold`` of one row, 23 times."""
     from adorym_tpu_torch.ops import cuda_scatter_grid as csg
     dev = torch.device('cuda')
     rows, s, n, zb = 23, 8, 72, 32
@@ -1065,8 +1096,10 @@ def check_rowgrid_scatter():
                  'adorym_tpu/ops/pallas_scatter_grid.py:193', err, rel, tol,
                  ms, plain, b, by, lib, 'K6', None)
     rec.update(instantiation='vec', launches_note=(
-        'patch-major rows are on no path (the immediate path gives K6 the '
-        'z-major gradient): checked here against its plain version only'))
+        'patch-major rows of 32 binned slices are on no path (the '
+        'immediate path gives K6 the z-major gradient; 8e gives it '
+        'patch-major rows of 2 slices, its own record): checked here '
+        'against its plain version only'))
     return [rec]
 
 
@@ -1141,6 +1174,54 @@ def check_rowgrid_scatter_zmajor(dtype):
                  'adorym_tpu/ops/pallas_scatter_grid.py:193', err, rel, tol,
                  ms, plain, b, by, lib, 'K6', 'immediate')
     rec.update(instantiation='vec', scalar_ms=ms_s)
+    return [rec]
+
+
+def check_rowgrid_scatter_sparse():
+    """K6 at phase 8e's layout: one grid row of 23 patch-major cotangents
+    [23, 72, 72, 2, 2] (the two sparse slices; the band step extracts
+    patch-major there) into the band accumulator [72, 260, 2, 2] at x = 0.
+    Held to the plain version at 1e-5; the path's vector instantiation
+    must be the one launched.  Library yardstick: ``F.fold`` of the row,
+    on a pre-permuted input."""
+    from adorym_tpu_torch.ops import cuda_scatter_grid as csg
+    dev = torch.device('cuda')
+    cols, s, n, nz = 23, 8, 72, 2
+    gen = torch.Generator(device=dev).manual_seed(27)
+    cot = torch.randn((cols, n, n, nz, 2), device=dev, generator=gen)
+    acc0 = torch.randn((n, BAND_X + BAND_PAD, nz, 2), device=dev,
+                       generator=gen)
+    routes = csg.K6_ROUTE_LAUNCHES
+    r0 = dict(routes)
+    got = csg.scatter_rowgrid_add_kernel(acc0.clone(), cot, 0, 0, s)
+    took = {r: routes[r] - r0[r] for r in routes}
+    ref = csg.scatter_rowgrid_add(acc0.clone(), cot, 0, 0, s)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    tol = 1e-5           # the same f32 values, <= 9 terms, other orders
+    log(f'K6 patch-major, 2 slices (one row, 8e): max_abs {err:.3e} rel '
+        f'{rel:.3e} (tol {tol}); instantiations launched {took}')
+    if took != {'vec': 1, 'scalar': 0}:
+        raise AssertionError(f'K6 8e: instantiations launched {took}, '
+                             'expected the vector one')
+    if not rel < tol:
+        raise AssertionError('K6 8e: kernel disagrees with its plain '
+                             'version')
+    acc = acc0.clone()
+    ms = time_ms(lambda: csg.scatter_rowgrid_add_kernel(acc, cot, 0, 0, s),
+                 50)
+    plain = time_ms(lambda: csg.scatter_rowgrid_add(acc, cot, 0, 0, s), 10)
+    tx = (cols - 1) * s + n
+    cols_in = cot.reshape(cols, n * n, 2 * nz).permute(2, 1, 0).reshape(
+        1, 2 * nz * n * n, cols).contiguous()
+    lib = time_ms(lambda: torch.nn.functional.fold(
+        cols_in, (n, tx), (n, n), stride=s), 50)
+    b, by = bound(csg.bytes_moved(cot.shape, s, 1, 4), float(cot.numel()))
+    rec = record('K6 scatter_rowgrid patch-major 2 slices (float32)',
+                 'adorym_tpu_torch/csrc/grid_scatter.cu',
+                 'adorym_tpu/ops/pallas_scatter_grid.py:193', err, rel, tol,
+                 ms, plain, b, by, lib, 'K6', 'sparse')
+    rec.update(instantiation='vec')
     return [rec]
 
 
@@ -1383,25 +1464,34 @@ def run_flagship(bf16, path='delta_beta', n_timed=3, profile=True):
 
 
 def profile_epoch(rec, i_epoch):
+    return profile_call(lambda: rec.run_epoch(i_epoch), 'epoch')[0]
+
+
+def profile_call(fn, what):
+    """Run ``fn`` (which ends in a device-to-host fetch) under
+    torch.profiler, print its device time by kernel, the glue ops and the
+    host's waits, and return ``(the ops that ran on the device, the
+    device-busy share of the wall time)``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rec.run_epoch(i_epoch)
+        fn()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()       # slow on a long trace: once
+    events = [e for e in averages
               if getattr(e, 'device_type', None) is not None
               and str(e.device_type).endswith('CUDA')]
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    log(f'profile: epoch wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms '
-        f'({100 * busy / (wall * 1e3):.1f}%)')
+    log(f'profile: {what} wall {wall * 1e3:.2f} ms, device busy {busy:.2f} '
+        f'ms ({100 * busy / (wall * 1e3):.1f}%)')
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
         log(f'  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x '
             f'{e.key[:90]}')
     # Device time under the autograd nodes and the forward ops of the glue
     # around the kernels (for real_imag: the z binning's product, its
     # zero-safe backward, the channel selects); nested ops count in both.
-    ops = [e for e in prof.key_averages()
+    ops = [e for e in averages
            if (e.key.endswith(('Backward0', 'Backward1', 'Backward'))
                or e.key in ('aten::prod', 'aten::copy_', 'aten::contiguous',
                             'aten::reshape', 'aten::complex', 'aten::mul',
@@ -1414,18 +1504,19 @@ def profile_epoch(rec, i_epoch):
             f'host {e.cpu_time_total / 1e3:8.3f} ms {e.count:5d}x')
     # Host-side waits and copies: each blocking host-to-device copy drains
     # the stream, so the device idles until the host queues more work.
-    for e in prof.key_averages():
+    for e in averages:
         if any(w in e.key for w in ('Memcpy', 'memcpy', 'Synchronize')):
             log(f'  host {e.cpu_time_total / 1e3:9.3f} ms device '
                 f'{e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x '
                 f'{e.key[:80]}')
     # The host's own time by op (self time, outside its children): where
     # the gaps between the device's work come from.
-    for e in sorted(prof.key_averages(),
+    for e in sorted(averages,
                     key=lambda e: -e.self_cpu_time_total)[:12]:
         log(f'  host self {e.self_cpu_time_total / 1e3:9.3f} ms '
             f'{e.count:6d}x {e.key[:80]}')
-    return {e.key for e in prof.key_averages() if e.device_time_total > 0}
+    return ({e.key for e in averages if e.device_time_total > 0},
+            busy / (wall * 1e3))
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1576,12 +1667,12 @@ def adhesin_phantom():
     return np.stack([vol * 1e-3, vol * 3e-5], -1).astype(np.float32)
 
 
-def flagship_regularized_config(path, **io):
+def flagship_regularized_config(path, n_epochs=3, **io):
     """The f32 flagship of ``path`` ('immediate' or 'delta_beta') with the
     adhesin demo's regularizers scaled to the object (reweighted L1,
     alpha_d = 1e-9 N^3 and alpha_b = 1e-10 N^3 with N = 256, and the
-    reference API's default TV weight 1e-6), shrink-wrap every 10 batches
-    and the given IO settings."""
+    reference API's default TV weight 1e-6), shrink-wrap every 10 batches,
+    ``n_epochs`` epochs and the given IO settings."""
     import dataclasses
     import adorym_tpu_torch as pt
     cfg = flagship_config(False, path)
@@ -1589,7 +1680,8 @@ def flagship_regularized_config(path, **io):
     return cfg.replace(
         loss=pt.LossConfig(alpha_d=1e-9 * n ** 3, alpha_b=1e-10 * n ** 3,
                            gamma=1e-6, reweighted_l1=True),
-        train=dataclasses.replace(cfg.train, n_epochs=3, shrink_cycle=10),
+        train=dataclasses.replace(cfg.train, n_epochs=n_epochs,
+                                  shrink_cycle=10),
         io=pt.IOConfig(**io))
 
 
@@ -1626,20 +1718,20 @@ def run_immediate_api(work):
     """Phase 6a: the immediate flagship with regularizers, support,
     shrink-wrap, an output folder and checkpoints at the reference's
     default cadence (every 10 batches: 9 an epoch of 92, and the final
-    one), through ``Reconstructor.run()``: a warmup and 2 timed epochs.
+    one), through ``Reconstructor.run()``: a warmup and a timed epoch.
     The folder's state after epoch 0's last mid-epoch checkpoint (the next
     batch 90) is copied, as a run killed there would leave it; a new
     Reconstructor resumes from the copy without checkpoints and must end
     where the uninterrupted run ends (losses at rtol 1e-5, the object to
-    1e-5 of its largest entry); its two whole epochs are the epoch walls
-    without checkpoints.  Returns {metric: value}."""
+    1e-5 of its largest entry); its whole epoch is the epoch wall without
+    checkpoints.  Returns {metric: value}."""
     import shutil
     import adorym_tpu_torch as pt
     f = FLAGSHIP
     kw = flagship_inputs()
     a_dir, b_dir = work / 'imm_a', work / 'imm_b'
     cfg = flagship_regularized_config(
-        'immediate', store_checkpoint=True, use_checkpoint=False,
+        'immediate', n_epochs=2, store_checkpoint=True, use_checkpoint=False,
         n_batch_per_checkpoint=10)
     rec = pt.Reconstructor(cfg, output_folder=str(a_dir), **kw)
     if rec.device.type != 'cuda' or not rec._band:
@@ -1664,7 +1756,7 @@ def run_immediate_api(work):
         f'each); peak memory {peak:.2f} GB; launches {launches}')
     if not np.all(np.isfinite(res['loss_history'])):
         raise AssertionError('6a: non-finite loss')
-    expect_launches(launches, 'immediate', 3 * f['n_theta'] * 23, '6a')
+    expect_launches(launches, 'immediate', 2 * f['n_theta'] * 23, '6a')
     names = {str(p.relative_to(a_dir)) for p in a_dir.rglob('*')
              if p.is_file()}
     want = {'summary.txt', 'convergence/loss_rank_0.txt', 'delta_ds_1.tiff',
@@ -1717,7 +1809,7 @@ def run_immediate_api(work):
     log(f'6a regularizers on the 256^3 object: value and gradient '
         f'{reg_ms:.3f} ms a batch, reweighted-L1 weights {wl1_ms:.3f} ms '
         f'every 10 batches')
-    profile_epoch(rec, 3)
+    profile_epoch(rec, 2)
     del rec, obj
     torch.cuda.empty_cache()
     return {'patterns_s': [patterns / w for w in walls[1:]],
@@ -2551,6 +2643,433 @@ def run_multidist(work, n_epochs=200):
             'peak_gb': peak}
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+def check_multislice_branches():
+    """Phase 3, K1 on the new branches of ``multislice_propagate`` at the
+    shape the accumulate loop gives it (one grid row of 23 patches, 72^2,
+    256 slices binned by 8): under ``beta = kappa delta`` with a tensor
+    kappa and the far field folded (forward at 1e-4, the delta and kappa
+    gradients at 1e-3), and under the propagation in -z (the -z step
+    kernel on the FFT route, the flipped modulator sign; forward 1e-4,
+    delta and beta gradients 1e-3).  The plain side is the same call with
+    K1 swapped for its plain version, on the same inputs on the card."""
+    from adorym_tpu_torch.ops import cuda_multislice as cm
+    from adorym_tpu_torch.ops import propagate as prop
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(81)
+    n, N, nz = FLAGSHIP['n_probe'], FLAGSHIP['mb'], FLAGSHIP['n_obj']
+    delta = torch.rand((N, n, n, nz), device=dev, generator=gen) * 2e-4
+    beta = torch.rand((N, n, n, nz), device=dev, generator=gen) * 5e-6
+    wave = torch.randn((1, N, n, n), dtype=torch.complex64, device=dev,
+                       generator=gen)
+    g = torch.randn((1, N, n, n), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    kernel_fn = cm.multislice_db_stored_packed
+    for branch in ('kappa', 'backprop'):
+        res = {}
+        for side in ('kernel', 'plain'):
+            cm.multislice_db_stored_packed = (
+                kernel_fn if side == 'kernel'
+                else cm.multislice_db_stored_plain)
+            try:
+                d = delta.detach().requires_grad_()
+                b = beta.detach().requires_grad_()
+                kappa = torch.tensor(0.03, device=dev, requires_grad=True)
+                kw = dict(binning=FLAGSHIP['binning'], fused=True)
+                if branch == 'kappa':
+                    kw.update(kappa=kappa, final_prop={
+                        'free_prop_cm': 'inf', 'normalize_fft': False})
+                    leaves = (d, kappa)
+                else:
+                    kw.update(backprop=True)
+                    leaves = (d, b)
+                r0 = dict(cm.K1_ROUTE_LAUNCHES)
+                out = prop.multislice_propagate(
+                    d, b, wave, FLAGSHIP['energy_ev'], FLAGSHIP['psize_cm'],
+                    **kw)
+                grads = torch.autograd.grad(out, leaves, g)
+                torch.cuda.synchronize()
+                took = {r: cm.K1_ROUTE_LAUNCHES[r] - r0[r] for r in r0}
+            finally:
+                cm.multislice_db_stored_packed = kernel_fn
+            res[side] = (out.detach(),) + tuple(x.detach() for x in grads)
+            if side == 'kernel' and took != {'fft': 2, 'dense': 0,
+                                             'global': 0}:
+                raise AssertionError(f'K1 {branch}: launches by route '
+                                     f'{took}')
+        errs = [rel_err(a, b) for a, b in zip(res['kernel'], res['plain'])]
+        names = ('forward', 'g_delta', 'g_kappa' if branch == 'kappa'
+                 else 'g_beta')
+        log(f'K1 {branch} (N={N}, {nz} slices binned by '
+            f'{FLAGSHIP["binning"]}, FFT route): ' + '; '.join(
+                f'{nm} max_abs {e[0]:.3e} rel {e[1]:.3e}'
+                for nm, e in zip(names, errs))
+            + ' (tol 1e-4 forward, 1e-3 gradients)')
+        if not (errs[0][1] < 1e-4 and all(e[1] < 1e-3 for e in errs[1:])):
+            raise AssertionError(f'K1 {branch} disagrees with its plain '
+                                 'version')
+
+
+#: Phases 8a-8d: the flagship geometry through the accumulate-then-update
+#: loop (two angles of random data, Adam).
+LOOP_PATHS = {
+    # 'per angle' with the rotation inside autodiff: the whole object
+    # rotated in autograd every batch, one update an angle.
+    '8a': dict(update_scheme='per angle'),
+    # 8a with the tilts refined: three rotations a batch in autograd.
+    '8b': dict(update_scheme='per angle', refine=dict(optimize_tilt=True)),
+    # 'immediate' with the rotation out of the loop: the object rotated
+    # once an angle, the gradient rotated back every batch.
+    '8c': dict(update_scheme='immediate', rotate_out_of_loop=True),
+    # 'immediate' with four batches an update, the rotation in the loop.
+    '8d': dict(update_scheme='immediate', n_batch_per_update=4),
+}
+LOOP_THETA = 2
+
+
+def run_loop_flagship(path):
+    """A warmup epoch and a timed epoch of ``LOOP_THETA`` angles at the
+    flagship's full width through the accumulate loop, then one angle
+    under the profiler.  Checks K1's launches (one pair a batch, 23 an
+    angle; no other kernel) and returns {metric: value}."""
+    import adorym_tpu_torch as pt
+    f = FLAGSHIP
+    p = LOOP_PATHS[path]
+    pos = flagship_positions()
+    rng = np.random.default_rng(8)
+    data = rng.random((LOOP_THETA, len(pos), f['n_probe'], f['n_probe']),
+                      dtype=np.float32)
+    theta = np.linspace(0, np.pi, LOOP_THETA, endpoint=False)
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(f['n_obj'],) * 3,
+                             probe_size=(f['n_probe'],) * 2,
+                             energy_ev=f['energy_ev'], psize_cm=f['psize_cm'],
+                             free_prop_cm='inf', binning=f['binning']),
+        train=pt.TrainConfig(minibatch_size=f['mb'], learning_rate=1e-7,
+                             optimizer='adam',
+                             update_scheme=p['update_scheme'],
+                             rotate_out_of_loop=p.get('rotate_out_of_loop',
+                                                      False),
+                             n_batch_per_update=p.get('n_batch_per_update',
+                                                      1)),
+        refine=pt.RefineConfig(**p.get('refine', {})))
+    obj0 = (rng.random((f['n_obj'],) * 3 + (2,), dtype=np.float32)
+            * np.float32(1e-6))
+    rec = pt.Reconstructor(cfg, data=data, probe_pos=pos, theta_ls=theta,
+                           obj_init=obj0, probe_init=probe_modes(
+                               f['n_probe'], 1))
+    del obj0
+    if not rec._accum or rec.device.type != 'cuda':
+        raise AssertionError(f'{path}: not the accumulate loop on CUDA')
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = [rec.run_epoch(0)]
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses.append(rec.run_epoch(1))
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_b = 2 * LOOP_THETA * len(pos) // f['mb']
+    expect = {k: 0 for k in launches}
+    expect.update(K1_FWD=n_b, K1_BWD=n_b, K1_FFT=2 * n_b)
+    if launches != expect or not np.all(np.isfinite(losses)):
+        raise AssertionError(f'{path}: losses {losses}, launches {launches}, '
+                             f'expected {expect}')
+    # One angle under the profiler.
+    batches = rec.make_batches(np.random.default_rng(2))
+    first = [b for b in batches if b[0] == batches[0][0]]
+    _, busy = profile_call(lambda: rec.epoch_fused(first, 2).cpu(),
+                           f'{path} angle')
+    rate = LOOP_THETA * len(pos) / wall
+    k1_angle = n_b // (2 * LOOP_THETA)
+    extra = ''
+    if 'tilt_ls' in rec.params:
+        tl = rec.params['tilt_ls'].cpu().numpy()
+        if not np.all(np.isfinite(tl)):
+            raise AssertionError(f'{path}: tilts {tl}')
+        extra = (f'; tilts moved by {np.abs(tl[1:]).max():.3e} rad '
+                 f'(axes 1-2)')
+    log(f'{path} ({p}): losses {losses}; warmup {warm:.3f} s; timed epoch '
+        f'{wall:.3f} s, {rate:.1f} patterns/s; updates '
+        f'{rec.i_opt_batch}; device busy {100 * busy:.1f}% of a profiled '
+        f'angle; peak memory {peak:.2f} GB; K1 {k1_angle} forward + '
+        f'{k1_angle} backward launches an angle{extra}; {CARD}')
+    del rec
+    torch.cuda.empty_cache()
+    return dict(patterns_s=rate, busy=busy, peak_gb=peak, k1_angle=k1_angle)
+
+
+def run_sparse_flagship():
+    """Phase 8e: the flagship's probe and scan over a [256, 256, 2] object
+    at slice positions [0, 10e-4] cm, one view, the slice positions
+    refined (Adam, steps of 1e-8 cm) on the reference's default scheme
+    (the band step: plain FFTs through the two slices, K6 scattering each
+    row's patch-major gradient).  A warmup and a timed epoch.  Returns
+    (patterns/s, launches)."""
+    import adorym_tpu_torch as pt
+    f = FLAGSHIP
+    pos = flagship_positions()
+    rng = np.random.default_rng(9)
+    n = f['n_obj']
+    data = rng.random((1, len(pos), f['n_probe'], f['n_probe']),
+                      dtype=np.float32)
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(n, n, 2),
+                             probe_size=(f['n_probe'],) * 2,
+                             energy_ev=f['energy_ev'], psize_cm=f['psize_cm'],
+                             free_prop_cm='inf', slice_pos_cm_ls=(0, 10e-4)),
+        train=pt.TrainConfig(minibatch_size=f['mb'], learning_rate=1e-7),
+        refine=pt.RefineConfig(optimize_slice_pos=True,
+                               slice_pos_learning_rate=1e-8))
+    obj0 = (rng.random((n, n, 2, 2), dtype=np.float32) * np.float32(1e-4))
+    rec = pt.Reconstructor(cfg, data=data, probe_pos=pos,
+                           theta_ls=np.zeros(1), obj_init=obj0,
+                           probe_init=probe_modes(f['n_probe'], 1))
+    if not rec._band:
+        raise AssertionError('8e: not the band step')
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = [rec.run_epoch(0)]
+    t0 = time.perf_counter()
+    losses.append(rec.run_epoch(1))
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    rows = 2 * len(pos) // f['mb']
+    expect = {k: 0 for k in launches}
+    expect.update(K6=rows, K6_VEC=rows)
+    sp = rec.params['slice_pos_cm_ls'].cpu().numpy()
+    log(f'8e sparse slices [256, 256, 2] at [0, 10e-4] cm refined: losses '
+        f'{losses}; {len(pos) / wall:.1f} patterns/s; slice positions '
+        f'{sp.tolist()} cm; peak memory '
+        f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches '
+        f'{launches}; {CARD}')
+    if launches != expect or not np.all(np.isfinite(losses + sp.tolist())):
+        raise AssertionError(f'8e: launches {launches}, expected {expect}')
+    return len(pos) / wall, launches
+
+
+def run_line_projection():
+    """Phase 8f: line-projection tomography of a 256^3 object: the
+    projection approximation with minus-logged data, a 256^2 plane-wave
+    field, one position an angle, no propagation, 16 angles, the
+    reference's default scheme (the generic step: the whole object's
+    rotation in autograd).  A warmup and a timed epoch; no kernel runs."""
+    import adorym_tpu_torch as pt
+    n, n_theta = FLAGSHIP['n_obj'], 16
+    rng = np.random.default_rng(10)
+    data = rng.random((n_theta, 1, n, n), dtype=np.float32) * np.float32(
+        0.1)
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(n, n, n), probe_size=(n, n),
+                             energy_ev=FLAGSHIP['energy_ev'],
+                             psize_cm=FLAGSHIP['psize_cm'], free_prop_cm=0,
+                             pure_projection=True, is_minus_logged=True),
+        train=pt.TrainConfig(minibatch_size=1, learning_rate=1e-5,
+                             non_negativity=True))
+    # A small positive start: at a zero projection the magnitude's
+    # gradient vanishes.
+    obj0 = np.zeros((n, n, n, 2), np.float32)
+    obj0[..., 1] = rng.random((n, n, n), dtype=np.float32) * np.float32(1e-4)
+    rec = pt.Reconstructor(
+        cfg, data=data, probe_pos=np.zeros((1, 2)),
+        theta_ls=np.linspace(0, np.pi, n_theta, endpoint=False),
+        obj_init=obj0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = [rec.run_epoch(0)]
+    t0 = time.perf_counter()
+    losses.append(rec.run_epoch(1))
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    log(f'8f line projections (256^3, 16 angles of 256^2): losses {losses}; '
+        f'{n_theta / wall:.1f} projections/s; peak memory '
+        f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {CARD}')
+    if any(launches[k] for k in counters()) or not np.all(
+            np.isfinite(losses)):
+        raise AssertionError(f'8f: losses {losses}, launches {launches}')
+    return n_theta / wall
+
+
+def run_multidist_ctf(work, n_epochs=100):
+    """Phase 8g: 7d's configuration (BASELINE #4's geometry, 128^2, four
+    distances refined) with ``forward_algorithm='ctf'`` and
+    ``optimize_ctf_lg_kappa=True`` through ``reconstruct_ptychography``:
+    the CTF holograms of a delta_beta phantom (delta = the demo's phase /
+    10, kappa 50) simulated on the card, the run starting at
+    ``ctf_lg_kappa=1.5``."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.io import data as io_data
+    from adorym_tpu_torch.models import multidist
+    from adorym_tpu_torch.utils.initialize import initialize_probe
+    h = HOLO
+    n, dists = h['n'], h['dists']
+    ph = np.arctan2(*holo_phantom(n)[..., ::-1].transpose(3, 0, 1, 2))
+    obj = np.stack([ph / 10, ph / 500], -1).astype(np.float32)
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(n, n, 1), probe_size=(n, n),
+                             energy_ev=h['energy_ev'], psize_cm=h['psize_cm'],
+                             free_prop_cm=dists, n_dists=len(dists),
+                             two_d_mode=True, safe_zone_width=0),
+        train=pt.TrainConfig(minibatch_size=1, forward_algorithm='ctf',
+                             ctf_kappa=50.0))
+    pos = np.array([[0.0, 0.0]])
+    data = pt.simulate(cfg, obj, initialize_probe((n, n), 'plane'), pos,
+                       model=multidist)
+    ds = io_data.ArrayDataset(data, theta=np.zeros(1), probe_pos_px=pos,
+                              energy_ev=h['energy_ev'],
+                              psize_cm=h['psize_cm'])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = pt.reconstruct_ptychography(
+        fname='data.h5', save_path=str(work), output_folder='holo_ctf',
+        obj_size=(n, n, 1), two_d_mode=True, free_prop_cm=dists,
+        safe_zone_width=0, n_epochs=n_epochs, minibatch_size=1,
+        random_guess_means_sigmas=(0., 0., 0., 0.), probe_type='plane',
+        optimizer='adam', learning_rate=1e-3, forward_algorithm='ctf',
+        ctf_lg_kappa=1.5, optimize_ctf_lg_kappa=True,
+        ctf_lg_kappa_learning_rate=1e-2, optimize_free_prop=True,
+        free_prop_learning_rate=1e-6, unknown_type='delta_beta',
+        raw_data_type='magnitude', use_checkpoint=False,
+        save_intermediate=False, save_stdout=True, dataset=ds)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    rates = epoch_rates(work / 'holo_ctf')
+    s_epoch = statistics.median([1.0 / r for r in rates[1:]])
+    lgk = float(res['ctf_lg_kappa'][0])
+    log(f'8g multi-distance CTF (128^2, 4 distances, ctf_lg_kappa and '
+        f'free_prop_cm refined): losses {list(res["loss_history"][:2])} .. '
+        f'{list(res["loss_history"][-2:])}; s an epoch median {s_epoch:.5f} '
+        f'(call wall {wall:.2f} s for {n_epochs} epochs); ctf_lg_kappa 1.5 '
+        f'-> {lgk:.4f} (true {np.log10(50.0):.4f}); distances '
+        f'{res["free_prop_cm"].tolist()}; peak memory '
+        f'{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {CARD}')
+    if (not np.all(np.isfinite(res['loss_history']))
+            or any(launches[k] for k in counters())):
+        raise AssertionError(f'8g: losses {res["loss_history"]}, launches '
+                             f'{launches}')
+    return s_epoch
+
+
+def small_loop_agrees(kind):
+    """Phase 8 (small): CUDA against the CPU on a small configuration of
+    each new path, 2 epochs of GD, the per-epoch losses within 1e-4:
+    ``'8a'`` the per-angle scheme with the rotation inside autodiff;
+    ``'8b'`` with the tilts refined; ``'8c'`` the immediate scheme with
+    the rotation out of the loop; ``'8d'`` two batches an update;
+    ``'kappa'`` the band step under a refined kappa (K1 on ``beta = kappa
+    delta``); ``'8e'`` sparse slices refined; ``'8f'`` minus-logged line
+    projections; ``'8g'`` the multi-distance CTF with kappa refined.
+    Returns the CUDA run's launches."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.models import multidist
+    rng = np.random.default_rng(4)
+    theta = np.linspace(0, np.pi, 3, endpoint=False)
+    xs = np.arange(4) * 4
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+    size, probe_size = (32, 32, 32), (16, 16)
+    geo = dict(energy_ev=5000., psize_cm=1e-7, free_prop_cm='inf',
+               binning=2)
+    train = dict(minibatch_size=4, learning_rate=1e-3, optimizer='gd')
+    refine, model, aux_init = {}, None, None
+    probe0 = probe_modes(16, 1)
+    if kind in LOOP_PATHS:
+        p = LOOP_PATHS[kind]
+        train.update({k: v for k, v in p.items() if k != 'refine'})
+        if kind == '8d':
+            train['n_batch_per_update'] = 2
+        refine = dict(p.get('refine', {}), tilt_optimizer='gd',
+                      tilt_learning_rate=1e-3)
+    elif kind == 'kappa':
+        refine = dict(optimize_ctf_lg_kappa=True, ctf_lg_kappa_optimizer='gd',
+                      ctf_lg_kappa_learning_rate=1e-2)
+        aux_init = {'ctf_lg_kappa': -1.5}
+    elif kind == '8e':
+        size, theta = (32, 32, 2), np.zeros(1)
+        geo.update(slice_pos_cm_ls=(0.0, 1e-4), binning=1)
+        refine = dict(optimize_slice_pos=True, slice_pos_optimizer='gd',
+                      slice_pos_learning_rate=1e-12)
+    elif kind == '8f':
+        size, probe_size, pos = (16, 16, 16), (16, 16), np.zeros((1, 2))
+        geo.update(free_prop_cm=0, pure_projection=True,
+                   is_minus_logged=True, binning=1)
+        train['minibatch_size'] = 1
+        probe0 = None
+    elif kind == '8g':
+        size, probe_size, pos = (32, 32, 1), (32, 32), np.zeros((1, 2))
+        theta = np.zeros(1)
+        geo = dict(energy_ev=17500., psize_cm=1e-5,
+                   free_prop_cm=(0.05, 0.12), n_dists=2, two_d_mode=True,
+                   safe_zone_width=0)
+        train.update(minibatch_size=1, forward_algorithm='ctf',
+                     learning_rate=1e-3)
+        refine = dict(optimize_ctf_lg_kappa=True, ctf_lg_kappa_optimizer='gd',
+                      ctf_lg_kappa_learning_rate=1e-2)
+        model, probe0, aux_init = multidist, None, {'ctf_lg_kappa': 1.5}
+    n_rows = 2 if kind == '8g' else len(pos)
+    data = rng.random((len(theta), n_rows) + probe_size).astype(np.float32)
+    if kind == '8g':
+        data = 1 + 0.1 * data
+    obj0 = (rng.random(size + (2,)) * 1e-3).astype(np.float32)
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=size, probe_size=probe_size, **geo),
+        train=pt.TrainConfig(**train), refine=pt.RefineConfig(**refine))
+    out, leaves = {}, {}
+    reset_counts()
+    for dev in ('cuda', 'cpu'):
+        rec = pt.Reconstructor(cfg, data=data, probe_pos=pos, theta_ls=theta,
+                               obj_init=obj0.copy(), probe_init=probe0,
+                               aux_init=aux_init, model=model, device=dev)
+        out[dev] = [rec.run_epoch(e) for e in range(2)]
+        if dev == 'cuda':
+            launches = launch_counts()
+        leaves[dev] = {k: v.detach().cpu().numpy()
+                       for k, v in rec.params.items() if k != 'obj'}
+    rel = np.max(np.abs(np.subtract(out['cuda'], out['cpu']))
+                 / np.abs(out['cpu']))
+    moved = {k: float(np.max(np.abs(leaves['cuda'][k] - leaves['cpu'][k])))
+             for k in leaves['cpu'] if k != 'probe'}
+    log(f'8 small {kind}: losses cuda {out["cuda"]} cpu {out["cpu"]} rel '
+        f'{rel:.3e} (tol 1e-4); refined leaves CUDA - CPU max abs {moved}; '
+        f'launches {launches}')
+    if not rel < 1e-4:
+        raise AssertionError(f'8 small {kind}: CUDA and CPU losses disagree')
+    return launches
+
+
+def slice12_runs(work):
+    """Phase 8: the small CUDA-CPU agreements of each new path, then 8a-8g
+    at full width; returns ({path: metrics}, 8e's launches)."""
+    # 3 angles of 4 grid rows, 2 epochs: 24 batches, one K1 pair each on
+    # the 3D multislice paths; the band step (kappa) scatters by K6; the
+    # sparse path (one view) runs K6 alone; no kernel on the others.
+    k1 = {'K1_FWD': 24, 'K1_BWD': 24, 'K1_FFT': 48, 'K2': 0, 'K6': 0}
+    want = {'8a': k1, '8b': k1, '8c': k1, '8d': k1,
+            'kappa': dict(k1, K6=24), '8e': {'K1_FWD': 0, 'K6': 8},
+            '8f': {}, '8g': {}}
+    for kind, expect in want.items():
+        launches = small_loop_agrees(kind)
+        expect = expect or {k: 0 for k in counters()}
+        if any(launches[k] != v for k, v in expect.items()):
+            raise AssertionError(f'8 small {kind}: launches {launches}, '
+                                 f'expected {expect}')
+    res = {path: run_loop_flagship(path) for path in LOOP_PATHS}
+    res['8e'], sparse_launches = run_sparse_flagship()
+    res['8f'] = run_line_projection()
+    res['8g'] = run_multidist_ctf(work)
+    log('phase 8: ' + '; '.join(
+        f"{p} {r['patterns_s']:.1f} patterns/s, busy {100 * r['busy']:.1f}%"
+        f", peak {r['peak_gb']:.2f} GB, K1 {r['k1_angle']} pairs an angle"
+        for p, r in res.items() if isinstance(r, dict))
+        + f"; 8e {res['8e']:.1f} patterns/s; 8f {res['8f']:.2f} "
+        f"projections/s; 8g {res['8g']:.5f} s an epoch; {CARD}")
+    return res, sparse_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2570,6 +3089,7 @@ def main():
                                 'grid_extract.cu', 'multislice_fused.cu',
                                 'multislice_db.cu'])
     log(f'kernels built in {build_s:.2f} s')
+    stamp('build')
 
     kernels = []
     # This slice's shapes of K1: per-spot waves at one grid row with the
@@ -2579,6 +3099,7 @@ def main():
     kernels += check_per_spot_multislice(529, False)
     torch.cuda.empty_cache()
     kernels += check_large_planes()
+    stamp('phase 3: per-spot K1, large planes')
     for dtype, tol_bwd in ((torch.float32, 1e-3), (torch.bfloat16, 3e-2)):
         # f32: 32 steps of 72-deep sums in other orders than cuBLAS.  bf16:
         # the kernel rounds its records and gdb to bf16, autograd does not.
@@ -2594,6 +3115,7 @@ def main():
         for case in K2_CASES:
             kernels += check_grid_scatter(dtype, *case)
             torch.cuda.empty_cache()
+    stamp('phase 3: K1, K6 z-major, K3, K2')
     # f32: 31 steps of 72-point transforms (the FFT route's stages, the
     # dense route's DFT matmuls) against cuFFT, sums in other orders.
     kernels += check_fused_multislice(1e-4, 1e-3)
@@ -2606,7 +3128,11 @@ def main():
         kernels += check_invertible(dtype)
         torch.cuda.empty_cache()
     kernels += check_rowgrid_scatter()
+    kernels += check_rowgrid_scatter_sparse()
     adjoint_ms = check_band_adjoint()
+    # K1 under kappa and in -z (phase 8's branches).
+    check_multislice_branches()
+    stamp('phase 3: K5, K4, K6, band adjoint, K1 branches')
     # The f32 kernels of K1 and K4 against the complex128 sweep, each route.
     truth = check_truth()
     for k in kernels:
@@ -2624,6 +3150,7 @@ def main():
         log(f"{k['name']}: kernel_ms {k['kernel_ms']:.4f} plain_ms "
             f"{k['plain_ms']:.4f} bound_ms {k['bound_ms']:.4f} "
             f"({k['bound_by']}) library_ms {lib}{dense}")
+    stamp('phase 3')
 
     # Phases 4-4c, then 4d: the immediate flagship.  Each run checks its
     # launches: K6 on the immediate path only.
@@ -2635,6 +3162,7 @@ def main():
         run_path(kernels, path, bf16, n_timed)
     # Phases 7b and 7c: the same flagships with the positions refined.
     slice_flagships(kernels)
+    stamp('phases 4, 7b, 7c')
 
     # Phase 5: 16^2 patterns take K1's FFT route, one pair per angle and
     # epoch.
@@ -2689,6 +3217,7 @@ def main():
                         'K2': 0 if immediate else 6})
     small_config_agrees(immediate=True, regs=True, two_d=True,
                         expect={k: 0 for k in counters()})
+    stamp('phase 5')
 
     # Phases 6a-6c: the user's entry points, at full width, with outputs
     # and checkpoints in a scratch folder under build/ (removed at the
@@ -2698,9 +3227,15 @@ def main():
     with tempfile.TemporaryDirectory(dir=build) as work:
         work = Path(work)
         imm = run_immediate_api(work)
+        stamp('phase 6a')
         adhesin_launches = run_adhesin(work)
+        stamp('phase 6b')
         slice_api_runs(work)
+        stamp('phase 7')
+        _, sparse_launches = slice12_runs(work)
+        stamp('phase 8')
     angle_rate, angle_peak = run_per_angle_regularized()
+    stamp('phase 6c')
     log(f"phase 6: immediate with checkpoints "
         f"{statistics.median(imm['patterns_s']):.1f} patterns/s, without "
         f"{statistics.median(imm['patterns_s_no_ckpt']):.1f}, "
@@ -2709,6 +3244,8 @@ def main():
     for k in kernels:
         if k['path'] == 'adhesin':
             k['launches'] = adhesin_launches[k['counter']]
+        elif k['path'] == 'sparse':
+            k['launches'] = sparse_launches[k['counter']]
     return finish(kernels, smi)
 
 

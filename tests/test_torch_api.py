@@ -277,11 +277,11 @@ def test_adhesin_configuration_matches_jax(tmp_path):
     (dict(use_epie=True), 'A.6'),
     (dict(update_using_external_algorithm='ctf'), 'A.6'),
     (dict(forward_model='multidist'), 'A.5'),
-    (dict(forward_algorithm='ctf'), 'A.5'),
+    (dict(parallel_data_axis=2), 'A.7'),
     (dict(distribution_mode='shared_file'), 'A.7'),
     (dict(parallel_object_axis=2), 'A.7'),
     (dict(use_orbax=True), 'orbax'),
-    (dict(optimize_slice_pos=True), 'refinables'),
+    (dict(optimizer='curveball'), 'second-order'),
     (dict(optimizer='cg'), 'second-order')])
 def test_unported_branches_raise(data_file, over, match):
     params = reference_style_params(data_file, output_folder=None,

@@ -854,3 +854,66 @@ def test_position_correction_and_multidist_cuda_match_cpu(cuda):
             rec = pt.Reconstructor(cfg, device=dev, **kw)
             losses[dev] = [rec.run_epoch(e) for e in range(2)]
         np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-4)
+
+
+def _kappa_backprop_inputs(dev, seed=5):
+    rng = np.random.default_rng(seed)
+    delta = rng.uniform(0, 2e-3, (23, 72, 72, 16)).astype(np.float32)
+    beta = rng.uniform(0, 5e-5, delta.shape).astype(np.float32)
+    w = rng.normal(size=(1, 23, 72, 72, 2)).astype(np.float32)
+    g = rng.normal(size=(1, 23, 72, 72, 2)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (delta, beta)] + [
+        torch.view_as_complex(torch.from_numpy(a)).to(dev) for a in (w, g)]
+
+
+@pytest.mark.parametrize('branch', ['kappa', 'backprop'])
+def test_multislice_kappa_and_backprop_kernel_matches_plain(cuda, branch):
+    """K1 (FFT route at 72^2, one grid row of 23 patches, binning 2) under
+    ``beta = kappa delta`` with a tensor kappa and the far field folded in,
+    and under the propagation in -z (the -z step and the flipped modulator
+    sign), through ``multislice_propagate``: CUDA against its plain
+    version on the CPU; the forward at 1e-4, the gradients in delta,
+    beta and kappa at 1e-3."""
+    outs = []
+    for dev in (cuda, torch.device('cpu')):
+        delta, beta, wave, g = _kappa_backprop_inputs(dev)
+        delta.requires_grad_()
+        beta.requires_grad_()
+        kappa = torch.tensor(0.03, device=dev, requires_grad=True)
+        kw = dict(binning=2, fused=True)
+        if branch == 'kappa':
+            kw.update(kappa=kappa,
+                      final_prop={'free_prop_cm': 'inf',
+                                  'normalize_fft': False})
+        else:
+            kw.update(backprop=True)
+        before = cm.K1_FWD.launches
+        out = prop.multislice_propagate(delta, beta, wave, 5000.0, 1e-7,
+                                        **kw)
+        if dev.type == 'cuda':
+            assert cm.K1_FWD.launches == before + 1
+        leaves = [delta, kappa] if branch == 'kappa' else [delta, beta]
+        grads = torch.autograd.grad(out, leaves, g)
+        outs.append([out.detach().cpu()] + [x.cpu() for x in grads])
+    assert _rel(outs[0][0], outs[1][0]) < 1e-4
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        assert _rel(a, b) < 1e-3
+
+
+@pytest.mark.parametrize('axis', [1, 2])
+def test_rotate_other_axes_cuda_matches_cpu(cuda, axis):
+    """Rotation about axes 1 and 2 of a non-cubic volume on the card
+    against the CPU, with the gradient in the angle (the tilt path)."""
+    rng = np.random.default_rng(axis)
+    vol = rng.normal(size=(40, 56, 24, 2)).astype(np.float32)
+    g = rng.normal(size=vol.shape).astype(np.float32)
+    res = []
+    for dev in (cuda, torch.device('cpu')):
+        from adorym_tpu_torch.ops.rotate import rotate
+        th = torch.tensor(0.23, device=dev, requires_grad=True)
+        v = torch.from_numpy(vol).to(dev)
+        out = rotate(v, th, axis=axis)
+        gth, = torch.autograd.grad(out, th, torch.from_numpy(g).to(dev))
+        res.append((out.detach().cpu(), float(gth)))
+    assert _rel(res[0][0], res[1][0]) < 1e-6
+    assert abs(res[0][1] - res[1][1]) <= 1e-4 * abs(res[1][1])

@@ -370,13 +370,13 @@ def test_default_train_config_runs_the_band_step():
 
 
 @pytest.mark.parametrize('kw,match', [
-    (dict(refine=dict(optimize_slice_pos=True)), 'refinables'),
-    (dict(train=dict(forward_algorithm='ctf')), 'A.5'),
-    (dict(refine=dict(fixed_tilt=True)), 'tilt'),
-    (dict(refine=dict(optimize_ctf_lg_kappa=True)), 'refinables'),
+    (dict(train=dict(optimizer='curveball')), 'second-order'),
+    (dict(parallel=dict(data_axis=2)), 'device meshes'),
+    (dict(parallel=dict(object_axis=2)), 'device meshes'),
+    (dict(parallel=dict(offload_optimizer_state=True)), 'offload'),
     (dict(train=dict(optimizer='cg')), 'second-order'),
-    (dict(train=dict(n_batch_per_update=3)), 'n_batch_per_update'),
-    (dict(train=dict(rotate_out_of_loop=True)), 'rotate_out_of_loop=True')])
+    (dict(io=dict(use_orbax=True)), 'orbax'),
+    (dict(parallel=dict(offload_object=True)), 'offload')])
 def test_unported_immediate_configs_raise(kw, match):
     """What the immediate scheme still leaves out raises, naming its
     ROADMAP item."""
@@ -385,7 +385,9 @@ def test_unported_immediate_configs_raise(kw, match):
         geometry=pt.Geometry(**args[0]),
         loss=pt.LossConfig(**kw.get('loss', {})),
         refine=pt.RefineConfig(**kw.get('refine', {})),
-        train=pt.TrainConfig(minibatch_size=3, **kw.get('train', {})))
+        train=pt.TrainConfig(minibatch_size=3, **kw.get('train', {})),
+        parallel=pt.ParallelConfig(**kw.get('parallel', {})),
+        io=pt.IOConfig(**kw.get('io', {})))
     with pytest.raises(NotImplementedError, match=match):
         pt.Reconstructor(cfg, data=args[5], probe_pos=args[3],
                          theta_ls=args[4], obj_init=args[1], device='cpu')

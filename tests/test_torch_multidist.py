@@ -286,16 +286,23 @@ def test_multidist_trajectory(case):
 
 
 def test_multidist_per_angle_and_ctf_raise():
+    """The per-angle scheme of the multi-distance model takes the
+    accumulate-then-update loop and the CTF forward algorithm constructs,
+    as in the JAX package; a device mesh still raises (ROADMAP A.7)."""
     obj, probe, data = _holo_data()
-    for train, match in ((dict(update_scheme='per angle',
-                               rotate_out_of_loop=True), 'per-angle'),
-                         (dict(forward_algorithm='ctf'), r'A\.5 \(c\)')):
+    for train in (dict(update_scheme='per angle', rotate_out_of_loop=True),
+                  dict(forward_algorithm='ctf')):
         cfg = _cfg(pt)
         cfg = cfg.replace(train=pt.TrainConfig(
             minibatch_size=1, unknown_type='real_imag', **train))
-        with pytest.raises(NotImplementedError, match=match):
-            pt.Reconstructor(cfg, data=data, probe_pos=np.array([[0., 0.]]),
-                             model=tmd, device='cpu')
+        rec = pt.Reconstructor(cfg, data=data,
+                               probe_pos=np.array([[0., 0.]]), model=tmd,
+                               device='cpu')
+        assert rec._accum == ('update_scheme' in train)
+    with pytest.raises(NotImplementedError, match='multi-GPU'):
+        pt.Reconstructor(cfg.replace(parallel=pt.ParallelConfig(data_axis=2)),
+                         data=data, probe_pos=np.array([[0., 0.]]),
+                         model=tmd, device='cpu')
 
 
 # -- the demos' configurations through the entry point ---------------------

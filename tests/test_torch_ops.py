@@ -123,12 +123,17 @@ def test_multislice_propagate(fused, binning, prebinned):
 
 
 def test_multislice_propagate_unported_branches_raise():
+    """What ``multislice_propagate`` leaves out, as the JAX package does:
+    one slice repeated over binned steps, and a detector propagation after
+    a propagation in -z."""
     o = torch.zeros((1, 8, 8, 2))
     w = torch.ones((1, 1, 8, 8), dtype=torch.complex64)
-    with pytest.raises(NotImplementedError):
-        tprop.multislice_propagate(o, o, w, 5000.0, 1e-7, repeats=3)
-    with pytest.raises(NotImplementedError):
-        tprop.multislice_propagate(o, o, w, 5000.0, 1e-7, backprop=True)
+    with pytest.raises(NotImplementedError, match='binning'):
+        tprop.multislice_propagate(o, o, w, 5000.0, 1e-7, repeats=3,
+                                   binning=2)
+    with pytest.raises(ValueError, match='backprop'):
+        tprop.multislice_propagate(o, o, w, 5000.0, 1e-7, backprop=True,
+                                   final_prop={'free_prop_cm': 'inf'})
 
 
 def test_stored_switch_sized_from_device(monkeypatch):

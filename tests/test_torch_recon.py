@@ -157,12 +157,11 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize('train,match', [
-    (dict(update_scheme='immediate', rotate_out_of_loop=True),
-     'the immediate scheme'),
-    (dict(n_batch_per_update=2), 'the immediate scheme'),
+    (dict(stream_rotation='on'), 'the immediate scheme'),
+    (dict(exact_grad_rotation=True), 'the immediate scheme'),
     (dict(randomize_probe_pos=True), 'the rest of the per-angle path'),
     (dict(optimizer='cg'), 'API and tools'),
-    (dict(rotate_out_of_loop=False), 'the immediate scheme')])
+    (dict(patch_grad=True), 'the immediate scheme')])
 def test_unported_configs_raise(train, match):
     data, pos, theta, obj0 = _setup()
     cfg = _cfg(pt)

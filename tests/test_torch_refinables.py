@@ -332,11 +332,21 @@ def test_build_aux_params_inits_and_unported_raise():
                                  prj_affine_init=aff)
     np.testing.assert_array_equal(p['probe_pos_correction'].numpy(), init)
     np.testing.assert_array_equal(p['prj_affine_ls'].numpy(), aff)
-    for flag in ('optimize_slice_pos', 'optimize_tilt', 'fixed_tilt',
-                 'optimize_ctf_lg_kappa'):
-        bad = cfg.replace(refine=pt.RefineConfig(**{flag: True}))
-        with pytest.raises(NotImplementedError, match=r'A\.5 \(c\)'):
-            tparams.build_aux_params(bad, 1, 2)
+    # Slice positions, tilt and kappa build as in the JAX package; slice
+    # positions need their initial values.
+    for flag in ('optimize_tilt', 'fixed_tilt', 'optimize_ctf_lg_kappa'):
+        on = cfg.replace(refine=pt.RefineConfig(**{flag: True}))
+        jon = jpkg.ReconConfig(geometry=jpkg.Geometry(obj_size=(8, 8, 1),
+                                                      probe_size=(8, 8)),
+                               refine=jpkg.RefineConfig(**{flag: True}))
+        tp = tparams.build_aux_params(on, 1, 2)
+        jp = jparams.build_aux_params(jon, 1, 2)
+        assert sorted(tp) == sorted(jp)
+        for k in jp:
+            np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]))
+    with pytest.raises(ValueError, match='slice_pos_cm_ls'):
+        tparams.build_aux_params(
+            cfg.replace(refine=pt.RefineConfig(optimize_slice_pos=True)), 1, 2)
     with pytest.raises(ValueError, match='first-order'):
         tparams.build_opt_specs(cfg.replace(refine=pt.RefineConfig(
             optimize_all_probe_pos=True,

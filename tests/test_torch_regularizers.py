@@ -358,8 +358,8 @@ def test_regularized_gd_trajectory_matches_jax(case):
     jr, jl, jo, jm = _run(jcfg, args, **kw)
     _, _, jo_on, _ = _run(jcfg, args, fused_multislice='on', **kw)
     tr, tl, to, tm = _run(pt, args, **kw)
-    assert (tr._band, tr._immediate) == (kind == 'imm' or kind == 'imm_ri',
-                                         'update_scheme' not in train)
+    assert (tr._band, tr._angles) == (kind == 'imm' or kind == 'imm_ri',
+                                      'update_scheme' in train)
     np.testing.assert_allclose(tl, jl, rtol=1e-5)
     np.testing.assert_array_equal(tm, jm)
     inside = jm > 0
