@@ -12,16 +12,20 @@ band gather behind ``grid2d_extract`` (``:118``) and
 ``extract_grid2d_pallas`` (``:156``): the same windows copied out of the
 object, K2's exact transpose.  It is forward only: the Reconstructor
 differentiates with respect to the patches, and K2 carries their gradient
-back.  K6, ``scatter_rowgrid_add_pallas`` (``:193``), is K2's kernel for one
-grid row; the immediate scheme's band step launches it once a minibatch.
+back.  K6, ``csrc/rowgrid_scatter.cu``, replaces
+``scatter_rowgrid_add_pallas`` (``:193``, K2's kernel for one grid row):
+the immediate scheme's band step launches it once a minibatch, through a
+launch plan cached per operand shape (:func:`rowgrid_plan`), so that a
+call costs the host a dict lookup and one ctypes call.
 
-K2's kernel has two instantiations for each dtype and layout: ``'vec'``,
-in which a thread owns 16 bytes of contiguous cotangent elements (4 f32
-or 8 bf16), and ``'scalar'``, one element a thread, for the shapes and
-pointers the vector form does not take (:func:`vector_width` chooses by
-shape, dtype and alignment).  Both sum in the same order, so they agree
-bit for bit.  :data:`K2_ROUTE_LAUNCHES` and :data:`K6_ROUTE_LAUNCHES`
-count the launches of each.
+K2's and K6's kernels have two instantiations for each dtype and layout:
+``'vec'``, in which a thread owns 16 bytes of contiguous cotangent
+elements (4 f32 or 8 bf16), and ``'scalar'``, one element a thread, for
+the shapes and pointers the vector form does not take
+(:func:`vector_width` chooses by shape, dtype and alignment).  Both sum
+in the same order, so they agree bit for bit, and K6 sums as K2's kernel
+does at ``rows=1``.  :data:`K2_ROUTE_LAUNCHES` and
+:data:`K6_ROUTE_LAUNCHES` count the launches of each.
 
 Unlike the JAX package, which returns a new accumulator
 (``dynamic_update_slice``), the scatters update ``acc`` IN PLACE and
@@ -36,7 +40,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..utils.cuda_build import Kernel, ptr
+from ..utils.cuda_build import Kernel, ptr, stream_ptr
 from . import cuda_multislice as _cm
 
 _I = ctypes.c_int
@@ -45,10 +49,9 @@ K2 = Kernel('grid_scatter.cu', 'k2_grid_scatter_add',
             [_I, _I, _I, _P, _P] + [_I] * 9)
 K3 = Kernel('grid_extract.cu', 'k3_grid_extract',
             [_P, _P, _I, ctypes.c_longlong] + [_I] * 8)
-#: K6: the same entry point as K2, launched for one grid row at a time by
-#: :func:`scatter_rowgrid_add_kernel`; counted apart from K2.
-K6 = Kernel('grid_scatter.cu', 'k2_grid_scatter_add',
-            [_I, _I, _I, _P, _P] + [_I] * 9)
+#: K6: one grid row, launched by :func:`scatter_rowgrid_add_kernel`.
+K6 = Kernel('rowgrid_scatter.cu', 'k6_rowgrid_scatter_add',
+            [_I, _P, _P, _P, _I, _I])
 #: K2's and K6's launches by instantiation (:func:`vector_width`).
 K2_ROUTE_LAUNCHES = {'vec': 0, 'scalar': 0}
 K6_ROUTE_LAUNCHES = {'vec': 0, 'scalar': 0}
@@ -108,20 +111,27 @@ def scatter_grid2d_add_plain(acc, cot, y0, x0, stride, rows):
     return acc
 
 
-def _check_cuda_operands(acc, cot, y0, x0, stride, rows):
+def _check_operands(acc, cot, stride, rows):
+    """The checks of K2's and K6's operands that depend neither on their
+    device nor on the grid's origin; returns the tile's ``(Ty, Tx)``."""
     check_supported(cot.shape, stride, rows)
     if acc.dtype != torch.float32 or not acc.is_contiguous():
         raise ValueError('acc must be a contiguous float32 tensor')
     if cot.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f'cot must be float32 or bfloat16, got {cot.dtype}')
-    if not cot.is_cuda or cot.device != acc.device:
-        raise ValueError('acc and cot must share a CUDA device')
     if tuple(cot.shape[3:]) != tuple(acc.shape[2:]):
         raise ValueError(f'trailing dims differ: cot {tuple(cot.shape)}, '
                          f'acc {tuple(acc.shape)}')
     ty, tx = tile_shape(cot.shape, stride, rows)
     if ty > 65535:
         raise ValueError(f'tile height {ty} exceeds the launch grid')
+    return ty, tx
+
+
+def _check_cuda_operands(acc, cot, y0, x0, stride, rows):
+    ty, tx = _check_operands(acc, cot, stride, rows)
+    if not cot.is_cuda or cot.device != acc.device:
+        raise ValueError('acc and cot must share a CUDA device')
     if not (0 <= y0 and y0 + ty <= acc.shape[0]
             and 0 <= x0 and x0 + tx <= acc.shape[1]):
         raise ValueError(f'tile {ty}x{tx} at ({y0}, {x0}) leaves the '
@@ -176,15 +186,13 @@ def scatter_grid2d_add(acc, cot, y0, x0, stride, rows):
     y0, x0 = int(y0), int(x0)
     if not acc.is_cuda:
         return scatter_grid2d_add_plain(acc, cot, y0, x0, stride, rows)
-    return _launch_scatter(K2, K2_ROUTE_LAUNCHES, acc, cot, y0, x0, stride,
-                           rows)
+    return _launch_scatter(acc, cot, y0, x0, stride, rows)
 
 
-def _launch_scatter(kernel, routes, acc, cot, y0, x0, stride, rows,
-                    vec=None):
-    """Launch ``kernel`` (K2 or K6) with :func:`vector_width`'s
-    instantiation, or with ``vec=1`` the scalar one (the card tests and
-    chip_smoke compare the two), and count it in ``routes``."""
+def _launch_scatter(acc, cot, y0, x0, stride, rows, vec=None):
+    """Launch K2 with :func:`vector_width`'s instantiation, or with
+    ``vec=1`` the scalar one (the card tests and chip_smoke compare the
+    two), and count it in :data:`K2_ROUTE_LAUNCHES`."""
     _check_cuda_operands(acc, cot, y0, x0, stride, rows)
     channel_major = _channel_major(cot)
     if not channel_major:
@@ -200,10 +208,10 @@ def _launch_scatter(kernel, routes, acc, cot, y0, x0, stride, rows,
     elif vec not in (1, widest):
         raise ValueError(f'K2 takes {widest} or 1 elements a thread for '
                          f'these operands, not {vec}')
-    kernel(0 if cot.dtype == torch.float32 else 1, int(channel_major), vec,
-           ptr(cot), ptr(acc), rows, n // rows, py, px, channels, stride,
-           acc.shape[1], y0, x0)
-    routes['vec' if vec > 1 else 'scalar'] += 1
+    K2(0 if cot.dtype == torch.float32 else 1, int(channel_major), vec,
+       ptr(cot), ptr(acc), rows, n // rows, py, px, channels, stride,
+       acc.shape[1], y0, x0)
+    K2_ROUTE_LAUNCHES['vec' if vec > 1 else 'scalar'] += 1
     return acc
 
 
@@ -239,19 +247,117 @@ def scatter_rowgrid_add(acc, cot, y0, x0, stride):
     return acc
 
 
+class _K6Row(ctypes.Structure):
+    """The row's geometry as ``csrc/rowgrid_scatter.cu`` reads it
+    (``K6Row``)."""
+    _fields_ = [(f, ctypes.c_int) for f in ('N', 'py', 'px', 'C', 'stride',
+                                             'Xa')]
+
+
+class RowgridPlan:
+    """K6's launch for one key of operands (:func:`rowgrid_plan`): the
+    checks that do not depend on the row's origin, done once, and what the
+    launch needs.
+
+    ``layout``: ``'channel'`` (``cot[N, py, px, *tr]`` a view of
+    contiguous ``[*tr, N, py, px]`` memory, the z-major gradient, read in
+    place), ``'patch'`` (contiguous) or ``'copy'`` (any other view, made
+    contiguous at each call and then read as ``'patch'``).  ``vec``: the
+    elements a thread owns, 16 bytes' worth where :func:`vector_width`
+    allows (without the bulk-copy buffers of K2, which K6 has not), else
+    1; ``vec=1`` asked for forces the scalar instantiation, and any other
+    width than those two raises.  ``route``: ``'vec'`` or ``'scalar'``.
+    ``kind``: the C entry's instantiation (bit 0 bf16, bit 1
+    channel-major, bit 2 the vector one).  ``y_max``, ``x_max``: the
+    largest origin that keeps the row's tile inside the accumulator."""
+
+    __slots__ = ('layout', 'vec', 'route', 'kind', 'row', 'row_ptr',
+                 'y_max', 'x_max')
+
+    def __init__(self, acc, cot, stride, aligned, vec=None):
+        ty, tx = _check_operands(acc, cot, stride, 1)
+        n, py, px = cot.shape[:3]
+        self.y_max, self.x_max = acc.shape[0] - ty, acc.shape[1] - tx
+        if self.y_max < 0 or self.x_max < 0:
+            raise ValueError(f'tile {ty}x{tx} leaves the accumulator '
+                             f'{tuple(acc.shape[:2])}')
+        channels = int(np.prod(cot.shape[3:])) if cot.dim() > 3 else 1
+        channel_major = _channel_major(cot)
+        self.layout = ('channel' if channel_major else
+                       'patch' if cot.is_contiguous() else 'copy')
+        widest = vector_width(cot.element_size(), channels, stride,
+                              channel_major) if aligned else 1
+        if vec is None:
+            vec = widest
+        elif vec not in (1, widest):
+            raise ValueError(f'K6 takes {widest} or 1 elements a thread for '
+                             f'these operands, not {vec}')
+        self.vec = vec
+        self.route = 'vec' if vec > 1 else 'scalar'
+        self.kind = (int(cot.dtype == torch.bfloat16) | 2 * channel_major
+                     | 4 * (vec > 1))
+        self.row = _K6Row(n, py, px, channels, stride, acc.shape[1])
+        self.row_ptr = ctypes.addressof(self.row)
+
+
+#: K6's plans by key (:func:`rowgrid_plan`).
+_ROWGRID_PLANS = {}
+
+
+def rowgrid_key(acc, cot, stride, vec=None):
+    """The key of K6's plan: the operands' shapes, strides and dtypes, the
+    stride, whether both pointers are 16-byte aligned, and the
+    instantiation asked for (None: the widest)."""
+    return (cot.shape, cot.stride(), cot.dtype, acc.shape, acc.stride(),
+            acc.dtype, stride, (acc.data_ptr() | cot.data_ptr()) % 16 == 0,
+            vec)
+
+
+def rowgrid_plan(acc, cot, stride, vec=None):
+    """K6's :class:`RowgridPlan` for these operands, built on the first
+    call with its key and reused after."""
+    key = rowgrid_key(acc, cot, stride, vec)
+    plan = _ROWGRID_PLANS.get(key)
+    if plan is None:
+        plan = _ROWGRID_PLANS[key] = RowgridPlan(acc, cot, stride, key[7],
+                                                 vec)
+    return plan
+
+
 def scatter_rowgrid_add_kernel(acc, cot, y0, x0, stride):
     """Counterpart of ``scatter_rowgrid_add_pallas``
-    (``pallas_scatter_grid.py:193``): one grid row through K2's kernel with
-    ``rows=1``, fused with the accumulator update, counted in :data:`K6`.
-    The immediate scheme's band step scatters each minibatch's row with it
-    (the z-major gradient read in place), where the JAX package's band
-    step calls the plain form, since per-row Pallas launches lost on the
-    TPU.  CPU tensors run :func:`scatter_rowgrid_add`."""
+    (``pallas_scatter_grid.py:193``): one grid row through K6
+    (``csrc/rowgrid_scatter.cu``), fused with the accumulator update, in
+    place.  The immediate scheme's band step scatters each minibatch's row
+    with it (the z-major gradient read in place), where the JAX package's
+    band step calls the plain form, since per-row Pallas launches lost on
+    the TPU.  CPU tensors run :func:`scatter_rowgrid_add`."""
     y0, x0 = int(y0), int(x0)
     if not acc.is_cuda:
         return scatter_rowgrid_add(acc, cot, y0, x0, stride)
-    return _launch_scatter(K6, K6_ROUTE_LAUNCHES, acc, cot, y0, x0, stride,
-                           1)
+    return _launch_rowgrid(acc, cot, y0, x0, stride)
+
+
+def _launch_rowgrid(acc, cot, y0, x0, stride, vec=None):
+    """Launch K6 by its plan (with ``vec=1`` the scalar instantiation: the
+    card tests and chip_smoke compare the two) on the current stream, and
+    count it in :data:`K6` and :data:`K6_ROUTE_LAUNCHES`."""
+    plan = rowgrid_plan(acc, cot, stride, vec)
+    dev = acc.get_device()
+    if cot.get_device() != dev:
+        raise ValueError('acc and cot must share a CUDA device')
+    if not (0 <= y0 <= plan.y_max and 0 <= x0 <= plan.x_max):
+        raise ValueError(f'the row at ({y0}, {x0}) leaves the accumulator '
+                         f'{tuple(acc.shape[:2])}')
+    if plan.layout == 'copy':
+        cot = cot.contiguous()
+    err = K6.function()(plan.kind, cot.data_ptr(), acc.data_ptr(),
+                        plan.row_ptr, y0, x0, stream_ptr(dev))
+    if err:
+        K6.fail(err)
+    K6.launches += 1
+    K6_ROUTE_LAUNCHES[plan.route] += 1
+    return acc
 
 
 # -- K3: the gather ---------------------------------------------------------

@@ -109,18 +109,40 @@ class Kernel:
         self.launches = 0
         self._fn = None
 
-    def __call__(self, *args) -> None:
+    def function(self):
+        """The bound C entry point (its library built and loaded on first
+        use), for callers that pass the stream and count launches
+        themselves."""
         if self._fn is None:
             fn = getattr(library(self.source), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        return self._fn
+
+    def __call__(self, *args) -> None:
+        err = self.function()(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
-            raise RuntimeError(
-                f'{self.symbol} launch failed: CUDA error {err} '
-                f'({torch.cuda.get_device_name()})')
+            self.fail(err)
         self.launches += 1
+
+    def fail(self, err: int):
+        raise RuntimeError(
+            f'{self.symbol} launch failed: CUDA error {err} '
+            f'({torch.cuda.get_device_name()})')
+
+
+#: PyTorch's raw accessor of the current stream (what
+#: ``torch.cuda.current_stream(i).cuda_stream`` returns, without building a
+#: Stream object), where this build of PyTorch has it.
+_raw_stream = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+
+
+def stream_ptr(device_index: int) -> int:
+    """The current CUDA stream of device ``device_index``, as an int."""
+    if _raw_stream is not None:
+        return _raw_stream(device_index)
+    return torch.cuda.current_stream(device_index).cuda_stream
 
 
 def ptr(t) -> ctypes.c_void_p:

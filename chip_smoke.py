@@ -18,8 +18,13 @@ Phases (any failure raises and exits nonzero):
      and three modes; K1 at three probe modes; K4 at the multi-mode
      flagship's chunk (256 steps, three modes, physical absorption) on its
      FFT route, also against K1's plain version on 64 of its patches, and
-     on its dense route, checked and timed beside it; K6, one grid row at
-     a time through K2's kernel, patch-major; the immediate path's shapes:
+     on its dense route, checked and timed beside it; K6
+     (``csrc/rowgrid_scatter.cu``) on 23 patch-major rows of 32 slices,
+     one at a time, and at each row shape below, held to its plain
+     version, bit for bit to K2's kernel at one row and to its scalar
+     instantiation, with its device time (torch.profiler, or a CUDA
+     graph's replay where the profiler reports none) beside the time of
+     its calls; the immediate path's shapes:
      K1 at one grid row (N = 23), K6 on the row's z-major gradient, and
      the band's exact backward in both forms (the tap gather and the
      autograd transpose), held to each other and timed; K1 at the adhesin
@@ -109,7 +114,8 @@ Phases (any failure raises and exits nonzero):
      refined.
 Phase 3 also holds K1 under ``beta = kappa delta`` and in -z (the
 branches of ``multislice_propagate`` that phase 8 adds), K6 at 8e's
-patch-major row of two slices, and K1 with
+patch-major row of two slices and at the real_imag band step's row
+(C = 512), and K1 with
 per-spot waves (made by position refinement's
 phase ramps; N=23 with the far field folded, N=529 without), and K1, K4
 and K5 on their global route at planes no shared-memory route takes (96^2,
@@ -833,8 +839,7 @@ def check_grid_scatter(dtype, C, zmajor, path, seed):
     inst = 'vec' if took['vec'] else 'scalar'
 
     def scalar(acc):
-        return csg._launch_scatter(csg.K2, routes, acc, cot, 0, 0, s, rows,
-                                   vec=1)
+        return csg._launch_scatter(acc, cot, 0, 0, s, rows, vec=1)
     got_s = scalar(acc0.clone())
     ref = csg.scatter_grid2d_add_plain(acc0.clone(), cot, 0, 0, s, rows)
     torch.cuda.synchronize()
@@ -1045,184 +1050,203 @@ def check_fused_multislice(tol_fwd, tol_bwd, M=1):
     return recs
 
 
-def check_rowgrid_scatter():
-    """K6 against its plain version at the delta_beta flagship's chunk, one
-    grid row at a time: 23 rows of 23 patch cotangents [72, 72, 32, 2]
-    (patch-major, so each row's patches are contiguous) into the padded
-    accumulator [260, 260, 32, 2].  No path gives K6 this layout (the
-    immediate path gives it the z-major gradient, :func:`check_rowgrid_
-    scatter_zmajor`; phase 8e patch-major rows of 2 slices, :func:`check_
-    rowgrid_scatter_sparse`): this is its only run.  Library yardstick:
-    ``F.fold`` of one row, 23 times."""
-    from adorym_tpu_torch.ops import cuda_scatter_grid as csg
-    dev = torch.device('cuda')
-    rows, s, n, zb = 23, 8, 72, 32
-    gen = torch.Generator(device=dev).manual_seed(7)
-    cot = torch.randn((rows * rows, n, n, zb, 2), device=dev, generator=gen)
-    acc0 = torch.randn((260, 260, zb, 2), device=dev, generator=gen)
-
-    def by_rows(fn, acc):
-        for r in range(rows):
-            fn(acc, cot[r * rows:(r + 1) * rows], r * s, 0, s)
-        return acc
-
-    r0 = dict(csg.K6_ROUTE_LAUNCHES)
-    got = by_rows(csg.scatter_rowgrid_add_kernel, acc0.clone())
-    took = {r: csg.K6_ROUTE_LAUNCHES[r] - r0[r] for r in r0}
-    ref = by_rows(csg.scatter_rowgrid_add, acc0.clone())
+def device_ms(fn, reps):
+    """Device time a call of ``fn`` (every kernel and memory operation it
+    runs on the card), over ``reps`` calls after a warmup call, without
+    the host's pace: torch.profiler's device time, or where the profiler
+    reports none (it lost a window's events once in this script), CUDA
+    events around the replay of a CUDA graph that captured ``reps`` calls.
+    Returns ``(ms, 'profiler' or 'graph')``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
-    err, rel = rel_err(got, ref)
-    tol = 1e-5           # the same f32 values, <= 9 terms, other orders
-    log(f'K6 float32 (23 rows): max_abs {err:.3e} rel {rel:.3e} (tol {tol});'
-        f' instantiations launched {took}')
-    if not rel < tol:
-        raise AssertionError('K6 kernel disagrees with its plain version')
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if str(getattr(e, 'device_type', '')).endswith('CUDA'))
+    if total > 0:
+        return total / 1e3 / reps, 'profiler'
+    log('device_ms: the profiler reported no device time; timing a CUDA '
+        'graph of the calls instead')
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps, 'graph'
+
+
+def check_k6(name, cot, acc0, rows, path, reps, note=None):
+    """K6 at one of its row shapes: ``rows`` grid rows of ``cot``'s
+    patches (rows x cols of them, each row's contiguous), row r at (r *
+    8, 0) of ``acc0``.  Held three ways: to its plain version at 1e-5 (the
+    same f32 values, <= 9 terms, other orders), bit for bit to K2's kernel
+    at ``rows=1`` (K6's route before it had a kernel of its own, which
+    sums in the same order), and bit for bit to its own scalar
+    instantiation, forced; the path's vector instantiation must be the one
+    launched.  Times, each for the ``rows`` rows: ``ms``, CUDA events
+    around a loop of calls (the host's pace where the call costs more than
+    the kernel, as in earlier records); ``device_ms``, the device time
+    (:func:`device_ms`; ``device_by`` says how each of the three device
+    times was taken); the same two for K2's route (``parent_ms``,
+    ``parent_device_ms``) and for ``F.fold`` of each row on a pre-permuted
+    f32 input (``library_ms``, ``library_device_ms``; never called by the
+    port); the scalar instantiation's and the plain version's ``ms``."""
+    from adorym_tpu_torch.ops import cuda_scatter_grid as csg
+    s, n = 8, cot.shape[1]
+    cols = cot.shape[0] // rows
+    row_cots = [cot[r * cols:(r + 1) * cols] for r in range(rows)]
+
+    def by_rows(fn):
+        def run(acc):
+            for r, c in enumerate(row_cots):
+                fn(acc, c, r * s, 0, s)
+            return acc
+        return run
+
+    k6 = by_rows(csg.scatter_rowgrid_add_kernel)
+    scalar = by_rows(lambda a, c, y0, x0, s_: csg._launch_rowgrid(
+        a, c, y0, x0, s_, vec=1))
+    parent = by_rows(lambda a, c, y0, x0, s_: csg.scatter_grid2d_add(
+        a, c, y0, x0, s_, 1))
+    plain = by_rows(csg.scatter_rowgrid_add)
+    routes = csg.K6_ROUTE_LAUNCHES
+    r0 = dict(routes)
+    got = k6(acc0.clone())
+    took = {r: routes[r] - r0[r] for r in routes}
+    equal_s = torch.equal(got, scalar(acc0.clone()))
+    equal_p = torch.equal(got, parent(acc0.clone()))
+    err, rel = rel_err(got, plain(acc0.clone()))
+    torch.cuda.synchronize()
+    del got
+    tol = 1e-5
+    log(f'{name}: max_abs {err:.3e} rel {rel:.3e} (tol {tol}); '
+        f'instantiations launched {took}; bit-equal to its scalar '
+        f'instantiation {equal_s}, to K2 at rows=1 {equal_p}')
     if took != {'vec': rows, 'scalar': 0}:
-        raise AssertionError(f'K6: instantiations launched {took}')
+        raise AssertionError(f'{name}: instantiations launched {took}, '
+                             'expected the vector one')
+    if not (rel < tol and equal_s and equal_p):
+        raise AssertionError(f'{name}: kernel disagrees with its plain '
+                             'version, its scalar instantiation or K2')
     acc = acc0.clone()
-    ms = time_ms(lambda: by_rows(csg.scatter_rowgrid_add_kernel, acc), 10)
-    plain = time_ms(lambda: by_rows(csg.scatter_rowgrid_add, acc), 5)
-    tx = (rows - 1) * s + n
-    cols_in = [cot[r * rows:(r + 1) * rows].reshape(rows, n * n, zb * 2)
-               .permute(2, 1, 0).reshape(1, zb * 2 * n * n, rows)
-               .contiguous() for r in range(rows)]
-    lib = time_ms(lambda: [torch.nn.functional.fold(
-        c, (n, tx), (n, n), stride=s) for c in cols_in], 10)
-    row_shape = (rows, n, n, zb, 2)
-    b, by = bound(rows * csg.bytes_moved(row_shape, s, 1, 4),
+    ms = time_ms(lambda: k6(acc), reps)
+    dev_ms, dev_by = device_ms(lambda: k6(acc), reps)
+    ms_s = time_ms(lambda: scalar(acc), reps)
+    par_ms = time_ms(lambda: parent(acc), reps)
+    par_dev, par_by = device_ms(lambda: parent(acc), reps)
+    ms = (ms + time_ms(lambda: k6(acc), reps)) / 2
+    plain_ms = time_ms(lambda: plain(acc), 5)
+    tx = (cols - 1) * s + n
+    fold_in = [c.float().reshape(cols, n * n, -1).permute(2, 1, 0).reshape(
+        1, -1, cols).contiguous() for c in row_cots]
+
+    def fold():
+        return [torch.nn.functional.fold(f, (n, tx), (n, n), stride=s)
+                for f in fold_in]
+    lib = time_ms(fold, reps)
+    lib_dev, lib_by = device_ms(fold, reps)
+    del fold_in
+    b, by = bound(rows * csg.bytes_moved(row_cots[0].shape, s, 1,
+                                         cot.element_size()),
                   float(cot.numel()))
-    rec = record('K6 scatter_rowgrid (float32)',
-                 'adorym_tpu_torch/csrc/grid_scatter.cu',
+    log(f'{name}: ms {ms:.4f} device {dev_ms:.4f} ({dev_by}; scalar '
+        f'{ms_s:.4f}); K2 at rows=1 {par_ms:.4f} device {par_dev:.4f}; '
+        f'F.fold {lib:.4f} device {lib_dev:.4f}; plain {plain_ms:.4f}; '
+        f'bound {b:.5f} ms '
+        f'({100 * b / dev_ms:.1f}% of the device time); {CARD}')
+    rec = record(name, 'adorym_tpu_torch/csrc/rowgrid_scatter.cu',
                  'adorym_tpu/ops/pallas_scatter_grid.py:193', err, rel, tol,
-                 ms, plain, b, by, lib, 'K6', None)
-    rec.update(instantiation='vec', launches_note=(
-        'patch-major rows of 32 binned slices are on no path (the '
-        'immediate path gives K6 the z-major gradient; 8e gives it '
-        'patch-major rows of 2 slices, its own record): checked here '
-        'against its plain version only'))
+                 ms, plain_ms, b, by, lib, 'K6', path)
+    rec.update(instantiation='vec', scalar_ms=ms_s, device_ms=dev_ms,
+               parent_ms=par_ms, parent_device_ms=par_dev,
+               library_device_ms=lib_dev,
+               device_by=[dev_by, par_by, lib_by])
+    if note:
+        rec['launches_note'] = note
     return [rec]
+
+
+def check_rowgrid_scatter():
+    """K6 at the delta_beta flagship's chunk, one grid row at a time: 23
+    rows of 23 patch cotangents [72, 72, 32, 2] (patch-major, so each
+    row's patches are contiguous) into the padded accumulator [260, 260,
+    32, 2].  No path gives K6 this layout (the immediate path gives it the
+    z-major gradient, :func:`check_rowgrid_scatter_zmajor`; phase 8e
+    patch-major rows of 2 slices, :func:`check_rowgrid_scatter_sparse`):
+    this is its only run."""
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cot = torch.randn((529, 72, 72, 32, 2), device=dev, generator=gen)
+    acc0 = torch.randn((260, 260, 32, 2), device=dev, generator=gen)
+    return check_k6('K6 scatter_rowgrid (float32)', cot, acc0, 23, None, 10,
+                    'patch-major rows of 32 binned slices are on no path '
+                    '(the immediate path gives K6 the z-major gradient; 8e '
+                    'gives it patch-major rows of 2 slices, its own '
+                    'record): checked here against its plain version only')
 
 
 #: The immediate flagship's band: the 23x23 grid's x table padded by 4 on
 #: the left (its first column sits at x = -4), so the band accumulator is
-#: [72, 256 + 4, 32, 2].
+#: [72, 256 + 4, *tr].
 BAND_X, BAND_PAD = 256, 4
+
+
+def band_acc(tr, gen):
+    return torch.randn((72, BAND_X + BAND_PAD) + tr, device='cuda',
+                       generator=gen)
 
 
 def check_rowgrid_scatter_zmajor(dtype):
     """K6 at the immediate flagship's layout: one grid row of 23 patch
     cotangents, the multislice kernel's z-major gradient [32, 2, 23, 72,
     72] read in place, into the band accumulator [72, 260, 32, 2] at x = 0
-    (the row's first window).  The vector instantiation (the path's) and
-    the scalar one, forced, must agree bit for bit; both are held to the
-    plain version at 1e-5.  Library yardstick: ``F.fold`` of the row, on a
-    pre-permuted f32 input."""
+    (the row's first window)."""
     from adorym_tpu_torch.ops import cuda_scatter_grid as csg
-    dev = torch.device('cuda')
-    cols, s, n, zb = 23, 8, 72, 32
-    gen = torch.Generator(device=dev).manual_seed(17)
-    cot = torch.randn((zb, 2, cols, n, n), device=dev,
+    gen = torch.Generator(device='cuda').manual_seed(17)
+    cot = torch.randn((32, 2, 23, 72, 72), device='cuda',
                       generator=gen).to(dtype).permute(2, 3, 4, 0, 1)
     if not csg._channel_major(cot):
         raise AssertionError('K6: the z-major view is not read in place')
-    acc0 = torch.randn((n, BAND_X + BAND_PAD, zb, 2), device=dev,
-                       generator=gen)
-    routes = csg.K6_ROUTE_LAUNCHES
-    r0 = dict(routes)
-    got = csg.scatter_rowgrid_add_kernel(acc0.clone(), cot, 0, 0, s)
-    took = {r: routes[r] - r0[r] for r in routes}
-
-    def scalar(acc):
-        return csg._launch_scatter(csg.K6, routes, acc, cot, 0, 0, s, 1,
-                                   vec=1)
-    got_s = scalar(acc0.clone())
-    ref = csg.scatter_rowgrid_add(acc0.clone(), cot, 0, 0, s)
-    torch.cuda.synchronize()
     tag = str(dtype).split('.')[-1]
-    equal = torch.equal(got, got_s)
-    err, rel = rel_err(got, ref)
-    tol = 1e-5           # the same f32 values, <= 9 terms, other orders
-    log(f'K6 z-major {tag} (one row): max_abs {err:.3e} rel {rel:.3e} (tol '
-        f'{tol}); instantiations launched {took}; vec and scalar bit-equal: '
-        f'{equal}')
-    if took != {'vec': 1, 'scalar': 0}:
-        raise AssertionError(f'K6 {tag}: instantiations launched {took}, '
-                             'expected the vector one')
-    if not (equal and rel < tol):
-        raise AssertionError(f'K6 z-major {tag}: kernel disagrees with its '
-                             'plain version or its scalar instantiation')
-    del got, got_s, ref
-    acc = acc0.clone()
-    ms = time_ms(lambda: csg.scatter_rowgrid_add_kernel(acc, cot, 0, 0, s),
-                 20)
-    ms_s = time_ms(lambda: scalar(acc), 20)
-    ms = (ms + time_ms(lambda: csg.scatter_rowgrid_add_kernel(
-        acc, cot, 0, 0, s), 20)) / 2
-    plain = time_ms(lambda: csg.scatter_rowgrid_add(acc, cot, 0, 0, s), 5)
-    tx = (cols - 1) * s + n
-    cols_in = cot.float().reshape(cols, n * n, 2 * zb).permute(
-        2, 1, 0).reshape(1, 2 * zb * n * n, cols).contiguous()
-    lib = time_ms(lambda: torch.nn.functional.fold(
-        cols_in, (n, tx), (n, n), stride=s), 20)
-    del cols_in
-    b, by = bound(csg.bytes_moved(cot.shape, s, 1, cot.element_size()),
-                  float(cot.numel()))
-    log(f'K6 z-major {tag}: vec {ms:.4f} ms, scalar {ms_s:.4f} ms, bound '
-        f'{b:.4f} ms ({100 * b / ms:.1f}%), F.fold {lib:.4f} ms')
-    rec = record(f'K6 scatter_rowgrid z-major ({tag})',
-                 'adorym_tpu_torch/csrc/grid_scatter.cu',
-                 'adorym_tpu/ops/pallas_scatter_grid.py:193', err, rel, tol,
-                 ms, plain, b, by, lib, 'K6', 'immediate')
-    rec.update(instantiation='vec', scalar_ms=ms_s)
-    return [rec]
+    return check_k6(f'K6 scatter_rowgrid z-major ({tag})', cot,
+                    band_acc((32, 2), gen), 1, 'immediate', 50)
 
 
 def check_rowgrid_scatter_sparse():
     """K6 at phase 8e's layout: one grid row of 23 patch-major cotangents
     [23, 72, 72, 2, 2] (the two sparse slices; the band step extracts
-    patch-major there) into the band accumulator [72, 260, 2, 2] at x = 0.
-    Held to the plain version at 1e-5; the path's vector instantiation
-    must be the one launched.  Library yardstick: ``F.fold`` of the row,
-    on a pre-permuted input."""
-    from adorym_tpu_torch.ops import cuda_scatter_grid as csg
-    dev = torch.device('cuda')
-    cols, s, n, nz = 23, 8, 72, 2
-    gen = torch.Generator(device=dev).manual_seed(27)
-    cot = torch.randn((cols, n, n, nz, 2), device=dev, generator=gen)
-    acc0 = torch.randn((n, BAND_X + BAND_PAD, nz, 2), device=dev,
-                       generator=gen)
-    routes = csg.K6_ROUTE_LAUNCHES
-    r0 = dict(routes)
-    got = csg.scatter_rowgrid_add_kernel(acc0.clone(), cot, 0, 0, s)
-    took = {r: routes[r] - r0[r] for r in routes}
-    ref = csg.scatter_rowgrid_add(acc0.clone(), cot, 0, 0, s)
-    torch.cuda.synchronize()
-    err, rel = rel_err(got, ref)
-    tol = 1e-5           # the same f32 values, <= 9 terms, other orders
-    log(f'K6 patch-major, 2 slices (one row, 8e): max_abs {err:.3e} rel '
-        f'{rel:.3e} (tol {tol}); instantiations launched {took}')
-    if took != {'vec': 1, 'scalar': 0}:
-        raise AssertionError(f'K6 8e: instantiations launched {took}, '
-                             'expected the vector one')
-    if not rel < tol:
-        raise AssertionError('K6 8e: kernel disagrees with its plain '
-                             'version')
-    acc = acc0.clone()
-    ms = time_ms(lambda: csg.scatter_rowgrid_add_kernel(acc, cot, 0, 0, s),
-                 50)
-    plain = time_ms(lambda: csg.scatter_rowgrid_add(acc, cot, 0, 0, s), 10)
-    tx = (cols - 1) * s + n
-    cols_in = cot.reshape(cols, n * n, 2 * nz).permute(2, 1, 0).reshape(
-        1, 2 * nz * n * n, cols).contiguous()
-    lib = time_ms(lambda: torch.nn.functional.fold(
-        cols_in, (n, tx), (n, n), stride=s), 50)
-    b, by = bound(csg.bytes_moved(cot.shape, s, 1, 4), float(cot.numel()))
-    rec = record('K6 scatter_rowgrid patch-major 2 slices (float32)',
-                 'adorym_tpu_torch/csrc/grid_scatter.cu',
-                 'adorym_tpu/ops/pallas_scatter_grid.py:193', err, rel, tol,
-                 ms, plain, b, by, lib, 'K6', 'sparse')
-    rec.update(instantiation='vec')
-    return [rec]
+    patch-major there) into the band accumulator [72, 260, 2, 2] at
+    x = 0."""
+    gen = torch.Generator(device='cuda').manual_seed(27)
+    cot = torch.randn((23, 72, 72, 2, 2), device='cuda', generator=gen)
+    return check_k6('K6 scatter_rowgrid patch-major 2 slices (float32)', cot,
+                    band_acc((2, 2), gen), 1, 'sparse', 50)
+
+
+def check_rowgrid_scatter_real_imag():
+    """K6 at the real_imag immediate band step's row: 23 patch-major
+    cotangents [23, 72, 72, 256, 2] (the band is not binned in z on
+    real_imag, so C = 512) into the band accumulator [72, 260, 256, 2] at
+    x = 0.  That step launches K6 23 times an angle; no phase runs it at
+    this width."""
+    gen = torch.Generator(device='cuda').manual_seed(37)
+    cot = torch.randn((23, 72, 72, 256, 2), device='cuda', generator=gen)
+    return check_k6('K6 scatter_rowgrid real_imag band row (float32)', cot,
+                    band_acc((256, 2), gen), 1, None, 20,
+                    'the real_imag immediate band step launches K6 on this '
+                    'row 23 times an angle; no phase runs that step at the '
+                    'flagship width')
 
 
 def check_band_adjoint():
@@ -3087,7 +3111,7 @@ def main():
     from adorym_tpu_torch.utils import cuda_build
     build_s = cuda_build.build(['multislice_db_stored.cu', 'grid_scatter.cu',
                                 'grid_extract.cu', 'multislice_fused.cu',
-                                'multislice_db.cu'])
+                                'multislice_db.cu', 'rowgrid_scatter.cu'])
     log(f'kernels built in {build_s:.2f} s')
     stamp('build')
 
@@ -3129,6 +3153,7 @@ def main():
         torch.cuda.empty_cache()
     kernels += check_rowgrid_scatter()
     kernels += check_rowgrid_scatter_sparse()
+    kernels += check_rowgrid_scatter_real_imag()
     adjoint_ms = check_band_adjoint()
     # K1 under kappa and in -z (phase 8's branches).
     check_multislice_branches()

@@ -316,8 +316,7 @@ def test_grid_scatter_vec_and_scalar_are_bit_equal(cuda, dtype, rows, cols,
     routes = csg.K2_ROUTE_LAUNCHES
     r0 = dict(routes)
     got = csg.scatter_grid2d_add(acc0.clone(), cot, 2, 1, s, rows)
-    got_s = csg._launch_scatter(csg.K2, routes, acc0.clone(), cot, 2, 1, s,
-                                rows, vec=1)
+    got_s = csg._launch_scatter(acc0.clone(), cot, 2, 1, s, rows, vec=1)
     want = {'vec': 1 if v > 1 else 0, 'scalar': 1 if v > 1 else 2}
     assert {r: routes[r] - r0[r] for r in routes} == want
     ref = csg.scatter_grid2d_add_plain(acc0.clone(), cot, 2, 1, s, rows)
@@ -344,8 +343,7 @@ def test_grid_scatter_misaligned_takes_scalar(cuda):
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match='elements a thread'):
-        csg._launch_scatter(csg.K2, csg.K2_ROUTE_LAUNCHES, acc0.clone(), cot,
-                            0, 0, s, rows, vec=4)
+        csg._launch_scatter(acc0.clone(), cot, 0, 0, s, rows, vec=4)
 
 
 @pytest.mark.parametrize('unknown_type,fresnel_approx,free_prop_cm,bf16', [
@@ -408,7 +406,7 @@ def test_grid_scatter_wide_zmajor_matches_plain(cuda, dtype):
 
 
 def test_rowgrid_scatter_kernel_matches_plain(cuda):
-    """K6: one grid row through K2's kernel (rows=1), counted apart."""
+    """K6: one grid row through its own kernel, counted apart from K2."""
     rng = np.random.default_rng(6)
     cot = torch.from_numpy(rng.normal(size=(5, 16, 16, 4, 2))
                            .astype(np.float32)).to(cuda)
@@ -458,8 +456,7 @@ def test_rowgrid_scatter_zmajor_matches_plain(cuda, dtype):
     routes = csg.K6_ROUTE_LAUNCHES
     r0 = dict(routes)
     got = csg.scatter_rowgrid_add_kernel(acc0.clone(), cot, 0, 5, 8)
-    got_s = csg._launch_scatter(csg.K6, routes, acc0.clone(), cot, 0, 5, 8,
-                                1, vec=1)
+    got_s = csg._launch_rowgrid(acc0.clone(), cot, 0, 5, 8, vec=1)
     assert {r: routes[r] - r0[r] for r in routes} == {'vec': 1, 'scalar': 1}
     ref = csg.scatter_rowgrid_add(acc0.clone(), cot, 0, 5, 8)
     torch.cuda.synchronize()
@@ -500,6 +497,84 @@ def test_immediate_epoch_cuda_matches_cpu(cuda, jitter, unknown_type):
         losses[dev] = [rec.run_epoch(e) for e in range(2)]
     assert csg.K6.launches - k6 == (0 if jitter else 24)
     np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-4)
+
+
+#: K6 at small rows: (patches N, py, px, stride, trail, the elements a
+#: thread owns f32 / bf16 channel-major, and patch-major).  Tx = 48 and 72
+#: end inside a warp's X values; C = 4 is sparse slices' site (8 bf16
+#: channels do not fit it) and C = 36 ends inside a block's 8 channels;
+#: C = 6 is not a whole number of 16-byte words (scalar everywhere);
+#: Tx = 328 spans three f32 warps' X values; the last case is the
+#: flagship's patch at 9 patches.
+K6_CASES = [(5, 16, 16, 8, (2, 2), (4, 8), (4, 1)),
+            (7, 24, 24, 8, (8, 2), (4, 8), (4, 8)),
+            (3, 8, 8, 4, (3, 2), (1, 1), (1, 1)),
+            (40, 16, 16, 8, (4, 2), (4, 8), (4, 8)),
+            (9, 72, 72, 8, (18, 2), (4, 8), (4, 1))]
+
+
+def _off16(t):
+    """A contiguous copy of ``t`` that starts 4 bytes off a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize('misaligned', [False, True])
+@pytest.mark.parametrize('channel_major', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,py,px,s,trail,v_cm,v_pm', K6_CASES)
+def test_rowgrid_kernel_matches_plain_k2_and_scalar(cuda, dtype, n, py, px,
+                                                    s, trail, v_cm, v_pm,
+                                                    channel_major,
+                                                    misaligned):
+    """K6 (``csrc/rowgrid_scatter.cu``) in both layouts and dtypes: within
+    1e-5 of the plain version, equal bit for bit to K2's kernel at
+    ``rows=1`` (K6's route before it had its own; the same sums in the
+    same order) and to its own scalar instantiation, forced; an
+    accumulator 4 bytes off a 16-byte boundary takes the scalar one."""
+    cot = _grid_cot(1, n, py, px, trail, dtype, channel_major, cuda)
+    assert csg._channel_major(cot) == channel_major
+    acc0 = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(py + 4, (n - 1) * s + px + 5) + trail).astype(np.float32)).to(
+            cuda)
+
+    def fresh():
+        return _off16(acc0) if misaligned else acc0.clone()
+
+    v = 1 if misaligned else (v_cm if channel_major else v_pm)[
+        dtype == torch.bfloat16]
+    routes = csg.K6_ROUTE_LAUNCHES
+    r0, k2 = dict(routes), csg.K2.launches
+    got = csg.scatter_rowgrid_add_kernel(fresh(), cot, 2, 3, s)
+    got_s = csg._launch_rowgrid(fresh(), cot, 2, 3, s, vec=1)
+    assert {r: routes[r] - r0[r] for r in routes} == {
+        'vec': 1 if v > 1 else 0, 'scalar': 1 if v > 1 else 2}
+    assert csg.rowgrid_plan(fresh(), cot, s).vec == v
+    assert csg.K2.launches == k2
+    got_k2 = csg.scatter_grid2d_add(fresh(), cot, 2, 3, s, 1)
+    ref = csg.scatter_rowgrid_add(acc0.clone(), cot, 2, 3, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got_s)
+    assert torch.equal(got, got_k2)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_rowgrid_rejects_row_outside(cuda):
+    """The origin is checked at every call, the shapes once by the plan."""
+    cot = torch.zeros((3, 8, 8, 4), device=cuda)
+    acc = torch.zeros((10, 30, 4), device=cuda)
+    csg.scatter_rowgrid_add_kernel(acc, cot, 2, 6, 4)
+    with pytest.raises(ValueError, match='leaves the accumulator'):
+        csg.scatter_rowgrid_add_kernel(acc, cot, 3, 0, 4)
+    with pytest.raises(ValueError, match='leaves the accumulator'):
+        csg.scatter_rowgrid_add_kernel(acc, cot, 0, 15, 4)
+    with pytest.raises(ValueError, match='share a CUDA device'):
+        csg.scatter_rowgrid_add_kernel(acc, cot.cpu(), 0, 0, 4)
 
 
 def test_grid_scatter_rejects_tile_outside(cuda):

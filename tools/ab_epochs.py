@@ -2,14 +2,15 @@
 on one CUDA card.
 
     python tools/ab_epochs.py DIR_A DIR_B [--paths delta_beta,...]
-                              [--rounds 2]
+                              [--rounds 2] [--bf16]
 
 Each ``DIR`` is the root of a checkout (for example a ``git archive`` of a
 parent commit).  For each path and round, every checkout runs
 ``chip_smoke.run_flagship`` (a warmup epoch and 3 timed epochs of the
-flagship through ``Reconstructor``, f32, its launch counts checked) in a
-process of its own, in the order A, B, ..., then reversed, so each
-checkout runs first and last in turn.  Prints the card's name and power
+flagship through ``Reconstructor``, f32, or bf16 storage with
+``--bf16``, its launch counts checked) in a process of its own, in the
+order A, B, ..., then reversed, so each checkout runs first and last in
+turn.  Prints the card's name and power
 limit first and, per path, every run's median patterns/s by checkout.
 """
 
@@ -20,13 +21,14 @@ import sys
 from pathlib import Path
 
 RUN = ('import sys, chip_smoke as cs; '
-       'rate, _ = cs.run_flagship(False, sys.argv[1], 3); '
+       'rate, _ = cs.run_flagship(sys.argv[2] == "bf16", sys.argv[1], 3); '
        'print("RATE", rate, flush=True)')
 
 
-def run(root, path):
+def run(root, path, bf16=False):
     """Median patterns/s of one flagship run of the checkout at ``root``."""
-    proc = subprocess.run([sys.executable, '-c', RUN, path], cwd=root,
+    proc = subprocess.run([sys.executable, '-c', RUN, path,
+                           'bf16' if bf16 else 'f32'], cwd=root,
                           capture_output=True, text=True, timeout=900)
     rates = [float(line.split()[1]) for line in proc.stdout.splitlines()
              if line.startswith('RATE ')]
@@ -40,6 +42,7 @@ def main():
     ap.add_argument('dirs', nargs='+')
     ap.add_argument('--paths', default='delta_beta,multimode_binned')
     ap.add_argument('--rounds', type=int, default=2)
+    ap.add_argument('--bf16', action='store_true')
     args = ap.parse_args()
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -50,7 +53,7 @@ def main():
         for _ in range(args.rounds):
             for d, root in (list(zip(args.dirs, roots))
                             + list(zip(args.dirs, roots))[::-1]):
-                rates[d].append(run(root, path))
+                rates[d].append(run(root, path, args.bf16))
                 print(f'{path} {d}: {rates[d][-1]:.1f} patterns/s',
                       flush=True)
         for d, r in rates.items():
