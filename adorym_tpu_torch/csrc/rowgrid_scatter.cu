@@ -6,7 +6,9 @@
 //   through grid2d_tile :68) at rows = 1 followed by the accumulator update
 //   (dynamic_slice + add + dynamic_update_slice).
 // The immediate scheme's band step launches it once a minibatch, on the
-// minibatch's one grid row.
+// minibatch's one grid row; the per-angle path once a grid row of each
+// gradient chunk whose rows do not make one complete grid (staggered or
+// offset rows, chunks the batch count does not divide).
 //
 // Math: patch j of the row (j < N), cotangent element (j, iy, ix, c), lands
 // at (y0 + iy, x0 + j*stride + ix, c) of acc[Ya, Xa, C]:
@@ -20,8 +22,11 @@
 // so adding +0 leaves it unchanged.)
 // The cotangents come in one of two layouts, both read in place:
 //   patch-major:   cot[N, py, px, C]  (c innermost);
-//   channel-major: cot[C, N, py, px]  (ix innermost), the z-major gradient
-//     of the multislice kernels on the immediate delta_beta band step.
+//   channel-major: cot[C][N, py, px]  (ix innermost), channel c's patches
+//     at c * cs (cs >= N * py * px elements): the z-major gradient of the
+//     multislice kernels, a whole row's on the immediate delta_beta band
+//     step (cs = N * py * px), or one grid row of a per-angle gradient
+//     chunk of g rows (cs = g * N * py * px), read where it lies.
 //
 // What bounds it on the H100: bytes.  At the immediate flagship's row the
 // cotangents are 30.5 MB f32 (15.3 MB bf16), [32, 2, 23, 72, 72], and the
@@ -157,9 +162,11 @@ struct Vec<__nv_bfloat16, 8> {
 
 // The row's geometry, as the caller's plan holds it (one per operand
 // shape): N patches of py x px at `stride`, C channels, the accumulator's
-// row length Xa.
+// row length Xa, and (channel-major) the elements between two channels'
+// patches, cs.
 struct K6Row {
   int N, py, px, C, stride, Xa;
+  int64_t cs;
 };
 
 namespace {
@@ -239,8 +246,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int v = 0; v < V; ++v) s[v] = 0.f;
     if (X < Tx && c < g.C) {
       // Element (c, j, iy, ix) with ix = X - j*stride.
-      cover_sum<T, V>(cot,
-                      (int64_t)c * g.N * plane + (int64_t)iy * g.px + X,
+      cover_sum<T, V>(cot, (int64_t)c * g.cs + (int64_t)iy * g.px + X,
                       plane - g.stride, X, g, s);
     }
     if constexpr (V % 4 == 0) {
@@ -359,14 +365,16 @@ cudaError_t launch(int channel_major, const void* cot, void* acc,
 }  // namespace
 
 // kind: bit 0 the dtype (0 float32, 1 bfloat16 cotangents), bit 1 the
-// layout (0 cot[N, py, px, C], 1 cot[C, N, py, px]), bit 2 the vector
+// layout (0 cot[N, py, px, C], 1 cot[C][N, py, px] at channel stride
+// row->cs), bit 2 the vector
 // instantiation (16 bytes a thread: 4 f32, 8 bf16) instead of the scalar
 // one.  The accumulator is f32 [Ya, Xa, C] contiguous.  The caller
 // guarantees px % stride == 0, that the row's tile [py, (N-1)*stride + px]
 // at (y0, x0) lies inside the accumulator, py <= 65535 and, for the vector
 // instantiation, 16-byte aligned pointers, C % 4 == 0 and stride % V == 0
-// (channel-major) or C % V == 0 (patch-major).  Returns the CUDA error code
-// of the launch (0 on success; cudaErrorInvalidValue for an unknown kind).
+// and cs % V == 0 (channel-major) or C % V == 0 (patch-major).  Returns the
+// CUDA error code of the launch (0 on success; cudaErrorInvalidValue for an
+// unknown kind).
 extern "C" int k6_rowgrid_scatter_add(int kind, const void* cot, void* acc,
                                       const K6Row* row, int y0, int x0,
                                       void* stream) {

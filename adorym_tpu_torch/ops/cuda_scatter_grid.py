@@ -14,9 +14,12 @@ object, K2's exact transpose.  It is forward only: the Reconstructor
 differentiates with respect to the patches, and K2 carries their gradient
 back.  K6, ``csrc/rowgrid_scatter.cu``, replaces
 ``scatter_rowgrid_add_pallas`` (``:193``, K2's kernel for one grid row):
-the immediate scheme's band step launches it once a minibatch, through a
-launch plan cached per operand shape (:func:`rowgrid_plan`), so that a
-call costs the host a dict lookup and one ctypes call.
+the immediate scheme's band step launches it once a minibatch, and the
+per-angle path once a grid row of a gradient chunk that is not one
+complete grid (reading the row where it lies in the chunk's z-major
+gradient), through a launch plan cached per operand shape
+(:func:`rowgrid_plan`), so that a call costs the host a dict lookup and
+one ctypes call.
 
 K2's and K6's kernels have two instantiations for each dtype and layout:
 ``'vec'``, in which a thread owns 16 bytes of contiguous cotangent
@@ -55,6 +58,9 @@ K6 = Kernel('rowgrid_scatter.cu', 'k6_rowgrid_scatter_add',
 #: K2's and K6's launches by instantiation (:func:`vector_width`).
 K2_ROUTE_LAUNCHES = {'vec': 0, 'scalar': 0}
 K6_ROUTE_LAUNCHES = {'vec': 0, 'scalar': 0}
+#: K6's launches by the layout it read (:class:`RowgridPlan`): ``'copy'``
+#: counts the rows made contiguous before the launch.
+K6_LAYOUT_LAUNCHES = {'channel': 0, 'patch': 0, 'copy': 0}
 
 
 def check_supported(cot_shape, stride, rows):
@@ -138,12 +144,31 @@ def _check_cuda_operands(acc, cot, y0, x0, stride, rows):
                          f'accumulator {tuple(acc.shape[:2])}')
 
 
+def channel_stride(cot):
+    """The elements between two channels' patches when ``cot[N, py, px,
+    *tr]`` is channel-major: each channel's ``[N, py, px]`` block
+    contiguous, the channels (``*tr`` flattened, last fastest) at one
+    stride no smaller than the block, as in a slice along N of contiguous
+    ``[*tr, N', py, px]`` memory (one grid row of a z-major gradient
+    chunk).  None for any other layout, a contiguous one included."""
+    n, py, px = cot.shape[:3]
+    st = cot.stride()
+    if (cot.is_contiguous() or cot.dim() < 4
+            or tuple(st[:3]) != (py * px, px, 1)):
+        return None
+    cs = st[-1]
+    want = cs
+    for size, s in zip(reversed(cot.shape[3:]), reversed(st[3:])):
+        if size > 1 and s != want:
+            return None
+        want *= size
+    return cs if cs >= n * py * px else None
+
+
 def _channel_major(cot) -> bool:
     """Whether ``cot[N, py, px, *tr]`` is a view of contiguous
     ``[*tr, N, py, px]`` memory (the z-major patch gradient)."""
-    trail = tuple(range(3, cot.dim()))
-    return (not cot.is_contiguous()
-            and cot.movedim(trail, tuple(range(len(trail)))).is_contiguous())
+    return channel_stride(cot) == cot.shape[0] * cot.shape[1] * cot.shape[2]
 
 
 def bulk_copy_smem_bytes(itemsize, cols, px, stride):
@@ -251,7 +276,7 @@ class _K6Row(ctypes.Structure):
     """The row's geometry as ``csrc/rowgrid_scatter.cu`` reads it
     (``K6Row``)."""
     _fields_ = [(f, ctypes.c_int) for f in ('N', 'py', 'px', 'C', 'stride',
-                                             'Xa')]
+                                             'Xa')] + [('cs', ctypes.c_int64)]
 
 
 class RowgridPlan:
@@ -259,15 +284,17 @@ class RowgridPlan:
     checks that do not depend on the row's origin, done once, and what the
     launch needs.
 
-    ``layout``: ``'channel'`` (``cot[N, py, px, *tr]`` a view of
-    contiguous ``[*tr, N, py, px]`` memory, the z-major gradient, read in
-    place), ``'patch'`` (contiguous) or ``'copy'`` (any other view, made
-    contiguous at each call and then read as ``'patch'``).  ``vec``: the
-    elements a thread owns, 16 bytes' worth where :func:`vector_width`
-    allows (without the bulk-copy buffers of K2, which K6 has not), else
-    1; ``vec=1`` asked for forces the scalar instantiation, and any other
-    width than those two raises.  ``route``: ``'vec'`` or ``'scalar'``.
-    ``kind``: the C entry's instantiation (bit 0 bf16, bit 1
+    ``layout``: ``'channel'`` (``cot[N, py, px, *tr]`` channel-major,
+    :func:`channel_stride`: the z-major gradient of a row, or one grid row
+    of a z-major gradient chunk, read in place), ``'patch'`` (contiguous)
+    or ``'copy'`` (any other view, made contiguous at each call and then
+    read as ``'patch'``).  ``vec``: the elements a thread owns, 16 bytes'
+    worth where :func:`vector_width` allows (without the bulk-copy buffers
+    of K2, which K6 has not) and a channel-major channel stride is a whole
+    number of vectors, else 1; ``vec=1`` asked for forces the scalar
+    instantiation, and any other width than those two raises.  ``route``:
+    ``'vec'`` or ``'scalar'``.  ``kind``: the C entry's instantiation (bit
+    0 bf16, bit 1
     channel-major, bit 2 the vector one).  ``y_max``, ``x_max``: the
     largest origin that keeps the row's tile inside the accumulator."""
 
@@ -282,11 +309,14 @@ class RowgridPlan:
             raise ValueError(f'tile {ty}x{tx} leaves the accumulator '
                              f'{tuple(acc.shape[:2])}')
         channels = int(np.prod(cot.shape[3:])) if cot.dim() > 3 else 1
-        channel_major = _channel_major(cot)
+        cs = channel_stride(cot)
+        channel_major = cs is not None
         self.layout = ('channel' if channel_major else
                        'patch' if cot.is_contiguous() else 'copy')
         widest = vector_width(cot.element_size(), channels, stride,
                               channel_major) if aligned else 1
+        if channel_major and cs % widest:
+            widest = 1
         if vec is None:
             vec = widest
         elif vec not in (1, widest):
@@ -296,7 +326,8 @@ class RowgridPlan:
         self.route = 'vec' if vec > 1 else 'scalar'
         self.kind = (int(cot.dtype == torch.bfloat16) | 2 * channel_major
                      | 4 * (vec > 1))
-        self.row = _K6Row(n, py, px, channels, stride, acc.shape[1])
+        self.row = _K6Row(n, py, px, channels, stride, acc.shape[1],
+                          cs or 0)
         self.row_ptr = ctypes.addressof(self.row)
 
 
@@ -329,9 +360,11 @@ def scatter_rowgrid_add_kernel(acc, cot, y0, x0, stride):
     (``pallas_scatter_grid.py:193``): one grid row through K6
     (``csrc/rowgrid_scatter.cu``), fused with the accumulator update, in
     place.  The immediate scheme's band step scatters each minibatch's row
-    with it (the z-major gradient read in place), where the JAX package's
-    band step calls the plain form, since per-row Pallas launches lost on
-    the TPU.  CPU tensors run :func:`scatter_rowgrid_add`."""
+    with it (the z-major gradient read in place), and the per-angle path
+    each grid row of a chunk that is not one complete grid (a row of the
+    chunk's z-major gradient, read in place), where the JAX package calls
+    the plain form, since per-row Pallas launches lost on the TPU.  CPU
+    tensors run :func:`scatter_rowgrid_add`."""
     y0, x0 = int(y0), int(x0)
     if not acc.is_cuda:
         return scatter_rowgrid_add(acc, cot, y0, x0, stride)
@@ -341,7 +374,8 @@ def scatter_rowgrid_add_kernel(acc, cot, y0, x0, stride):
 def _launch_rowgrid(acc, cot, y0, x0, stride, vec=None):
     """Launch K6 by its plan (with ``vec=1`` the scalar instantiation: the
     card tests and chip_smoke compare the two) on the current stream, and
-    count it in :data:`K6` and :data:`K6_ROUTE_LAUNCHES`."""
+    count it in :data:`K6`, :data:`K6_ROUTE_LAUNCHES` and
+    :data:`K6_LAYOUT_LAUNCHES`."""
     plan = rowgrid_plan(acc, cot, stride, vec)
     dev = acc.get_device()
     if cot.get_device() != dev:
@@ -357,6 +391,7 @@ def _launch_rowgrid(acc, cot, y0, x0, stride, vec=None):
         K6.fail(err)
     K6.launches += 1
     K6_ROUTE_LAUNCHES[plan.route] += 1
+    K6_LAYOUT_LAUNCHES[plan.layout] += 1
     return acc
 
 

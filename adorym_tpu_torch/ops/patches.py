@@ -1,7 +1,7 @@
-"""Probe-footprint patch extraction and the complete-grid scatter and
-gather.
+"""Probe-footprint patch extraction, the scatter of any scan table's
+patches, and the complete-grid and one-row scatters and gather.
 
-Main-path subset of ``adorym_tpu/ops/patches.py``.  Object layout:
+Counterpart of ``adorym_tpu/ops/patches.py``.  Object layout:
 ``obj[y, x, z, 2]`` (delta/beta channels last).  Scan positions are host
 numpy tables here (the JAX package traces them), so windows are
 computed and checked on the host.
@@ -75,6 +75,23 @@ def extract_patches_zmajor(obj_zm, positions, probe_size):
     iy, ix = _window_index(positions, probe_size, obj_zm.shape[2:4],
                            obj_zm.device)
     return obj_zm[:, :, iy[:, :, None], ix[:, None, :]]
+
+
+def scatter_patches_add(acc, patches, positions):
+    """Add ``patches[N, py, px, ...]`` into ``acc[y, x, ...]`` in place at
+    integer ``positions[N, 2]`` (host ints) and return ``acc``: the
+    transpose of :func:`extract_patches`, for any scan table
+    (``patches.py:387`` of the JAX package).  Starts out of range follow
+    the gather's semantics (:func:`_window_index`).  The patches are added
+    in ``acc``'s dtype by one ``index_add_`` over the flattened windows:
+    overlapping windows sum in another order than the JAX package's
+    patch-by-patch loop (and, on CUDA, by atomics, in no fixed order)."""
+    n, py, px = patches.shape[:3]
+    iy, ix = _window_index(positions, (py, px), acc.shape[:2], acc.device)
+    site = (iy[:, :, None] * acc.shape[1] + ix[:, None, :]).reshape(-1)
+    flat = acc.view((acc.shape[0] * acc.shape[1], -1))
+    flat.index_add_(0, site, patches.reshape(n * py * px, -1).to(acc.dtype))
+    return acc
 
 
 def extract_patches_vacuum(obj, positions, probe_size,

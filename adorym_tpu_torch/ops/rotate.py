@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling as _prof
 from .propagate import bin_z_sum
 
 
@@ -80,13 +81,66 @@ def _check_method(method):
                          "(expected 'bilinear' or 'nearest')")
 
 
+#: Above this share of the device's capacity the rotations process the
+#: carried axis in chunks: each of the four corner gathers makes an
+#: object-sized temporary, so a whole-volume rotation peaks at about four
+#: objects.  A chunk aims at the second share.  The JAX package's
+#: fractions (``_CHUNK_THRESHOLD_FRAC``, ``_CHUNK_TARGET_FRAC``).
+_CHUNK_THRESHOLD_FRAC = 1 / 32
+_CHUNK_TARGET_FRAC = 1 / 128
+
+
+def _carried_chunks(n_carried: int, nbytes: int, device) -> int:
+    """The chunks of the carried axis (``n_carried`` long) for a volume of
+    ``nbytes`` on ``device``: 1 at or below the threshold, else the
+    smallest divisor of ``n_carried`` whose chunks fit the target."""
+    hbm = _prof.hbm_limit_bytes(device)
+    if nbytes <= hbm * _CHUNK_THRESHOLD_FRAC:
+        return 1
+    want = int(np.ceil(nbytes / (hbm * _CHUNK_TARGET_FRAC)))
+    for k in range(want, n_carried + 1):
+        if n_carried % k == 0:
+            return k
+    return 1
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _by_chunks(fn, vol, k, out_shape):
+    """``fn`` applied to ``k`` equal slices of ``vol`` along axis 0, the
+    results written into one ``out_shape`` volume (each slice's
+    temporaries freed before the next)."""
+    cy = vol.shape[0] // k
+    out = vol.new_empty(out_shape)
+    for i in range(k):
+        out[i * cy:(i + 1) * cy] = fn(vol[i * cy:(i + 1) * cy])
+    return out
+
+
 def rotate(obj, theta, axis=0, method='bilinear'):
     """Rotate ``obj[y, x, z, ...]`` about ``axis`` (0, the y axis, by
     default) by ``theta`` rad, a Python float or a 0-d tensor (under
     ``'bilinear'`` the result is differentiable in it); trailing axes (the
     delta/beta channels) ride along.  The plane across the axis may be
-    rectangular."""
+    rectangular.  Above :data:`_CHUNK_THRESHOLD_FRAC` of the device's
+    memory the carried axis rotates in chunks (:func:`_carried_chunks`):
+    each slice rotates alone, so the values are the same."""
     _check_method(method)
+    k = _carried_chunks(obj.shape[axis], _nbytes(obj), obj.device)
+    if k > 1:
+        vol = obj.movedim(axis, 0)
+        out = _by_chunks(
+            lambda sl: _rotate_bulk(sl.movedim(0, axis), theta, axis,
+                                    method).movedim(axis, 0),
+            vol, k, vol.shape)
+        return out.movedim(0, axis).contiguous()
+    return _rotate_bulk(obj, theta, axis, method)
+
+
+def _rotate_bulk(obj, theta, axis, method):
+    """:func:`rotate` of the whole volume at once."""
     axes = [a for a in range(3) if a != axis]
     s1, s2 = obj.shape[axes[0]], obj.shape[axes[1]]
     c1, c2 = _rotation_source_coords((s1, s2), theta, obj.device)
@@ -122,8 +176,22 @@ def rotate_expanded_from_binned_z(g_binned, theta, binning, nz_full,
     """``rotate(expand_z(g_binned), theta)`` without the expanded volume:
     the z expansion is piecewise constant, so corner index ``z`` reads
     ``g_binned[:, :, z // binning]``.  ``g_binned``: ``[y, x, zb, ...]``;
-    returns ``[y, x, nz_full, ...]``."""
+    returns ``[y, x, nz_full, ...]``, in y chunks when the result passes
+    :data:`_CHUNK_THRESHOLD_FRAC` of the device's memory."""
     _check_method(method)
+    out_shape = ((g_binned.shape[0], g_binned.shape[1], nz_full)
+                 + tuple(g_binned.shape[3:]))
+    k = _carried_chunks(g_binned.shape[0],
+                        int(np.prod(out_shape)) * g_binned.element_size(),
+                        g_binned.device)
+    if k > 1:
+        return _by_chunks(lambda sl: _expanded_bulk(
+            sl, theta, binning, nz_full, method), g_binned, k, out_shape)
+    return _expanded_bulk(g_binned, theta, binning, nz_full, method)
+
+
+def _expanded_bulk(g_binned, theta, binning, nz_full, method):
+    """:func:`rotate_expanded_from_binned_z` of the whole volume at once."""
     s1 = g_binned.shape[1]
     c1, c2 = _rotation_source_coords((s1, nz_full), theta, g_binned.device)
     if method == 'nearest':
@@ -145,10 +213,20 @@ def rotate_expanded_from_binned_z(g_binned, theta, binning, nz_full,
 def rotate_and_bin_z(obj, theta, binning, method='bilinear'):
     """``bin_z_sum(rotate(obj, theta), binning)``: ``obj[y, x, z, 2]``
     (delta/beta channels, the bin identity is 0) to ``[y, x,
-    ceil(z/binning), 2]``.  The one-chunk form of the JAX package's
-    function; its streaming split over y is ROADMAP A, the rest of the
-    per-angle path."""
-    return bin_z_sum(rotate(obj, theta, method=method), binning, axis=2)
+    ceil(z/binning), 2]``, without the rotated full-depth volume when the
+    object passes :data:`_CHUNK_THRESHOLD_FRAC` of the device's memory:
+    each y chunk is rotated and binned before the next (the per-angle
+    path's streaming rotation).  Each y plane rotates alone, so the values
+    are the one-chunk form's."""
+    def one(sl):
+        return bin_z_sum(_rotate_bulk(sl, theta, 0, method), binning, axis=2)
+    _check_method(method)
+    y, x, nz = obj.shape[:3]
+    k = _carried_chunks(y, _nbytes(obj), obj.device)
+    if k > 1:
+        return _by_chunks(one, obj, k, (y, x, -(-nz // binning))
+                          + tuple(obj.shape[3:]))
+    return one(obj)
 
 
 def rotate_adjoint(cotangent, theta, method='bilinear'):

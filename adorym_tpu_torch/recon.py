@@ -5,17 +5,28 @@ other combinations.
 
 Counterpart of ``adorym_tpu/recon.py``'s ``Reconstructor`` on three paths.
 
-Per angle, ``run_epoch`` -> ``angles_epoch`` -> ``angle_step`` (patch
-mode, prebin, fused rotate-back) -> ``patch_accum`` -> ``apply_step``:
+Per angle, ``run_epoch`` -> ``angles_epoch`` -> ``angle_step`` ->
+``patch_accum`` or ``_chunk_grads`` -> ``apply_step``, for any scan table
+(one for every angle, or one an angle):
 
-  1. rotate the object once, pad it, bin it in z;
-  2. per gradient chunk (a whole angle at the flagship), extract the
-     patches (z-major for the delta/beta kernel, else with the grid-gather
-     kernel), run the forward model (a multislice kernel), take the loss
+  1. rotate the object once, pad it, bin it in z (or, streaming, rotate
+     and bin it y chunk by y chunk);
+  2. per gradient chunk (``fuse_g`` minibatches, a whole angle at the
+     flagship; the last chunk padded by repeats of the last batch at
+     weight 0), at patch granularity where the table is grid rows or
+     ``patch_grad`` asks for it: extract the patches (z-major for the
+     delta/beta kernel, else with the grid-gather kernel or the plain
+     gather), run the forward model (a multislice kernel), take the loss
      and its gradient with respect to the patches, and add the patch
-     gradients into the accumulator with the grid-scatter kernel;
-  3. crop, expand in z and rotate the accumulated gradient back in one
-     gather, and apply the optimizer and the constraints.
+     gradients into the accumulator: whole rows of one complete grid with
+     the grid-scatter kernel (K2), other grid rows one at a time with the
+     one-row kernel (K6, reading each row in place), any other table
+     with a plain scatter.  Else differentiate the chunk through the
+     model's ``predict`` on the whole rotated object;
+  3. crop, expand in z and rotate the accumulated gradient back (in one
+     gather where nothing needs the expanded gradient; the exact
+     transpose under ``exact_grad_rotation``), and apply the optimizer
+     and the constraints.
 
 Immediate, ``run_epoch`` -> ``epoch_fused`` -> ``step_band`` or
 ``accum_step``, one optimizer update per minibatch:
@@ -52,13 +63,15 @@ spot indices (``ind_batch``) for the per-spot positions.  ``model=`` takes
 another forward model with the ptychography model's ``predict`` and, as
 hooks, ``compute_pad``, ``transform_measured`` and ``expand_indices``: the
 multi-distance model (:mod:`.models.multidist`) runs on ``accum_step``;
-the band and per-angle steps stay ptychography's.
+the band step stays ptychography's, and the per-angle step takes another
+model (without ``expand_indices``) through its whole-object branch.
 
 Regularizers act on the whole object: the band step adds their own
 gradient by the sum rule, ``accum_step`` adds them to its loss, and the
-per-angle step takes them once an angle on the rotated object, scaled by
-the angle's batch count.  A finite support mask constrains every update
-and shrinks on the reference's cadence (shrink-wrap).
+per-angle step takes them on the rotated object, scaled by the angle's
+batch count (once an angle at patch granularity, inside each chunk's loss
+on the whole-object branch).  A finite support mask constrains every
+update and shrinks on the reference's cadence (shrink-wrap).
 
 ``run`` drives the epochs (``n_epochs='auto'`` stops when the loss falls
 by less than ``crit_conv_rate``).  With an ``output_folder`` it writes the
@@ -67,8 +80,9 @@ batches (each naming the NEXT batch to run) and resumes from one.
 
 The measured data lives on the device.  Per-batch losses stay on the
 device until the epoch ends; only a batch that writes a checkpoint or an
-intermediate dump visits the host.  Runs outside these paths raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+intermediate dump visits the host.  Meshes, offload and orbax
+checkpoints raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -98,10 +112,6 @@ from .optim import optimizers as opt_lib
 from .optim import params as param_lib
 from .utils import profiling as _prof
 from .utils.initialize import initialize_object, initialize_probe
-
-#: The ROADMAP item that ports what the two schemes still leave out.
-_REST = ('ROADMAP A, the rest of the per-angle path and of the immediate '
-         'scheme')
 
 #: ``aux_init``'s names and the ``build_aux_params`` keyword each sets.
 _AUX_INIT_KW = {'free_prop_cm': 'free_prop_cm',
@@ -152,9 +162,10 @@ def rol_active(cfg: ReconConfig) -> bool:
             and not cfg.refine.tilt_active)
 
 
-def _check_slice(cfg: ReconConfig, angles: bool):
-    """Raise for configurations outside the ported paths; ``angles``: the
-    run takes the per-angle path (:meth:`Reconstructor.angle_step`)."""
+def _check_slice(cfg: ReconConfig):
+    """Raise for configurations outside the ported paths: device meshes,
+    offload and orbax checkpoints (the second-order optimizers raise where
+    their specs are built, ``optim.params``)."""
     geo, t, p = cfg.geometry, cfg.train, cfg.parallel
     todo = []
     if t.update_scheme not in ('immediate', 'per angle'):
@@ -163,6 +174,10 @@ def _check_slice(cfg: ReconConfig, angles: bool):
     if t.imm_grad_rotation not in ('exact', 'interp'):
         raise ValueError("imm_grad_rotation must be 'exact'|'interp', "
                          f'got {t.imm_grad_rotation!r}')
+    for knob in ('prebin_z', 'stream_rotation'):
+        if getattr(t, knob) not in ('auto', 'on', 'off'):
+            raise ValueError(f"{knob} must be 'auto'|'on'|'off', got "
+                             f'{getattr(t, knob)!r}')
     if cfg.refine.tilt_active and geo.two_d_mode:
         raise NotImplementedError('tilt is not implemented for two_d_mode')
     if p.data_axis > 1 or p.object_axis > 1:
@@ -172,13 +187,6 @@ def _check_slice(cfg: ReconConfig, angles: bool):
     if cfg.io.use_orbax:
         todo.append("orbax checkpoints (a JAX library's format; the port "
                     'writes the npz form)')
-    if angles and t.stream_rotation == 'on':
-        todo.append(f'streaming rotation ({_REST})')
-    if angles and t.exact_grad_rotation:
-        todo.append(f'exact gradient rotate-back on the per-angle path '
-                    f'({_REST})')
-    if angles and (t.randomize_probe_pos or t.patch_grad):
-        todo.append(f'per-angle scan tables that are not grid rows ({_REST})')
     if todo:
         raise NotImplementedError('not ported yet: ' + '; '.join(todo))
 
@@ -301,12 +309,15 @@ class Reconstructor:
                         and (self._rol or geo.two_d_mode)
                         and self.expand_indices is None)
         self._accum = accum and not self._angles
-        _check_slice(cfg, self._angles)
+        _check_slice(cfg)
         self.data = np.abs(np.asarray(data)).astype(np.float32)
         self.n_theta, self.n_pos = self.data.shape[:2]
+        # One table [n_pos, 2] for every angle, or one an angle [n_theta,
+        # n_pos, 2] (common_probe_pos=False).
         self.probe_pos = np.asarray(probe_pos, dtype=np.float64)
-        if self.probe_pos.ndim != 2:
-            raise NotImplementedError(f'per-angle scan tables: {_REST}')
+        if self.probe_pos.ndim not in (2, 3):
+            raise ValueError('probe_pos must be [n_pos, 2] or [n_theta, '
+                             f'n_pos, 2], got {self.probe_pos.shape}')
         if theta_ls is None:
             theta_ls = np.zeros(self.n_theta)
         self.theta_ls = np.asarray(theta_ls, dtype=np.float32)
@@ -354,20 +365,17 @@ class Reconstructor:
             self.pad_arr = compute_pad(cfg, geo.obj_size[:2], self.probe_pos)
         else:
             self.pad_arr = patch_ops.calculate_pad(
-                geo.obj_size[:2], self.probe_pos, geo.probe_size)
+                geo.obj_size[:2], self.probe_pos.reshape(-1, 2),
+                geo.probe_size)
         mb = cfg.train.minibatch_size
+        # The stride when every minibatch of the one static table is a
+        # constant-stride grid row (minibatches are slices of the table
+        # unless randomize_probe_pos shuffles it), else None.
         self._rowgrid_stride = (
             None if (cfg.train.randomize_probe_pos
-                     or self.model is not ptycho_model) else
+                     or self.model is not ptycho_model
+                     or self.probe_pos.ndim != 2) else
             patch_ops.detect_row_grid(self.probe_pos, mb, geo.probe_size))
-        if self._angles and self.model is not ptycho_model:
-            raise NotImplementedError(
-                'the per-angle path with a forward model that has no '
-                f'patch-granular form: {_REST}')
-        if self._angles and self._rowgrid_stride is None:
-            raise NotImplementedError(
-                'per-angle scan tables whose minibatches are not '
-                f'constant-stride grid rows: {_REST}')
         # The band step: the immediate scheme on grid rows, in 3D, with
         # the view rotation (not tilt) inside the loop, one batch an
         # update.
@@ -383,7 +391,16 @@ class Reconstructor:
                           'band-granular immediate fast path (row-grid '
                           'scan table, 3D far-field ptychography); '
                           'running the exact-AD generic step instead')
-        self._prebin = _band_prebin(cfg)
+        # The per-angle path at patch granularity (the patches'
+        # gradients scattered by hand) on grid rows or under patch_grad,
+        # for the ptychography model (the JAX package's gate: a
+        # predict_from_patches, no transform_measured, the plain gather);
+        # else it differentiates each chunk through the model's predict on
+        # the whole rotated object.  Patches move binned in z only at
+        # patch granularity (the band step's always are).
+        self._patch_mode = (self._rowgrid_stride is not None
+                            or (t.patch_grad and self.model is ptycho_model))
+        self._prebin = self._patch_mode and _band_prebin(cfg)
         nz_patch = geo.obj_size[2]
         if self._prebin:
             nz_patch = -(-nz_patch // geo.binning)
@@ -394,10 +411,7 @@ class Reconstructor:
         patch_bytes = mb * geo.probe_size[0] * geo.probe_size[1] * nz_patch * 8
         obj_bytes = int(np.prod(geo.obj_size)) * 8
         hbm = _prof.hbm_limit_bytes(dev)
-        if (self._angles and cfg.train.stream_rotation == 'auto'
-                and self._prebin and obj_bytes > hbm * (1.5 / 16)):
-            raise NotImplementedError(
-                f'objects that need the streaming rotation: {_REST}')
+        stream_auto = obj_bytes > _prof.stream_rotation_auto_bytes(hbm)
         avail = (hbm - _prof.xla_reserve_bytes(hbm)) - 6 * obj_bytes
         kernel_db = (cfg.train.unknown_type == 'delta_beta'
                      and not geo.pure_projection
@@ -423,11 +437,11 @@ class Reconstructor:
                 f'a dataset of {self.data.nbytes / 1e9:.2f} GB does not fit '
                 'on the device next to the working set; staging it from the '
                 'host is ROADMAP A, multi-GPU and out-of-core')
-        # The per-angle chunk must be whole grid rows of a complete 2D grid
-        # for the grid scatter (row-by-row scatters are ROADMAP A, the rest
-        # of the per-angle path).
+        # Chunks of whole grid rows of one complete 2D grid take the grid
+        # gather and scatter (K3, K2); other row-grid chunks scatter row by
+        # row (K6), any other table patch by patch.
         self._grid_scatter_rows = None
-        if self._angles:
+        if self._angles and self._rowgrid_stride is not None:
             full = patch_ops.detect_full_grid(self.probe_pos, mb,
                                               geo.probe_size)
             if full is not None and self.n_pos % mb == 0:
@@ -435,10 +449,6 @@ class Reconstructor:
                 g_ = min(self._fuse_g, n_b)
                 if n_b % g_ == 0:
                     self._grid_scatter_rows = g_
-            if self._grid_scatter_rows is None:
-                raise NotImplementedError(
-                    'scan tables that are not one complete grid split into '
-                    f'whole chunks: {_REST}')
         bs = model_base.make_beamstop_mask(beamstop)
         self.beamstop_mask = (None if bs is None
                               else torch.as_tensor(bs, device=dev))
@@ -455,6 +465,19 @@ class Reconstructor:
             isinstance(r, regs.ReweightedL1Regularizer) for r in self.reg_list)
         self.weight_l1 = (torch.ones_like(self.params['obj'])
                           if self._needs_weight_l1 else None)
+        # The per-angle streaming rotation: with the prebin hoist and the
+        # -theta gradient rotate-back, the object is rotated and binned y
+        # chunk by y chunk and the binned gradient expanded and rotated
+        # back the same way, so neither the rotated full-depth object nor
+        # the expanded gradient is ever whole beside the chunk's buffers;
+        # regularizers need the rotated object, so they turn it off.
+        # 'auto' streams past stream_rotation_auto_bytes of the device.
+        self._stream_rot = (self._prebin and not geo.two_d_mode
+                            and (t.stream_rotation == 'on'
+                                 or (t.stream_rotation == 'auto'
+                                     and stream_auto))
+                            and not t.exact_grad_rotation
+                            and not self.reg_list)
         self.i_opt_batch = 0      # optimizer step counter
         self.global_batch = 0     # epoch*n_batch + i_batch, for update gates
         self.loss_history: List[float] = []
@@ -524,6 +547,7 @@ class Reconstructor:
         mb = t.minibatch_size
         n_spots = self.probe_pos.shape[-2]
         deterministic_pad = (not t.randomize_probe_pos
+                             and self.probe_pos.ndim == 2
                              and patch_ops.detect_row_grid_ragged(
                                  self.probe_pos, mb,
                                  self.cfg.geometry.probe_size) is not None)
@@ -553,15 +577,29 @@ class Reconstructor:
                 groups.append((i_theta, [inds]))
         return groups
 
-    def _stage_angle(self, inds_list):
-        """Per-angle tables in gradient chunks of ``g`` minibatches (whole
-        grid rows; ``g`` divides the angle's batch count).  Returns numpy
-        ``(inds [n_c, g*mb], pos [n_c, g*mb, 2])``."""
-        inds_arr = np.stack(inds_list)
-        n_c = len(inds_list) // self._grid_scatter_rows
-        inds_arr = inds_arr.reshape(n_c, -1)
-        pos = self.probe_pos[inds_arr].astype(np.float32)
-        return inds_arr, pos
+    def _pos_table(self, i_theta: int) -> np.ndarray:
+        """The scan table ``[n_pos, 2]`` of angle ``i_theta``."""
+        return (self.probe_pos if self.probe_pos.ndim == 2
+                else self.probe_pos[i_theta])
+
+    def _stage_angle(self, i_theta: int, inds_list):
+        """The angle's minibatches in gradient chunks of ``g = min(fuse_g,
+        n_b)``, the last chunk padded by repeats of the last batch at
+        weight 0.  Returns numpy ``(inds [n_c, g*mb], pos [n_c, g*mb, 2],
+        w [n_c, g], n_b)``."""
+        inds_arr = np.stack(inds_list)                    # [n_b, mb]
+        n_b, mb = inds_arr.shape
+        g = min(self._fuse_g, n_b)
+        n_c = -(-n_b // g)
+        pad_b = n_c * g - n_b
+        w = np.ones(n_b, np.float32)
+        if pad_b:
+            inds_arr = np.concatenate(
+                [inds_arr, np.repeat(inds_arr[-1:], pad_b, axis=0)])
+            w = np.concatenate([w, np.zeros(pad_b, np.float32)])
+        pos = self._pos_table(i_theta)[inds_arr].reshape(n_c, g * mb, 2)
+        return (inds_arr.reshape(n_c, g * mb), pos.astype(np.float32),
+                w.reshape(n_c, g), n_b)
 
     def _dataset(self) -> torch.Tensor:
         """The dataset on the device, moved there on first use."""
@@ -586,15 +624,17 @@ class Reconstructor:
                 and cfg.train.unknown_type == 'delta_beta'
                 and not geo.pure_projection and geo.slice_pos_cm_ls is None)
 
-    def _patch_grads(self, sub, i_theta, theta, inds, measured, zm, groups):
+    def _patch_grads(self, sub, i_theta, theta, inds, measured, zm, groups,
+                     w=None):
         """Forward model and loss of the patches ``sub`` (z-major when
         ``zm``) of the spots ``inds`` against ``measured``, and the
-        gradient of the sum of the ``groups`` minibatches' mean losses with
-        respect to ``sub`` and every refined leaf but the object (the
-        probe, the auxiliary refinables).  Returns ``(losses [groups],
-        g_sub, {name: grad})``; ``g_sub`` is in the scatter layout ``[N,
-        py, px, zb, 2]`` (for z-major patches, a view of the z-major
-        gradient, which the scatter kernels read in place)."""
+        gradient of the sum of the ``groups`` minibatches' mean losses,
+        each weighted by ``w [groups]`` (a pad batch at 0), with respect to
+        ``sub`` and every refined leaf but the object (the probe, the
+        auxiliary refinables).  Returns ``(losses [groups], g_sub, {name:
+        grad})``; ``g_sub`` is in the scatter layout ``[N, py, px, zb, 2]``
+        (for z-major patches, a view of the z-major gradient, which the
+        scatter kernels read in place)."""
         cfg = self.cfg
         aux_names = [k for k in self.specs if k != 'obj']
         sub.requires_grad_(True)
@@ -610,7 +650,8 @@ class Reconstructor:
                 cfg.loss.raw_data_type, cfg.loss.poisson_multiplier,
                 self.beamstop_mask, per_item=True)
             per_batch = per_item.reshape(groups, -1).mean(1)
-            grads = torch.autograd.grad(per_batch.sum(),
+            total = per_batch.sum() if w is None else (per_batch * w).sum()
+            grads = torch.autograd.grad(total,
                                         [sub] + [aux[k] for k in aux_names])
         g_sub = grads[0]
         if zm:
@@ -618,16 +659,23 @@ class Reconstructor:
         return per_batch.detach(), g_sub, dict(zip(aux_names, grads[1:]))
 
     def patch_accum(self, obj_pad, theta, i_theta, inds_all, pos_all,
-                    measured_all):
+                    measured_all, w_all):
         """Scan the angle's gradient chunks (spots ``inds_all[c]`` at
-        ``pos_all[c]``) at patch granularity, adding the patch gradients
-        into an ``obj_pad``-shaped f32 accumulator with the grid scatter.
-        The chunk objective is the sum of its batches' mean losses.
-        Returns ``(acc_obj, acc_aux, losses [n_c, g])``; ``acc_aux`` holds
-        the gradients of the other refined leaves."""
+        ``pos_all[c]``, batch weights ``w_all[c]``) at patch granularity,
+        adding the patch gradients into an ``obj_pad``-shaped f32
+        accumulator: chunks of whole rows of one complete grid through the
+        grid scatter (K2), other grid-row chunks one row at a time (K6, on
+        the row's slice of the chunk's gradient), any other table patch by
+        patch (:func:`patches.scatter_patches_add`).  The chunk objective
+        is the weighted sum of its batches' mean losses.  Returns
+        ``(acc_obj, acc_aux, losses [n_c, g])``; ``acc_aux`` holds the
+        gradients of the other refined leaves."""
         cfg = self.cfg
         geo = cfg.geometry
-        g = self._grid_scatter_rows
+        g = w_all.shape[1]
+        mb = cfg.train.minibatch_size
+        full_grid = g == self._grid_scatter_rows
+        w_dev = torch.as_tensor(w_all, device=obj_pad.device)
         zm = self._zmajor()
         # run_bfloat16: extract from a bf16 copy (the same values the
         # model would cast to); the accumulator stays f32.
@@ -644,18 +692,30 @@ class Reconstructor:
             if zm:
                 sub = patch_ops.extract_patches_zmajor(obj_zx, pos_int,
                                                        geo.probe_size)
-            else:
-                # The chunk is whole rows of the complete grid: the grid
-                # gather (the exact transpose of the scatter below).
+            elif full_grid:
+                # Whole rows of the complete grid: the grid gather (the
+                # exact transpose of the grid scatter below).
                 sub = patch_ops.extract_grid2d_best(
                     obj_ex, pos_int[0, 0], pos_int[0, 1],
-                    self._rowgrid_stride, g, cfg.train.minibatch_size,
-                    geo.probe_size)
+                    self._rowgrid_stride, g, mb, geo.probe_size)
+            else:
+                sub = patch_ops.extract_patches(obj_ex, pos_int,
+                                                geo.probe_size)
             per_batch, g_sub, g_aux = self._patch_grads(
-                sub, i_theta, theta, inds_all[c], measured_all[c], zm, g)
-            scatter_grid2d_add(
-                acc_obj, g_sub, pos_int[0, 0], pos_int[0, 1],
-                self._rowgrid_stride, g)
+                sub, i_theta, theta, inds_all[c], measured_all[c], zm, g,
+                w_dev[c])
+            if full_grid:
+                scatter_grid2d_add(
+                    acc_obj, g_sub, pos_int[0, 0], pos_int[0, 1],
+                    self._rowgrid_stride, g)
+            elif self._rowgrid_stride is not None:
+                for r in range(g):
+                    scatter_rowgrid_add_kernel(
+                        acc_obj, g_sub[r * mb:(r + 1) * mb],
+                        pos_int[r * mb, 0], pos_int[r * mb, 1],
+                        self._rowgrid_stride)
+            else:
+                patch_ops.scatter_patches_add(acc_obj, g_sub, pos_int)
             for k, gk in g_aux.items():
                 acc_aux[k] += gk
             losses.append(per_batch)
@@ -712,55 +772,132 @@ class Reconstructor:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def angle_step(self, i_theta: int, inds_list) -> torch.Tensor:
-        """One angle: rotate, pad and bin the object, accumulate the
-        chunks' gradients, rotate the gradient back (expanding the bins in
-        the same gather) and update; in 2D nothing rotates.  Regularizers
-        are taken once on the rotated object and count once a batch; they
-        need the full-depth gradient, so the bins expand by ``repeat``
-        before the rotate-back.  Returns the per-batch losses of the angle,
-        on the device."""
+        """One angle, one update: rotate the object (in 2D nothing
+        rotates), accumulate its gradient-chunks' gradients, rotate the
+        gradient back and update.  At patch granularity (:meth:`patch_accum`)
+        the rotated object is padded and binned in z once, or, streaming,
+        rotated and binned y chunk by y chunk; else each chunk is
+        differentiated through the model's ``predict`` on the whole
+        rotated object (:meth:`_chunk_grads`).  Regularizers are taken on
+        the rotated object and count once a real batch; they need the
+        full-depth gradient, so the bins expand by ``repeat`` before the
+        rotate-back.  The rotate-back is the -theta interpolation (reading
+        the binned gradient where nothing needs it expanded first) or,
+        under ``exact_grad_rotation``, the rotation's exact transpose.
+        Returns the real batches' losses, on the device."""
         cfg = self.cfg
         geo = cfg.geometry
+        t = cfg.train
         rotates = not geo.two_d_mode
         theta = float(self.theta_ls[i_theta])
-        inds, pos = self._stage_angle(inds_list)
+        inds, pos, w, n_b = self._stage_angle(i_theta, inds_list)
         measured = self._measured(i_theta, inds)
-        method = cfg.train.interpolation
-        obj_rot = self.params['obj']
-        if rotates:
-            obj_rot = rotate(obj_rot, theta, method=method)
-        obj_pad = patch_ops.pad_object(obj_rot, self.pad_arr,
-                                       cfg.train.unknown_type)
-        if not self.reg_list:
-            obj_rot = None
-        if self._prebin:
-            obj_pad = prop.bin_z_sum(obj_pad, geo.binning, axis=2)
-        acc_obj, acc_aux, losses = self.patch_accum(
-            obj_pad, theta, i_theta, inds, pos, measured)
-        del obj_pad
-        p = self.pad_arr
-        g_rot = acc_obj[p[0][0]:acc_obj.shape[0] - p[0][1],
-                        p[1][0]:acc_obj.shape[1] - p[1][1]]
-        if self.reg_list:
-            if self._prebin:
+        method = t.interpolation
+        obj = self.params['obj']
+        obj_rot = None
+        if not self._stream_rot:
+            obj_rot = rotate(obj, theta, method=method) if rotates else obj
+        if self._patch_mode:
+            if self._stream_rot:
+                obj_pad = patch_ops.pad_object(
+                    rotate_and_bin_z(obj, theta, geo.binning, method=method),
+                    self.pad_arr, t.unknown_type)
+            else:
+                obj_pad = patch_ops.pad_object(obj_rot, self.pad_arr,
+                                               t.unknown_type)
+                if self._prebin:
+                    obj_pad = prop.bin_z_sum(obj_pad, geo.binning, axis=2)
+            if not self.reg_list:
+                obj_rot = None
+            acc_obj, grads, losses = self.patch_accum(
+                obj_pad, theta, i_theta, inds, pos, measured, w)
+            del obj_pad
+            p = self.pad_arr
+            g_rot = acc_obj[p[0][0]:acc_obj.shape[0] - p[0][1],
+                            p[1][0]:acc_obj.shape[1] - p[1][1]]
+            del acc_obj
+            fused_back = (self._prebin and not self._stream_rot
+                          and not self.reg_list and not t.exact_grad_rotation
+                          and rotates)
+            if self._prebin and not self._stream_rot and not fused_back:
                 g_rot = torch.repeat_interleave(
                     g_rot, geo.binning, dim=2)[:, :, :geo.obj_size[2]]
-            rv, g_reg = self._reg_value_and_grad(obj_rot)
-            g_rot = g_rot + len(inds_list) * g_reg
-            losses = losses + rv
-        del obj_rot
+            if self.reg_list:
+                rv, g_reg = self._reg_value_and_grad(obj_rot)
+                g_rot = g_rot + float(w.sum()) * g_reg
+                losses = losses + rv
+        else:
+            losses, grads = [], None
+            for c in range(inds.shape[0]):
+                per_batch, gc = self._chunk_grads(
+                    obj_rot, i_theta, theta, inds[c], pos[c], measured[c],
+                    w[c])
+                losses.append(per_batch)
+                if grads is None:
+                    grads = gc
+                else:
+                    for k, gk in gc.items():
+                        grads[k].add_(gk)
+            losses = torch.stack(losses)
+            g_rot = grads.pop('obj')
+            fused_back = False
+        del obj_rot, measured
         if not rotates:
             g_obj = g_rot
-        elif self._prebin and not self.reg_list:
+        elif self._stream_rot or fused_back:
+            # The binned gradient expanded in z inside the rotate-back's
+            # gather, in y chunks at the streaming sizes.
             g_obj = rotate_expanded_from_binned_z(
                 g_rot, -theta, geo.binning, geo.obj_size[2], method=method)
+        elif t.exact_grad_rotation:
+            g_obj = rotate_adjoint(g_rot, theta, method=method)
         else:
             g_obj = rotate(g_rot, -theta, method=method)
-        self.apply_step({**acc_aux, 'obj': g_obj}, self.i_opt_batch,
+        del g_rot
+        self.apply_step({**grads, 'obj': g_obj}, self.i_opt_batch,
                         self.global_batch)
         self.i_opt_batch += 1
         self.global_batch += len(inds_list)
-        return losses.reshape(-1)
+        return losses.reshape(-1)[:n_b]
+
+    def _chunk_grads(self, obj_rot, i_theta, theta, inds, pos, measured, w):
+        """One gradient chunk through the model's ``predict`` on the whole
+        (rotated) object ``obj_rot``: the weighted sum of its ``g``
+        batches' mean losses plus the regularizers at ``obj_rot`` once a
+        real batch, differentiated in the object (in the rotated frame, as
+        the patch-granular branch's accumulator is) and every other refined
+        leaf.  Returns ``(per-batch losses [g], {name: grad})``; each loss
+        carries the regularizers' value."""
+        cfg = self.cfg
+        names = ['obj'] + [k for k in self.specs if k != 'obj']
+        params = {k: v.detach().requires_grad_(k in self.specs)
+                  for k, v in self.params.items()}
+        params['obj'] = obj_rot.detach().requires_grad_(True)
+        batch = {'i_theta': i_theta, 'theta': theta, 'pos_batch': pos,
+                 'ind_batch': np.asarray(inds)}
+        w_dev = torch.as_tensor(w, device=obj_rot.device)
+        with torch.enable_grad():
+            pred = self.model.predict(params, batch, cfg, self.pad_arr)
+            if self.transform_measured is not None:
+                measured = self.transform_measured(params, batch, measured,
+                                                   cfg)
+            per_item = model_base.mismatch_loss(
+                pred, measured, cfg.loss.loss_function_type,
+                cfg.loss.raw_data_type, cfg.loss.poisson_multiplier,
+                self.beamstop_mask, per_item=True)
+            per_batch = per_item.reshape(len(w), -1).mean(1)
+            total = (per_batch * w_dev).sum()
+            rv = 0.0
+            if self.reg_list:
+                rv = regs.total_regularization(self.reg_list, params['obj'],
+                                               weight_l1=self.weight_l1)
+                total = total + w_dev.sum() * rv
+            grads = torch.autograd.grad(total, [params[k] for k in names],
+                                        allow_unused=True)
+        per_batch = per_batch.detach() + (rv.detach() if torch.is_tensor(rv)
+                                          else rv)
+        return per_batch, {k: torch.zeros_like(params[k]) if g is None else g
+                           for k, g in zip(names, grads)}
 
     @torch.no_grad()
     def step_band(self, i_theta: int, inds, measured) -> torch.Tensor:
@@ -848,7 +985,8 @@ class Reconstructor:
         if obj is not None:
             params['obj'] = obj.detach().requires_grad_('obj' in self.specs)
         batch = {'i_theta': i_theta, 'theta': float(self.theta_ls[i_theta]),
-                 'pos_batch': self.probe_pos[inds].astype(np.float32),
+                 'pos_batch': self._pos_table(i_theta)[inds].astype(
+                     np.float32),
                  'ind_batch': np.asarray(inds)}
         with torch.enable_grad():
             loss = self.loss_fn(params, batch, measured)

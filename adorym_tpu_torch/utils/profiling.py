@@ -84,3 +84,11 @@ def data_headroom_bytes(hbm: float) -> float:
     """Headroom kept free when deciding whether the measured data lives on
     the device (1.5 GB, or 3/32 of a smaller device)."""
     return min(1.5e9, 0.09375 * hbm)
+
+
+def stream_rotation_auto_bytes(hbm: float) -> float:
+    """The object size in bytes above which ``stream_rotation='auto'``
+    streams the per-angle rotation (the JAX package's boundary, 1.5/16 of
+    the capacity: 7.97 GB of object on an 85.0e9-byte H100, ~980^3): the
+    bulk rotation's corner-gather temporaries are each object-sized."""
+    return hbm * (1.5 / 16)

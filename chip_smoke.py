@@ -111,9 +111,30 @@ Phases (any failure raises and exits nonzero):
   8f. line-projection tomography of a 256^3 object (minus-logged, 16
      angles of 256^2);
   8g. 7d's configuration with the CTF forward algorithm and kappa
-     refined.
+     refined;
+  9. small configurations of each new branch of the per-angle path on
+     CUDA and on the CPU (chunks padded at weight 0, staggered rows, a
+     jittered table through the whole object and under patch_grad, a
+     randomized one, per-angle tables on the per-angle, accumulate and
+     immediate paths, the streaming rotation, the exact rotate-back, a
+     model without a patch-granular form): losses within 1e-4;
+  9a-9f. the flagship's geometry per angle with the scan tables and
+     options the per-angle path takes besides one complete grid, each a
+     warmup and 2 timed epochs (patterns/s, peak memory, launches by
+     route; one f32 epoch profiled): a jittered table through the
+     whole-object branch and under patch_grad, f32 and bf16, with the
+     any-table scatter's device time (9a); per-angle ragged tables through
+     ``reconstruct_ptychography(common_probe_pos=False)`` (9b);
+     ``randomize_probe_pos`` without and with patch_grad (9c); staggered
+     rows, K6 on each chunk row read in place, f32 and bf16 (9d); the
+     streaming rotation 'on' against 'off' at 256^3, then a 1024^3 object
+     (one angle, 40x40 spots at stride 24) where 'auto' streams, with the
+     peak memory of 'auto' and 'off' (9e); the exact rotate-back, its
+     device time beside the interp form's (9f).
 Phase 3 also holds K1 under ``beta = kappa delta`` and in -z (the
-branches of ``multislice_propagate`` that phase 8 adds), K6 at 8e's
+branches of ``multislice_propagate`` that phase 8 adds), K6 on the rows
+of a per-angle chunk's z-major gradient [32, 2, 529, 72, 72] read in
+place (9d's layout; bit for bit to the copy route too), K6 at 8e's
 patch-major row of two slices and at the real_imag band step's row
 (C = 512), and K1 with
 per-spot waves (made by position refinement's
@@ -1086,11 +1107,15 @@ def device_ms(fn, reps):
     return start.elapsed_time(end) / reps, 'graph'
 
 
-def check_k6(name, cot, acc0, rows, path, reps, note=None):
+def check_k6(name, cot, acc0, rows, path, reps, note=None, in_place=False):
     """K6 at one of its row shapes: ``rows`` grid rows of ``cot``'s
-    patches (rows x cols of them, each row's contiguous), row r at (r *
-    8, 0) of ``acc0``.  Held three ways: to its plain version at 1e-5 (the
-    same f32 values, <= 9 terms, other orders), bit for bit to K2's kernel
+    patches (rows x cols of them), row r at (r * 8, 0) of ``acc0``.
+    ``in_place``: each row is a slice of a z-major chunk gradient, which
+    K6 must read where it lies (its ``'channel'`` layout, no copy): held
+    bit for bit to the copy route too (each row made contiguous, then the
+    patch-major kernel), whose call time is ``copy_ms``.  Held three ways:
+    to its plain version at 1e-5 (the same f32 values, <= 9 terms, other
+    orders), bit for bit to K2's kernel
     at ``rows=1`` (K6's route before it had a kernel of its own, which
     sums in the same order), and bit for bit to its own scalar
     instantiation, forced; the path's vector instantiation must be the one
@@ -1121,9 +1146,21 @@ def check_k6(name, cot, acc0, rows, path, reps, note=None):
         a, c, y0, x0, s_, 1))
     plain = by_rows(csg.scatter_rowgrid_add)
     routes = csg.K6_ROUTE_LAUNCHES
-    r0 = dict(routes)
+    r0, l0 = dict(routes), dict(csg.K6_LAYOUT_LAUNCHES)
     got = k6(acc0.clone())
     took = {r: routes[r] - r0[r] for r in routes}
+    layouts = {k: v - l0[k] for k, v in csg.K6_LAYOUT_LAUNCHES.items()}
+    copy_route = by_rows(lambda a, c, y0, x0, s_:
+                         csg.scatter_rowgrid_add_kernel(a, c.contiguous(),
+                                                        y0, x0, s_))
+    if in_place:
+        if layouts != {'channel': rows, 'patch': 0, 'copy': 0}:
+            raise AssertionError(f'{name}: layouts {layouts}, expected the '
+                                 'rows read in place')
+        if not torch.equal(got, copy_route(acc0.clone())):
+            raise AssertionError(f'{name}: in place and copied rows differ')
+        log(f'{name}: every row read in place ({layouts}), bit-equal to the '
+            'copy route')
     equal_s = torch.equal(got, scalar(acc0.clone()))
     equal_p = torch.equal(got, parent(acc0.clone()))
     err, rel = rel_err(got, plain(acc0.clone()))
@@ -1146,6 +1183,7 @@ def check_k6(name, cot, acc0, rows, path, reps, note=None):
     par_ms = time_ms(lambda: parent(acc), reps)
     par_dev, par_by = device_ms(lambda: parent(acc), reps)
     ms = (ms + time_ms(lambda: k6(acc), reps)) / 2
+    copy_ms = time_ms(lambda: copy_route(acc), reps) if in_place else None
     plain_ms = time_ms(lambda: plain(acc), 5)
     tx = (cols - 1) * s + n
     fold_in = [c.float().reshape(cols, n * n, -1).permute(2, 1, 0).reshape(
@@ -1160,10 +1198,11 @@ def check_k6(name, cot, acc0, rows, path, reps, note=None):
     b, by = bound(rows * csg.bytes_moved(row_cots[0].shape, s, 1,
                                          cot.element_size()),
                   float(cot.numel()))
+    copy_s = '' if copy_ms is None else f'; copy route {copy_ms:.4f}'
     log(f'{name}: ms {ms:.4f} device {dev_ms:.4f} ({dev_by}; scalar '
-        f'{ms_s:.4f}); K2 at rows=1 {par_ms:.4f} device {par_dev:.4f}; '
-        f'F.fold {lib:.4f} device {lib_dev:.4f}; plain {plain_ms:.4f}; '
-        f'bound {b:.5f} ms '
+        f'{ms_s:.4f}{copy_s}); K2 at rows=1 {par_ms:.4f} device '
+        f'{par_dev:.4f}; F.fold {lib:.4f} device {lib_dev:.4f}; plain '
+        f'{plain_ms:.4f}; bound {b:.5f} ms '
         f'({100 * b / dev_ms:.1f}% of the device time); {CARD}')
     rec = record(name, 'adorym_tpu_torch/csrc/rowgrid_scatter.cu',
                  'adorym_tpu/ops/pallas_scatter_grid.py:193', err, rel, tol,
@@ -1172,6 +1211,8 @@ def check_k6(name, cot, acc0, rows, path, reps, note=None):
                parent_ms=par_ms, parent_device_ms=par_dev,
                library_device_ms=lib_dev,
                device_by=[dev_by, par_by, lib_by])
+    if in_place:
+        rec.update(layout='channel', copy_ms=copy_ms)
     if note:
         rec['launches_note'] = note
     return [rec]
@@ -1221,6 +1262,23 @@ def check_rowgrid_scatter_zmajor(dtype):
     tag = str(dtype).split('.')[-1]
     return check_k6(f'K6 scatter_rowgrid z-major ({tag})', cot,
                     band_acc((32, 2), gen), 1, 'immediate', 50)
+
+
+def check_rowgrid_scatter_chunk_rows(dtype):
+    """K6 at the per-angle path's chunk row (phase 9d): the whole angle's
+    z-major gradient [32, 2, 529, 72, 72] (23 staggered grid rows of 23
+    patches in one chunk), each row the slice of 23 patches read in
+    place, into the padded accumulator [260, 264, 32, 2]."""
+    from adorym_tpu_torch.ops import cuda_scatter_grid as csg
+    gen = torch.Generator(device='cuda').manual_seed(47)
+    cot = torch.randn((32, 2, 529, 72, 72), device='cuda',
+                      generator=gen).to(dtype).permute(2, 3, 4, 0, 1)
+    if csg.channel_stride(cot[23:46]) != 529 * 72 * 72:
+        raise AssertionError('K6: a chunk row is not channel-major')
+    acc0 = torch.randn((260, 264, 32, 2), device='cuda', generator=gen)
+    tag = str(dtype).split('.')[-1]
+    return check_k6(f'K6 scatter_rowgrid per-angle chunk row ({tag})', cot,
+                    acc0, 23, '9d', 10, in_place=True)
 
 
 def check_rowgrid_scatter_sparse():
@@ -3094,6 +3152,459 @@ def slice12_runs(work):
     return res, sparse_launches
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+def k6_layouts():
+    from adorym_tpu_torch.ops import cuda_scatter_grid as csg
+    return dict(csg.K6_LAYOUT_LAUNCHES)
+
+
+def reset_k6_layouts():
+    from adorym_tpu_torch.ops import cuda_scatter_grid as csg
+    for k in csg.K6_LAYOUT_LAUNCHES:
+        csg.K6_LAYOUT_LAUNCHES[k] = 0
+
+
+def scan_table(kind, seed=0):
+    """The flagship's 23x23 scan at stride 8 as phase 9 varies it:
+    ``'grid'`` as it is; ``'jittered'``, an integer offset in [-2, 2] on
+    each spot; ``'staggered'``, the odd rows shifted by 4 px (half the
+    stride)."""
+    pos = flagship_positions()
+    if kind == 'jittered':
+        pos = pos + np.random.default_rng(seed).integers(-2, 3, pos.shape)
+    elif kind == 'staggered':
+        rows = pos.reshape(23, 23, 2)
+        rows[1::2, :, 1] += 4
+        pos = rows.reshape(-1, 2)
+    return pos
+
+
+def table_config(bf16=False, n=None, **train):
+    """The flagship's configuration (delta_beta, binning 8, Fraunhofer,
+    Adam at 1e-7, per angle with the rotation out of the loop) with
+    ``train`` options on top."""
+    import adorym_tpu_torch as pt
+    f = FLAGSHIP
+    kw = dict(minibatch_size=f['mb'], learning_rate=1e-7, optimizer='adam',
+              rotate_out_of_loop=True, update_scheme='per angle',
+              run_bfloat16=bf16)
+    kw.update(train)
+    return pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(n or f['n_obj'],) * 3,
+                             probe_size=(f['n_probe'],) * 2,
+                             energy_ev=f['energy_ev'], psize_cm=f['psize_cm'],
+                             free_prop_cm='inf', binning=f['binning']),
+        train=pt.TrainConfig(**kw))
+
+
+def run_table(tag, pos, cfg, n_theta=None, obj0=None, profile=False):
+    """Phase 9's drive of one per-angle configuration at full width: a
+    warmup epoch and 2 timed epochs through ``Reconstructor`` on random
+    data, then (``profile``) one epoch under the profiler.  Checks the
+    launches: K1 one pair a gradient chunk; a chunk of whole rows of one
+    complete grid one K2, any other grid-row chunk one K6 a row (pad rows
+    included), each row read in place; no other kernel.  Returns {metric:
+    value} with the Reconstructor under ``'rec'``."""
+    import adorym_tpu_torch as pt
+    f = FLAGSHIP
+    n_theta = n_theta or f['n_theta']
+    n = cfg.geometry.obj_size[0]
+    rng = np.random.default_rng(0)
+    data = rng.random((n_theta, pos.shape[-2], f['n_probe'], f['n_probe']),
+                      dtype=np.float32)
+    theta = np.linspace(0, np.pi, n_theta, endpoint=False)
+    if obj0 is None:
+        obj0 = (rng.random((n, n, n, 2), dtype=np.float32)
+                * np.float32(1e-6))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = pt.Reconstructor(cfg, data=data, probe_pos=pos, theta_ls=theta,
+                           obj_init=obj0, probe_init=probe_modes(
+                               f['n_probe'], 1))
+    del obj0
+    if not rec._angles or rec.device.type != 'cuda':
+        raise AssertionError(f'{tag}: not the per-angle path on CUDA')
+    reset_counts()
+    reset_k6_layouts()
+    losses = [rec.run_epoch(0)]
+    walls = []
+    for ep in (1, 2):
+        t0 = time.perf_counter()
+        losses.append(rec.run_epoch(ep))
+        walls.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    layouts = k6_layouts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_b = -(-pos.shape[-2] // cfg.train.minibatch_size)
+    g = min(rec._fuse_g, n_b)
+    chunks = -(-n_b // g) * n_theta * 3
+    expect = {k: 0 for k in launches}
+    expect.update(K1_FWD=chunks, K1_BWD=chunks, K1_FFT=2 * chunks)
+    if rec._grid_scatter_rows == g:
+        expect.update(K2=chunks, K2_VEC=chunks)
+    elif rec._patch_mode and rec._rowgrid_stride is not None:
+        expect.update(K6=g * chunks, K6_VEC=g * chunks)
+    rates = [n_theta * pos.shape[-2] / w for w in walls]
+    log(f'{tag}: losses {losses}; epoch walls {[round(w, 4) for w in walls]}'
+        f' s; patterns/s {rates}; peak memory {peak:.2f} GB; chunk {g} '
+        f'batches ({chunks // (3 * n_theta)} an angle); patch mode '
+        f'{rec._patch_mode}; streaming {rec._stream_rot}; launches '
+        f'{launches}; K6 layouts {layouts}; {CARD}')
+    if launches != expect or not np.all(np.isfinite(losses)):
+        raise AssertionError(f'{tag}: losses {losses}, launches {launches},'
+                             f' expected {expect}')
+    if layouts['copy'] or layouts['channel'] != expect['K6']:
+        raise AssertionError(f'{tag}: K6 layouts {layouts}')
+    busy = None
+    if profile:
+        _, busy = profile_call(lambda: rec.run_epoch(3), f'{tag} epoch')
+    return dict(rec=rec, losses=losses, patterns_s=statistics.median(rates),
+                peak_gb=peak, launches=launches, busy=busy)
+
+
+def scatter_patches_ms(pos, bf16):
+    """Phase 9a: the any-table scatter (``patches.scatter_patches_add``,
+    one ``index_add_``) alone at the jittered flagship's chunk: the whole
+    angle's z-major gradient [32, 2, 529, 72, 72] into the padded binned
+    accumulator.  Returns (device ms an angle, bound ms)."""
+    from adorym_tpu_torch.ops import patches as patch_ops
+    gen = torch.Generator(device='cuda').manual_seed(53)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    cot = torch.randn((32, 2, 529, 72, 72), device='cuda',
+                      generator=gen).to(dtype).permute(2, 3, 4, 0, 1)
+    pad = patch_ops.calculate_pad((256, 256), pos, (72, 72))
+    pos_int = (np.round(pos).astype(np.int64)
+               + np.asarray([pad[0][0], pad[1][0]]))
+    acc = torch.zeros((256 + int(pad[0].sum()), 256 + int(pad[1].sum()),
+                       32, 2), device='cuda')
+    ms, by = device_ms(lambda: patch_ops.scatter_patches_add(acc, cot,
+                                                             pos_int), 5)
+    b, _ = bound(cot.numel() * cot.element_size() + 2 * acc.numel() * 4,
+                 float(cot.numel()))
+    del cot, acc
+    torch.cuda.empty_cache()
+    return ms, b, by
+
+
+def run_9a():
+    """Phase 9a: the jittered table, f32 and bf16, through the whole-object
+    branch (each chunk through ``predict`` on the whole rotated object:
+    K1 inside ``multislice_propagate``, the gather's backward a scatter)
+    and then under ``patch_grad`` (patches of the binned object, K1, and
+    ``scatter_patches_add``); one f32 epoch of each profiled; the
+    any-table scatter's device time an angle."""
+    pos = scan_table('jittered')
+    res = {}
+    for pg in (False, True):
+        for bf16 in (False, True):
+            tag = (f"9a jittered {'patch_grad ' if pg else ''}"
+                   f"{'bf16' if bf16 else 'f32'}")
+            r = run_table(tag, pos, table_config(bf16, patch_grad=pg),
+                          profile=not bf16)
+            if r['rec']._patch_mode != pg:
+                raise AssertionError(f'{tag}: patch mode '
+                                     f"{r['rec']._patch_mode}")
+            del r['rec']
+            res[tag] = r
+    for bf16 in (False, True):
+        ms, b, by = scatter_patches_ms(pos, bf16)
+        log(f"9a scatter_patches_add ({'bf16' if bf16 else 'f32'} "
+            f'cotangents, 529 patches [72, 72, 32, 2]): device {ms:.3f} ms '
+            f'an angle ({by}); bound {b:.4f} ms; {CARD}')
+        res[f"scatter {'bf16' if bf16 else 'f32'}"] = ms
+    return res
+
+
+def run_9b(work):
+    """Phase 9b: per-angle jittered tables with ragged counts (529, 520,
+    506 and 497 spots, each padded by its last spot, as
+    ``reconstruct_ptychography`` pads them) through
+    ``reconstruct_ptychography(common_probe_pos=False)`` on an
+    ``ArrayDataset`` (the card has no h5py): 3 epochs, the first the
+    warmup, patterns/s from its progress lines."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.io.data import ArrayDataset
+    f = FLAGSHIP
+    rng = np.random.default_rng(21)
+    counts = (529, 520, 506, 497)
+    tables = {f'probe_pos_px_{i}': scan_table('jittered', seed=30 + i)[:c]
+              for i, c in enumerate(counts)}
+    data = rng.random((4, 529, f['n_probe'], f['n_probe']), dtype=np.float32)
+    for i, c in enumerate(counts):
+        data[i, c:] = data[i, c - 1]
+    theta = np.linspace(0, np.pi, 4, endpoint=False)
+    ds = ArrayDataset(data, theta=theta, energy_ev=f['energy_ev'],
+                      psize_cm=f['psize_cm'], **tables)
+    reset_counts()
+    reset_k6_layouts()
+    torch.cuda.reset_peak_memory_stats()
+    out = work / '9b'
+    t0 = time.perf_counter()
+    res = pt.reconstruct_ptychography(
+        fname='unused.h5', obj_size=(f['n_obj'],) * 3, n_epochs=3,
+        minibatch_size=f['mb'], learning_rate=1e-7, optimizer='adam',
+        update_scheme='per angle', rotate_out_of_loop=True,
+        common_probe_pos=False, binning=f['binning'], free_prop_cm='inf',
+        probe_type='plane', dataset=ds, save_path=str(work),
+        output_folder='9b', save_stdout=True, store_checkpoint=False,
+        use_checkpoint=False)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    rates = epoch_rates(out)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expect = {k: 0 for k in launches}
+    expect.update(K1_FWD=12, K1_BWD=12, K1_FFT=24)
+    log(f"9b per-angle ragged tables through reconstruct_ptychography: loss "
+        f"history {list(res['loss_history'])}; patterns/s by epoch {rates} "
+        f"(the first the warmup); call wall {wall:.2f} s; peak memory "
+        f"{peak:.2f} GB; launches {launches}; {CARD}")
+    if (launches != expect or len(rates) != 3
+            or not np.all(np.isfinite(res['loss_history']))):
+        raise AssertionError(f'9b: launches {launches}, expected {expect}')
+    return dict(patterns_s=statistics.median(rates[1:]), peak_gb=peak)
+
+
+def run_9e():
+    """Phase 9e: the streaming rotation.  At 256^3 ``'on'`` against
+    ``'off'`` on the same inputs (the largest loss difference; the two
+    forms are equal in exact arithmetic and here bit for bit).  Then
+    1024^3 with one angle and a 40x40 scan at stride 24 (minibatch 40):
+    ``'auto'`` must engage; its peak memory, and ``'off'``'s beside it
+    where ``'off'`` fits on the card."""
+    res = {}
+    pos = scan_table('grid')
+    runs = {}
+    for mode in ('on', 'off'):
+        r = run_table(f'9e stream {mode} 256^3', pos,
+                      table_config(stream_rotation=mode))
+        if r['rec']._stream_rot != (mode == 'on'):
+            raise AssertionError(f"9e {mode}: streaming "
+                                 f"{r['rec']._stream_rot}")
+        del r['rec']
+        runs[mode] = r
+    diff = float(np.max(np.abs(np.subtract(runs['on']['losses'],
+                                           runs['off']['losses']))))
+    log(f"9e 256^3: 'on' against 'off' losses largest difference {diff:.3e};"
+        f" patterns/s on {runs['on']['patterns_s']:.1f} off "
+        f"{runs['off']['patterns_s']:.1f}; peak on "
+        f"{runs['on']['peak_gb']:.2f} GB off {runs['off']['peak_gb']:.2f} GB")
+    if diff > 1e-6 * abs(runs['off']['losses'][0]):
+        raise AssertionError('9e: streaming changes the losses')
+    res['256'] = runs
+    n, s, k = 1024, 24, 40
+    xs = 8 + s * np.arange(k)
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    big = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+    for mode in ('auto', 'off'):
+        tag = f'9e 1024^3 stream {mode}'
+        try:
+            r = run_table(tag, big, table_config(
+                n=n, minibatch_size=k, stream_rotation=mode), n_theta=1,
+                obj0=np.zeros((n, n, n, 2), np.float32),
+                profile=mode == 'auto')
+        except torch.cuda.OutOfMemoryError as e:
+            # 'off' is measured where it fits; 'auto' must.
+            if mode == 'auto':
+                raise
+            r, why = None, str(e).splitlines()[0]
+        if r is None:
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f'{tag}: does not fit on the card ({why})')
+            res['1024 off'] = None
+            continue
+        engaged = r['rec']._stream_rot
+        log(f"{tag}: streaming engaged {engaged}; peak memory "
+            f"{r['peak_gb']:.2f} GB of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}; "
+            f"{r['patterns_s']:.1f} patterns/s")
+        if engaged != (mode == 'auto'):
+            raise AssertionError(f'{tag}: streaming {engaged}')
+        del r['rec']
+        res[f'1024 {mode}'] = r
+        torch.cuda.empty_cache()
+    return res
+
+
+def run_9f():
+    """Phase 9f: ``exact_grad_rotation=True`` on the flagship (the binned
+    gradient expanded by repeat, then the rotation's transpose), with the
+    rotate-back's device time an angle beside the interp form's (the
+    fused expand and -theta gather) at the flagship's [256, 256, 32, 2]
+    binned gradient."""
+    from adorym_tpu_torch.ops.rotate import (rotate_adjoint,
+                                             rotate_expanded_from_binned_z)
+    r = run_table('9f exact rotate-back', scan_table('grid'),
+                  table_config(exact_grad_rotation=True), profile=True)
+    del r['rec']
+    gen = torch.Generator(device='cuda').manual_seed(31)
+    n = FLAGSHIP['n_obj']
+    g = torch.randn((n, n, n // 8, 2), device='cuda', generator=gen)
+
+    def exact():
+        return rotate_adjoint(torch.repeat_interleave(g, 8, dim=2)[:, :, :n],
+                              0.7)
+
+    def interp():
+        return rotate_expanded_from_binned_z(g, -0.7, 8, n)
+    ms = {'exact': device_ms(exact, 5)[0], 'interp': device_ms(interp, 5)[0]}
+    log(f"9f rotate-back an angle at [256, 256, 32, 2]: exact (repeat + "
+        f"transpose) {ms['exact']:.3f} ms, interp (fused gather) "
+        f"{ms['interp']:.3f} ms device time; {CARD}")
+    r['rotate_back_ms'] = ms
+    return r
+
+
+def small_table_agrees(kind):
+    """Phase 9 (small): CUDA against the CPU on a small configuration of
+    each new branch of the per-angle path, 2 epochs of GD at 32^3 with a
+    16^2 probe, the per-epoch losses within 1e-4, no K6 row copied.
+    Returns the CUDA run's launches."""
+    import adorym_tpu_torch as pt
+    import adorym_tpu_torch.utils.profiling as tprof
+    from types import SimpleNamespace
+    from adorym_tpu_torch.models import ptychography
+    rng = np.random.default_rng(6)
+    n_theta = 3
+    theta = np.linspace(0, np.pi, n_theta, endpoint=False)
+    xs = np.arange(4) * 4
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    grid = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+    jit = grid + rng.integers(-2, 3, grid.shape)
+    stag = grid.copy()
+    stag[4:8, 1] += 2
+    stag[12:16, 1] += 2
+    per_angle = np.stack([grid + rng.integers(-2, 3, grid.shape)
+                          for _ in range(n_theta)])
+    train = dict(minibatch_size=4, learning_rate=1e-3, optimizer='gd',
+                 update_scheme='per angle', rotate_out_of_loop=True)
+    case = {'padded_chunks': (grid, {}, 8e6),
+            'staggered': (stag, {}, None),
+            'jittered': (jit, {}, None),
+            'jittered_patch_grad': (jit, dict(patch_grad=True), None),
+            'randomized': (grid, dict(randomize_probe_pos=True), None),
+            'per_angle': (per_angle, {}, None),
+            'per_angle_accumulate': (per_angle,
+                                     dict(rotate_out_of_loop=False), None),
+            'per_angle_immediate': (per_angle,
+                                    dict(update_scheme='immediate',
+                                         rotate_out_of_loop=False), None),
+            'stream': (stag, dict(stream_rotation='on'), 8e6),
+            'exact': (grid, dict(exact_grad_rotation=True), None),
+            'no_patch_form': (grid, {}, None)}[kind]
+    pos, extra, cap = case
+    train.update(extra)
+    if cap:
+        # K1's chunk budget on the CPU too: chunks of 3 of the 4 batches
+        # an angle on both devices, the rotation in 8 y chunks.
+        train['fused_multislice'] = 'on'
+    model = (SimpleNamespace(predict=ptychography.predict)
+             if kind == 'no_patch_form' else None)
+    data = rng.random((n_theta, pos.shape[-2], 16, 16)).astype(np.float32)
+    obj0 = (rng.random((32, 32, 32, 2)) * 1e-3).astype(np.float32)
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(32, 32, 32), probe_size=(16, 16),
+                             energy_ev=5000., psize_cm=1e-7,
+                             free_prop_cm='inf', binning=2),
+        train=pt.TrainConfig(**train))
+    hbm = tprof.hbm_limit_bytes
+    if cap:
+        tprof.hbm_limit_bytes = lambda device=None: cap
+    out = {}
+    try:
+        reset_counts()
+        reset_k6_layouts()
+        for dev in ('cuda', 'cpu'):
+            rec = pt.Reconstructor(cfg, data=data, probe_pos=pos,
+                                   theta_ls=theta, obj_init=obj0.copy(),
+                                   probe_init=probe_modes(16, 1), model=model,
+                                   device=dev)
+            out[dev] = [rec.run_epoch(e) for e in range(2)]
+            if dev == 'cuda':
+                launches, layouts = launch_counts(), k6_layouts()
+                info = (rec._fuse_g, rec._patch_mode, rec._stream_rot)
+    finally:
+        tprof.hbm_limit_bytes = hbm
+    rel = np.max(np.abs(np.subtract(out['cuda'], out['cpu']))
+                 / np.abs(out['cpu']))
+    log(f'9 small {kind}: losses cuda {out["cuda"]} cpu {out["cpu"]} rel '
+        f'{rel:.3e} (tol 1e-4); (chunk, patch mode, streaming) {info}; '
+        f'launches {launches}; K6 layouts {layouts}')
+    if not rel < 1e-4:
+        raise AssertionError(f'9 small {kind}: CUDA and CPU losses disagree')
+    if launches['K1_FWD'] == 0 or layouts['copy']:
+        raise AssertionError(f'9 small {kind}: launches {launches}, K6 '
+                             f'layouts {layouts}')
+    return launches
+
+
+#: Phase 9's small cases and the K6 launches of each CUDA run (2 epochs
+#: of 3 angles): one a grid row on the row branches, 3 rows a chunk and 2
+#: chunks an angle (the last padded) where the capacity is patched.
+SMALL_TABLES = {'padded_chunks': 36, 'staggered': 24, 'jittered': 0,
+                'jittered_patch_grad': 0, 'randomized': 0, 'per_angle': 0,
+                'per_angle_accumulate': 0, 'per_angle_immediate': 0,
+                'stream': 36, 'exact': 0, 'no_patch_form': 0}
+
+
+def slice14_runs(work, kernels):
+    """Phase 9: the small CUDA-CPU agreements of each new branch, then
+    9a-9f at the flagship's width.  9d's runs give the per-angle chunk-row
+    records of K6 their launches."""
+    for kind, k6 in SMALL_TABLES.items():
+        launches = small_table_agrees(kind)
+        if launches['K6'] != k6:
+            raise AssertionError(f'9 small {kind}: K6 {launches["K6"]}, '
+                                 f'expected {k6}')
+    stamp('phase 9 small')
+    res = {'9a': run_9a()}
+    stamp('phase 9a')
+    res['9b'] = run_9b(work)
+    res['9c'] = {}
+    for pg in (False, True):
+        tag = f"9c randomized{' patch_grad' if pg else ''} f32"
+        r = run_table(tag, scan_table('grid'), table_config(
+            randomize_probe_pos=True, patch_grad=pg), profile=not pg)
+        del r['rec']
+        res['9c'][tag] = r
+    stamp('phases 9b, 9c')
+    res['9d'] = {}
+    for bf16 in (False, True):
+        tag = f"9d staggered {'bf16' if bf16 else 'f32'}"
+        r = run_table(tag, scan_table('staggered'), table_config(bf16),
+                      profile=not bf16)
+        if (r['rec']._grid_scatter_rows is not None
+                or r['rec']._rowgrid_stride != 8 or not r['launches']['K6']):
+            raise AssertionError(f'{tag}: not the row-by-row branch')
+        del r['rec']
+        res['9d'][tag] = r
+        name = '(bfloat16)' if bf16 else '(float32)'
+        for k in kernels:
+            if k['path'] == '9d' and k['name'].endswith(name):
+                k['launches'] = r['launches'][k['counter']]
+    stamp('phase 9d')
+    res['9e'] = run_9e()
+    stamp('phase 9e')
+    res['9f'] = run_9f()
+    stamp('phase 9f')
+    summary = []
+    for ph in ('9a', '9c', '9d'):
+        summary += [f"{t} {r['patterns_s']:.1f} patterns/s, peak "
+                    f"{r['peak_gb']:.2f} GB" for t, r in res[ph].items()
+                    if isinstance(r, dict)]
+    summary.append(f"9b {res['9b']['patterns_s']:.1f} patterns/s")
+    for t, r in res['9e'].items():
+        if t != '256':
+            summary.append(f'9e {t}: ' + ('does not fit' if r is None else
+                                          f"{r['patterns_s']:.1f} patterns/s"
+                                          f", peak {r['peak_gb']:.2f} GB"))
+    summary.append(f"9f {res['9f']['patterns_s']:.1f} patterns/s")
+    log('phase 9: ' + '; '.join(summary) + f'; {CARD}')
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3132,6 +3643,8 @@ def main():
         # z-major gradient.
         kernels += check_multislice(dtype, 1e-4, tol_bwd, N=23)
         kernels += check_rowgrid_scatter_zmajor(dtype)
+        # The per-angle path's: K6 on the rows of a chunk, in place.
+        kernels += check_rowgrid_scatter_chunk_rows(dtype)
         if dtype == torch.float32:
             # The adhesin configuration's shape (phase 6b).
             kernels += check_multislice_unfolded()
@@ -3259,6 +3772,7 @@ def main():
         stamp('phase 7')
         _, sparse_launches = slice12_runs(work)
         stamp('phase 8')
+        slice14_runs(work, kernels)
     angle_rate, angle_peak = run_per_angle_regularized()
     stamp('phase 6c')
     log(f"phase 6: immediate with checkpoints "

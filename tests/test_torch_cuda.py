@@ -564,6 +564,116 @@ def test_rowgrid_kernel_matches_plain_k2_and_scalar(cuda, dtype, n, py, px,
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('rows,n,py,px,s,zb', [(4, 7, 24, 24, 8, 8),
+                                               (3, 5, 16, 16, 8, 4)])
+def test_rowgrid_reads_chunk_rows_in_place(cuda, dtype, rows, n, py, px, s,
+                                           zb):
+    """K6 on the per-angle path's layout: each grid row of a chunk's z-major
+    gradient ``[zb, 2, rows*n, py, px]``, sliced along the patches (a
+    channel stride of rows*n patches), read in place.  Bit for bit equal
+    to the copy route (the row made contiguous, then the patch-major
+    kernel) and to K2 at ``rows=1``, its vector instantiation to its
+    scalar one, and within 1e-5 of the plain version; no row is copied."""
+    rng = np.random.default_rng(12)
+    zm = torch.from_numpy(rng.normal(size=(zb, 2, rows * n, py, px))
+                          .astype(np.float32)).to(cuda, dtype)
+    chunk = zm.permute(2, 3, 4, 0, 1)
+    acc0 = torch.from_numpy(rng.normal(
+        size=((rows - 1) * s + py + 3, (n - 1) * s + px + 6, zb, 2)).astype(
+            np.float32)).to(cuda)
+    row_cots = [chunk[r * n:(r + 1) * n] for r in range(rows)]
+    assert all(csg.channel_stride(c) == rows * n * py * px for c in row_cots)
+    assert not any(csg._channel_major(c) for c in row_cots)
+
+    def by_rows(fn):
+        acc = acc0.clone()
+        for r, c in enumerate(row_cots):
+            fn(acc, c, r * s + 1, 4)
+        return acc
+    layouts = csg.K6_LAYOUT_LAUNCHES
+    l0 = dict(layouts)
+    got = by_rows(lambda a, c, y0, x0: csg.scatter_rowgrid_add_kernel(
+        a, c, y0, x0, s))
+    assert {k: layouts[k] - l0[k] for k in layouts} == {
+        'channel': rows, 'patch': 0, 'copy': 0}
+    assert csg.rowgrid_plan(acc0, row_cots[1], s).vec > 1
+    got_s = by_rows(lambda a, c, y0, x0: csg._launch_rowgrid(
+        a, c, y0, x0, s, vec=1))
+    copied = by_rows(lambda a, c, y0, x0: csg.scatter_rowgrid_add_kernel(
+        a, c.contiguous(), y0, x0, s))
+    k2 = by_rows(lambda a, c, y0, x0: csg.scatter_grid2d_add(
+        a, c, y0, x0, s, 1))
+    ref = by_rows(lambda a, c, y0, x0: csg.scatter_rowgrid_add(
+        a, c, y0, x0, s))
+    torch.cuda.synchronize()
+    assert torch.equal(got, copied)
+    assert torch.equal(got, k2)
+    assert torch.equal(got, got_s)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_scatter_patches_add_cuda_matches_cpu(cuda, dtype):
+    """The any-table scatter on the card (``index_add_``, by atomics)
+    against the CPU, overlapping windows and clamped starts included, to
+    1e-5 of the largest value: the sums' order differs."""
+    from adorym_tpu_torch.ops import patches as patch_ops
+    rng = np.random.default_rng(13)
+    acc = rng.normal(size=(40, 36, 8, 2)).astype(np.float32)
+    pos = np.concatenate([rng.integers(-3, 28, (60, 2)),
+                          [[0, 0], [35, 30], [-40, 2]]])
+    pat = torch.from_numpy(rng.normal(size=(len(pos), 12, 12, 8, 2)).astype(
+        np.float32)).to(dtype)
+    want = patch_ops.scatter_patches_add(torch.from_numpy(acc.copy()), pat,
+                                         pos)
+    got = patch_ops.scatter_patches_add(torch.from_numpy(acc).to(cuda),
+                                        pat.to(cuda), pos)
+    assert _rel(got.cpu(), want) < 1e-5
+
+
+def test_per_angle_tables_cuda_match_cpu(cuda):
+    """Small per-angle runs on the card against the CPU, GD, losses to
+    1e-4: staggered rows (K6 on every chunk row, read in place), a
+    jittered table through the whole-object branch and through
+    ``patch_grad``, and per-angle tables; K1 one pair a chunk."""
+    import adorym_tpu_torch as pt
+    rng = np.random.default_rng(1)
+    xs = np.arange(4) * 4
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    grid = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+    stag = grid.copy()
+    stag[4:8, 1] += 2
+    stag[12:16, 1] += 2
+    jit = grid + rng.integers(-2, 3, grid.shape)
+    per_angle = np.stack([grid + rng.integers(-2, 3, grid.shape)
+                          for _ in range(3)])
+    data = rng.random((3, 16, 16, 16)).astype(np.float32)
+    obj0 = (rng.random((24, 24, 24, 2)) * 1e-3).astype(np.float32)
+    for table, kw, k6 in ((stag, {}, 24), (jit, {}, 0),
+                          (jit, dict(patch_grad=True), 0),
+                          (per_angle, {}, 0)):
+        cfg = pt.ReconConfig(
+            geometry=pt.Geometry(obj_size=(24, 24, 24), probe_size=(16, 16),
+                                 free_prop_cm='inf', binning=2),
+            train=pt.TrainConfig(minibatch_size=4, learning_rate=1e-3,
+                                 optimizer='gd', update_scheme='per angle',
+                                 rotate_out_of_loop=True, **kw))
+        losses = {}
+        n6, n1 = csg.K6.launches, cm.K1_FWD.launches
+        copies = csg.K6_LAYOUT_LAUNCHES['copy']
+        for dev in ('cuda', 'cpu'):
+            rec = pt.Reconstructor(cfg, data=data, probe_pos=table,
+                                   theta_ls=np.linspace(0, np.pi, 3),
+                                   obj_init=obj0.copy(), device=dev)
+            losses[dev] = [rec.run_epoch(e) for e in range(2)]
+        assert csg.K6.launches - n6 == k6
+        assert csg.K6_LAYOUT_LAUNCHES['copy'] == copies
+        assert cm.K1_FWD.launches - n1 == 6
+        np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-4)
+
+
 def test_rowgrid_rejects_row_outside(cuda):
     """The origin is checked at every call, the shapes once by the plan."""
     cot = torch.zeros((3, 8, 8, 4), device=cuda)

@@ -7,6 +7,7 @@ interpret mode; the port's ``'on'`` on the CPU runs the kernel's plain
 version.
 """
 
+import dataclasses
 import os
 import re
 import subprocess
@@ -156,32 +157,40 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
                          device='cuda')
 
 
-@pytest.mark.parametrize('train,match', [
-    (dict(stream_rotation='on'), 'the immediate scheme'),
-    (dict(exact_grad_rotation=True), 'the immediate scheme'),
-    (dict(randomize_probe_pos=True), 'the rest of the per-angle path'),
-    (dict(optimizer='cg'), 'API and tools'),
-    (dict(patch_grad=True), 'the immediate scheme')])
-def test_unported_configs_raise(train, match):
+@pytest.mark.parametrize('section,kw,match', [
+    ('parallel', dict(offload_optimizer_state=True), 'offload'),
+    ('parallel', dict(data_axis=2), 'device meshes'),
+    ('io', dict(use_orbax=True), 'orbax'),
+    ('train', dict(optimizer='cg'), 'API and tools'),
+    ('train', dict(optimizer='curveball'), 'API and tools')])
+def test_unported_configs_raise(section, kw, match):
+    """What the port still leaves out (ROADMAP A.6, A.7) raises on the
+    per-angle path: offload, meshes, orbax and the second-order
+    optimizers."""
     data, pos, theta, obj0 = _setup()
     cfg = _cfg(pt)
-    cfg = cfg.replace(train=pt.TrainConfig(
-        **{**{f: getattr(cfg.train, f) for f in ('minibatch_size',
-                                                 'update_scheme',
-                                                 'rotate_out_of_loop',
-                                                 'optimizer')}, **train}))
+    cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section),
+                                                      **kw)})
     with pytest.raises(NotImplementedError, match=match):
         pt.Reconstructor(cfg, data=data, probe_pos=pos, obj_init=obj0,
                          device='cpu')
 
 
 def test_non_grid_scan_raises():
+    """A jittered (non-grid) table on the per-angle path raises only for
+    what is still unported (object offload); without it the table runs,
+    through the whole-object branch, one update an angle."""
     data, pos, theta, obj0 = _setup()
     pos = pos + np.random.default_rng(0).integers(0, 3, pos.shape)
-    with pytest.raises(NotImplementedError,
-                       match='the rest of the per-angle path'):
-        pt.Reconstructor(_cfg(pt), data=data, probe_pos=pos, obj_init=obj0,
-                         device='cpu')
+    cfg = _cfg(pt)
+    with pytest.raises(NotImplementedError, match='offload'):
+        pt.Reconstructor(cfg.replace(parallel=dataclasses.replace(
+            cfg.parallel, offload_object=True)), data=data, probe_pos=pos,
+            obj_init=obj0, device='cpu')
+    rec = pt.Reconstructor(cfg, data=data, probe_pos=pos, theta_ls=theta,
+                           obj_init=obj0, device='cpu')
+    assert rec._angles and not rec._patch_mode
+    assert np.isfinite(rec.run_epoch(0)) and rec.i_opt_batch == 3
 
 
 def test_import_pulls_in_no_jax():
