@@ -22,12 +22,18 @@ package maps them: ``slice_pos_cm_ls`` (sparse multislice, refined with
 ``optimize_ctf_lg_kappa``, starting at the given value), and
 ``initial_tilt`` (known tilts, ``tilt_ls`` as given) or ``optimize_tilt``.
 
+``use_epie=True`` runs ePIE (:func:`.conventional.epie_reconstruct`) on
+the first view's data with the first probe mode and returns its object
+and probe; ``update_using_external_algorithm='ctf'`` replaces the
+object's delta channel with the multi-distance CTF retrieval after each
+update; ``optimizer='cg'`` or ``'curveball'`` drives the object with a
+second-order optimizer (:mod:`.optim.second_order`).
+
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: ePIE and the external (CTF) update (A.6, ``conventional.py``),
-device meshes and ``distribution_mode='shared_file'`` (A.7), model
+item: device meshes and ``distribution_mode='shared_file'`` (A.7), model
 families passed by name (``forward_model`` other than ``'auto'`` or a
-module), and orbax checkpoints (a JAX library's format).  Reference keywords that have no
-meaning here are ignored; unknown ones warn.
+module), and orbax checkpoints (a JAX library's format).  Reference
+keywords that have no meaning here are ignored; unknown ones warn.
 """
 
 from __future__ import annotations
@@ -169,9 +175,6 @@ def reconstruct_ptychography(
         if k not in _IGNORED and k not in _PROBE_KWARGS:
             warnings.warn(f'reconstruct_ptychography: ignoring unsupported '
                           f'kwarg {k!r}')
-    if use_epie or update_using_external_algorithm is not None:
-        raise NotImplementedError('ePIE and the external (CTF) object '
-                                  'update: ROADMAP A.6, conventional.py')
     if isinstance(forward_model, str) and forward_model != 'auto':
         raise NotImplementedError(
             f'forward_model={forward_model!r}: pass \'auto\' or a model '
@@ -371,6 +374,22 @@ def reconstruct_ptychography(
             mask = np.moveaxis(mask, 0, -1)
     out_folder = (os.path.join(save_path, output_folder) if output_folder
                   else None)
+
+    if use_epie:
+        from .conventional import epie_reconstruct
+        probe_c = probe_init[0, ..., 0] + 1j * probe_init[0, ..., 1]
+        obj_c = (obj_init[..., 0, 0] + 1j * obj_init[..., 0, 1]
+                 if unknown_type == 'real_imag'
+                 else np.ones(obj_size[:2], np.complex64))
+        # Positions shifted to be non-negative.
+        pad = np.maximum(-probe_pos.min(axis=0), 0).astype(int)
+        obj_rec, probe_rec = epie_reconstruct(
+            data[0], probe_c, probe_pos.astype(int) + pad, obj_c,
+            energy_ev=energy_ev, psize_cm=psize_cm, alpha=epie_alpha,
+            n_epochs=max_nepochs if n_epochs == 'auto' else int(n_epochs),
+            raw_data_type=raw_data_type, device=device)
+        ds.close()
+        return {'obj': obj_rec.cpu().numpy(), 'probe': probe_rec.cpu().numpy()}
     # The refined kappa starts at the user's ctf_lg_kappa; known tilts
     # are taken as given.
     aux_init = {}
@@ -411,7 +430,9 @@ def reconstruct_ptychography(
             finite_support_mask=mask if ds_level == 1 else None,
             reg_list=reg_list, model=model,
             output_folder=out_folder if ds_level == 1 else None,
-            aux_init=aux_init or None, device=device)
+            aux_init=aux_init or None,
+            external_algorithm=update_using_external_algorithm,
+            device=device)
         results = rec.run()
         obj = results['obj']
         prev_pass = (obj[..., 0], obj[..., 1])

@@ -2,7 +2,9 @@
 package and the port.  Both keep the same layouts — obj ``[y, x, z, 2]``,
 probe ``[n_modes, py, px, 2]``, the auxiliary refinables (positions,
 offsets, distances, ``slice_pos_cm_ls``, ``tilt_ls``, ``prj_affine_ls``,
-``ctf_lg_kappa``), Adam ``m``/``v`` per leaf, momentum ``v`` — so the
+``ctf_lg_kappa``), Adam ``m``/``v`` per leaf, momentum ``v``, the
+object's CG (``s``, ``g_old``, ``alpha_suggested``, a boolean ``first``)
+or Curveball state (``z``, ``lmbda``) — so the
 conversion is a change of array type and device.  The optimizer
 step counts are the Reconstructor's ``i_opt_batch`` and ``global_batch``,
 plain ints in both packages and in a checkpoint's ``extra``."""
@@ -29,10 +31,17 @@ def params_from_jax(params_np: Dict[str, Any],
         return torch.as_tensor(np.array(a, dtype=np.float32),
                                device=device)
 
+    def state_t(a):
+        # CG's ``first`` flag stays boolean.
+        a = np.asarray(a)
+        if a.dtype == np.bool_:
+            return torch.as_tensor(a, device=device)
+        return to_t(a)
+
     params = {k: to_t(v) for k, v in params_np.items()}
     if opt_state_np is None:
         return params, None
-    state = {k: {n: to_t(a) for n, a in st.items()}
+    state = {k: {n: state_t(a) for n, a in st.items()}
              for k, st in opt_state_np.items()}
     return params, state
 

@@ -9,20 +9,27 @@ import torch
 
 
 class _SafeSqrt(torch.autograd.Function):
-    """sqrt whose derivative is clamped: ``0.5 / max(sqrt(x), 1e-6)``.
-    Where the predicted intensity underflows to 0 in f32 the true
-    derivative is infinite and would turn the whole gradient into NaN."""
+    """sqrt whose derivative is clamped: ``0.5 / max(sqrt(x), 1e-6)``, in
+    reverse and in forward mode.  Where the predicted intensity underflows
+    to 0 in f32 the true derivative is infinite and would turn the whole
+    gradient into NaN."""
 
     @staticmethod
     def forward(ctx, x):
         y = torch.sqrt(x)
         ctx.save_for_backward(y)
+        ctx.save_for_forward(y)
         return y
 
     @staticmethod
     def backward(ctx, grad):
         (y,) = ctx.saved_tensors
         return grad * 0.5 / torch.clamp(y, min=1e-6)
+
+    @staticmethod
+    def jvp(ctx, dx):
+        (y,) = ctx.saved_tensors
+        return dx * 0.5 / torch.clamp(y, min=1e-6)
 
 
 def safe_sqrt(x):

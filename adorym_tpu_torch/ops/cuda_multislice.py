@@ -49,7 +49,7 @@ import math
 import torch
 
 from ..utils.cuda_build import Kernel, ptr
-from .fourier import dft_matrix
+from .fourier import dft_matrix, fft2, ifft2
 
 #: Dynamic shared memory one block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
@@ -76,6 +76,9 @@ K1_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0, 'global': 0}
 #: K4 launches (forward and backward) by route, counted beside
 #: ``K4_FWD.launches`` and ``K4_BWD.launches``.
 K4_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0, 'global': 0}
+#: K4 keeps no records, so it has no forward-mode rule yet.
+K4_NO_TANGENT = ('forward mode through the invertible multislice (K4), '
+                 'which keeps no records: ROADMAP B.16, a tangent kernel')
 #: The largest radix of the FFT route's two stages (``csrc`` kMaxRadix).
 MAX_RADIX = 9
 
@@ -242,20 +245,68 @@ def _apply_prop(w, my, mx):
     return my @ (w @ mx.transpose(0, 1))
 
 
-def multislice_db_stored_plain(db, wave, kernel, k1, s, fay=None, fax=None):
+def multislice_db_stored_plain(db, wave, kernel, k1, s, fay=None, fax=None,
+                               records=False):
     """Plain PyTorch version of K1: the same steps op by op,
     differentiable by autograd.  ``fay``/``fax``: optional far-field mats
-    applied at the last step as ``fay w fax^T``."""
+    applied at the last step as ``fay w fax^T``.  ``records``: also return
+    the wave entering each step, ``[S, M, N, ny, nx]`` complex64, what
+    K1's forward kernel records."""
     py, px = _fold_prop_mats(kernel)
     w = wave
     n_steps = db.shape[0]
+    rec = []
     for z in range(n_steps):
+        rec.append(w)
         w = w * _modulator(db[z], k1, s)
         if z < n_steps - 1:
             w = _apply_prop(w, py, px)
         elif fay is not None:
             w = _apply_prop(w, fay, fax)
-    return w
+    return (w, torch.stack(rec)) if records else w
+
+
+#: Calls of :func:`multislice_tangent` from the forward-mode rules of the
+#: kernel Functions, by kernel (K1, K5), counted beside
+#: ``K1_ROUTE_LAUNCHES``.
+TANGENT_LAUNCHES = {'K1': 0, 'K5': 0}
+
+
+def multislice_tangent(t, dt, rec, dwave, kernel, far=None):
+    """The forward-mode derivative of the multislice sweep ``w_{k+1} =
+    P(w_k t_k)``, ``out = F(w_{S-1} t_{S-1})``, from the waves ``rec[S,
+    M, N, ny, nx]`` entering each step (the forward kernels' records):
+    ``w'_{k+1} = P(w'_k t_k + w_k t'_k)``, and ``F`` at the last step.
+    ``t[S, N, ny, nx]`` the transmissions, ``dt`` their tangent and
+    ``dwave[M, N, ny, nx]`` the incident wave's (one of the two may be
+    None: no tangent); ``P(w) = ifft2(fft2(w) * kernel)``; ``far``:
+    ``(ay, bx)``,
+    ``F(u) = ay u bx``, or None.  Plain torch ops: the forward-mode rule
+    of K1 and K5, and testable on the CPU from the plain versions'
+    records.  Returns the tangent of ``out``, ``[M, N, ny, nx]``
+    complex64."""
+    dw = dwave
+    n_steps = t.shape[0]
+    for z in range(n_steps):
+        u = None if dw is None else dw * t[z]
+        if dt is not None:
+            u = rec[z] * dt[z] if u is None else u + rec[z] * dt[z]
+        if z < n_steps - 1:
+            dw = ifft2(fft2(u) * kernel)
+        elif far is not None:
+            dw = far[0] @ u @ far[1]
+        else:
+            dw = u
+    return dw
+
+
+def modulator_tangent(db, ddb, k1, s):
+    """The transmissions ``t[S, N, ny, nx]`` of the packed stack ``db[S,
+    2, N, ny, nx]`` and their tangent along ``ddb``: ``t' = t (-k1 b' - i
+    s k1 d')``."""
+    t = _modulator(db.transpose(0, 1), k1, s)
+    ddb = ddb.float()
+    return t, t * torch.complex(-k1 * ddb[:, 1], -s * k1 * ddb[:, 0])
 
 
 class MultisliceDbPlain(torch.autograd.Function):
@@ -274,6 +325,10 @@ class MultisliceDbPlain(torch.autograd.Function):
         ctx.mats = (kernel, fay, fax, fayi, faxi)
         ctx.k1, ctx.s = k1, s
         return out
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise NotImplementedError(K4_NO_TANGENT)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -392,9 +447,22 @@ class MultisliceDbStored(torch.autograd.Function):
                                            db.device)))
         K1_ROUTE_LAUNCHES[route] += 1
         ctx.save_for_backward(db, rec)
+        ctx.save_for_forward(db, rec)
         ctx.mats = mats
         ctx.k1, ctx.s = k1, s
         return out
+
+    @staticmethod
+    def jvp(ctx, ddb, dwave, *_):
+        """Forward mode from the records (:func:`multislice_tangent`)."""
+        db, rec = ctx.saved_tensors
+        mats = ctx.mats
+        t, dt = modulator_tangent(db, ddb, ctx.k1, ctx.s)
+        far = ((mats['ffwd_y'], mats['ffwd_x']) if 'ffwd_y' in mats
+               else None)
+        TANGENT_LAUNCHES['K1'] += 1
+        return multislice_tangent(t, dt, torch.view_as_complex(rec.float()),
+                                  dwave, mats['kernel'], far)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -444,6 +512,10 @@ class MultisliceDb(torch.autograd.Function):
         ctx.mats = mats
         ctx.k1, ctx.s = k1, s
         return out
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise NotImplementedError(K4_NO_TANGENT)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -513,6 +585,7 @@ def prop_mats(kernel, fay=None, fax=None, fayi=None, faxi=None,
                 'bwd_y': py.transpose(0, 1).contiguous(),
                 'bwd_x': px.contiguous()}
     mats['route'] = route
+    mats['kernel'] = kernel
 
     def dev(m):
         return m.to(device=kernel.device, dtype=torch.complex64)

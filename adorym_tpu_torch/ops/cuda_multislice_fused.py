@@ -59,13 +59,19 @@ K5_BWD = Kernel('multislice_fused.cu', 'k5_bwd',
 K5_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0, 'global': 0}
 
 
-def multislice_fused_plain(t, wave, kernel):
+def multislice_fused_plain(t, wave, kernel, records=False):
     """Plain PyTorch version of the kernel pair: FFT steps op by op,
-    differentiable by autograd."""
+    differentiable by autograd.  ``records``: also return the wave
+    entering each step, ``[S, M, N, ny, nx]``, what the forward kernel
+    records."""
     w = wave
+    rec = []
     for z in range(t.shape[0] - 1):
+        rec.append(w)
         w = ifft2(fft2(w * t[z]) * kernel)
-    return w * t[-1]
+    rec.append(w)
+    out = w * t[-1]
+    return (out, torch.stack(rec)) if records else out
 
 
 def smem_bytes(n_modes, ny, nx, route='dense', backward=False):
@@ -181,10 +187,11 @@ def step_mats(kernel, route):
     DFT matrices and the transfer function itself."""
     if route == 'fft':
         return {'route': 'fft', 'fy': None, 'fx': None,
-                'h': step_table(kernel)}
+                'h': step_table(kernel), 'kernel': kernel}
     ny, nx = kernel.shape
     fy, fx = _dft_mats(ny, nx, kernel.device)
-    return {'route': route, 'fy': fy, 'fx': fx, 'h': kernel.contiguous()}
+    return {'route': route, 'fy': fy, 'fx': fx, 'h': kernel.contiguous(),
+            'kernel': kernel}
 
 
 def _workspace(route, m, n, ny, nx, device):
@@ -212,8 +219,18 @@ class MultisliceFused(torch.autograd.Function):
                m, n, ny, nx, ptr(_workspace(route, m, n, ny, nx, t.device)))
         K5_ROUTE_LAUNCHES[route] += 1
         ctx.save_for_backward(t, rec)
+        ctx.save_for_forward(t, rec)
         ctx.mats = mats
         return out
+
+    @staticmethod
+    def jvp(ctx, dt, dwave, _):
+        """Forward mode from the records (:func:`.cuda_multislice.
+        multislice_tangent`)."""
+        t, rec = ctx.saved_tensors
+        _cm.TANGENT_LAUNCHES['K5'] += 1
+        return _cm.multislice_tangent(t, dt, rec, dwave,
+                                      ctx.mats['kernel'])
 
     @staticmethod
     def backward(ctx, grad_out):

@@ -22,6 +22,14 @@ def ifft2(x, norm=None, dim=(-2, -1)):
     return torch.fft.ifft2(x, dim=dim, norm=norm)
 
 
+def fftshift2(x, dim=(-2, -1)):
+    return torch.fft.fftshift(x, dim=dim)
+
+
+def ifftshift2(x, dim=(-2, -1)):
+    return torch.fft.ifftshift(x, dim=dim)
+
+
 def fft2_and_shift(x, norm=None, dim=(-2, -1)):
     """fftshifted 2D FFT — the Fraunhofer far-field operator."""
     return torch.fft.fftshift(fft2(x, norm=norm, dim=dim), dim=dim)
@@ -30,6 +38,11 @@ def fft2_and_shift(x, norm=None, dim=(-2, -1)):
 def ifft2_and_shift(x, norm=None, dim=(-2, -1)):
     """fftshifted 2D inverse FFT."""
     return torch.fft.fftshift(ifft2(x, norm=norm, dim=dim), dim=dim)
+
+
+def ishift_and_ifft2(x, norm=None, dim=(-2, -1)):
+    """Inverse of :func:`fft2_and_shift`."""
+    return ifft2(torch.fft.ifftshift(x, dim=dim), norm=norm, dim=dim)
 
 
 @functools.lru_cache(maxsize=64)

@@ -54,16 +54,21 @@ def _freq_mesh_np(voxel_nm: tuple, shape: tuple):
     return uu, vv
 
 
+def gen_freq_mesh(voxel_nm, shape, device='cpu'):
+    """The (u, v) frequency mesh (:func:`_freq_mesh_np`) as float32
+    tensors on ``device``."""
+    uu, vv = _freq_mesh_np(tuple(float(v) for v in voxel_nm[:2]),
+                           tuple(int(s) for s in shape[:2]))
+    return (torch.from_numpy(uu).to(device), torch.from_numpy(vv).to(device))
+
+
 def fresnel_kernel(shape, voxel_nm, lmbda_nm, dist_nm, fresnel_approx=True,
                    sign_convention=1, device='cpu'):
     """Unshifted Fresnel transfer function H(u, v), complex64 on
     ``device``; the non-paraxial form masks evanescent modes.  ``dist_nm``
     may be a float32 tensor on ``device`` (a refined distance): H is then
     differentiable in it."""
-    uu, vv = _freq_mesh_np(tuple(float(v) for v in voxel_nm[:2]),
-                           tuple(int(s) for s in shape[:2]))
-    u = torch.from_numpy(uu).to(device)
-    v = torch.from_numpy(vv).to(device)
+    u, v = gen_freq_mesh(voxel_nm, shape, device)
     quad = u * u + v * v
     if fresnel_approx:
         phase = -sign_convention * PI * lmbda_nm * dist_nm * quad
@@ -282,6 +287,32 @@ class BinRealImag(torch.autograd.Function):
         if full < nz:
             parts.append(stack[..., full:, :].prod(3, keepdim=True,
                                                    dtype=torch.float32))
+        t = parts[0] if len(parts) == 1 else torch.cat(parts, 3)
+        ctx.save_for_forward(stack)
+        return torch.view_as_complex(t.permute(3, 0, 1, 2, 4).contiguous())
+
+    @staticmethod
+    def jvp(ctx, dstack, _):
+        """The binned product's tangent: at each bin, the sum over its
+        slices of the slice's tangent times the product of the bin's
+        other slices (:func:`_bin_product_grad` at a unit gradient), in
+        f32."""
+        (stack,) = ctx.saved_tensors
+        binning = ctx.binning
+        n, py, px, nz, _ = stack.shape
+        full = nz // binning * binning
+        parts = []
+        for zs, size in ((slice(0, full), binning),
+                         (slice(full, nz), nz - full)):
+            if zs.stop > zs.start:
+                x = stack[..., zs, :]
+                bins = (zs.stop - zs.start) // size
+                others = torch.empty(x.shape, dtype=torch.float32,
+                                     device=x.device)
+                _bin_product_grad(x, others.new_ones((n, py, px, bins, 2)),
+                                  others, size)
+                parts.append((others * dstack[..., zs, :].float()).reshape(
+                    n, py, px, bins, size, 2).sum(4))
         t = parts[0] if len(parts) == 1 else torch.cat(parts, 3)
         return torch.view_as_complex(t.permute(3, 0, 1, 2, 4).contiguous())
 
@@ -585,11 +616,7 @@ def pure_phase_ctf(delta_proj, beta_proj, dist_nm, lmbda_nm, voxel_nm,
     """The pure-phase CTF: the predicted detected magnitude (complex64, a
     zero imaginary part) of the projected phase ``delta_proj``; ``kappa``
     (the delta/beta ratio) and ``dist_nm`` may be tensors."""
-    uu, vv = _freq_mesh_np(tuple(float(v) for v in voxel_nm[:2]),
-                           tuple(int(s) for s in delta_proj.shape[-2:]))
-    dev = delta_proj.device
-    u = torch.from_numpy(uu).to(dev)
-    v = torch.from_numpy(vv).to(dev)
+    u, v = gen_freq_mesh(voxel_nm, delta_proj.shape[-2:], delta_proj.device)
     f = fft2(_as_complex(delta_proj))
     xi = PI * lmbda_nm * dist_nm * (u * u + v * v)
     osc = 2.0 * (torch.sin(xi) + torch.cos(xi) / kappa)

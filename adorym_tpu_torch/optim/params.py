@@ -101,14 +101,12 @@ def _aux_spec(name: str, kind: str, lr: float) -> OptSpec:
 
 
 def build_opt_specs(cfg: ReconConfig) -> Dict[str, OptSpec]:
-    """Per-leaf optimizer specs: the object's configured optimizer; each
-    refined auxiliary leaf its own first-order kind and learning rate."""
+    """Per-leaf optimizer specs: the object's configured optimizer (a
+    first-order kind, or ``'cg'`` / ``'curveball'``, whose state the
+    Reconstructor keeps itself); each refined auxiliary leaf its own
+    first-order kind and learning rate."""
     r = cfg.refine
     t = cfg.train
-    if t.optimizer not in _FIRST_ORDER_KINDS:
-        raise NotImplementedError(
-            f'object optimizer {t.optimizer!r}: ROADMAP A, API and tools '
-            '(second-order optimizers)')
     specs: Dict[str, OptSpec] = {}
     if t.optimize_object:
         specs['obj'] = OptSpec(kind=t.optimizer, step_size=t.learning_rate)

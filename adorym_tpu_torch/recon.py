@@ -56,6 +56,15 @@ In 2D (``two_d_mode``) nothing rotates: the immediate scheme takes
 ``accum_step`` and the per-angle scheme ``angle_step`` without the
 rotations.
 
+Under a second-order object optimizer (``'cg'``, ``'curveball'``,
+:mod:`.optim.second_order`) every batch takes ``second_order_step``,
+whatever the scheme: autograd through the whole forward model (the view
+rotation inside it, even under ``rotate_out_of_loop``), a first-order
+update of the auxiliary leaves, then CG's line search or Curveball's
+Gauss-Newton step on the object.  ``external_algorithm='ctf'`` replaces
+the object's delta channel with the multi-distance CTF retrieval after
+each update of the immediate steps and of the per-angle path.
+
 Every step takes the gradient of every refined leaf: the object, the
 probe and the auxiliary refinables (defocus, offsets, per-spot positions,
 distances, affines), each with its own optimizer; the batch carries its
@@ -87,6 +96,7 @@ ports them.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 import warnings
@@ -110,6 +120,7 @@ from .ops.rotate import (rotate, rotate_adjoint, rotate_adjoint_taps,
                          rotate_and_bin_z, rotate_expanded_from_binned_z)
 from .optim import optimizers as opt_lib
 from .optim import params as param_lib
+from .optim import second_order as so
 from .utils import profiling as _prof
 from .utils.initialize import initialize_object, initialize_probe
 
@@ -164,8 +175,7 @@ def rol_active(cfg: ReconConfig) -> bool:
 
 def _check_slice(cfg: ReconConfig):
     """Raise for configurations outside the ported paths: device meshes,
-    offload and orbax checkpoints (the second-order optimizers raise where
-    their specs are built, ``optim.params``)."""
+    offload and orbax checkpoints."""
     geo, t, p = cfg.geometry, cfg.train, cfg.parallel
     todo = []
     if t.update_scheme not in ('immediate', 'per angle'):
@@ -272,8 +282,10 @@ class Reconstructor:
     (nothing is written without one).  ``aux_init``: initial values of
     auxiliary refinables by name (``probe_pos_correction``,
     ``free_prop_cm``, ``prj_affine_ls``).  ``model``: the forward model
-    (default :mod:`.models.ptychography`).  ``device``: where it runs;
-    ``None`` means CUDA and raises when there is none."""
+    (default :mod:`.models.ptychography`).  ``external_algorithm``:
+    ``'ctf'`` for the CTF object update after each step, or None.
+    ``device``: where it runs; ``None`` means CUDA and raises when there
+    is none."""
 
     def __init__(self, cfg: ReconConfig, *, data: np.ndarray,
                  probe_pos: np.ndarray, theta_ls: Optional[np.ndarray] = None,
@@ -283,9 +295,16 @@ class Reconstructor:
                  finite_support_mask: Optional[np.ndarray] = None,
                  reg_list=None, output_folder: Optional[str] = None,
                  aux_init: Optional[Dict[str, Any]] = None, model=None,
-                 device=None):
+                 external_algorithm: Optional[str] = None, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
+        if external_algorithm not in (None, 'ctf'):
+            raise ValueError("external_algorithm must be None or 'ctf', got "
+                             f'{external_algorithm!r}')
+        # A non-AD object update after each optimizer step: 'ctf' replaces
+        # the delta channel with the multi-distance CTF retrieval of the
+        # measured holograms.
+        self.external_algorithm = external_algorithm
         # A model is a namespace with predict(params, batch, cfg, pad_arr)
         # and optional hooks: compute_pad, transform_measured (refinements
         # applied to the data) and expand_indices (a batch's blocks to its
@@ -300,10 +319,13 @@ class Reconstructor:
         # more than one batch, or an object rotated out of the loop, take
         # the accumulate-then-update loop, except the per-angle scheme with
         # the rotation out of the loop (or in 2D), which takes the
-        # per-angle path (one program an angle).
+        # per-angle path (one program an angle).  A second-order object
+        # optimizer (CG, Curveball) updates every batch through
+        # second_order_step, whatever the scheme.
+        self.second_order = t.optimizer in ('cg', 'curveball')
         self._rol = rol_active(cfg)
-        accum = (t.update_scheme == 'per angle' or self._rol
-                 or t.n_batch_per_update > 1)
+        accum = ((t.update_scheme == 'per angle' or self._rol
+                  or t.n_batch_per_update > 1) and not self.second_order)
         self._angles = (accum and t.update_scheme == 'per angle'
                         and t.n_batch_per_update <= 1
                         and (self._rol or geo.two_d_mode)
@@ -357,7 +379,24 @@ class Reconstructor:
         self.params.update(param_lib.build_aux_params(
             cfg, self.n_theta, self.n_pos, device=dev, **aux_kw))
         self.specs = param_lib.build_opt_specs(cfg)
+        # The second-order object optimizers keep their own state; the
+        # auxiliary leaves keep their first-order specs.
+        if self.second_order:
+            self.specs.pop('obj', None)
         self.opt_state = opt_lib.tree_init(self.specs, self.params)
+        if self.second_order and t.optimize_object:
+            init = (so.cg_init if t.optimizer == 'cg'
+                    else so.curveball_init)
+            self.opt_state['obj'] = init(self.params['obj'])
+        # The configuration the model's predict sees.  Under a
+        # second-order optimizer in 3D the view rotation stays inside
+        # autodiff even with rotate_out_of_loop: no path rotates the
+        # object outside the model there.  (The JAX package skips it and
+        # fits every angle to the object at theta = 0, ROADMAP C.)
+        self._model_cfg = cfg
+        if self.second_order and self._rol:
+            self._model_cfg = cfg.replace(train=dataclasses.replace(
+                t, rotate_out_of_loop=False))
 
         # -- statics -------------------------------------------------------
         compute_pad = getattr(self.model, 'compute_pad', None)
@@ -381,7 +420,9 @@ class Reconstructor:
         # update.
         band_ok = (t.update_scheme == 'immediate' and not self._rol
                    and self._rowgrid_stride is not None
-                   and not geo.two_d_mode and not cfg.refine.tilt_active)
+                   and not geo.two_d_mode and not cfg.refine.tilt_active
+                   and not self.second_order
+                   and self.external_algorithm is None)
         self._band = band_ok and not accum
         if (cfg.train.imm_grad_rotation == 'interp'
                 and t.update_scheme == 'immediate' and not band_ok):
@@ -721,11 +762,11 @@ class Reconstructor:
             losses.append(per_batch)
         return acc_obj, acc_aux, torch.stack(losses)
 
-    def apply_step(self, grads, i_opt_batch: int, global_batch: int):
-        """Optimizer update of every spec'd leaf (the probe inside its
-        update window, the auxiliary leaves after
-        ``other_params_update_delay`` batches), then the constraints, the
-        support mask included."""
+    def _first_order_update(self, grads, i_opt_batch: int,
+                            global_batch: int):
+        """The updated parameters, before the constraints: an optimizer
+        step of every spec'd leaf (the probe inside its update window, the
+        auxiliary leaves after ``other_params_update_delay`` batches)."""
         cfg = self.cfg
         mask = {}
         if 'probe' in self.specs:
@@ -737,10 +778,21 @@ class Reconstructor:
         params, self.opt_state = opt_lib.tree_apply(
             self.specs, self.params, grads, self.opt_state, i_opt_batch,
             update_mask=mask)
-        params = param_lib.apply_param_constraints(params, cfg)
+        return params
+
+    def _constrain(self, params):
+        """The parameter and object constraints, the support included;
+        the result becomes the run's parameters."""
+        params = param_lib.apply_param_constraints(params, self.cfg)
         params['obj'] = param_lib.apply_object_constraints(
-            params['obj'], cfg, self.finite_support_mask)
+            params['obj'], self.cfg, self.finite_support_mask)
         self.params = params
+
+    def apply_step(self, grads, i_opt_batch: int, global_batch: int):
+        """Optimizer update of every spec'd leaf, then the constraints,
+        the support mask included."""
+        self._constrain(self._first_order_update(grads, i_opt_batch,
+                                                 global_batch))
 
     # -- regularizers and the support ------------------------------------
     @staticmethod
@@ -959,7 +1011,7 @@ class Reconstructor:
         """The minibatch's loss: the data mismatch of the model's
         ``predict`` (against the measured data as the model's
         ``transform_measured`` registers them) plus the regularizers."""
-        cfg = self.cfg
+        cfg = self._model_cfg
         pred = self.model.predict(params, batch, cfg, self.pad_arr)
         if self.transform_measured is not None:
             measured = self.transform_measured(params, batch, measured, cfg)
@@ -974,20 +1026,20 @@ class Reconstructor:
 
     def _grad_step(self, i_theta: int, inds, measured, obj=None):
         """The batch's loss (:meth:`loss_fn`) and its gradient in every
-        refined leaf, by autograd through the whole forward model (the
-        object's rotation included where the model rotates).  ``obj``: the
+        refined leaf (and in the object under a second-order optimizer,
+        whose spec it keeps itself), by autograd through the whole forward
+        model (the object's rotation included where the model rotates).  ``obj``: the
         object to differentiate at in place of ``params['obj']`` (the
         object rotated out of the loop).  Returns ``(loss, {name:
         grad})``, on the device."""
         names = list(self.specs)
-        params = {k: v.detach().requires_grad_(k in self.specs)
+        if self.second_order:
+            names.append('obj')
+        params = {k: v.detach().requires_grad_(k in names)
                   for k, v in self.params.items()}
         if obj is not None:
-            params['obj'] = obj.detach().requires_grad_('obj' in self.specs)
-        batch = {'i_theta': i_theta, 'theta': float(self.theta_ls[i_theta]),
-                 'pos_batch': self._pos_table(i_theta)[inds].astype(
-                     np.float32),
-                 'ind_batch': np.asarray(inds)}
+            params['obj'] = obj.detach().requires_grad_('obj' in names)
+        batch = self._batch(i_theta, inds)
         with torch.enable_grad():
             loss = self.loss_fn(params, batch, measured)
             grads = torch.autograd.grad(loss, [params[k] for k in names],
@@ -995,6 +1047,92 @@ class Reconstructor:
         return loss.detach(), {
             k: torch.zeros_like(params[k]) if g is None else g
             for k, g in zip(names, grads)}
+
+    def _batch(self, i_theta: int, inds) -> Dict[str, Any]:
+        """The model's batch dict for the spots ``inds`` of angle
+        ``i_theta``."""
+        return {'i_theta': i_theta, 'theta': float(self.theta_ls[i_theta]),
+                'pos_batch': self._pos_table(i_theta)[inds].astype(
+                    np.float32),
+                'ind_batch': np.asarray(inds)}
+
+    @torch.no_grad()
+    def second_order_step(self, i_theta: int, inds,
+                          measured) -> torch.Tensor:
+        """One batch's update under CG or Curveball: the batch's loss and
+        gradient in every leaf (:meth:`_grad_step`), the first-order update
+        of the auxiliary leaves, then the object's second-order step at
+        the old auxiliary values (CG on the full loss; Curveball's
+        curvature on the data term against the measured data as the
+        model's ``transform_measured`` registers them), then the
+        constraints.  Returns the batch's loss, on the device."""
+        cfg = self.cfg
+        t = cfg.train
+        loss, grads = self._grad_step(i_theta, inds, measured)
+        params = self._first_order_update(grads, self.i_opt_batch,
+                                          self.global_batch)
+        if t.optimize_object:
+            old = self.params
+            batch = self._batch(i_theta, inds)
+
+            def loss_obj_fn(o):
+                return self.loss_fn({**old, 'obj': o}, batch, measured)
+
+            if t.optimizer == 'cg':
+                obj, state, _ = so.cg_step(loss_obj_fn, old['obj'],
+                                           grads['obj'], loss,
+                                           self.opt_state['obj'])
+            else:
+                mcfg = self._model_cfg
+                meas = measured
+                if self.transform_measured is not None:
+                    meas = self.transform_measured(old, batch, measured,
+                                                   mcfg)
+
+                def pred_fn(o):
+                    return self.model.predict({**old, 'obj': o}, batch,
+                                              mcfg, self.pad_arr)
+
+                def loss_pred_fn(pred):
+                    return model_base.mismatch_loss(
+                        pred, meas, cfg.loss.loss_function_type,
+                        cfg.loss.raw_data_type, cfg.loss.poisson_multiplier,
+                        self.beamstop_mask)
+
+                obj, state, _ = so.curveball_step(
+                    pred_fn, loss_pred_fn, loss_obj_fn, old['obj'],
+                    self.opt_state['obj'])
+            params['obj'] = obj
+            self.opt_state['obj'] = state
+        self._constrain(params)
+        self.i_opt_batch += 1
+        return loss
+
+    def _apply_external_algorithm(self):
+        """The external update, after an optimizer step: under 'ctf', the
+        object's delta channel becomes the multi-distance CTF retrieval
+        (:func:`.conventional.multidistance_ctf`) of the first view's
+        holograms, one a distance, read from the device-resident dataset;
+        kappa from the refined ``ctf_lg_kappa`` where there is one, the
+        refined affines where there are."""
+        if self.external_algorithm is None:
+            return
+        from .conventional import multidistance_ctf
+        geo = self.cfg.geometry
+        n_blocks = self.n_pos // geo.n_dists
+        prj = self._dataset()[0]
+        if n_blocks > 1:
+            prj = prj[::n_blocks]
+        kappa = (10.0 ** float(self.params['ctf_lg_kappa'][0])
+                 if 'ctf_lg_kappa' in self.params
+                 else self.cfg.train.ctf_kappa)
+        phase = multidistance_ctf(
+            prj, np.asarray(geo.free_prop_cm), geo.energy_ev, geo.psize_cm,
+            kappa=kappa, prj_affine_ls=self.params.get('prj_affine_ls'),
+            device=self.device)
+        obj = self.params['obj'].clone()
+        obj[..., 0] = phase[..., None]
+        self.params['obj'] = obj
 
     @torch.no_grad()
     def accum_step(self, acc: Dict[str, Any], i_theta: int, inds, measured,
@@ -1074,10 +1212,17 @@ class Reconstructor:
             measured = data[i_theta][inds_dev[i_batch]]
             if self._band:
                 losses.append(self.step_band(i_theta, inds, measured))
+            elif self.second_order:
+                losses.append(self.second_order_step(i_theta, inds,
+                                                     measured))
             else:
                 last = i_batch + 1 == n_b or batches[i_batch + 1][0] != i_theta
                 losses.append(self.accum_step(acc, i_theta, inds, measured,
                                               last))
+            if not self._accum:
+                # After every update of the immediate steps (not the
+                # accumulate loop's), as the JAX package's generic step.
+                self._apply_external_algorithm()
             self.global_batch += 1
             if (self.finite_support_mask is not None
                     and t.shrink_cycle is not None and i_batch > 0
@@ -1112,6 +1257,7 @@ class Reconstructor:
             if self._needs_weight_l1:
                 self.weight_l1 = self._weight_l1_refresh(self.params['obj'])
             losses.append(self.angle_step(i_theta, inds_list))
+            self._apply_external_algorithm()
             prev, done = done, done + len(inds_list)
             if (self.finite_support_mask is not None
                     and t.shrink_cycle is not None

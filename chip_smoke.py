@@ -130,7 +130,28 @@ Phases (any failure raises and exits nonzero):
      streaming rotation 'on' against 'off' at 256^3, then a 1024^3 object
      (one angle, 40x40 spots at stride 24) where 'auto' streams, with the
      peak memory of 'auto' and 'off' (9e); the exact rotate-back, its
-     device time beside the interp form's (9f).
+     device time beside the interp form's (9f);
+  10. small configurations of each path of this slice on CUDA and on the
+     CPU: CG and Curveball on a 32^3 delta_beta (K1) and real_imag (K5)
+     object (losses within 1e-4, each batch's launches of the pair and of
+     the multislice tangent checked); K1's and K5's forward-mode rules at
+     10a's shapes against forward mode through the plain FFT scan (1e-5 of
+     the largest value), timed beside K1's forward kernel; ePIE, the
+     multi-distance CTF retrieval, the external CTF update and the scipy
+     bridge (Newton-CG), each within 1e-4;
+  10a. CG and Curveball at the flagship's width (the immediate scheme,
+     minibatch 23, 2 angles): a warmup and a timed epoch each, with
+     patterns/s, peak memory, K1's and the tangent's launches a batch and
+     CG's line-search evaluations a batch;
+  10b. ePIE through ``reconstruct_ptychography(use_epie=True)`` on
+     BASELINE #2's data (256^2, 256 spots of 72^2): seconds an epoch and
+     the phase correlation with the star;
+  10c. BASELINE #4's holograms through ``reconstruct_ptychography`` with
+     ``update_using_external_algorithm='ctf'``, and ``multidistance_ctf``
+     alone on them (ms a call, the phase correlation);
+  10d. ``scipy_minimize_object`` (Newton-CG, the Gauss-Newton ``hessp``)
+     on a full-batch 2-D problem at 128^2, 10 iterations: the loss before
+     and after, and the time.
 Phase 3 also holds K1 under ``beta = kappa delta`` and in -z (the
 branches of ``multislice_propagate`` that phase 8 adds), K6 on the rows
 of a per-angle chunk's z-major gradient [32, 2, 529, 72, 72] read in
@@ -1423,7 +1444,7 @@ def route_counters():
     from adorym_tpu_torch.ops import cuda_scatter_grid as csg
     return {'K1': cm.K1_ROUTE_LAUNCHES, 'K4': cm.K4_ROUTE_LAUNCHES,
             'K5': cmf.K5_ROUTE_LAUNCHES, 'K2': csg.K2_ROUTE_LAUNCHES,
-            'K6': csg.K6_ROUTE_LAUNCHES}
+            'K6': csg.K6_ROUTE_LAUNCHES, 'TANGENT': cm.TANGENT_LAUNCHES}
 
 
 def reset_counts():
@@ -1438,7 +1459,9 @@ def launch_counts():
     """Each kernel's launches, K1's, K4's and K5's (forward and backward
     together) by step route as ``K1_FFT``, ``K1_DENSE``, ``K1_GLOBAL``
     and the same for K4 and K5, K2's and K6's by instantiation as
-    ``K2_VEC``, ``K2_SCALAR``, ``K6_VEC`` and ``K6_SCALAR``."""
+    ``K2_VEC``, ``K2_SCALAR``, ``K6_VEC`` and ``K6_SCALAR``, and the
+    multislice tangent's calls from K1's and K5's forward-mode rules as
+    ``TANGENT_K1`` and ``TANGENT_K5``."""
     counts = {k: c.launches for k, c in counters().items()}
     for name, routes in route_counters().items():
         counts.update({f'{name}_{r.upper()}': v for r, v in routes.items()})
@@ -2650,37 +2673,15 @@ def holo_phantom(n, seed=3):
 
 def run_multidist(work, n_epochs=200):
     """Phase 7d: BASELINE #4 at the demo's size through
-    ``reconstruct_ptychography``: four distances' holograms of the demo's
-    phantom simulated on the card by the multi-distance model, each warped
-    by its true affine (scipy, as the demo), as intensities in an
-    ``ArrayDataset``; the run starts from distances 6% long and refines
-    them with the affines (minibatch 1, ``randomize_probe_pos``, real_imag,
-    Adam), ``n_epochs`` one-step epochs.  One slice: no kernel runs.
-    Returns {metric: value}."""
+    ``reconstruct_ptychography`` on :func:`holo_dataset`'s holograms; the
+    run starts from distances 6% long and refines them with the affines
+    (minibatch 1, ``randomize_probe_pos``, real_imag, Adam), ``n_epochs``
+    one-step epochs.  One slice: no kernel runs.  Returns {metric:
+    value}."""
     import adorym_tpu_torch as pt
-    from scipy.ndimage import affine_transform
-    from adorym_tpu_torch.io import data as io_data
-    from adorym_tpu_torch.models import multidist
-    from adorym_tpu_torch.utils.initialize import initialize_probe
     h = HOLO
     n, dists = h['n'], h['dists']
-    obj = holo_phantom(n)
-    cfg = pt.ReconConfig(
-        geometry=pt.Geometry(obj_size=(n, n, 1), probe_size=(n, n),
-                             energy_ev=h['energy_ev'], psize_cm=h['psize_cm'],
-                             free_prop_cm=dists, n_dists=len(dists),
-                             two_d_mode=True, safe_zone_width=0),
-        train=pt.TrainConfig(minibatch_size=1, unknown_type='real_imag'))
-    pos = np.array([[0.0, 0.0]])
-    data = pt.simulate(cfg, obj, initialize_probe((n, n), 'plane'), pos,
-                       model=multidist)
-    for d in range(1, len(dists)):
-        a = h['affines'][d]
-        data[0, d] = affine_transform(data[0, d], a[:, :2], offset=a[:, 2],
-                                      order=1, mode='nearest')
-    ds = io_data.ArrayDataset(data ** 2, theta=np.zeros(1), probe_pos_px=pos,
-                              energy_ev=h['energy_ev'],
-                              psize_cm=h['psize_cm'])
+    ds, obj = holo_dataset()
     wrong = tuple(d * 1.06 for d in dists)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -3605,6 +3606,571 @@ def slice14_runs(work, kernels):
     return res
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+def second_order_config(optimizer, unknown_type='delta_beta', n=32, pn=16,
+                        binning=2, mb=4, immediate=True):
+    import adorym_tpu_torch as pt
+    return pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(n,) * 3, probe_size=(pn, pn),
+                             energy_ev=5000., psize_cm=1e-7,
+                             free_prop_cm='inf', binning=binning),
+        train=pt.TrainConfig(minibatch_size=mb, learning_rate=1e-3,
+                             optimizer=optimizer,
+                             update_scheme=('immediate' if immediate
+                                            else 'per angle'),
+                             unknown_type=unknown_type))
+
+
+def line_search_evals():
+    from adorym_tpu_torch.optim import second_order as so
+    return so.LINE_SEARCH_EVALS['count']
+
+
+def second_order_expect(optimizer, pair, n_b, evals):
+    """Each kernel's launches over ``n_b`` second-order batches: CG one
+    forward and backward pair for the batch's gradient and one forward a
+    line-search evaluation; Curveball five forwards (the gradient, the
+    curvature's linearization, its two forward-mode products, the
+    trust-region loss), four backwards and two tangents a batch."""
+    counts = {k: 0 for k in launch_counts()}
+    if optimizer == 'cg':
+        counts.update({f'{pair}_FWD': n_b + evals, f'{pair}_BWD': n_b,
+                       f'{pair}_FFT': 2 * n_b + evals})
+    else:
+        counts.update({f'{pair}_FWD': 5 * n_b, f'{pair}_BWD': 4 * n_b,
+                       f'{pair}_FFT': 9 * n_b, f'TANGENT_{pair}': 2 * n_b})
+    return counts
+
+
+def small_second_order_agrees(optimizer, unknown_type, dev='cuda'):
+    """Phase 10 (small): CG or Curveball on a 32^3 object (16^2 probe, a
+    4x4 grid at stride 4, 2 angles, minibatch 4, binning 2, the immediate
+    scheme) on ``dev`` and on the CPU, an epoch of 8 updates: each
+    batch's loss within 1e-4 (a longer run of CG parts by rounding, as
+    the JAX package's and the port's do on the CPU), and on ``dev`` each
+    batch's launches of K1 (delta_beta) or K5 (real_imag) and of the
+    tangent.  The delta_beta data are random;
+    the real_imag data are simulated from a near-vacuum object (random
+    data drive CG's first real_imag steps past the f32 range of the
+    slices' products, in the JAX package too)."""
+    import adorym_tpu_torch as pt
+    rng = np.random.default_rng(10)
+    theta = np.linspace(0, np.pi, 2, endpoint=False)
+    xs = np.arange(4) * 4
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+    cfg = second_order_config(optimizer, unknown_type)
+    data = rng.random((2, len(pos), 16, 16)).astype(np.float32)
+    obj0 = (rng.random((32, 32, 32, 2)) * 1e-3).astype(np.float32)
+    if unknown_type == 'real_imag':
+        obj0[..., 0] += 1.0
+        truth = (rng.random(obj0.shape) * 2e-2).astype(np.float32)
+        truth[..., 0] += 1.0
+        data = pt.simulate(cfg, truth, probe_modes(16, 1), pos, theta,
+                           device='cpu')
+    out = {}
+    reset_counts()
+    evals0 = line_search_evals()
+    for d in (dev, 'cpu'):
+        rec = pt.Reconstructor(cfg, data=data, probe_pos=pos, theta_ls=theta,
+                               obj_init=obj0.copy(),
+                               probe_init=probe_modes(16, 1), device=d)
+        out[d] = []
+        rec.run_epoch(0, callback=lambda e, b, loss: out[d].append(loss))
+        if d == dev:
+            launches, evals = launch_counts(), line_search_evals() - evals0
+    rel = np.max(np.abs(np.subtract(out[dev], out['cpu']))
+                 / np.abs(out['cpu']))
+    pair = 'K1' if unknown_type == 'delta_beta' else 'K5'
+    expect = second_order_expect(optimizer, pair, 8, evals)
+    log(f'10 small {optimizer} {unknown_type}: losses {dev} {out[dev]} cpu '
+        f'{out["cpu"]} rel {rel:.3e} (tol 1e-4); launches {launches}; '
+        f'line-search evaluations {evals}; {CARD}')
+    if not rel < 1e-4:
+        raise AssertionError(f'10 small {optimizer} {unknown_type}: the '
+                             f'devices disagree')
+    if dev == 'cuda' and any(launches[k] != v for k, v in expect.items()):
+        raise AssertionError(f'10 small {optimizer} {unknown_type}: '
+                             f'launches {launches}, expected {expect}')
+
+
+def check_tangents(dev='cuda'):
+    """K1's and K5's forward-mode rules on the card at phase 10a's shapes
+    (32 steps of 23 patches of 72^2; K1 with the Fraunhofer far field
+    folded, K5 with a non-paraxial transfer function) against forward mode
+    through the plain FFT scan (``multislice_fused_plain``, cuFFT), f32,
+    within 1e-5 of the largest value; with the times of K1's forward
+    kernel, of the forward under forward mode (the kernel, then the
+    tangent) and of the tangent alone.  Returns {metric: ms}."""
+    import torch.autograd.forward_ad as fwAD
+    from adorym_tpu_torch.ops import cuda_multislice as cm
+    from adorym_tpu_torch.ops import cuda_multislice_fused as cmf
+    from adorym_tpu_torch.ops import propagate as prop
+    from adorym_tpu_torch.ops.fourier import fft2_and_shift
+    S, N, n, k1, s = 32, 23, 72, 25.0, 1.0
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def cplx(*shape):
+        return torch.complex(
+            torch.randn(shape, generator=gen, device=dev),
+            torch.randn(shape, generator=gen, device=dev))
+
+    db = torch.as_tensor(rng.uniform(0, 0.02, (S, 2, N, n, n)).astype(
+        np.float32), device=dev)
+    ddb = torch.randn(db.shape, generator=gen, device=dev)
+    wave, dwave = cplx(1, N, n, n), cplx(1, N, n, n)
+    h = prop.fresnel_kernel((n, n), (1.0, 1.0, 1.0), 0.1, 20.0, device=dev)
+    fay, fax = prop.final_prop_mats((n, n), (1.0, 1.0), 0.1, 'inf',
+                                    device=dev)[:2]
+    out = {}
+    with torch.no_grad():
+        def k1_dual():
+            with fwAD.dual_level():
+                o = cm.multislice_db_stored_packed(
+                    fwAD.make_dual(db, ddb), fwAD.make_dual(wave, dwave), h,
+                    k1, s, fay, fax)
+                return fwAD.unpack_dual(o).tangent
+
+        def plain_dual(t, dt, hh, far):
+            with fwAD.dual_level():
+                o = cmf.multislice_fused_plain(
+                    fwAD.make_dual(t, dt), fwAD.make_dual(wave, dwave), hh)
+                if far:
+                    o = fft2_and_shift(o)
+                return fwAD.unpack_dual(o).tangent
+
+        def plain_k1():
+            t, dt = cm.modulator_tangent(db, ddb, k1, s)
+            return plain_dual(t, dt, h, True)
+
+        n0 = cm.TANGENT_LAUNCHES['K1']
+        got, ref = k1_dual(), plain_k1()
+        if cm.TANGENT_LAUNCHES['K1'] != n0 + 1:
+            raise AssertionError('K1 jvp: the tangent did not run')
+        _, rel = rel_err(got, ref)
+        out['K1 tangent max_rel_err'] = rel
+        out['K1f ms'] = time_ms(lambda: cm.multislice_db_stored_packed(
+            db, wave, h, k1, s, fay, fax), 10)
+        out['K1f + tangent ms'] = time_ms(k1_dual, 10)
+        t, dt = cm.modulator_tangent(db, ddb, k1, s)
+        _, rec = cm.multislice_db_stored_plain(db, wave, h, k1, s, fay, fax,
+                                               records=True)
+        far = (fay, fax.transpose(0, 1))
+        out['tangent ms'] = time_ms(lambda: cm.multislice_tangent(
+            t, dt, rec, dwave, h, far), 10)
+        out['plain forward mode ms'] = time_ms(plain_k1, 5)
+        if not rel < 1e-5:
+            raise AssertionError(f'K1 jvp against the plain scan: {rel:.3e}')
+        hn = prop.fresnel_kernel((n, n), (1.0, 1.0, 1.0), 0.1, 20.0,
+                                 fresnel_approx=False, device=dev)
+        tt = torch.exp(1j * 0.1 * cplx(S, N, n, n).real).to(torch.complex64)
+        dtt = cplx(S, N, n, n)
+
+        def k5_dual():
+            with fwAD.dual_level():
+                o = cmf.multislice_fused(fwAD.make_dual(tt, dtt),
+                                         fwAD.make_dual(wave, dwave), hn)
+                return fwAD.unpack_dual(o).tangent
+
+        n0 = cm.TANGENT_LAUNCHES['K5']
+        got5, ref5 = k5_dual(), plain_dual(tt, dtt, hn, False)
+        if cm.TANGENT_LAUNCHES['K5'] != n0 + 1:
+            raise AssertionError('K5 jvp: the tangent did not run')
+        _, rel5 = rel_err(got5, ref5)
+        out['K5 tangent max_rel_err'] = rel5
+        out['K5f + tangent ms'] = time_ms(k5_dual, 10)
+        if not rel5 < 1e-5:
+            raise AssertionError(f'K5 jvp against the plain scan: {rel5:.3e}')
+    log('10 tangents (32 steps, 23 patches of 72^2, f32): ' + ', '.join(
+        f'{k} {v:.4g}' for k, v in out.items()) + f'; {CARD}')
+    return out
+
+
+def epie_small_inputs(n=40, p=16, seed=0):
+    """A weak object's Fraunhofer magnitudes on a 4x4 grid at stride 8 and
+    a starting probe with a phase of its own (``tests/
+    test_torch_conventional.py``'s inputs)."""
+    rng = np.random.default_rng(seed)
+    obj = (np.exp(0.5j * rng.random((n, n)))
+           * (0.9 + 0.1 * rng.random((n, n)))).astype(np.complex64)
+    yy, xx = np.mgrid[:p, :p] - (p - 1) / 2
+    probe = (np.exp(-(yy ** 2 + xx ** 2) / 30)
+             * np.exp(1j * rng.random((p, p)))).astype(np.complex64)
+    xs = np.arange(0, n - p + 1, 8)
+    gy, gx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([gy.ravel(), gx.ravel()], -1)
+    data = np.stack([np.abs(np.fft.fftshift(np.fft.fft2(
+        probe * obj[y:y + p, x:x + p]))) for y, x in pos]).astype(np.float32)
+    probe0 = (np.exp(-(yy ** 2 + xx ** 2) / 40)
+              * np.exp(1j * rng.random((p, p)))).astype(np.complex64)
+    return data, probe0, pos, np.ones((n, n), np.complex64)
+
+
+def small_conventional_agrees(dev='cuda'):
+    """Phase 10 (small): ePIE (3 epochs; object and probe), the
+    multi-distance CTF retrieval (128^2, 4 distances, affines and a safe
+    zone; the phase map), the external CTF update (64^2 holograms, one
+    epoch; the object) and the scipy bridge (Newton-CG with the GVP
+    ``hessp``, 5 iterations on a 2-D problem; the object), each on ``dev``
+    and on the CPU, within 1e-4 of the largest value."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch import conventional as conv
+    from adorym_tpu_torch.models import multidist
+    from adorym_tpu_torch.utils.initialize import initialize_probe
+    errs = {}
+    data, probe0, pos, obj0 = epie_small_inputs()
+    res = {d: conv.epie_reconstruct(data, probe0, pos, obj0, alpha=0.8,
+                                    n_epochs=3, device=d)
+           for d in (dev, 'cpu')}
+    errs['epie object'] = rel_err(res[dev][0].cpu(), res['cpu'][0])[1]
+    errs['epie probe'] = rel_err(res[dev][1].cpu(), res['cpu'][1])[1]
+    h = HOLO
+    prj = holo_dataset(dev)[0].all_magnitudes()[0]
+    # Affines in the warp's normalized coordinates (not the scipy pixel
+    # form of HOLO's): a small shift, scale and shear.
+    aff = np.tile(np.asarray([[1, 0, 0], [0, 1, 0]], np.float32), (4, 1, 1))
+    aff[1:, 0, 2], aff[2, 1, 1], aff[3, 0, 1] = 0.01, 1.004, 0.002
+    kw = dict(kappa=50.0, safe_zone_width=8, prj_affine_ls=aff)
+    ph = {d: conv.multidistance_ctf(prj, h['dists'], h['energy_ev'],
+                                    h['psize_cm'], device=d, **kw)
+          for d in (dev, 'cpu')}
+    errs['ctf phase'] = rel_err(ph[dev].cpu(), ph['cpu'])[1]
+    n = 64
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(n, n, 1), probe_size=(n, n),
+                             energy_ev=h['energy_ev'], psize_cm=h['psize_cm'],
+                             free_prop_cm=h['dists'], n_dists=4,
+                             two_d_mode=True, safe_zone_width=0),
+        train=pt.TrainConfig(minibatch_size=1, learning_rate=1e-3,
+                             optimizer='adam', ctf_kappa=200.0))
+    holo = (1.0 + 0.05 * np.random.default_rng(2).random(
+        (1, 4, n, n))).astype(np.float32)
+    objs = {}
+    for d in (dev, 'cpu'):
+        rec = pt.Reconstructor(cfg, data=holo, probe_pos=np.zeros((1, 2)),
+                               probe_init=initialize_probe((n, n), 'plane'),
+                               obj_init=np.zeros((n, n, 1, 2), np.float32),
+                               model=multidist, external_algorithm='ctf',
+                               device=d)
+        rec.run_epoch(0)
+        objs[d] = rec.obj
+    errs['ctf hook object'] = rel_err(torch.as_tensor(objs[dev]),
+                                      torch.as_tensor(objs['cpu']))[1]
+    x = {d: scipy_bridge_run(d, n=32, pn=16, stride=4, maxiter=5)['obj']
+         for d in (dev, 'cpu')}
+    errs['scipy bridge object'] = rel_err(torch.as_tensor(x[dev]),
+                                          torch.as_tensor(x['cpu']))[1]
+    log('10 small conventional and scipy bridge, device - CPU over the '
+        'largest value: ' + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+        + f' (tol 1e-4); {CARD}')
+    bad = [k for k, v in errs.items() if not v < 1e-4]
+    if bad:
+        raise AssertionError(f'10 small: the devices disagree on {bad}')
+
+
+def blob_phantom(n, seed=0, delta=1e-4, beta=3e-6):
+    """The adhesin demo's phantom (:func:`adhesin_phantom`: six Gaussian
+    blobs) drawn at ``n^3``, delta up to ``delta`` and beta up to
+    ``beta``, ``[n, n, n, 2]`` float32."""
+    rng = np.random.default_rng(seed)
+    g = (np.arange(n, dtype=np.float32) - 0.0)[:, None, None]
+    vol = np.zeros((n, n, n), np.float32)
+    for _ in range(6):
+        c = rng.uniform(0.3 * n, 0.7 * n, 3).astype(np.float32)
+        r = np.float32(rng.uniform(0.06 * n, 0.16 * n))
+        vol += (np.exp(-(g - c[0]) ** 2 / (2 * r * r))
+                * np.exp(-(g[:, :, 0][None] - c[1]) ** 2 / (2 * r * r))
+                * np.exp(-(g[:, 0, 0][None, None] - c[2]) ** 2
+                         / (2 * r * r)))
+    vol /= vol.max()
+    return np.stack([vol * delta, vol * beta], -1)
+
+
+def run_second_order_flagship(optimizer):
+    """Phase 10a: CG or Curveball at the flagship's full width (256^3, a
+    23x23 scan of 72^2 patterns at stride 8, binning 8, Fraunhofer,
+    delta_beta) on the immediate scheme at minibatch 23, 2 angles: a
+    warmup and a timed epoch of 46 batches, every one through the
+    second-order step (the view rotation of the whole object inside
+    autodiff).  The data are simulated on the card from
+    :func:`blob_phantom` at 256^3: on random data (8a-8d's) each
+    minibatch's line search accepts its first trial, the suggested step
+    doubles every batch, and CG's object leaves the f32 range within the
+    epoch (the JAX package's rule; its CG does the same).  Checks each
+    batch's launches (K1 alone, the tangent under Curveball) and returns
+    {metric: value}."""
+    import adorym_tpu_torch as pt
+    f = FLAGSHIP
+    pos = flagship_positions()
+    rng = np.random.default_rng(8)
+    theta = np.linspace(0, np.pi, LOOP_THETA, endpoint=False)
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(f['n_obj'],) * 3,
+                             probe_size=(f['n_probe'],) * 2,
+                             energy_ev=f['energy_ev'], psize_cm=f['psize_cm'],
+                             free_prop_cm='inf', binning=f['binning']),
+        train=pt.TrainConfig(minibatch_size=f['mb'], optimizer=optimizer,
+                             update_scheme='immediate'))
+    probe = probe_modes(f['n_probe'], 1)
+    data = pt.simulate(cfg, blob_phantom(f['n_obj']), probe, pos, theta,
+                       minibatch_size=f['mb'])
+    obj0 = (rng.random((f['n_obj'],) * 3 + (2,), dtype=np.float32)
+            * np.float32(1e-6))
+    rec = pt.Reconstructor(cfg, data=data, probe_pos=pos, theta_ls=theta,
+                           obj_init=obj0, probe_init=probe)
+    del obj0
+    if not rec.second_order or rec._band or rec._accum:
+        raise AssertionError(f'10a {optimizer}: not the second-order step')
+    torch.cuda.reset_peak_memory_stats()
+    batch_losses = []
+    t0 = time.perf_counter()
+    losses = [rec.run_epoch(0)]
+    warm = time.perf_counter() - t0
+    reset_counts()
+    evals0 = line_search_evals()
+    t0 = time.perf_counter()
+    losses.append(rec.run_epoch(
+        1, callback=lambda e, b, loss: batch_losses.append(loss)))
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    evals = line_search_evals() - evals0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_b = LOOP_THETA * len(pos) // f['mb']
+    expect = second_order_expect(optimizer, 'K1', n_b, evals)
+    rate = LOOP_THETA * len(pos) / wall
+    per = {k: launches[k] / n_b for k in ('K1_FWD', 'K1_BWD', 'TANGENT_K1')}
+    log(f'10a {optimizer} flagship (256^3, 72^2, 23x23, binning 8, '
+        f'immediate, minibatch 23, 2 angles): losses {losses}; the timed '
+        f'epoch\'s batch losses {batch_losses[0]:.5g} .. '
+        f'{batch_losses[-1]:.5g} (min {min(batch_losses):.5g}); warmup '
+        f'{warm:.3f} s; timed epoch {wall:.3f} s, {rate:.1f} patterns/s; '
+        f'peak memory {peak:.2f} GB; per batch K1f {per["K1_FWD"]:.2f}, K1b '
+        f'{per["K1_BWD"]:.2f}, tangent {per["TANGENT_K1"]:.2f}'
+        + (f', line-search evaluations {evals / n_b:.2f}'
+           if optimizer == 'cg' else '') + f'; {CARD}')
+    if not np.all(np.isfinite(losses)) or launches != expect:
+        raise AssertionError(f'10a {optimizer}: losses {losses}, launches '
+                             f'{launches}, expected {expect}')
+    del rec
+    torch.cuda.empty_cache()
+    return dict(patterns_s=rate, peak_gb=peak, per_batch=per,
+                evals_per_batch=evals / n_b, s_epoch=wall)
+
+
+def run_epie_siemens(work):
+    """Phase 10b: ePIE through ``reconstruct_ptychography(use_epie=True)``
+    on BASELINE #2's data (:func:`siemens_data`: 256^2, 256 spots of
+    72^2, intensities; the demo's keywords, the first of its five probe
+    modes) on the card: runs of 2 and 22 epochs, their difference over 20
+    the seconds an epoch.  Returns {metric: value}."""
+    import adorym_tpu_torch as pt
+    ds, _, _ = siemens_data()
+    walls, res = [], None
+    for n_epochs in (2, 22):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pt.reconstruct_ptychography(
+            fname='data.h5', save_path=str(work), output_folder=None,
+            n_epochs=n_epochs, use_epie=True, dataset=ds, **SIEMENS_KW)
+        walls.append(time.perf_counter() - t0)
+    s_epoch = (walls[1] - walls[0]) / 20
+    star = siemens_star(SIEMENS['n'])
+    edge = SIEMENS['n'] // 8
+    sl = slice(edge, SIEMENS['n'] - edge)
+    corr = float(np.corrcoef(np.angle(res['obj'])[sl, sl].ravel(),
+                             star[sl, sl].ravel())[0, 1])
+    log(f'10b ePIE on BASELINE #2 (256^2, 256 spots of 72^2): {s_epoch:.4f} '
+        f's an epoch ({walls[1]:.2f} s for 22 epochs, {walls[0]:.2f} s for '
+        f'2); phase correlation with the star {corr:.4f}; {CARD}')
+    if not (np.all(np.isfinite(res['obj'])) and np.isfinite(corr)):
+        raise AssertionError('10b: non-finite ePIE result')
+    return dict(s_epoch=s_epoch, corr=corr)
+
+
+def holo_dataset(dev='cuda'):
+    """BASELINE #4's holograms at the demo's size (phase 7d): four
+    distances of the demo's phantom simulated on ``dev`` by the
+    multi-distance model, each warped by its true affine (scipy, as the
+    demo), as intensities in an ``ArrayDataset``.  Returns (the dataset,
+    the phantom)."""
+    import adorym_tpu_torch as pt
+    from scipy.ndimage import affine_transform
+    from adorym_tpu_torch.io import data as io_data
+    from adorym_tpu_torch.models import multidist
+    from adorym_tpu_torch.utils.initialize import initialize_probe
+    h = HOLO
+    n, dists = h['n'], h['dists']
+    obj = holo_phantom(n)
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(n, n, 1), probe_size=(n, n),
+                             energy_ev=h['energy_ev'], psize_cm=h['psize_cm'],
+                             free_prop_cm=dists, n_dists=len(dists),
+                             two_d_mode=True, safe_zone_width=0),
+        train=pt.TrainConfig(minibatch_size=1, unknown_type='real_imag'))
+    pos = np.array([[0.0, 0.0]])
+    data = pt.simulate(cfg, obj, initialize_probe((n, n), 'plane'), pos,
+                       model=multidist, device=dev)
+    for d in range(1, len(dists)):
+        a = h['affines'][d]
+        data[0, d] = affine_transform(data[0, d], a[:, :2], offset=a[:, 2],
+                                      order=1, mode='nearest')
+    ds = io_data.ArrayDataset(data ** 2, theta=np.zeros(1), probe_pos_px=pos,
+                              energy_ev=h['energy_ev'],
+                              psize_cm=h['psize_cm'])
+    return ds, obj
+
+
+def run_ctf_hook(work, n_epochs=20, dev='cuda'):
+    """Phase 10c: BASELINE #4's holograms (:func:`holo_dataset`) through
+    ``reconstruct_ptychography`` with ``update_using_external_algorithm=
+    'ctf'``: the true distances, the affines refined (Adam) and read by
+    each retrieval, a delta_beta object (the update writes the retrieved
+    phase into the delta channel), ``n_epochs`` one-step epochs; then
+    ``multidistance_ctf`` alone on the same holograms (unregistered): ms
+    a call and the phase correlation with the phantom.
+    Returns {metric: value}."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch import conventional as conv
+    h = HOLO
+    n = h['n']
+    ds, obj = holo_dataset(dev)
+    truth = np.arctan2(obj[..., 0, 1], obj[..., 0, 0])
+    sl = slice(8, n - 8)
+
+    def corr(phase):
+        return float(np.corrcoef(phase[sl, sl].ravel(),
+                                 truth[sl, sl].ravel())[0, 1])
+
+    t0 = time.perf_counter()
+    res = pt.reconstruct_ptychography(
+        fname='data.h5', save_path=str(work), output_folder=None,
+        obj_size=(n, n, 1), two_d_mode=True, free_prop_cm=h['dists'],
+        safe_zone_width=0, n_epochs=n_epochs, minibatch_size=1,
+        random_guess_means_sigmas=(0., 0., 0., 0.), probe_type='plane',
+        optimizer='adam', learning_rate=1e-3, optimize_prj_affine=True,
+        prj_affine_learning_rate=1e-3, update_scheme='immediate',
+        unknown_type='delta_beta', raw_data_type='intensity',
+        update_using_external_algorithm='ctf', use_checkpoint=False,
+        save_intermediate=False, dataset=ds, device=dev)
+    wall = time.perf_counter() - t0
+    hook_corr = corr(res['obj'][..., 0, 0])
+    prj = torch.as_tensor(ds.all_magnitudes()[0], device=dev)
+    ms = time_ms(lambda: conv.multidistance_ctf(
+        prj, h['dists'], h['energy_ev'], h['psize_cm'], kappa=50.0,
+        device=dev), 20)
+    alone = conv.multidistance_ctf(prj, h['dists'], h['energy_ev'],
+                                   h['psize_cm'], kappa=50.0,
+                                   device=dev).cpu().numpy()
+    alone_corr = corr(alone)
+    log(f'10c BASELINE #4 (128^2, 4 distances) with the external CTF '
+        f'update: losses {res["loss_history"][:2].tolist()} .. '
+        f'{res["loss_history"][-2:].tolist()}; {wall / n_epochs:.5f} s an '
+        f'epoch '
+        f'({wall:.2f} s for {n_epochs}); phase correlation {hook_corr:.4f}; '
+        f'multidistance_ctf alone {ms:.4f} ms a call, phase correlation '
+        f'{alone_corr:.4f}; {CARD}')
+    if not (np.all(np.isfinite(res['obj'])) and np.isfinite(alone_corr)):
+        raise AssertionError('10c: non-finite CTF result')
+    return dict(s_epoch=wall / n_epochs, corr=hook_corr, ctf_ms=ms,
+                ctf_corr=alone_corr)
+
+
+def scipy_bridge_run(dev='cuda', n=128, pn=32, stride=8, maxiter=10):
+    """``scipy_minimize_object`` with Newton-CG and the Gauss-Newton
+    ``hessp`` on a full-batch 2-D ptychography problem (``n``^2 object, a
+    ``pn``^2 probe with a phase of its own, a grid at ``stride``, data
+    simulated from a smooth phantom on ``dev``), ``maxiter`` iterations
+    from a small random start.  Returns {metric: value}."""
+    import adorym_tpu_torch as pt
+    from scipy.ndimage import gaussian_filter
+    from adorym_tpu_torch.models import base as model_base
+    from adorym_tpu_torch.optim.scipy_bridge import scipy_minimize_object
+    rng = np.random.default_rng(13)
+    xs = np.arange(0, n - pn + 1, stride)
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+    sm = gaussian_filter(rng.random((n, n, 1)), (3, 3, 0))
+    truth = np.stack([sm * 2e-2, sm * 5e-4], -1).astype(np.float32)
+    py = np.mgrid[:pn, :pn] - (pn - 1) / 2
+    amp = np.exp(-(py ** 2).sum(0) / (pn * pn / 8))
+    ph = rng.random((pn, pn))
+    probe = np.stack([amp * np.cos(ph), amp * np.sin(ph)],
+                     -1)[None].astype(np.float32)
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(n, n, 1), probe_size=(pn, pn),
+                             energy_ev=5000., psize_cm=1e-7,
+                             free_prop_cm='inf', two_d_mode=True),
+        train=pt.TrainConfig(minibatch_size=len(pos)))
+    data = pt.simulate(cfg, truth, probe, pos, device=dev)
+    obj0 = (rng.random(truth.shape) * 1e-3).astype(np.float32)
+    rec = pt.Reconstructor(cfg, data=data, probe_pos=pos, obj_init=obj0,
+                           probe_init=probe, device=dev)
+    batch = rec._batch(0, np.arange(len(pos)))
+    measured = rec._dataset()[0]
+
+    def loss_obj_fn(o):
+        return rec.loss_fn({**rec.params, 'obj': o}, batch, measured)
+
+    def pred_fn(o):
+        return rec.model.predict({**rec.params, 'obj': o}, batch, cfg,
+                                 rec.pad_arr)
+
+    def loss_pred_fn(pred):
+        return model_base.mismatch_loss(pred, measured)
+
+    with torch.no_grad():
+        before = float(loss_obj_fn(rec.params['obj']))
+    t0 = time.perf_counter()
+    x = scipy_minimize_object(loss_obj_fn, obj0, method='Newton-CG',
+                              pred_fn=pred_fn, loss_pred_fn=loss_pred_fn,
+                              options={'maxiter': maxiter}, device=dev)
+    wall = time.perf_counter() - t0
+    with torch.no_grad():
+        after = float(loss_obj_fn(torch.as_tensor(x, device=rec.device)))
+    return dict(obj=x, before=before, after=after, s=wall)
+
+
+def run_scipy_bridge():
+    """Phase 10d: :func:`scipy_bridge_run` at 128^2 (a 32^2 probe, 13x13
+    spots at stride 8, all 169 in one batch), 10 Newton-CG iterations on
+    the card."""
+    r = scipy_bridge_run()
+    log(f'10d scipy bridge (Newton-CG, GVP hessp, 2-D 128^2, 169 patterns '
+        f'of 32^2, full batch, 10 iterations): loss {r["before"]:.6e} -> '
+        f'{r["after"]:.6e} in {r["s"]:.3f} s; {CARD}')
+    if not (np.isfinite(r['after']) and r['after'] < r['before']):
+        raise AssertionError('10d: the loss did not fall')
+    return r
+
+
+def slice15_runs(work):
+    """Phase 10: the small device-CPU agreements and the tangents, then
+    10a-10d."""
+    for optimizer in ('cg', 'curveball'):
+        for unknown_type in ('delta_beta', 'real_imag'):
+            small_second_order_agrees(optimizer, unknown_type)
+    tangents = check_tangents()
+    small_conventional_agrees()
+    stamp('phase 10 small')
+    res = {o: run_second_order_flagship(o) for o in ('cg', 'curveball')}
+    stamp('phase 10a')
+    res['10b'] = run_epie_siemens(work)
+    res['10c'] = run_ctf_hook(work)
+    res['10d'] = run_scipy_bridge()
+    stamp('phases 10b-10d')
+    log(f"phase 10: 10a CG {res['cg']['patterns_s']:.1f} patterns/s "
+        f"({res['cg']['evals_per_batch']:.2f} line-search evaluations a "
+        f"batch), Curveball {res['curveball']['patterns_s']:.1f} patterns/s;"
+        f" tangent {tangents['tangent ms']:.3f} ms beside K1f "
+        f"{tangents['K1f ms']:.3f} ms; 10b ePIE {res['10b']['s_epoch']:.4f} "
+        f"s an epoch; 10c {res['10c']['s_epoch']:.5f} s an epoch, "
+        f"multidistance_ctf {res['10c']['ctf_ms']:.4f} ms; 10d "
+        f"{res['10d']['s']:.3f} s; {CARD}")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3773,6 +4339,8 @@ def main():
         _, sparse_launches = slice12_runs(work)
         stamp('phase 8')
         slice14_runs(work, kernels)
+        slice15_runs(work)
+        stamp('phase 10')
     angle_rate, angle_peak = run_per_angle_regularized()
     stamp('phase 6c')
     log(f"phase 6: immediate with checkpoints "

@@ -1102,3 +1102,129 @@ def test_rotate_other_axes_cuda_matches_cpu(cuda, axis):
         res.append((out.detach().cpu(), float(gth)))
     assert _rel(res[0][0], res[1][0]) < 1e-6
     assert abs(res[0][1] - res[1][1]) <= 1e-4 * abs(res[1][1])
+
+
+def _dual_tangent(fn, primals, tangents):
+    import torch.autograd.forward_ad as fwAD
+    with torch.no_grad(), fwAD.dual_level():
+        out = fn(*[fwAD.make_dual(p, t) for p, t in zip(primals, tangents)])
+        return fwAD.unpack_dual(out).tangent
+
+
+@pytest.mark.parametrize('final', [False, True])
+@pytest.mark.parametrize('shape', [(16, 16), (13, 17)])
+def test_k1_jvp_matches_plain_forward_mode(cuda, final, shape):
+    """K1's forward-mode rule (the multislice tangent from the kernel's
+    records) against forward mode through the plain FFT scan, f32, within
+    1e-5 of the largest value, on the FFT and the dense route."""
+    from adorym_tpu_torch.ops.fourier import fft2_and_shift
+    db, wave, h, fmats, _ = _multislice_inputs(6, 2, 3, *shape,
+                                               torch.float32, final, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    ddb = torch.randn(db.shape, generator=gen, device=cuda)
+    dwave = torch.complex(torch.randn(wave.shape, generator=gen,
+                                      device=cuda),
+                          torch.randn(wave.shape, generator=gen,
+                                      device=cuda))
+    n0 = cm.TANGENT_LAUNCHES['K1']
+    got = _dual_tangent(
+        lambda d, w: cm.multislice_db_stored_packed(d, w, h, 25.0, 1.0,
+                                                    *fmats),
+        (db, wave), (ddb, dwave))
+    assert cm.TANGENT_LAUNCHES['K1'] == n0 + 1
+
+    def plain(d, w):
+        out = cmf.multislice_fused_plain(cm._modulator(d.transpose(0, 1),
+                                                       25.0, 1.0), w, h)
+        return fft2_and_shift(out) if final else out
+
+    ref = _dual_tangent(plain, (db, wave), (ddb, dwave))
+    assert _rel(got, ref) < 1e-5
+
+
+def test_k5_jvp_matches_plain_forward_mode(cuda):
+    """K5's forward-mode rule against forward mode through the plain FFT
+    scan (a non-paraxial transfer function), f32, within 1e-5 of the
+    largest value."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+
+    def cplx(*shape):
+        return torch.complex(torch.randn(shape, generator=gen, device=cuda),
+                             torch.randn(shape, generator=gen, device=cuda))
+
+    t = torch.exp(0.1j * torch.randn((6, 3, 16, 16), generator=gen,
+                                     device=cuda)).to(torch.complex64)
+    dt, wave, dwave = cplx(6, 3, 16, 16), cplx(2, 3, 16, 16), cplx(
+        2, 3, 16, 16)
+    h = prop.fresnel_kernel((16, 16), (1.0, 1.0, 1.0), 0.1, 20.0,
+                            fresnel_approx=False, device=cuda)
+    n0 = cm.TANGENT_LAUNCHES['K5']
+    got = _dual_tangent(lambda a, w: cmf.multislice_fused(a, w, h),
+                        (t, wave), (dt, dwave))
+    assert cm.TANGENT_LAUNCHES['K5'] == n0 + 1
+    ref = _dual_tangent(lambda a, w: cmf.multislice_fused_plain(a, w, h),
+                        (t, wave), (dt, dwave))
+    assert _rel(got, ref) < 1e-5
+
+
+def test_k4_jvp_raises_on_the_card(cuda):
+    import torch.autograd.forward_ad as fwAD
+    db, wave, h, _, _ = _multislice_inputs(4, 1, 2, 16, 16, torch.float32,
+                                           False, cuda)
+    with pytest.raises(NotImplementedError, match='B.16'):
+        with fwAD.dual_level():
+            cm.multislice_db_packed(fwAD.make_dual(db, torch.ones_like(db)),
+                                    wave, h, 25.0, 1.0)
+
+
+def test_epie_cuda_matches_cpu(cuda):
+    """ePIE, 3 epochs, on the card against the CPU: object and probe
+    within 1e-4 of the largest value."""
+    from adorym_tpu_torch import conventional as conv
+    rng = np.random.default_rng(3)
+    n, p = 40, 16
+    obj = np.exp(0.5j * rng.random((n, n))).astype(np.complex64)
+    yy, xx = np.mgrid[:p, :p] - (p - 1) / 2
+    probe = (np.exp(-(yy ** 2 + xx ** 2) / 30)
+             * np.exp(1j * rng.random((p, p)))).astype(np.complex64)
+    xs = np.arange(0, n - p + 1, 6)
+    gy, gx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([gy.ravel(), gx.ravel()], -1)
+    data = np.stack([np.abs(np.fft.fftshift(np.fft.fft2(
+        probe * obj[y:y + p, x:x + p]))) for y, x in pos]).astype(np.float32)
+    probe0 = (np.exp(-(yy ** 2 + xx ** 2) / 40)
+              * np.exp(1j * rng.random((p, p)))).astype(np.complex64)
+    res = [conv.epie_reconstruct(data, probe0, pos,
+                                 np.ones((n, n), np.complex64), n_epochs=3,
+                                 device=d) for d in (cuda, 'cpu')]
+    assert res[0][0].is_cuda
+    assert _rel(res[0][0].cpu(), res[1][0]) < 1e-4
+    assert _rel(res[0][1].cpu(), res[1][1]) < 1e-4
+
+
+@pytest.mark.parametrize('optimizer', ['cg', 'curveball'])
+def test_second_order_cuda_matches_cpu(cuda, optimizer):
+    """CG and Curveball on a small 3-D delta_beta run (the immediate
+    scheme, K1 on its FFT route): the per-epoch losses on the card
+    within 1e-4 of the CPU's; Curveball's batches run the tangent."""
+    import adorym_tpu_torch as pt
+    rng = np.random.default_rng(0)
+    xs = np.arange(4) * 4
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+    data = rng.random((2, 16, 16, 16)).astype(np.float32)
+    obj0 = (rng.random((24, 24, 24, 2)) * 1e-3).astype(np.float32)
+    cfg = pt.ReconConfig(
+        geometry=pt.Geometry(obj_size=(24, 24, 24), probe_size=(16, 16),
+                             free_prop_cm='inf', binning=2),
+        train=pt.TrainConfig(minibatch_size=4, optimizer=optimizer))
+    losses = {}
+    n0 = cm.TANGENT_LAUNCHES['K1']
+    for dev in ('cuda', 'cpu'):
+        rec = pt.Reconstructor(cfg, data=data, probe_pos=pos,
+                               theta_ls=np.linspace(0, np.pi, 2),
+                               obj_init=obj0.copy(), device=dev)
+        losses[dev] = [rec.run_epoch(e) for e in range(2)]
+    assert cm.TANGENT_LAUNCHES['K1'] - n0 == (32 if optimizer == 'curveball'
+                                              else 0)
+    np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-4)

@@ -370,16 +370,18 @@ def test_default_train_config_runs_the_band_step():
 
 
 @pytest.mark.parametrize('kw,match', [
-    (dict(train=dict(optimizer='curveball')), 'second-order'),
+    (dict(train=dict(optimizer='curveball'), parallel=dict(data_axis=2)),
+     'device meshes'),
     (dict(parallel=dict(data_axis=2)), 'device meshes'),
     (dict(parallel=dict(object_axis=2)), 'device meshes'),
     (dict(parallel=dict(offload_optimizer_state=True)), 'offload'),
-    (dict(train=dict(optimizer='cg')), 'second-order'),
+    (dict(train=dict(optimizer='cg'),
+          parallel=dict(offload_optimizer_state=True)), 'offload'),
     (dict(io=dict(use_orbax=True)), 'orbax'),
     (dict(parallel=dict(offload_object=True)), 'offload')])
 def test_unported_immediate_configs_raise(kw, match):
     """What the immediate scheme still leaves out raises, naming its
-    ROADMAP item."""
+    ROADMAP item, under the second-order optimizers too."""
     args = _setup()
     cfg = pt.ReconConfig(
         geometry=pt.Geometry(**args[0]),

@@ -161,12 +161,11 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     ('parallel', dict(offload_optimizer_state=True), 'offload'),
     ('parallel', dict(data_axis=2), 'device meshes'),
     ('io', dict(use_orbax=True), 'orbax'),
-    ('train', dict(optimizer='cg'), 'API and tools'),
-    ('train', dict(optimizer='curveball'), 'API and tools')])
+    ('parallel', dict(object_axis=2), 'device meshes'),
+    ('parallel', dict(offload_object=True), 'offload')])
 def test_unported_configs_raise(section, kw, match):
-    """What the port still leaves out (ROADMAP A.6, A.7) raises on the
-    per-angle path: offload, meshes, orbax and the second-order
-    optimizers."""
+    """What the port still leaves out (ROADMAP A.7) raises on the
+    per-angle path: offload, meshes and orbax."""
     data, pos, theta, obj0 = _setup()
     cfg = _cfg(pt)
     cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section),
