@@ -27,10 +27,13 @@ the first view's data with the first probe mode and returns its object
 and probe; ``update_using_external_algorithm='ctf'`` replaces the
 object's delta channel with the multi-distance CTF retrieval after each
 update; ``optimizer='cg'`` or ``'curveball'`` drives the object with a
-second-order optimizer (:mod:`.optim.second_order`).
+second-order optimizer (:mod:`.optim.second_order`);
+``distribution_mode='shared_file'`` keeps the object's optimizer state on
+the host and, past the device's budget where the run qualifies, the
+object too (``offload_optimizer_state=True``, ``offload_object='auto'``).
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: device meshes and ``distribution_mode='shared_file'`` (A.7), model
+item: device meshes (A.7), model
 families passed by name (``forward_model`` other than ``'auto'`` or a
 module), and orbax checkpoints (a JAX library's format).  Reference
 keywords that have no meaning here are ignored; unknown ones warn.
@@ -181,16 +184,16 @@ def reconstruct_ptychography(
             f'module (other model families: {_A5})')
     if parallel_data_axis * parallel_object_axis > 1:
         raise NotImplementedError(f'device meshes: {_A7}')
-    if distribution_mode == 'shared_file':
-        raise NotImplementedError(
-            "distribution_mode='shared_file' (the optimizer state and the "
-            f'object offloaded to the host): {_A7}')
+    # distribution_mode='shared_file' keeps the object's optimizer state
+    # on the host, and the object too where it outgrows the device and the
+    # run qualifies ('auto'), as the JAX package maps it.
+    shared_file = distribution_mode == 'shared_file'
     if distribution_mode == 'distributed_object':
         warnings.warn("distribution_mode='distributed_object' maps onto "
                       'object sharding over a mesh: pass '
                       'parallel_object_axis>1 (z-slab analog) — running '
                       'unsharded')
-    elif distribution_mode is not None:
+    elif distribution_mode not in (None, 'shared_file'):
         warnings.warn(f'unknown distribution_mode {distribution_mode!r} '
                       'ignored')
 
@@ -337,7 +340,11 @@ def reconstruct_ptychography(
         n_batch_per_checkpoint=n_batch_per_checkpoint, t_max_min=t_max_min,
         save_stdout=save_stdout)
     cfg = ReconConfig(geometry=geometry, loss=loss_cfg, refine=refine,
-                      train=train, parallel=ParallelConfig(), io=io_cfg)
+                      train=train,
+                      parallel=ParallelConfig(
+                          offload_optimizer_state=shared_file,
+                          offload_object='auto' if shared_file else False),
+                      io=io_cfg)
     if forward_model == 'auto':
         from .models import multidist, ptychography
         model = multidist if is_multi_dist else ptychography

@@ -2,8 +2,11 @@
 one atomic ``checkpoint.npz`` a checkpoint, holding the parameters, the
 optimizer state and the loop counters under the JAX package's flattened
 keys (``params/obj``, ``state/obj/m``, ``extra/i_opt_batch``, ...), so a
-checkpoint written by either package restores in the other.  An orbax
-checkpoint (a JAX library's format) raises on restore."""
+checkpoint written by either package restores in the other.  Under slab
+offload the object and its moments are written as y slabs
+(``params/obj/s00``, ``state/obj/m/s00``, ...), as the JAX package writes
+them; :func:`slab_order` and :func:`deslab` make whole arrays of them
+again.  An orbax checkpoint (a JAX library's format) raises on restore."""
 
 from __future__ import annotations
 
@@ -14,6 +17,33 @@ import numpy as np
 
 _ORBAX = ('orbax checkpoints (use_orbax=True) are a JAX library\'s format; '
           'the port writes and reads the npz form only')
+
+
+def slab_order(keys):
+    """Slab keys in numeric order (``s2`` before ``s10``: a lexicographic
+    sort scrambles them past 100 slabs)."""
+    return sorted(keys, key=lambda k: int(k[1:]))
+
+
+def is_slabbed(v) -> bool:
+    """Whether ``v`` is a dict of y slabs (``{'s00': ..., ...}``)."""
+    return (isinstance(v, dict) and bool(v)
+            and all(k.startswith('s') and k[1:].isdigit() for k in v))
+
+
+def deslab(v):
+    """A dict of y slabs as one array along y; anything else as it is."""
+    if not is_slabbed(v):
+        return v
+    return np.concatenate([np.asarray(v[k]) for k in slab_order(v)], axis=0)
+
+
+def deslab_obj_state(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The object's optimizer state with each slabbed leaf (written under
+    slab offload) made one array again."""
+    if not isinstance(state.get('obj'), dict):
+        return state
+    return {**state, 'obj': {k: deslab(v) for k, v in state['obj'].items()}}
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = '') -> Dict[str, np.ndarray]:

@@ -87,11 +87,20 @@ by less than ``crit_conv_rate``).  With an ``output_folder`` it writes the
 reference's output tree, checkpoints every ``n_batch_per_checkpoint``
 batches (each naming the NEXT batch to run) and resumes from one.
 
-The measured data lives on the device.  Per-batch losses stay on the
-device until the epoch ends; only a batch that writes a checkpoint or an
-intermediate dump visits the host.  Meshes, offload and orbax
-checkpoints raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+The measured data lives on the device where it fits beside the working
+set; else (or when ``data`` is a :class:`~.io.fastloader.FastLoader`) its
+rows are gathered on the host and copied up while the previous step runs
+(:class:`.offload.DataStager`).  ``offload_optimizer_state`` keeps the
+object's optimizer state on the host, in y slabs under a first-order
+optimizer (each slab's moments go up, update with the slab and come back
+down), and ``offload_object`` the object itself: per angle each slab goes
+up and is rotated and binned into the binned object, the patch gradients
+accumulate there, and each slab's full-depth gradient is made from the
+binned gradient's rows just before the slab's update, so the object is
+never whole on the device.  Per-batch losses stay on the device until the
+epoch ends (``run_epochs`` fetches them one epoch late); only a batch that
+writes a checkpoint or an intermediate dump visits the host.  Meshes and
+orbax checkpoints raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -106,8 +115,10 @@ import numpy as np
 import torch
 
 from . import convert
+from . import offload as off_lib
 from .config import ReconConfig
 from .io import checkpoint as ckpt_lib
+from .io import fastloader as fl_mod
 from .io import output as out_lib
 from .models import base as model_base
 from .models import ptychography as ptycho_model
@@ -174,8 +185,8 @@ def rol_active(cfg: ReconConfig) -> bool:
 
 
 def _check_slice(cfg: ReconConfig):
-    """Raise for configurations outside the ported paths: device meshes,
-    offload and orbax checkpoints."""
+    """Raise for configurations outside the ported paths: device meshes
+    and orbax checkpoints."""
     geo, t, p = cfg.geometry, cfg.train, cfg.parallel
     todo = []
     if t.update_scheme not in ('immediate', 'per angle'):
@@ -192,8 +203,6 @@ def _check_slice(cfg: ReconConfig):
         raise NotImplementedError('tilt is not implemented for two_d_mode')
     if p.data_axis > 1 or p.object_axis > 1:
         todo.append('device meshes (ROADMAP A, multi-GPU and out-of-core)')
-    if p.offload_optimizer_state or p.offload_object is True:
-        todo.append('offload (ROADMAP A, multi-GPU and out-of-core)')
     if cfg.io.use_orbax:
         todo.append("orbax checkpoints (a JAX library's format; the port "
                     'writes the npz form)')
@@ -284,10 +293,12 @@ class Reconstructor:
     ``free_prop_cm``, ``prj_affine_ls``).  ``model``: the forward model
     (default :mod:`.models.ptychography`).  ``external_algorithm``:
     ``'ctf'`` for the CTF object update after each step, or None.
+    ``data``: the measured magnitudes ``[n_theta, n_pos, h, w]``, an array
+    or a :class:`~.io.fastloader.FastLoader` (whose rows stay on the host).
     ``device``: where it runs; ``None`` means CUDA and raises when there
     is none."""
 
-    def __init__(self, cfg: ReconConfig, *, data: np.ndarray,
+    def __init__(self, cfg: ReconConfig, *, data,
                  probe_pos: np.ndarray, theta_ls: Optional[np.ndarray] = None,
                  obj_init: Optional[np.ndarray] = None,
                  probe_init: Optional[np.ndarray] = None,
@@ -332,8 +343,15 @@ class Reconstructor:
                         and self.expand_indices is None)
         self._accum = accum and not self._angles
         _check_slice(cfg)
-        self.data = np.abs(np.asarray(data)).astype(np.float32)
-        self.n_theta, self.n_pos = self.data.shape[:2]
+        if isinstance(data, fl_mod.FastLoader):
+            self.loader, self.data = data, None
+            data_shape = data.shape
+        else:
+            self.loader = None
+            self.data = np.abs(np.asarray(data)).astype(np.float32)
+            data_shape = self.data.shape
+        self.n_theta, self.n_pos = data_shape[:2]
+        data_nbytes = int(np.prod(data_shape)) * 4
         # One table [n_pos, 2] for every angle, or one an angle [n_theta,
         # n_pos, 2] (common_probe_pos=False).
         self.probe_pos = np.asarray(probe_pos, dtype=np.float64)
@@ -355,9 +373,10 @@ class Reconstructor:
             probe_init = initialize_probe(
                 geo.probe_size, 'plane', n_probe_modes=cfg.train.n_probe_modes)
         dev = self.device
-        self.params: Dict[str, torch.Tensor] = {
-            'obj': torch.as_tensor(np.asarray(obj_init, np.float32),
-                                   device=dev),
+        # The object stays on the host until its placement (on the device,
+        # or in host slabs under object offload) at the end.
+        self.params: Dict[str, Any] = {
+            'obj': torch.as_tensor(np.asarray(obj_init, np.float32)),
             'probe': torch.as_tensor(np.asarray(probe_init, np.float32),
                                      device=dev),
         }
@@ -380,14 +399,12 @@ class Reconstructor:
             cfg, self.n_theta, self.n_pos, device=dev, **aux_kw))
         self.specs = param_lib.build_opt_specs(cfg)
         # The second-order object optimizers keep their own state; the
-        # auxiliary leaves keep their first-order specs.
+        # auxiliary leaves keep their first-order specs.  The object's
+        # state is made with the object's placement.
         if self.second_order:
             self.specs.pop('obj', None)
-        self.opt_state = opt_lib.tree_init(self.specs, self.params)
-        if self.second_order and t.optimize_object:
-            init = (so.cg_init if t.optimizer == 'cg'
-                    else so.curveball_init)
-            self.opt_state['obj'] = init(self.params['obj'])
+        self.opt_state = opt_lib.tree_init(
+            {k: v for k, v in self.specs.items() if k != 'obj'}, self.params)
         # The configuration the model's predict sees.  Under a
         # second-order optimizer in 3D the view rotation stays inside
         # autodiff even with rotate_out_of_loop: no path rotates the
@@ -453,7 +470,24 @@ class Reconstructor:
         obj_bytes = int(np.prod(geo.obj_size)) * 8
         hbm = _prof.hbm_limit_bytes(dev)
         stream_auto = obj_bytes > _prof.stream_rotation_auto_bytes(hbm)
-        avail = (hbm - _prof.xla_reserve_bytes(hbm)) - 6 * obj_bytes
+        # Under object offload only the binned object's buffers live on the
+        # device: the JAX package's conditions for it that are known here
+        # (the full list is checked once the regularizers are).
+        par, lc = cfg.parallel, cfg.loss
+        self._obj_off_likely = (
+            bool(par.offload_object) and par.offload_optimizer_state
+            and par.offload_slabs > 1 and self._patch_mode and self._prebin
+            and not t.exact_grad_rotation and t.update_scheme == 'per angle'
+            and t.rotate_out_of_loop and t.n_batch_per_update <= 1
+            and not self.second_order and not cfg.refine.tilt_active
+            and finite_support_mask is None and reg_list is None
+            and not (lc.alpha_d or lc.alpha_b or lc.gamma or lc.corr_reg
+                     or lc.grad_corr_reg)
+            and (par.offload_object is True
+                 or obj_bytes > _prof.obj_offload_auto_bytes(hbm)))
+        obj_budget = (obj_bytes // max(1, geo.binning)
+                      if self._obj_off_likely else obj_bytes)
+        avail = (hbm - _prof.xla_reserve_bytes(hbm)) - 6 * obj_budget
         kernel_db = (cfg.train.unknown_type == 'delta_beta'
                      and not geo.pure_projection
                      and geo.slice_pos_cm_ls is None and geo.fresnel_approx
@@ -467,17 +501,18 @@ class Reconstructor:
                 1, bufs * patch_bytes)))) if avail > 0 else 1)
             # A smaller chunk that lets the dataset live on the device
             # beats a larger one that does not.
-            resid = min(3.5e9, 0.22 * hbm)
-            fit = (hbm - resid) - 6 * obj_bytes - self.data.nbytes
-            g_fit = int(fit // max(1, bufs * patch_bytes))
-            if 1 <= g_fit < self._fuse_g:
-                self._fuse_g = g_fit
-        ws_bytes = 6 * obj_bytes + bufs * patch_bytes * self._fuse_g
-        if self.data.nbytes > (hbm - _prof.data_headroom_bytes(hbm)) - ws_bytes:
-            raise NotImplementedError(
-                f'a dataset of {self.data.nbytes / 1e9:.2f} GB does not fit '
-                'on the device next to the working set; staging it from the '
-                'host is ROADMAP A, multi-GPU and out-of-core')
+            if self.data is not None and not self._obj_off_likely:
+                resid = min(3.5e9, 0.22 * hbm)
+                fit = (hbm - resid) - 6 * obj_budget - data_nbytes
+                g_fit = int(fit // max(1, bufs * patch_bytes))
+                if 1 <= g_fit < self._fuse_g:
+                    self._fuse_g = g_fit
+        ws_bytes = 6 * obj_budget + bufs * patch_bytes * self._fuse_g
+        # The dataset lives on the device where it fits beside the working
+        # set; else (and from a loader) its rows are staged from the host.
+        self._data_dev_ok = (self.data is not None and data_nbytes
+                             <= (hbm - _prof.data_headroom_bytes(hbm))
+                             - ws_bytes)
         # Chunks of whole grid rows of one complete 2D grid take the grid
         # gather and scatter (K3, K2); other row-grid chunks scatter row by
         # row (K6), any other table patch by patch.
@@ -504,7 +539,7 @@ class Reconstructor:
                          else build_regularizers(cfg))
         self._needs_weight_l1 = any(
             isinstance(r, regs.ReweightedL1Regularizer) for r in self.reg_list)
-        self.weight_l1 = (torch.ones_like(self.params['obj'])
+        self.weight_l1 = (torch.ones(self.params['obj'].shape, device=dev)
                           if self._needs_weight_l1 else None)
         # The per-angle streaming rotation: with the prebin hoist and the
         # -theta gradient rotate-back, the object is rotated and binned y
@@ -519,11 +554,64 @@ class Reconstructor:
                                      and stream_auto))
                             and not t.exact_grad_rotation
                             and not self.reg_list)
+        # -- out-of-core (the reference's shared_file mode) ----------------
+        # offload_optimizer_state keeps the object's optimizer state on the
+        # host where it has one (not GD's): in y slabs under a first-order
+        # optimizer with offload_slabs > 1, else whole (CG, Curveball).
+        # offload_object keeps the object there too, in the same slabs, on
+        # the JAX package's conditions; True raises where they fail,
+        # 'auto' takes it past obj_offload_auto_bytes where they hold.
+        has_state = (self.specs['obj'].kind != 'gd' if 'obj' in self.specs
+                     else self.second_order and t.optimize_object)
+        self._off_state = bool(par.offload_optimizer_state and has_state)
+        self._off_slabbed = (self._off_state and 'obj' in self.specs
+                             and par.offload_slabs > 1)
+        self._slab_keys = self._slab_ranges = None
+        if self._off_slabbed:
+            self._slab_keys, self._slab_ranges = off_lib.slab_ranges(
+                geo.obj_size[0], par.offload_slabs)
+        want_obj_off = par.offload_object
+        if want_obj_off == 'auto':
+            want_obj_off = (self._off_slabbed and obj_bytes
+                            > _prof.obj_offload_auto_bytes(hbm))
+        self._obj_offloaded = False
+        if want_obj_off:
+            problems = []
+            if not self._off_slabbed:
+                problems.append('offload_optimizer_state with '
+                                'offload_slabs>1')
+            if not (self._patch_mode and self._prebin):
+                problems.append('the patch-granular prebin angle path '
+                                '(row-grid scan table, delta_beta, '
+                                'binning>1)')
+            if geo.two_d_mode:
+                problems.append('a 3D object')
+            if t.exact_grad_rotation:
+                problems.append('the interp gradient rotate-back '
+                                '(exact_grad_rotation=False)')
+            if self.reg_list or self._needs_weight_l1:
+                problems.append('no regularizers')
+            if self.finite_support_mask is not None:
+                problems.append('no finite-support mask')
+            if (t.update_scheme != 'per angle' or not t.rotate_out_of_loop
+                    or t.n_batch_per_update > 1):
+                problems.append("update_scheme='per angle' with "
+                                'rotate_out_of_loop')
+            if self.second_order:
+                problems.append('a first-order object optimizer')
+            if cfg.refine.tilt_active:
+                problems.append('no tilt')
+            if problems and par.offload_object is True:
+                raise ValueError('offload_object requires: '
+                                 + '; '.join(problems))
+            self._obj_offloaded = not problems
+        self._arena = off_lib.HostArena(dev)
+        self._mover = off_lib.HostMover(dev)
         self.i_opt_batch = 0      # optimizer step counter
         self.global_batch = 0     # epoch*n_batch + i_batch, for update gates
         self.loss_history: List[float] = []
         self.epoch_seconds: List[float] = []    # run()'s epoch walls
-        self._data_dev = None
+        self._stager = None
         self.stop_requested = False
         self._t_start = time.time()
         self._ckpt_seconds = 0.0
@@ -538,6 +626,7 @@ class Reconstructor:
         self._stdout_f = None
         self._start_epoch = 0
         self._start_batch = 0
+        restored_obj_state = None
         if output_folder is not None:
             os.makedirs(output_folder, exist_ok=True)
             if cfg.io.save_stdout:
@@ -549,22 +638,29 @@ class Reconstructor:
                 self.verbose = True
             out_lib.write_summary(cfg, output_folder)
             if cfg.io.use_checkpoint:
-                self._restore(os.path.join(output_folder, 'checkpoint'))
+                restored_obj_state = self._restore(
+                    os.path.join(output_folder, 'checkpoint'))
             self._logger = out_lib.LossLogger(
                 output_folder,
                 append=self._start_epoch > 0 or self._start_batch > 0)
+        self._place_object(restored_obj_state)
 
     def _restore(self, folder: str):
         """Continue from the checkpoint in ``folder``, written by either
-        package: parameters, optimizer state, step counts, the NEXT (epoch,
-        batch) to run, and the shrink-wrapped support mask where the
-        checkpoint holds one."""
-        ck = convert.load_checkpoint(folder, device=self.device)
+        package, slabbed or not: parameters, optimizer state, step counts,
+        the NEXT (epoch, batch) to run, and the shrink-wrapped support mask
+        where the checkpoint holds one.  The object (and, under offload,
+        its state) stays on the host for :meth:`_place_object`, which
+        splits it for this run's configuration.  Returns the object's
+        restored state, or None."""
+        ck = convert.load_checkpoint(folder, device=self.device,
+                                     host_obj=True,
+                                     host_obj_state=self._off_state)
         if ck is None:
             if self.cfg.io.force_to_use_checkpoint:
                 raise FileNotFoundError(
                     'force_to_use_checkpoint set but no checkpoint found')
-            return
+            return None
         self.params = ck['params']
         # A GD leaf has no state and so no entry in the file.
         self.opt_state = {k: ck['opt_state'].get(k, v)
@@ -576,6 +672,52 @@ class Reconstructor:
         if mask is not None and self.finite_support_mask is not None:
             self.finite_support_mask = torch.as_tensor(
                 np.asarray(mask, np.float32), device=self.device)
+        return ck['opt_state'].get('obj')
+
+    def _place_object(self, restored_state=None):
+        """Put the object and its optimizer state (``restored_state``, or a
+        fresh one) where the run keeps them: on the device, or in host
+        blocks (page-locked on a card), in y slabs where offloaded slab by
+        slab.  An offloaded state is never made on the device."""
+        t = self.cfg.train
+        arena = self._arena
+        obj = self.params['obj']                # on the host
+        if self._obj_offloaded:
+            self.params['obj'] = off_lib.slab_views(
+                arena.copy_of(obj), self._slab_keys, self._slab_ranges)
+        else:
+            obj = obj.to(self.device)
+            if self._off_slabbed and obj.device.type == 'cpu':
+                # The slab updates write in place: own the memory.
+                obj = obj.clone()
+            self.params['obj'] = obj
+        st = restored_state
+        if st is None and 'obj' in self.specs and self._off_state:
+            # The moments' zeros go straight into host blocks.
+            shapes = opt_lib.opt_init(self.specs['obj'],
+                                      torch.empty(obj.shape, device='meta'))
+            st = {n: arena.zeros(a.shape, a.dtype)
+                  for n, a in shapes.items()}
+        elif st is not None and self._off_state:
+            st = {n: arena.copy_of(a) for n, a in st.items()}
+        elif st is None and 'obj' in self.specs:
+            st = opt_lib.opt_init(self.specs['obj'], self.params['obj'])
+        elif st is None and self.second_order and t.optimize_object:
+            init = so.cg_init if t.optimizer == 'cg' else so.curveball_init
+            st = init(obj if self._off_state else self.params['obj'])
+            if self._off_state:
+                st = {n: arena.copy_of(a) for n, a in st.items()}
+        if st is None:
+            return
+        if self._off_state:
+            if self._off_slabbed:
+                st = {n: off_lib.slab_views(a, self._slab_keys,
+                                            self._slab_ranges)
+                      for n, a in st.items()}
+        else:
+            st = {n: a.to(self.device) for n, a in st.items()}
+        self.opt_state = {'obj': st, **{k: v for k, v in self.opt_state.items()
+                                        if k != 'obj'}}
 
     # ------------------------------------------------------------------
     def make_batches(self, rng: np.random.Generator):
@@ -642,18 +784,25 @@ class Reconstructor:
         return (inds_arr.reshape(n_c, g * mb), pos.astype(np.float32),
                 w.reshape(n_c, g), n_b)
 
-    def _dataset(self) -> torch.Tensor:
-        """The dataset on the device, moved there on first use."""
-        if self._data_dev is None:
-            self._data_dev = torch.as_tensor(self.data, device=self.device)
-        return self._data_dev
+    def stager(self) -> off_lib.DataStager:
+        """The measured data's one way onto the device (made at first use,
+        device-resident where ``_data_dev_ok``)."""
+        if self._stager is None:
+            self._stager = off_lib.DataStager(
+                self.data, self.loader, self.device, self._data_dev_ok,
+                self._arena)
+        return self._stager
 
-    def _measured(self, i_theta, inds):
-        """The angle's measured rows ``[n_c, g*mb, py, px]``, gathered from
-        the device-resident dataset."""
-        idx = torch.as_tensor(inds.reshape(-1), device=self.device)
-        rows = self._dataset()[i_theta][idx]
-        return rows.reshape(inds.shape + self.data.shape[2:])
+    def _dataset(self) -> torch.Tensor:
+        """The device-resident dataset, moved there on first use."""
+        return self.stager().dataset()
+
+    def _angle_rows(self, i_theta: int, inds_list):
+        """A request for the angle's measured rows ``[n_c, g*mb, py, px]``
+        in :meth:`_stage_angle`'s chunks (take it with
+        ``stager().take``)."""
+        inds = self._stage_angle(i_theta, inds_list)[0]
+        return self.stager().request(i_theta, inds)
 
     # ------------------------------------------------------------------
     def _zmajor(self) -> bool:
@@ -763,10 +912,15 @@ class Reconstructor:
         return acc_obj, acc_aux, torch.stack(losses)
 
     def _first_order_update(self, grads, i_opt_batch: int,
-                            global_batch: int):
+                            global_batch: int, obj_slab_grad=None):
         """The updated parameters, before the constraints: an optimizer
         step of every spec'd leaf (the probe inside its update window, the
-        auxiliary leaves after ``other_params_update_delay`` batches)."""
+        auxiliary leaves after ``other_params_update_delay`` batches).
+        Offloaded object state goes up for the update and comes back down:
+        whole, or slab by slab with each slab's object rows (from the host
+        under object offload, constrained there) and gradient rows
+        (``obj_slab_grad(start, size)`` where given, else ``grads['obj']``'s
+        rows)."""
         cfg = self.cfg
         mask = {}
         if 'probe' in self.specs:
@@ -775,24 +929,97 @@ class Reconstructor:
         for k in self.specs:
             if k not in ('obj', 'probe'):
                 mask[k] = aux_on
+        if obj_slab_grad is not None and not self._off_slabbed:
+            grads = {**grads, 'obj': obj_slab_grad(
+                0, self.cfg.geometry.obj_size[0])}
+        if not self._off_slabbed:
+            whole = self._off_state and 'obj' in self.specs
+            state = self.opt_state
+            if whole:
+                state = {**state, 'obj': self._obj_state_up()}
+            params, state = opt_lib.tree_apply(
+                self.specs, self.params, grads, state, i_opt_batch,
+                update_mask=mask)
+            if whole:
+                state['obj'] = self._obj_state_down(state['obj'])
+            self.opt_state = state
+            return params
+        specs = {k: v for k, v in self.specs.items() if k != 'obj'}
         params, self.opt_state = opt_lib.tree_apply(
-            self.specs, self.params, grads, self.opt_state, i_opt_batch,
+            specs, self.params, grads, self.opt_state, i_opt_batch,
             update_mask=mask)
+        mv = self._mover
+        mv.wait()
+        host_st = self.opt_state['obj']
+        obj = params['obj']
+        for key, (st, sz) in zip(self._slab_keys, self._slab_ranges):
+            g_k = (obj_slab_grad(st, sz) if obj_slab_grad is not None
+                   else grads['obj'][st:st + sz])
+            o_k = mv.up(obj[key]) if self._obj_offloaded else obj[st:st + sz]
+            st_k = {n: mv.up(h[key]) for n, h in host_st.items()}
+            o2, st2 = opt_lib.opt_apply(self.specs['obj'], o_k, g_k, st_k,
+                                        i_opt_batch)
+            del g_k, o_k, st_k
+            if self._obj_offloaded:
+                mv.down(obj[key], param_lib.apply_object_constraints(
+                    o2, cfg, None))
+            else:
+                obj[st:st + sz] = o2
+            for n, a in st2.items():
+                mv.down(host_st[n][key], a)
+            del o2, st2
         return params
+
+    def _obj_state_up(self):
+        """The object's whole offloaded optimizer state on the device."""
+        self._mover.wait()
+        return {n: self._mover.up(h)
+                for n, h in self.opt_state['obj'].items()}
+
+    def _obj_state_down(self, state):
+        """``state`` back into the object state's host blocks; returns
+        them."""
+        host = self.opt_state['obj']
+        for n, a in state.items():
+            self._mover.down(host[n], a)
+        return host
 
     def _constrain(self, params):
         """The parameter and object constraints, the support included;
-        the result becomes the run's parameters."""
+        the result becomes the run's parameters (an offloaded object was
+        constrained slab by slab)."""
         params = param_lib.apply_param_constraints(params, self.cfg)
-        params['obj'] = param_lib.apply_object_constraints(
-            params['obj'], self.cfg, self.finite_support_mask)
+        if not self._obj_offloaded:
+            params['obj'] = param_lib.apply_object_constraints(
+                params['obj'], self.cfg, self.finite_support_mask)
         self.params = params
 
-    def apply_step(self, grads, i_opt_batch: int, global_batch: int):
+    def apply_step(self, grads, i_opt_batch: int, global_batch: int,
+                   obj_slab_grad=None):
         """Optimizer update of every spec'd leaf, then the constraints,
         the support mask included."""
-        self._constrain(self._first_order_update(grads, i_opt_batch,
-                                                 global_batch))
+        self._constrain(self._first_order_update(
+            grads, i_opt_batch, global_batch, obj_slab_grad))
+
+    def _rotate_and_bin(self, theta: float) -> torch.Tensor:
+        """The object rotated by ``theta`` and binned in z (y chunk by y
+        chunk at the streaming sizes); under object offload each host
+        slab goes up and into its rows of the binned object."""
+        geo = self.cfg.geometry
+        method = self.cfg.train.interpolation
+        obj = self.params['obj']
+        if not self._obj_offloaded:
+            return rotate_and_bin_z(obj, theta, geo.binning, method=method)
+        mv = self._mover
+        mv.wait()
+        first = obj[self._slab_keys[0]]
+        out = torch.empty((geo.obj_size[0], geo.obj_size[1],
+                           -(-geo.obj_size[2] // geo.binning))
+                          + tuple(first.shape[3:]), device=self.device)
+        for key, (st, sz) in zip(self._slab_keys, self._slab_ranges):
+            out[st:st + sz] = rotate_and_bin_z(mv.up(obj[key]), theta,
+                                               geo.binning, method=method)
+        return out
 
     # -- regularizers and the support ------------------------------------
     @staticmethod
@@ -823,7 +1050,8 @@ class Reconstructor:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def angle_step(self, i_theta: int, inds_list) -> torch.Tensor:
+    def angle_step(self, i_theta: int, inds_list,
+                   measured: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One angle, one update: rotate the object (in 2D nothing
         rotates), accumulate its gradient-chunks' gradients, rotate the
         gradient back and update.  At patch granularity (:meth:`patch_accum`)
@@ -836,24 +1064,30 @@ class Reconstructor:
         rotate-back.  The rotate-back is the -theta interpolation (reading
         the binned gradient where nothing needs it expanded first) or,
         under ``exact_grad_rotation``, the rotation's exact transpose.
-        Returns the real batches' losses, on the device."""
+        ``measured``: the angle's rows (:meth:`_angle_rows`), staged here
+        when not given.  Under object offload the binned object is made
+        slab by slab from the host, and the update makes each slab's
+        gradient from the binned gradient's rows.  Returns the real
+        batches' losses, on the device."""
         cfg = self.cfg
         geo = cfg.geometry
         t = cfg.train
         rotates = not geo.two_d_mode
         theta = float(self.theta_ls[i_theta])
         inds, pos, w, n_b = self._stage_angle(i_theta, inds_list)
-        measured = self._measured(i_theta, inds)
+        if measured is None:
+            measured = self.stager().rows(i_theta, inds)
         method = t.interpolation
         obj = self.params['obj']
+        stream = self._stream_rot or self._obj_offloaded
         obj_rot = None
-        if not self._stream_rot:
+        if not stream:
             obj_rot = rotate(obj, theta, method=method) if rotates else obj
         if self._patch_mode:
-            if self._stream_rot:
+            if stream:
                 obj_pad = patch_ops.pad_object(
-                    rotate_and_bin_z(obj, theta, geo.binning, method=method),
-                    self.pad_arr, t.unknown_type)
+                    self._rotate_and_bin(theta), self.pad_arr,
+                    t.unknown_type)
             else:
                 obj_pad = patch_ops.pad_object(obj_rot, self.pad_arr,
                                                t.unknown_type)
@@ -868,10 +1102,10 @@ class Reconstructor:
             g_rot = acc_obj[p[0][0]:acc_obj.shape[0] - p[0][1],
                             p[1][0]:acc_obj.shape[1] - p[1][1]]
             del acc_obj
-            fused_back = (self._prebin and not self._stream_rot
+            fused_back = (self._prebin and not stream
                           and not self.reg_list and not t.exact_grad_rotation
                           and rotates)
-            if self._prebin and not self._stream_rot and not fused_back:
+            if self._prebin and not stream and not fused_back:
                 g_rot = torch.repeat_interleave(
                     g_rot, geo.binning, dim=2)[:, :, :geo.obj_size[2]]
             if self.reg_list:
@@ -894,9 +1128,19 @@ class Reconstructor:
             g_rot = grads.pop('obj')
             fused_back = False
         del obj_rot, measured
+        slab_grad = None
         if not rotates:
             g_obj = g_rot
-        elif self._stream_rot or fused_back:
+        elif stream and self._off_slabbed:
+            # Each slab's full-depth gradient just before its update, from
+            # the binned gradient's rows (rotation acts in each y plane).
+            g_obj = None
+
+            def slab_grad(st, sz):
+                return rotate_expanded_from_binned_z(
+                    g_rot[st:st + sz], -theta, geo.binning, geo.obj_size[2],
+                    method=method)
+        elif stream or fused_back:
             # The binned gradient expanded in z inside the rotate-back's
             # gather, in y chunks at the streaming sizes.
             g_obj = rotate_expanded_from_binned_z(
@@ -905,9 +1149,10 @@ class Reconstructor:
             g_obj = rotate_adjoint(g_rot, theta, method=method)
         else:
             g_obj = rotate(g_rot, -theta, method=method)
-        del g_rot
+        if slab_grad is None:
+            del g_rot
         self.apply_step({**grads, 'obj': g_obj}, self.i_opt_batch,
-                        self.global_batch)
+                        self.global_batch, obj_slab_grad=slab_grad)
         self.i_opt_batch += 1
         self.global_batch += len(inds_list)
         return losses.reshape(-1)[:n_b]
@@ -1074,14 +1319,15 @@ class Reconstructor:
         if t.optimize_object:
             old = self.params
             batch = self._batch(i_theta, inds)
+            state = (self._obj_state_up() if self._off_state
+                     else self.opt_state['obj'])
 
             def loss_obj_fn(o):
                 return self.loss_fn({**old, 'obj': o}, batch, measured)
 
             if t.optimizer == 'cg':
                 obj, state, _ = so.cg_step(loss_obj_fn, old['obj'],
-                                           grads['obj'], loss,
-                                           self.opt_state['obj'])
+                                           grads['obj'], loss, state)
             else:
                 mcfg = self._model_cfg
                 meas = measured
@@ -1100,10 +1346,10 @@ class Reconstructor:
                         self.beamstop_mask)
 
                 obj, state, _ = so.curveball_step(
-                    pred_fn, loss_pred_fn, loss_obj_fn, old['obj'],
-                    self.opt_state['obj'])
+                    pred_fn, loss_pred_fn, loss_obj_fn, old['obj'], state)
             params['obj'] = obj
-            self.opt_state['obj'] = state
+            self.opt_state['obj'] = (self._obj_state_down(state)
+                                     if self._off_state else state)
         self._constrain(params)
         self.i_opt_batch += 1
         return loss
@@ -1112,17 +1358,14 @@ class Reconstructor:
         """The external update, after an optimizer step: under 'ctf', the
         object's delta channel becomes the multi-distance CTF retrieval
         (:func:`.conventional.multidistance_ctf`) of the first view's
-        holograms, one a distance, read from the device-resident dataset;
-        kappa from the refined ``ctf_lg_kappa`` where there is one, the
-        refined affines where there are."""
+        holograms, one a distance; kappa from the refined ``ctf_lg_kappa``
+        where there is one, the refined affines where there are."""
         if self.external_algorithm is None:
             return
         from .conventional import multidistance_ctf
         geo = self.cfg.geometry
         n_blocks = self.n_pos // geo.n_dists
-        prj = self._dataset()[0]
-        if n_blocks > 1:
-            prj = prj[::n_blocks]
+        prj = self.stager().rows(0, np.arange(0, self.n_pos, n_blocks))
         kappa = (10.0 ** float(self.params['ctf_lg_kappa'][0])
                  if 'ctf_lg_kappa' in self.params
                  else self.cfg.train.ctf_kappa)
@@ -1188,8 +1431,9 @@ class Reconstructor:
         :meth:`step_band` where the scan table is grid rows (in 3D), else
         the accumulate-then-update loop (:meth:`accum_step`, which updates
         every batch unless the configuration accumulates).  The batches'
-        rows of the device-resident
-        dataset are gathered by one index table moved to the device once.
+        rows of a device-resident dataset are gathered by one index table
+        moved to the device once; a host-staged batch is staged while the
+        batch before it computes.
         The reweighted-L1 weights refresh every :data:`WEIGHT_L1_INTERVAL`
         batches and the support shrinks every ``shrink_cycle``, both on
         the device.  Checkpoints fall on batches; one in the middle of an
@@ -1200,16 +1444,22 @@ class Reconstructor:
         rows = [inds if self.expand_indices is None
                 else self.expand_indices(inds, self.n_pos, self.cfg)
                 for _, inds in batches]
-        inds_dev = torch.as_tensor(np.stack(rows), device=self.device)
-        data = self._dataset()
         n_b = len(batches)
+        stager = self.stager()
+        if stager.resident:
+            inds_dev = torch.as_tensor(np.stack(rows), device=self.device)
+            data = stager.dataset()
+            feed = None
+        else:
+            feed = stager.feed([(b[0], r) for b, r in zip(batches, rows)])
         acc: Dict[str, Any] = {}
         losses = []
         for i_batch in range(skip, n_b):
             i_theta, inds = batches[i_batch]
             if self._needs_weight_l1 and i_batch % WEIGHT_L1_INTERVAL == 0:
                 self.weight_l1 = self._weight_l1_refresh(self.params['obj'])
-            measured = data[i_theta][inds_dev[i_batch]]
+            measured = (data[i_theta][inds_dev[i_batch]] if feed is None
+                        else feed.take(i_batch))
             if self._band:
                 losses.append(self.step_band(i_theta, inds, measured))
             elif self.second_order:
@@ -1219,6 +1469,8 @@ class Reconstructor:
                 last = i_batch + 1 == n_b or batches[i_batch + 1][0] != i_theta
                 losses.append(self.accum_step(acc, i_theta, inds, measured,
                                               last))
+            if feed is not None:
+                feed.ahead(i_batch + 1)
             if not self._accum:
                 # After every update of the immediate steps (not the
                 # accumulate loop's), as the JAX package's generic step.
@@ -1243,8 +1495,10 @@ class Reconstructor:
         checkpoints fall on angle boundaries).  Per angle, before the
         step, the reweighted-L1 weights refresh; after it, the support
         shrinks when the epoch's batch count crossed a multiple of
-        ``shrink_cycle``.  Returns ``(losses on the device, the index of
-        the first batch run)``."""
+        ``shrink_cycle``; the next angle's rows are requested once the
+        step is queued, so a host-staged angle moves while the one before
+        it computes.  Returns ``(losses on the device, the index of the
+        first batch run)``."""
         t = self.cfg.train
         groups = self._group_batches(batches)
         n_b_epoch = len(batches)
@@ -1253,10 +1507,16 @@ class Reconstructor:
             done += len(groups.pop(0)[1])
         first = done
         losses = []
-        for i_theta, inds_list in groups:
+        stager = self.stager()
+        nxt_rows = self._angle_rows(*groups[0]) if groups else None
+        for j, (i_theta, inds_list) in enumerate(groups):
             if self._needs_weight_l1:
                 self.weight_l1 = self._weight_l1_refresh(self.params['obj'])
-            losses.append(self.angle_step(i_theta, inds_list))
+            measured = stager.take(nxt_rows)
+            losses.append(self.angle_step(i_theta, inds_list, measured))
+            del measured
+            if j + 1 < len(groups):
+                nxt_rows = self._angle_rows(*groups[j + 1])
             self._apply_external_algorithm()
             prev, done = done, done + len(inds_list)
             if (self.finite_support_mask is not None
@@ -1298,6 +1558,13 @@ class Reconstructor:
         first epoch after a resume skips the batches the checkpoint had
         finished.  ``callback(i_epoch, i_batch, loss)`` and the loss log
         see each batch once the epoch's losses reach the host."""
+        return self._epoch_finish(self._epoch_dispatch(i_epoch, rng),
+                                  callback)
+
+    def _epoch_dispatch(self, i_epoch: int,
+                        rng: Optional[np.random.Generator] = None):
+        """Queue one epoch's steps; returns what :meth:`_epoch_finish`
+        needs, the losses still on the device."""
         if rng is None:
             rng = np.random.default_rng(self.cfg.train.seed + i_epoch)
         batches = self.make_batches(rng)
@@ -1311,6 +1578,13 @@ class Reconstructor:
                 losses, first = self.angles_epoch(batches, i_epoch, skip)
             else:
                 losses, first = self.epoch_fused(batches, i_epoch, skip), skip
+        return i_epoch, losses, first, timer
+
+    def _epoch_finish(self, pending, callback=None) -> float:
+        """Fetch a dispatched epoch's losses (the epoch's one blocking
+        copy), log them and return their mean."""
+        i_epoch, losses, first, timer = pending
+        with self.timers.time(timer):
             losses = losses.double().cpu().numpy()
         if callback is not None or self._logger is not None:
             for b, loss in enumerate(losses, start=first):
@@ -1331,6 +1605,38 @@ class Reconstructor:
                         f'{self.timers.summary()}{mem_s}')
             self.timers.reset()
         return mean_loss
+
+    def run_epochs(self, n_epochs: int, start_epoch: Optional[int] = None,
+                   callback=None) -> List[float]:
+        """``n_epochs`` epochs from ``start_epoch`` (a restored
+        checkpoint's epoch by default), each as :meth:`run_epoch` would run
+        it, with epoch ``r + 1`` queued before epoch ``r``'s losses are
+        fetched, so the fetch's wait overlaps the next epoch's work.  A
+        callback, checkpoints, intermediate dumps or ``t_max_min`` read
+        the run's state between epochs, and then every epoch is fetched
+        before the next starts.  Returns the mean loss of each epoch."""
+        if start_epoch is None:
+            start_epoch = self._start_epoch
+        io = self.cfg.io
+        pipeline = callback is None and (
+            self.output_folder is None
+            or not (io.store_checkpoint or io.save_intermediate
+                    or io.t_max_min is not None))
+        out: List[float] = []
+        pending = None
+        for i_epoch in range(start_epoch, start_epoch + n_epochs):
+            if self.stop_requested:
+                break
+            if not pipeline:
+                out.append(self.run_epoch(i_epoch, callback=callback))
+                continue
+            nxt = self._epoch_dispatch(i_epoch)
+            if pending is not None:
+                out.append(self._epoch_finish(pending))
+            pending = nxt
+        if pending is not None:
+            out.append(self._epoch_finish(pending))
+        return out
 
     def run(self, n_epochs: Optional[int] = None,
             callback=None) -> Dict[str, Any]:
@@ -1399,17 +1705,20 @@ class Reconstructor:
         out_lib.output_probe(self.params['probe'].cpu().numpy(), inter,
                              name_suffix=suffix)
         out_lib.output_refined_params(
-            {k: v.detach().cpu().numpy() for k, v in self.params.items()},
-            list(self.specs), inter, i_epoch, i_batch)
+            {k: v.detach().cpu().numpy() for k, v in self.params.items()
+             if k != 'obj'}, list(self.specs), inter, i_epoch, i_batch)
 
     def save_checkpoint(self, i_epoch: int, i_batch: int) -> str:
         """Write ``checkpoint/checkpoint.npz`` naming ``(i_epoch,
         i_batch)``, the NEXT batch to run: the parameters, the optimizer
-        state, the step counts and, under shrink-wrap, the support mask.
+        state, the step counts and, under shrink-wrap, the support mask;
+        offloaded y slabs as slabs (``params/obj/s00``, ``state/obj/m/s00``,
+        ..., the JAX package's keys), once their copies down are done.
         Each one moves the whole state to the host; once checkpoints have
         taken more than half of the run's wall time (and a minute), a
         warning says so."""
         t0 = time.time()
+        self._mover.sync()
         params, state = convert.params_to_numpy(self.params, self.opt_state)
         extra = {'i_opt_batch': np.asarray(self.i_opt_batch),
                  'global_batch': np.asarray(self.global_batch)}
@@ -1433,16 +1742,22 @@ class Reconstructor:
         return path
 
     def results(self) -> Dict[str, Any]:
-        """The parameters as numpy arrays and the per-epoch loss
-        history."""
-        out = {k: v.detach().cpu().numpy() for k, v in self.params.items()}
+        """The parameters as numpy arrays (the object whole) and the
+        per-epoch loss history."""
+        out = {k: self.obj if k == 'obj' else v.detach().cpu().numpy()
+               for k, v in self.params.items()}
         out['loss_history'] = np.asarray(self.loss_history)
         return out
 
     @property
     def obj(self) -> np.ndarray:
-        """The object ``[y, x, z, 2]`` as a host array."""
-        return self.params['obj'].detach().cpu().numpy()
+        """The object ``[y, x, z, 2]`` as a host array (an offloaded one
+        joined from its slabs once their copies down are done)."""
+        obj = self.params['obj']
+        if isinstance(obj, dict):
+            self._mover.sync()
+            return np.concatenate([obj[k].numpy() for k in self._slab_keys])
+        return obj.detach().cpu().numpy()
 
     @property
     def probe(self) -> np.ndarray:

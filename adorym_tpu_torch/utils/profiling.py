@@ -12,6 +12,7 @@ to the device.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
@@ -84,6 +85,26 @@ def data_headroom_bytes(hbm: float) -> float:
     """Headroom kept free when deciding whether the measured data lives on
     the device (1.5 GB, or 3/32 of a smaller device)."""
     return min(1.5e9, 0.09375 * hbm)
+
+
+def obj_offload_auto_bytes(hbm: float) -> float:
+    """The object size in bytes above which ``offload_object='auto'`` keeps
+    the object on the host (the JAX package's boundary): the resident path
+    holds the object, its update and two moment arrays beside the reserve,
+    so the object fits while it is at most ``(hbm - reserve) / 3``, less a
+    5% margin (25.0e9 bytes on an 85.0e9-byte H100, ~1460^3)."""
+    return 0.95 * (hbm - xla_reserve_bytes(hbm)) / 3
+
+
+def host_memory_rss_mb() -> Optional[float]:
+    """The process's resident host memory in MB (the reference's CPU
+    memory probe); None where ``/proc`` is not there."""
+    try:
+        with open('/proc/self/statm') as f:
+            pages = int(f.read().split()[1])
+    except OSError:
+        return None
+    return pages * os.sysconf('SC_PAGE_SIZE') / 2 ** 20
 
 
 def stream_rotation_auto_bytes(hbm: float) -> float:

@@ -151,7 +151,25 @@ Phases (any failure raises and exits nonzero):
      alone on them (ms a call, the phase correlation);
   10d. ``scipy_minimize_object`` (Newton-CG, the Gauss-Newton ``hessp``)
      on a full-batch 2-D problem at 128^2, 10 iterations: the loss before
-     and after, and the time.
+     and after, and the time;
+  11. out-of-core on the card: the page-locked host link's rates (the
+     bound of each offloaded run), then
+  11a. the per-angle flagship (4 angles, f32) with its data read through
+     a ``FastLoader`` over a raw file in the work dir, beside the
+     device-resident run: equal losses, patterns/s of each;
+  11b. the per-angle and the immediate flagship with Adam's moments on
+     the host in 8 slabs, against their resident runs (losses within
+     1e-6 relative, the object within 1e-6 of its largest value),
+     patterns/s and peak memory;
+  11c. 9e's 1024^3 configuration (one angle, 40x40 spots at stride 24,
+     minibatch 40) with the object and its moments on the host, against
+     9e's resident 'auto' run (losses within 1e-6 relative): peak device
+     memory, ``fuse_g``, host memory, patterns/s and the link's bound;
+  11d. a 1280^3 object (16.8 GB, with 33.6 GB of moments, on the host; no
+     resident budget holds it), 50x50 spots at stride 24, minibatch 50,
+     one warmup and one timed angle, K1f, K1b and K2 (or K6) launched;
+  11e. ``run_epochs(3)`` against three ``run_epoch`` calls on the
+     immediate flagship: equal losses, the wall time of each.
 Phase 3 also holds K1 under ``beta = kappa delta`` and in -z (the
 branches of ``multislice_propagate`` that phase 8 adds), K6 on the rows
 of a per-angle chunk's z-major gradient [32, 2, 529, 72, 72] read in
@@ -4171,6 +4189,360 @@ def slice15_runs(work):
     return res
 
 
+# -- phase 11 ----------------------------------------------------------------
+
+#: Phase 11d's object edge: 1280^3 keeps 16.8 GB of object and 33.6 GB of
+#: Adam moments on the host.  The card's host had 103.6e9 bytes available
+#: (``tools/host_link_torch.py`` on the NVIDIA H100 80GB HBM3 host, 700 W),
+#: over the 100 GB that 1280^3 needs with room; 1152^3 (about 37 GB) is the
+#: size for a host with less.
+BEYOND_N = 1280
+
+
+def host_link_rates(gb=1.0):
+    """The page-locked copy rate between the host and the card, GB/s, host
+    to device, device to host and both at once, over ``gb``-GB blocks
+    registered as the offloaded blocks are (CUDA events, 3 copies after a
+    warmup)."""
+    from adorym_tpu_torch.offload import HostArena
+    n = int(gb * 1e9)
+    arena = HostArena(torch.device('cuda'))
+    ha, hb = arena.zeros((n,), torch.uint8), arena.zeros((n,), torch.uint8)
+    da = torch.empty(n, dtype=torch.uint8, device='cuda')
+    db = torch.empty(n, dtype=torch.uint8, device='cuda')
+    up, down = torch.cuda.Stream(), torch.cuda.Stream()
+
+    def both():
+        cur = torch.cuda.current_stream()
+        up.wait_stream(cur)
+        down.wait_stream(cur)
+        with torch.cuda.stream(up):
+            da.copy_(ha, non_blocking=True)
+        with torch.cuda.stream(down):
+            hb.copy_(db, non_blocking=True)
+        cur.wait_stream(up)
+        cur.wait_stream(down)
+    rates = {}
+    for name, fn, nbytes in (
+            ('h2d', lambda: da.copy_(ha, non_blocking=True), n),
+            ('d2h', lambda: hb.copy_(db, non_blocking=True), n),
+            ('both', both, 2 * n)):
+        rates[name] = nbytes / (time_ms(fn, 3) * 1e-3) / 1e9
+    del da, db, ha, hb, arena
+    torch.cuda.empty_cache()
+    return rates
+
+
+def pcie_bound_s(h2d, d2h, rates):
+    """The least seconds ``h2d`` bytes up and ``d2h`` bytes down can take
+    over the link: each way at its rate, and both at once at theirs."""
+    return max(h2d / (rates['h2d'] * 1e9), d2h / (rates['d2h'] * 1e9),
+               (h2d + d2h) / (rates['both'] * 1e9))
+
+
+def flagship_data(n_theta=None):
+    """The per-angle flagship's inputs as :func:`run_flagship` makes them:
+    random magnitudes (seed 0), the 23x23 table, ``n_theta`` angles."""
+    f = FLAGSHIP
+    n_theta = n_theta or f['n_theta']
+    pos = flagship_positions()
+    data = np.random.default_rng(0).random(
+        (n_theta, len(pos), f['n_probe'], f['n_probe']), dtype=np.float32)
+    theta = np.linspace(0, np.pi, n_theta, endpoint=False)
+    return data, pos, theta
+
+
+def drive(rec, epochs, tag):
+    """``rec.run_epoch`` over ``epochs``; returns (losses, each epoch's
+    wall seconds, launches, peak GB), peak memory and launches counted
+    over these epochs alone."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, walls = [], []
+    for ep in epochs:
+        t0 = time.perf_counter()
+        losses.append(rec.run_epoch(ep))
+        walls.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f'{tag}: losses {losses}')
+    return losses, walls, launches, peak
+
+
+def expect_chunk_launches(rec, launches, n_angles, tag):
+    """The per-angle path's kernels: one K1 pair a gradient chunk, one K2
+    a chunk of whole rows of one complete grid (else K6 a row)."""
+    n_b = -(-rec.n_pos // rec.cfg.train.minibatch_size)
+    g = min(rec._fuse_g, n_b)
+    chunks = -(-n_b // g) * n_angles
+    want = {'K1_FWD': chunks, 'K1_BWD': chunks}
+    if rec._grid_scatter_rows == g:
+        want['K2'] = chunks
+    else:
+        want['K6'] = g * chunks
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f'{tag}: launches (got, expected) {bad}')
+    return want
+
+
+def run_11a(work, rates):
+    """Phase 11a: the per-angle delta_beta flagship (4 angles, f32) with
+    its data read through a FastLoader over a raw file in the work dir,
+    beside the device-resident run on the same inputs: equal losses,
+    patterns/s of each."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.io.fastloader import FastLoader
+    data, pos, theta = flagship_data()
+    raw = work / '11a.raw'
+    data.tofile(raw)
+    cfg = flagship_config(False, 'delta_beta')
+    obj0 = np.zeros((FLAGSHIP['n_obj'],) * 3 + (2,), np.float32)
+    res = {}
+    for src in ('resident', 'loader'):
+        ld = (FastLoader(str(raw), data.shape, max_batch=len(pos))
+              if src == 'loader' else None)
+        rec = pt.Reconstructor(cfg, data=ld if ld else data, probe_pos=pos,
+                               theta_ls=theta, obj_init=obj0)
+        if rec.stager().resident != (src == 'resident'):
+            raise AssertionError(f'11a {src}: resident '
+                                 f'{rec.stager().resident}')
+        losses, walls, launches, peak = drive(rec, range(3), f'11a {src}')
+        expect_chunk_launches(rec, launches, 3 * len(theta), f'11a {src}')
+        rates_ = [data.shape[0] * len(pos) / w for w in walls[1:]]
+        res[src] = dict(losses=losses, patterns_s=statistics.median(rates_),
+                        peak_gb=peak, staged=rec.stager().staged_rows)
+        if ld:
+            ld.close()
+        del rec
+        torch.cuda.empty_cache()
+    nbytes = data[0].nbytes
+    bound = pcie_bound_s(nbytes, 0, rates) * 1e3
+    log(f"11a per-angle flagship f32, data through a FastLoader: losses "
+        f"{res['loader']['losses']} (resident {res['resident']['losses']}); "
+        f"{res['loader']['patterns_s']:.1f} patterns/s against "
+        f"{res['resident']['patterns_s']:.1f} resident; rows staged "
+        f"{res['loader']['staged']}; an angle's rows {nbytes / 1e6:.1f} MB, "
+        f"their PCIe bound {bound:.3f} ms; peak {res['loader']['peak_gb']:.2f}"
+        f" GB; {CARD}")
+    if res['loader']['losses'] != res['resident']['losses']:
+        raise AssertionError('11a: the loader run changes the losses')
+    return res
+
+
+def run_11b(rates):
+    """Phase 11b: the per-angle and the immediate flagship with the Adam
+    moments on the host in 8 slabs, against their resident runs (a warmup
+    and 3 timed epochs each, 2 on the immediate path): losses within 1e-6
+    relative, the object within 1e-6 of its largest value; patterns/s (the
+    timed epochs' median) and peak memory."""
+    import adorym_tpu_torch as pt
+    res = {}
+    data, pos, theta = flagship_data()
+    obj0 = np.zeros((FLAGSHIP['n_obj'],) * 3 + (2,), np.float32)
+    obj_bytes = obj0.nbytes
+    for path in ('delta_beta', 'immediate'):
+        base = flagship_config(False, path)
+        n_ep = 4 if path == 'delta_beta' else 3
+        out = {}
+        for off in (False, True):
+            cfg = base.replace(parallel=pt.ParallelConfig(
+                offload_optimizer_state=off, offload_slabs=8))
+            rec = pt.Reconstructor(cfg, data=data, probe_pos=pos,
+                                   theta_ls=theta, obj_init=obj0)
+            if rec._off_slabbed != off:
+                raise AssertionError(f'11b {path}: slabbed {off}')
+            losses, walls, launches, peak = drive(rec, range(n_ep),
+                                                  f'11b {path}')
+            wall = statistics.median(walls[1:])
+            out[off] = dict(losses=losses, wall=wall, peak_gb=peak,
+                            obj=rec.obj, launches=launches,
+                            updates=rec.i_opt_batch // n_ep,
+                            patterns_s=data.shape[0] * len(pos) / wall)
+            del rec
+            torch.cuda.empty_cache()
+        a, b = out[True], out[False]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a['losses'],
+                                                     b['losses']))
+        err = float(np.max(np.abs(a['obj'] - b['obj']))
+                    / max(np.max(np.abs(b['obj'])), 1e-30))
+        bound = pcie_bound_s(2 * obj_bytes * a['updates'],
+                             2 * obj_bytes * a['updates'], rates)
+        log(f"11b {path} flagship f32, moments on the host in 8 slabs: "
+            f"losses {a['losses']} (resident {b['losses']}), largest "
+            f"relative difference {rel:.3e}, object {err:.3e} of its largest"
+            f" value; {a['patterns_s']:.1f} patterns/s against "
+            f"{b['patterns_s']:.1f}, epoch {a['wall']:.3f} s against "
+            f"{b['wall']:.3f} ({a['updates']} updates an epoch, their "
+            f"moments' PCIe bound {bound:.3f} s); peak {a['peak_gb']:.2f} GB "
+            f"against {b['peak_gb']:.2f}; launches {a['launches']}; {CARD}")
+        if rel > 1e-6 or err > 1e-6:
+            raise AssertionError(f'11b {path}: offloaded moments differ '
+                                 f'({rel:.3e}, {err:.3e})')
+        for v in out.values():
+            del v['obj']
+        res[path] = out
+    return res
+
+
+def offload_run(n, s, k, tag, epochs, rates, resident_losses=None):
+    """One angle of an ``n``^3 object with a ``k`` x ``k`` scan at stride
+    ``s`` (minibatch ``k``), object and moments offloaded (8 slabs), 9e's
+    inputs: ``epochs`` epochs, the first the warmup.  Returns {metric:
+    value}."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.utils.profiling import host_memory_rss_mb
+    f = FLAGSHIP
+    xs = 8 + s * np.arange(k)
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+    data = np.random.default_rng(0).random((1, len(pos), f['n_probe'],
+                                            f['n_probe']), dtype=np.float32)
+    cfg = table_config(n=n, minibatch_size=k).replace(
+        parallel=pt.ParallelConfig(offload_optimizer_state=True,
+                                   offload_slabs=8, offload_object=True))
+    rss0 = host_memory_rss_mb()
+    t0 = time.perf_counter()
+    rec = pt.Reconstructor(cfg, data=data, probe_pos=pos,
+                           theta_ls=np.zeros(1),
+                           obj_init=np.zeros((n, n, n, 2), np.float32),
+                           probe_init=probe_modes(f['n_probe'], 1))
+    setup = time.perf_counter() - t0
+    if not rec._obj_offloaded or not rec._angles:
+        raise AssertionError(f'{tag}: object offload did not engage')
+    losses, walls, launches, peak = drive(rec, range(epochs), tag)
+    # What stays on the card between angles (the dataset, the probe), not
+    # the chunk's buffers.
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    want = expect_chunk_launches(rec, launches, epochs, tag)
+    rss = host_memory_rss_mb()
+    obj_bytes = n ** 3 * 8
+    bound = pcie_bound_s(4 * obj_bytes, 3 * obj_bytes, rates)
+    timed = walls[1:]
+    res = dict(losses=losses, walls=walls, setup_s=setup, peak_gb=peak,
+               fuse_g=rec._fuse_g, resident_gb=resident_gb,
+               host_rss_gb=rss * 2 ** 20 / 1e9,
+               host_blocks_gb=rec._arena.nbytes / 1e9,
+               rss_growth_gb=(rss - rss0) * 2 ** 20 / 1e9,
+               patterns_s=len(pos) / statistics.median(timed),
+               angle_s=statistics.median(timed), bound_s=bound,
+               launches={k_: launches[k_] for k_ in
+                         ('K1_FWD', 'K1_BWD', 'K2', 'K6')}, want=want)
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    log(f"{tag}: {n}^3 ({obj_bytes / 1e9:.2f} GB of object, "
+        f"{2 * obj_bytes / 1e9:.2f} GB of moments on the host), {k}x{k} "
+        f"spots at stride {s}, minibatch {k}: losses {losses}; setup "
+        f"{setup:.2f} s; angle walls {[round(w, 3) for w in walls]} s "
+        f"(the first the warmup); {res['patterns_s']:.1f} patterns/s; "
+        f"PCIe bound an angle {bound:.3f} s ({4 * obj_bytes / 1e9:.1f} GB "
+        f"up, {3 * obj_bytes / 1e9:.1f} GB down at {rates['h2d']:.1f} / "
+        f"{rates['d2h']:.1f} / {rates['both']:.1f} GB/s); peak device "
+        f"memory {peak:.2f} GB of {hbm / 1e9:.1f}, {resident_gb:.3f} GB "
+        f"resident between angles; fuse_g {rec._fuse_g} (chunk of "
+        f"{min(rec._fuse_g, len(pos) // k)} batches); host blocks "
+        f"{res['host_blocks_gb']:.2f} GB, host RSS {res['host_rss_gb']:.2f} "
+        f"GB (grew {res['rss_growth_gb']:.2f} GB); launches "
+        f"{res['launches']}; "
+        f"{CARD}")
+    if resident_losses is not None:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                     resident_losses))
+        res['rel_vs_resident'] = rel
+        log(f'{tag}: against the resident run {resident_losses}: largest '
+            f'relative difference {rel:.3e}')
+        if rel > 1e-6:
+            raise AssertionError(f'{tag}: offloaded losses differ ({rel})')
+    del rec
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_11e():
+    """Phase 11e: ``run_epochs(3)`` against three ``run_epoch`` calls on
+    the immediate flagship (92 updates an epoch, the host-bound path): the
+    same losses; the wall time of each."""
+    import adorym_tpu_torch as pt
+    data, pos, theta = flagship_data()
+    obj0 = np.zeros((FLAGSHIP['n_obj'],) * 3 + (2,), np.float32)
+    out = {}
+    for how in ('run_epoch', 'run_epochs', 'run_epoch again'):
+        rec = pt.Reconstructor(flagship_config(False, 'immediate'),
+                               data=data, probe_pos=pos, theta_ls=theta,
+                               obj_init=obj0)
+        rec.run_epoch(0)                            # warmup
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == 'run_epochs':
+            losses = rec.run_epochs(3, start_epoch=1)
+        else:
+            losses = [rec.run_epoch(ep) for ep in (1, 2, 3)]
+        out[how] = dict(losses=losses, wall=time.perf_counter() - t0)
+        del rec
+        torch.cuda.empty_cache()
+    log(f"11e immediate flagship f32, 3 epochs after a warmup: run_epochs "
+        f"{out['run_epochs']['wall']:.3f} s, three run_epoch calls "
+        f"{out['run_epoch']['wall']:.3f} s and {out['run_epoch again']['wall']:.3f}"
+        f" s; losses {out['run_epochs']['losses']}; {CARD}")
+    if not (out['run_epochs']['losses'] == out['run_epoch']['losses']
+            == out['run_epoch again']['losses']):
+        raise AssertionError(f'11e: losses {out}')
+    return out
+
+
+def slice16_runs(work, kernels, res_9e):
+    """Phase 11: the host link's rates, then 11a-11e.  The K1, K2 and K6
+    records of the per-angle and immediate f32 paths take 11d's (and 11b's
+    immediate run's) launches as ``phase11_launches``."""
+    rates = host_link_rates()
+    log(f"11: host link, page-locked 1 GB blocks: host to device "
+        f"{rates['h2d']:.2f} GB/s, device to host {rates['d2h']:.2f}, both "
+        f"at once {rates['both']:.2f}; {CARD}")
+    res = {'rates': rates, '11a': run_11a(work, rates)}
+    stamp('phase 11a')
+    res['11b'] = run_11b(rates)
+    stamp('phase 11b')
+    auto = res_9e.get('1024 auto')
+    res['11c'] = offload_run(1024, 24, 40, '11c 1024^3 object offloaded', 3,
+                             rates, auto['losses'][:3] if auto else None)
+    stamp('phase 11c')
+    res['11d'] = offload_run(BEYOND_N, 24, 50, f'11d {BEYOND_N}^3 beyond '
+                             'the card', 2, rates)
+    stamp('phase 11d')
+    res['11e'] = run_11e()
+    stamp('phase 11')
+    counts = dict(res['11d']['launches'])
+    imm = res['11b']['immediate'][True]['launches']
+    for k in kernels:
+        if not k['name'].endswith('(float32)'):
+            continue
+        if k['path'] == 'delta_beta' and k['counter'] in counts:
+            k['phase11_launches'] = counts[k['counter']]
+        elif k['path'] == 'immediate' and k['counter'] in imm:
+            k['phase11_launches'] = imm[k['counter']]
+    d = res['11d']
+    log(f"phase 11: 11a loader {res['11a']['loader']['patterns_s']:.1f} "
+        f"patterns/s (resident {res['11a']['resident']['patterns_s']:.1f}); "
+        f"11b per angle {res['11b']['delta_beta'][True]['patterns_s']:.1f} "
+        f"(resident {res['11b']['delta_beta'][False]['patterns_s']:.1f}), "
+        f"immediate {res['11b']['immediate'][True]['patterns_s']:.1f} "
+        f"(resident {res['11b']['immediate'][False]['patterns_s']:.1f}); "
+        f"11c {res['11c']['patterns_s']:.1f} patterns/s, "
+        f"{res['11c']['angle_s']:.3f} s an angle (bound "
+        f"{res['11c']['bound_s']:.3f}), peak {res['11c']['peak_gb']:.2f} GB;"
+        f" 11d {BEYOND_N}^3 {d['patterns_s']:.1f} patterns/s, "
+        f"{d['angle_s']:.3f} s an angle (bound {d['bound_s']:.3f}), peak "
+        f"{d['peak_gb']:.2f} GB, host blocks {d['host_blocks_gb']:.2f} GB; "
+        f"11e run_epochs {res['11e']['run_epochs']['wall']:.3f} s against "
+        f"{res['11e']['run_epoch']['wall']:.3f}; {CARD}")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -4338,9 +4710,10 @@ def main():
         stamp('phase 7')
         _, sparse_launches = slice12_runs(work)
         stamp('phase 8')
-        slice14_runs(work, kernels)
+        res14 = slice14_runs(work, kernels)
         slice15_runs(work)
         stamp('phase 10')
+        slice16_runs(work, kernels, res14['9e'])
     angle_rate, angle_peak = run_per_angle_regularized()
     stamp('phase 6c')
     log(f"phase 6: immediate with checkpoints "

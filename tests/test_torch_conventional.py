@@ -250,3 +250,21 @@ def test_visualization_reexports_parse_loss_data():
     from adorym_tpu_torch import visualization
     from adorym_tpu_torch.io.output import parse_loss_data
     assert visualization.parse_loss_data is parse_loss_data
+
+
+def test_epie_phaseless_probe_against_complex128():
+    """C.7: ePIE's first position update from a phaseless starting probe,
+    each package against a complex128 evaluation of the same update: the
+    port is no farther than the JAX package (the window 3.9e-5 against
+    7.2e-5 of its largest value, the probe 8.0e-5 against 9.7e-5; the
+    dark far-field pixels' f32 phase, amplified by the magnitude
+    replacement, sets both)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / 'tools' / 'settle_c7_c8.py'
+    spec = importlib.util.spec_from_file_location('settle_c7_c8', path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    out = tool.c7_epie()
+    assert out['port_obj'] <= out['jax_obj'] < 2e-4
+    assert out['port_probe'] <= out['jax_probe'] < 2e-4

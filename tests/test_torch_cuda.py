@@ -6,6 +6,8 @@ imports no JAX, so it runs on a machine with the card alone:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1228,3 +1230,125 @@ def test_second_order_cuda_matches_cpu(cuda, optimizer):
     assert cm.TANGENT_LAUNCHES['K1'] - n0 == (32 if optimizer == 'curveball'
                                               else 0)
     np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-4)
+
+
+def _offload_problem(n=32, nz=16, pn=8, seed=0):
+    """``tests/test_torch_offload_object.py``'s problem on the port alone:
+    a 32 x 32 x 16 object, an 8^2 Gaussian probe on a 4x4 grid at stride
+    8 (one grid row a minibatch), 3 angles, binning 4, data simulated by
+    the port on the CPU."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.utils.initialize import initialize_probe
+    rng = np.random.default_rng(seed)
+    obj_true = np.stack([rng.random((n, n, nz)) * 1e-3,
+                         rng.random((n, n, nz)) * 3e-5], -1).astype(np.float32)
+    probe = initialize_probe((pn, pn), 'gaussian', energy_ev=5000.0,
+                             psize_cm=1e-7, probe_mag_sigma=2,
+                             probe_phase_sigma=2, probe_phase_max=0.3)
+    xs = np.arange(0, n - pn + 1, 8)
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(float)
+    theta = np.linspace(0, np.pi, 3, endpoint=False)
+    geo = pt.Geometry(obj_size=(n, n, nz), probe_size=(pn, pn),
+                      energy_ev=5000.0, psize_cm=1e-7, free_prop_cm='inf',
+                      binning=4)
+    data = pt.simulate(pt.ReconConfig(geometry=geo), obj_true, probe, pos,
+                       theta, device='cpu')
+    cfg = pt.ReconConfig(geometry=geo, train=pt.TrainConfig(
+        minibatch_size=4, learning_rate=1e-6, optimizer='momentum',
+        update_scheme='per angle', rotate_out_of_loop=True))
+    return cfg, dict(data=np.asarray(data), probe_pos=pos,
+                     probe_init=probe, theta_ls=theta,
+                     obj_init=obj_true * 0.5)
+
+
+def test_stager_pins_its_buffers_and_rows_equal_the_cpu(cuda, tmp_path):
+    """The host-staged rows: the staging buffers are page-locked, the rows
+    reach the card equal to the CPU's bit for bit, from the array and
+    through a FastLoader (its gather and its prefetch feed)."""
+    from adorym_tpu_torch.io.fastloader import FastLoader
+    from adorym_tpu_torch.offload import DataStager, HostArena
+    rng = np.random.default_rng(0)
+    data = rng.random((3, 20, 8, 8)).astype(np.float32)
+    raw = str(tmp_path / 'data.raw')
+    data.tofile(raw)
+    ld = FastLoader(raw, data.shape, max_batch=8)
+    inds = np.array([[3, 17], [0, 9]])
+    rows = [(1, np.array([3, 4, 19])), (0, np.arange(5)), (2, np.array([7]))]
+    for src, loader in ((data, None), (None, ld)):
+        st = DataStager(src, loader, cuda, False, HostArena(cuda))
+        got = st.rows(2, inds)
+        assert got.is_cuda
+        assert all(s.host.is_pinned() for s in st._slots if s.host is not None)
+        np.testing.assert_array_equal(got.cpu().numpy(), data[2][inds])
+        feed = st.feed(rows)
+        for i in range(len(rows)):
+            out = feed.take(i)
+            feed.ahead(i + 1)
+            np.testing.assert_array_equal(out.cpu().numpy(),
+                                          data[rows[i][0]][rows[i][1]])
+    ld.close()
+
+
+@pytest.mark.parametrize('offload_object', [False, True])
+def test_offload_cuda_matches_cpu(cuda, offload_object):
+    """Moments offloaded in 4 slabs, and the object too: 2 epochs on the
+    card against the CPU (K1, K2 on the card), losses at rtol 1e-5 and the
+    object at 1e-5 of its largest value; the host blocks are page-locked
+    and the object's slabs are never on the card."""
+    import adorym_tpu_torch as pt
+    cfg, kw = _offload_problem()
+    cfg = cfg.replace(parallel=pt.ParallelConfig(
+        offload_optimizer_state=True, offload_slabs=4,
+        offload_object=offload_object))
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        rec = pt.Reconstructor(cfg, device=dev, **kw)
+        assert rec._off_slabbed and rec._obj_offloaded == offload_object
+        out[dev] = ([rec.run_epoch(e) for e in range(2)], rec.obj, rec)
+    rec = out['cuda'][2]
+    host = [v for leaf in rec.opt_state['obj'].values() for v in leaf.values()]
+    if offload_object:
+        host += list(rec.params['obj'].values())
+    assert all(t.device.type == 'cpu' and t.is_pinned() for t in host)
+    np.testing.assert_allclose(out['cuda'][0], out['cpu'][0], rtol=1e-5)
+    ref = out['cpu'][1]
+    np.testing.assert_allclose(out['cuda'][1], ref,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+def test_fastloader_batches_reach_the_card(cuda, tmp_path):
+    """A FastLoader-backed run on the card (the immediate scheme, each
+    batch through the loader's prefetch; the per-angle path, each angle
+    through its gather) against the in-memory run on the CPU: losses at
+    rtol 1e-5."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.io.fastloader import FastLoader
+    cfg, kw = _offload_problem()
+    data = kw.pop('data')
+    raw = str(tmp_path / 'data.raw')
+    data.tofile(raw)
+    for scheme in ('immediate', 'per angle'):
+        c = cfg.replace(train=dataclasses.replace(
+            cfg.train, update_scheme=scheme,
+            rotate_out_of_loop=scheme == 'per angle'))
+        ld = FastLoader(raw, data.shape, max_batch=16)
+        rec = pt.Reconstructor(c, data=ld, device='cuda', **kw)
+        got = [rec.run_epoch(e) for e in range(2)]
+        assert not rec.stager().resident and rec.stager().staged_rows
+        ref = pt.Reconstructor(c, data=data, device='cpu', **kw)
+        np.testing.assert_allclose(got, [ref.run_epoch(e) for e in range(2)],
+                                   rtol=1e-5)
+        ld.close()
+
+
+def test_run_epochs_cuda_equals_run_epoch(cuda):
+    """The pipelined ``run_epochs(3)`` on the card gives three
+    ``run_epoch`` calls' losses and object."""
+    import adorym_tpu_torch as pt
+    cfg, kw = _offload_problem()
+    a = pt.Reconstructor(cfg, device='cuda', **kw)
+    want = [a.run_epoch(e) for e in range(3)]
+    b = pt.Reconstructor(cfg, device='cuda', **kw)
+    assert b.run_epochs(3) == want
+    np.testing.assert_array_equal(b.obj, a.obj)

@@ -369,19 +369,25 @@ def test_default_train_config_runs_the_band_step():
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
 
 
-@pytest.mark.parametrize('kw,match', [
+@pytest.mark.parametrize('kw,exc,match', [
     (dict(train=dict(optimizer='curveball'), parallel=dict(data_axis=2)),
+     NotImplementedError, 'device meshes'),
+    (dict(parallel=dict(data_axis=2)), NotImplementedError, 'device meshes'),
+    (dict(parallel=dict(object_axis=2)), NotImplementedError,
      'device meshes'),
-    (dict(parallel=dict(data_axis=2)), 'device meshes'),
-    (dict(parallel=dict(object_axis=2)), 'device meshes'),
-    (dict(parallel=dict(offload_optimizer_state=True)), 'offload'),
+    (dict(parallel=dict(offload_optimizer_state=True, data_axis=2)),
+     NotImplementedError, 'device meshes'),
     (dict(train=dict(optimizer='cg'),
-          parallel=dict(offload_optimizer_state=True)), 'offload'),
-    (dict(io=dict(use_orbax=True)), 'orbax'),
-    (dict(parallel=dict(offload_object=True)), 'offload')])
-def test_unported_immediate_configs_raise(kw, match):
+          parallel=dict(offload_optimizer_state=True, offload_object=True)),
+     ValueError, 'a first-order object optimizer'),
+    (dict(io=dict(use_orbax=True)), NotImplementedError, 'orbax'),
+    (dict(parallel=dict(offload_object=True)), ValueError,
+     "update_scheme='per angle' with rotate_out_of_loop")])
+def test_unported_immediate_configs_raise(kw, exc, match):
     """What the immediate scheme still leaves out raises, naming its
-    ROADMAP item, under the second-order optimizers too."""
+    ROADMAP item, under the second-order optimizers too: meshes (with
+    offload too) and orbax; object offload, which needs the per-angle
+    path, raises the JAX package's ``ValueError``."""
     args = _setup()
     cfg = pt.ReconConfig(
         geometry=pt.Geometry(**args[0]),
@@ -390,7 +396,7 @@ def test_unported_immediate_configs_raise(kw, match):
         train=pt.TrainConfig(minibatch_size=3, **kw.get('train', {})),
         parallel=pt.ParallelConfig(**kw.get('parallel', {})),
         io=pt.IOConfig(**kw.get('io', {})))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         pt.Reconstructor(cfg, data=args[5], probe_pos=args[3],
                          theta_ls=args[4], obj_init=args[1], device='cpu')
 

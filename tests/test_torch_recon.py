@@ -157,32 +157,37 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
                          device='cuda')
 
 
-@pytest.mark.parametrize('section,kw,match', [
-    ('parallel', dict(offload_optimizer_state=True), 'offload'),
-    ('parallel', dict(data_axis=2), 'device meshes'),
-    ('io', dict(use_orbax=True), 'orbax'),
-    ('parallel', dict(object_axis=2), 'device meshes'),
-    ('parallel', dict(offload_object=True), 'offload')])
-def test_unported_configs_raise(section, kw, match):
-    """What the port still leaves out (ROADMAP A.7) raises on the
-    per-angle path: offload, meshes and orbax."""
+@pytest.mark.parametrize('section,kw,exc,match', [
+    ('parallel', dict(offload_optimizer_state=True, data_axis=2),
+     NotImplementedError, 'device meshes'),
+    ('parallel', dict(data_axis=2), NotImplementedError, 'device meshes'),
+    ('io', dict(use_orbax=True), NotImplementedError, 'orbax'),
+    ('parallel', dict(object_axis=2), NotImplementedError, 'device meshes'),
+    ('parallel', dict(offload_object=True), ValueError,
+     'offload_object requires: offload_optimizer_state')])
+def test_unported_configs_raise(section, kw, exc, match):
+    """What the port still leaves out (ROADMAP A.7 (b)) raises on the
+    per-angle path: meshes (with offload too) and orbax; and object
+    offload without offloaded moments raises the JAX package's
+    ``ValueError``."""
     data, pos, theta, obj0 = _setup()
     cfg = _cfg(pt)
     cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section),
                                                       **kw)})
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         pt.Reconstructor(cfg, data=data, probe_pos=pos, obj_init=obj0,
                          device='cpu')
 
 
 def test_non_grid_scan_raises():
-    """A jittered (non-grid) table on the per-angle path raises only for
-    what is still unported (object offload); without it the table runs,
-    through the whole-object branch, one update an angle."""
+    """A jittered (non-grid) table on the per-angle path cannot keep its
+    object on the host (the JAX package's ``ValueError``: object offload
+    needs the patch-granular path); without it the table runs, through
+    the whole-object branch, one update an angle."""
     data, pos, theta, obj0 = _setup()
     pos = pos + np.random.default_rng(0).integers(0, 3, pos.shape)
     cfg = _cfg(pt)
-    with pytest.raises(NotImplementedError, match='offload'):
+    with pytest.raises(ValueError, match='patch-granular prebin angle path'):
         pt.Reconstructor(cfg.replace(parallel=dataclasses.replace(
             cfg.parallel, offload_object=True)), data=data, probe_pos=pos,
             obj_init=obj0, device='cpu')

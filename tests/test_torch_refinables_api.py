@@ -222,9 +222,12 @@ def test_distribution_mode_on_one_device(tmp_path, mode, match):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize('over', [dict(distribution_mode='shared_file'),
+@pytest.mark.parametrize('over', [dict(distribution_mode='shared_file',
+                                       parallel_data_axis=2),
                                   dict(parallel_object_axis=2)])
 def test_shared_file_and_meshes_raise(tmp_path, over):
+    """Meshes raise naming A.7, with ``distribution_mode='shared_file'``
+    too (which runs on one device since the out-of-core slice)."""
     params = _small_file(tmp_path)
     with pytest.raises(NotImplementedError, match=r'A\.7'):
         pt.reconstruct_ptychography(**params, **over)

@@ -663,3 +663,45 @@ def test_scipy_bridge_hessp_is_the_dense_product():
     ref = jax_minimize(jf[2], x0, method='Newton-CG', pred_fn=jf[0],
                        loss_pred_fn=jf[1], options={'maxiter': 20})
     assert _rel(got, ref) < 1e-4
+
+
+def _settle_tool():
+    """``tools/settle_c7_c8.py``, ROADMAP C.7 and C.8's settlement."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / 'tools' / 'settle_c7_c8.py'
+    spec = importlib.util.spec_from_file_location('settle_c7_c8', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_first_batch_loss_against_float64():
+    """C.7: on ``tests/test_optimizers.py``'s problem from a zero object,
+    both packages' predicted magnitudes are within 1e-7 of a float64
+    evaluation (f32 rounding), and their first-batch losses within the
+    loss's own f32 condition (each magnitude's rounding moves it by up to
+    1.1e-4 relative: the residuals are about 1e-3 of the magnitudes).  The
+    gap between the packages is that conditioning, not a fault of
+    either."""
+    out = _settle_tool().c7_loss()
+    assert out['port_pred_rel_err'] < 1e-7 and out['jax_pred_rel_err'] < 1e-7
+    assert out['port_f32_rel_err'] < out['f32_condition']
+    assert out['jax_f32_rel_err'] < out['f32_condition']
+    assert out['port_f32_half_rel_err'] < out['f32_condition_half']
+
+
+def test_minibatch_cg_rise_matches_jax():
+    """C.8: 10a's configuration at a CPU size (a 48^3 blob phantom,
+    minibatch 23, the immediate scheme, CG, 2 angles), one epoch in both
+    packages: each batch's loss at rtol 2e-4 and CG's suggested step after
+    each batch at rtol 1e-5 (the same accepted steps; the suggestion
+    doubles after a first-trial acceptance in both), and the loss rises
+    over the epoch in both: the rise is the JAX package's rule."""
+    out = _settle_tool().c8(n_epochs=1)
+    jl, tl = (np.asarray(out[k]['losses']) for k in ('jax', 'port'))
+    assert len(tl) == len(jl) == 8
+    np.testing.assert_allclose(tl, jl, rtol=2e-4)
+    np.testing.assert_allclose(out['port']['suggested'],
+                               out['jax']['suggested'], rtol=1e-5)
+    assert tl[-1] > tl[0] and jl[-1] > jl[0]
