@@ -11,9 +11,17 @@ Multi-distance data (a ``free_prop_cm`` of several distances) pick the
 multi-distance model under ``forward_model='auto'``; a model module may
 also be passed.  The refined leaves come back in the results dict beside
 the object and the probe (``results['probe_pos_correction']``,
-``results['free_prop_cm']``, ...).  ``distribution_mode`` on one card
-follows the JAX package: ``'distributed_object'`` without object sharding
-warns and runs unsharded, an unknown mode warns and is ignored.
+``results['free_prop_cm']``, ...).  ``distribution_mode`` follows the JAX
+package: ``'distributed_object'`` is the object split over a mesh's
+object axis (``parallel_object_axis > 1``; without one it warns and runs
+unsharded), an unknown mode warns and is ignored.
+
+``parallel_data_axis`` and ``parallel_object_axis`` run the call on a
+device mesh (:mod:`.parallel`): every rank of a ``torch.distributed``
+process group of ``data_axis * object_axis`` ranks calls
+``reconstruct_ptychography`` with the same parameters (``torchrun
+--nproc-per-node=N``, or :func:`.parallel.bootstrap.initialize_distributed`
+first); rank 0 writes the outputs.  Without a process group it raises.
 
 The model families and refinables of the reference map as the JAX
 package maps them: ``slice_pos_cm_ls`` (sparse multislice, refined with
@@ -33,8 +41,7 @@ the host and, past the device's budget where the run qualifies, the
 object too (``offload_optimizer_state=True``, ``offload_object='auto'``).
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: device meshes (A.7), model
-families passed by name (``forward_model`` other than ``'auto'`` or a
+item: model families passed by name (``forward_model`` other than ``'auto'`` or a
 module), and orbax checkpoints (a JAX library's format).  Reference
 keywords that have no meaning here are ignored; unknown ones warn.
 """
@@ -75,7 +82,6 @@ _PROBE_KWARGS = {'probe_mag_sigma', 'probe_phase_sigma', 'probe_phase_max',
                  'probe_defocus_cm'}
 
 _A5 = 'ROADMAP A.5, remaining model families and refinables'
-_A7 = 'ROADMAP A.7, multi-GPU and out-of-core'
 
 
 def _optimizer_kind(value, kwarg_name):
@@ -182,17 +188,16 @@ def reconstruct_ptychography(
         raise NotImplementedError(
             f'forward_model={forward_model!r}: pass \'auto\' or a model '
             f'module (other model families: {_A5})')
-    if parallel_data_axis * parallel_object_axis > 1:
-        raise NotImplementedError(f'device meshes: {_A7}')
     # distribution_mode='shared_file' keeps the object's optimizer state
     # on the host, and the object too where it outgrows the device and the
     # run qualifies ('auto'), as the JAX package maps it.
     shared_file = distribution_mode == 'shared_file'
     if distribution_mode == 'distributed_object':
-        warnings.warn("distribution_mode='distributed_object' maps onto "
-                      'object sharding over a mesh: pass '
-                      'parallel_object_axis>1 (z-slab analog) — running '
-                      'unsharded')
+        if parallel_object_axis <= 1:
+            warnings.warn("distribution_mode='distributed_object' maps "
+                          'onto object sharding over a mesh: pass '
+                          'parallel_object_axis>1 (z-slab analog) — '
+                          'running unsharded')
     elif distribution_mode not in (None, 'shared_file'):
         warnings.warn(f'unknown distribution_mode {distribution_mode!r} '
                       'ignored')
@@ -342,9 +347,15 @@ def reconstruct_ptychography(
     cfg = ReconConfig(geometry=geometry, loss=loss_cfg, refine=refine,
                       train=train,
                       parallel=ParallelConfig(
+                          data_axis=parallel_data_axis,
+                          object_axis=parallel_object_axis,
                           offload_optimizer_state=shared_file,
                           offload_object='auto' if shared_file else False),
                       io=io_cfg)
+    mesh = None
+    if parallel_data_axis * parallel_object_axis > 1:
+        from .parallel.mesh import make_mesh
+        mesh = make_mesh(cfg.parallel, device=device)
     if forward_model == 'auto':
         from .models import multidist, ptychography
         model = multidist if is_multi_dist else ptychography
@@ -439,7 +450,7 @@ def reconstruct_ptychography(
             output_folder=out_folder if ds_level == 1 else None,
             aux_init=aux_init or None,
             external_algorithm=update_using_external_algorithm,
-            device=device)
+            device=device, mesh=mesh)
         results = rec.run()
         obj = results['obj']
         prev_pass = (obj[..., 0], obj[..., 1])

@@ -24,7 +24,7 @@ from .io import checkpoint as ckpt_lib
 def params_from_jax(params_np: Dict[str, Any],
                     opt_state_np: Optional[Dict[str, Dict[str, Any]]] = None,
                     device='cuda', host_obj: bool = False,
-                    host_obj_state: bool = False
+                    host_obj_state: bool = False, mesh=None
                     ) -> Tuple[Dict[str, torch.Tensor],
                                Optional[Dict[str, Dict[str, torch.Tensor]]]]:
     """JAX-package parameters (and optimizer state: each leaf's Adam or
@@ -32,7 +32,9 @@ def params_from_jax(params_np: Dict[str, Any],
     ``np.asarray`` takes, to float32 tensors on ``device``.  A slabbed
     object or object state (a JAX run under offload) becomes whole arrays;
     ``host_obj`` / ``host_obj_state`` keep those on the host, for a run
-    that offloads them."""
+    that offloads them.  ``mesh``: a rank's
+    :class:`~.parallel.mesh.Mesh`; the object and its state leaves (the
+    JAX run's whole arrays) come out as this rank's y slab."""
     def to_t(a, dev=device):
         return torch.as_tensor(np.array(a, dtype=np.float32), device=dev)
 
@@ -43,12 +45,26 @@ def params_from_jax(params_np: Dict[str, Any],
             return torch.as_tensor(a, device=dev)
         return to_t(a, dev)
 
-    params = {k: to_t(ckpt_lib.deslab(v),
+    def own(a, ny):
+        a = np.asarray(a)
+        if mesh is None or a.ndim == 0 or a.shape[0] != ny:
+            return a
+        st, sz = mesh.slab(ny)
+        return a[st:st + sz]
+
+    obj_np = ckpt_lib.deslab(params_np['obj']) if 'obj' in params_np \
+        else None
+    ny = None if obj_np is None else np.shape(obj_np)[0]
+    params = {k: to_t(own(ckpt_lib.deslab(v), ny) if k == 'obj'
+                      else ckpt_lib.deslab(v),
                       'cpu' if k == 'obj' and host_obj else device)
               for k, v in params_np.items()}
     if opt_state_np is None:
         return params, None
     opt_state_np = ckpt_lib.deslab_obj_state(opt_state_np)
+    if 'obj' in opt_state_np:
+        opt_state_np = {**opt_state_np, 'obj': {
+            n: own(a, ny) for n, a in opt_state_np['obj'].items()}}
     state = {k: {n: state_t(a, 'cpu' if k == 'obj' and host_obj_state
                             else device)
                  for n, a in st.items()}

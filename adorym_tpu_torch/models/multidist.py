@@ -90,11 +90,13 @@ def _distances_cm(params: Dict, cfg: ReconConfig, device):
 
 def predict(params: Dict, batch: Dict, cfg: ReconConfig,
             pad_arr: Optional[np.ndarray] = None,
-            return_wave: bool = False):
+            return_wave: bool = False, gather_fn=None):
     """Predicted hologram magnitudes ``[n_dists * N, sy, sx]`` of the N
     blocks whose top-left corners are ``batch['pos_batch']`` (a host
     ``[N, 2]`` table; ``[[0, 0]]`` for one full-field block).
-    ``return_wave``: the uncropped magnitudes at the tile size."""
+    ``return_wave``: the uncropped magnitudes at the tile size.
+    ``gather_fn(obj, pad_arr, pos, tile)``: reads the tiles of the
+    unpadded object (the halo gather of an object split over a mesh)."""
     geo = cfg.geometry
     szw = _safe_zone_width(cfg)
     sub = tuple(geo.probe_size)
@@ -112,13 +114,16 @@ def predict(params: Dict, batch: Dict, cfg: ReconConfig,
         pad_arr = np.array([[szw, szw], [szw, szw]], dtype=np.int64)
     pos = np.round(np.asarray(batch['pos_batch'], np.float32)).astype(
         np.int64)
-    obj_p = patch_ops.pad_object(obj, pad_arr, cfg.train.unknown_type)
     (t, b), (l, r) = ((int(v) for v in row) for row in pad_arr)
     probe_p = probe.new_ones((probe.shape[0], probe.shape[1] + t + b,
                               probe.shape[2] + l + r))
     probe_p[:, t:t + probe.shape[1], l:l + probe.shape[2]] = probe
     tile_pos = pos + np.asarray([pad_arr[0][0] - szw, pad_arr[1][0] - szw])
-    subobj = patch_ops.extract_patches(obj_p, tile_pos, tile)
+    if gather_fn is not None:
+        subobj = gather_fn(obj, pad_arr, tile_pos, tile)
+    else:
+        obj_p = patch_ops.pad_object(obj, pad_arr, cfg.train.unknown_type)
+        subobj = patch_ops.extract_patches(obj_p, tile_pos, tile)
     delta, beta = subobj[..., 0], subobj[..., 1]     # [N, ty, tx, z]
     iy, ix = patch_ops._window_index(tile_pos, tile, probe_p.shape[-2:],
                                      dev)

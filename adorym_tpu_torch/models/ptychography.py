@@ -119,21 +119,30 @@ def unfolded_far_field(cfg: ReconConfig) -> bool:
 
 
 def predict(params: Dict, batch: Dict, cfg: ReconConfig,
-            pad_arr: Optional[np.ndarray] = None, return_wave: bool = False):
+            pad_arr: Optional[np.ndarray] = None, return_wave: bool = False,
+            gather_fn=None):
     """Detected magnitudes ``[N, py, px]`` of one minibatch: rotate the
     object, pad it, extract the windows at ``round(batch['pos_batch'])``
     (a host ``[N, 2]`` table; windows past the padded edge see vacuum)
     and run :func:`predict_from_patches`.  ``return_wave``: the complex
-    exit waves ``[n_modes, N, py, px]`` before detection instead."""
+    exit waves ``[n_modes, N, py, px]`` before detection instead.
+    ``gather_fn(obj, pad_arr, pos, probe_size)``: reads the windows (at
+    ``pos`` in the padded frame, all in range) of the unpadded rotated
+    object in place of the padding and the gather — the halo gather of an
+    object split over a mesh."""
     geo = cfg.geometry
     if pad_arr is None:
         pad_arr = np.zeros((2, 2), dtype=np.int64)
-    obj = patch_ops.pad_object(rotated_object(params, batch, cfg), pad_arr,
-                               cfg.train.unknown_type)
     pos = (np.round(np.asarray(batch['pos_batch'], np.float32))
            .astype(np.int64) + np.asarray([pad_arr[0][0], pad_arr[1][0]]))
-    subobj = patch_ops.extract_patches_vacuum(
-        obj, pos, geo.probe_size, unknown_type=cfg.train.unknown_type)
+    if gather_fn is not None:
+        subobj = gather_fn(rotated_object(params, batch, cfg), pad_arr, pos,
+                           geo.probe_size)
+    else:
+        obj = patch_ops.pad_object(rotated_object(params, batch, cfg),
+                                   pad_arr, cfg.train.unknown_type)
+        subobj = patch_ops.extract_patches_vacuum(
+            obj, pos, geo.probe_size, unknown_type=cfg.train.unknown_type)
     return predict_from_patches(params, batch, subobj, cfg,
                                 return_wave=return_wave)
 

@@ -34,7 +34,7 @@ LINE_SEARCH_EVALS = {'count': 0}
 # Gauss-Newton-vector product
 # ---------------------------------------------------------------------------
 
-def make_gvp(pred_fn: Callable, loss_pred_fn: Callable, obj):
+def make_gvp(pred_fn: Callable, loss_pred_fn: Callable, obj, reduce=None):
     """Return ``(gvp, full_grad, pred)`` for the Gauss-Newton curvature
     ``J^T H J`` at ``obj``.
 
@@ -42,7 +42,10 @@ def make_gvp(pred_fn: Callable, loss_pred_fn: Callable, obj):
     data mismatch only: the curvature is the loss's with respect to the
     prediction, so regularizers drop out).  ``J v`` is a forward-mode pass
     through ``pred_fn``; ``J^T u`` a reverse pass through one retained
-    forward."""
+    forward.  ``reduce``: a sum of this process's products with the other
+    data-parallel ranks' (each rank's prediction covers its share of the
+    batch), applied to the gradient and to every product."""
+    red = reduce or (lambda t: t)
     x = obj.detach().requires_grad_(True)
     with torch.enable_grad():
         pred_g = pred_fn(x)
@@ -62,9 +65,9 @@ def make_gvp(pred_fn: Callable, loss_pred_fn: Callable, obj):
         return torch.func.jvp(loss_grad_fn, (pred,), (v,))[1]
 
     def gvp(v):
-        return vjp_from_pred(hvp(jvp_to_pred(v)))
+        return red(vjp_from_pred(hvp(jvp_to_pred(v))))
 
-    full_grad = vjp_from_pred(loss_grad_fn(pred))
+    full_grad = red(vjp_from_pred(loss_grad_fn(pred)))
     return gvp, full_grad, pred
 
 
@@ -89,7 +92,8 @@ def _dot(a, b):
 
 
 def curveball_step(pred_fn, loss_pred_fn, loss_obj_fn, obj, state,
-                   spec: CurveballSpec = CurveballSpec()):
+                   spec: CurveballSpec = CurveballSpec(), reduce=None,
+                   psum=None):
     """One Curveball update:
 
       dz   = GVP(z) + lambda z + grad
@@ -99,11 +103,21 @@ def curveball_step(pred_fn, loss_pred_fn, loss_obj_fn, obj, state,
 
     The gradient and ``loss_0`` are the data term's (``loss_pred_fn``),
     ``loss_1`` the full loss's (``loss_obj_fn``, regularizers included),
-    as in the JAX package.  Returns ``(obj, state, loss_0)``."""
+    as in the JAX package.  Under a mesh ``reduce`` sums the data term and
+    the curvature products over the data axis and ``psum`` the dot
+    products of the object's slabs over the object axis.  Returns ``(obj,
+    state, loss_0)``."""
     z, lmbda = state['z'], state['lmbda']
-    gvp, g, pred = make_gvp(pred_fn, loss_pred_fn, obj)
+    gvp, g, pred = make_gvp(pred_fn, loss_pred_fn, obj, reduce)
+    ps = psum or (lambda t: t)
+
+    def _dot(a, b):
+        return ps(torch.sum(a * b))
+
     with torch.no_grad():
         loss_0 = loss_pred_fn(pred)
+        if reduce is not None:
+            loss_0 = reduce(loss_0)
         gz = gvp(z)
         dz = gz + lmbda * z + g
         gdz = gvp(dz)
@@ -155,15 +169,19 @@ def cg_init(obj) -> Dict:
 
 
 @torch.no_grad()
-def _armijo_search(loss_obj_fn, obj, s, g, f0, alpha0, spec: CGSpec):
+def _armijo_search(loss_obj_fn, obj, s, g, f0, alpha0, spec: CGSpec,
+                   psum=None):
     """Backtracking Armijo line search, the JAX package's
     ``lax.while_loop`` as a host loop with the same condition and
     bookkeeping: the first evaluation at ``alpha0``, then the step
     contracted while the sufficient decrease fails and the step stays
     above ``stepsize_threshold_low``, at most ``maxiter + 1`` evaluations.
     Returns ``(newx, newf, alpha, step_count)``; a step that does not
-    lower the loss is refused (``newx = obj``, ``alpha = 0``)."""
+    lower the loss is refused (``newx = obj``, ``alpha = 0``).  ``psum``:
+    the sum of a dot product over the object's slabs (a mesh)."""
     df0 = torch.sum(s * g)
+    if psum is not None:
+        df0 = psum(df0)
     alpha = alpha0
     newf = torch.full((), float('inf'), dtype=torch.float32, device=obj.device)
     count = 0
@@ -183,27 +201,30 @@ def _armijo_search(loss_obj_fn, obj, s, g, f0, alpha0, spec: CGSpec):
 
 
 @torch.no_grad()
-def cg_step(loss_obj_fn, obj, g, f0, state, spec: CGSpec = CGSpec()):
+def cg_step(loss_obj_fn, obj, g, f0, state, spec: CGSpec = CGSpec(),
+            psum=None):
     """One Polak-Ribiere CG update with the adaptive line search: the
     direction falls back to steepest descent where it is not a descent
     direction; the first trial step is the last accepted one's suggestion
     (after 1 evaluation, ``optimism`` times it; after 2, the same; after
     more, ``optimism`` times the contracted step), else
-    ``initial_stepsize`` over the direction's norm.  Returns ``(obj,
+    ``initial_stepsize`` over the direction's norm.  ``psum``: the sum of
+    a dot product over the object's slabs (a mesh).  Returns ``(obj,
     state, loss)``."""
+    ps = psum or (lambda t: t)
     d = -g
     d_old = -state['g_old']
-    beta_num = torch.sum(d * (d - d_old))
-    beta_den = torch.sum(d_old * d_old)
+    beta_num = ps(torch.sum(d * (d - d_old)))
+    beta_den = ps(torch.sum(d_old * d_old))
     beta = torch.where(
         state['first'], torch.zeros_like(beta_num),
         torch.clamp(beta_num / torch.where(beta_den == 0,
                                            torch.ones_like(beta_den),
                                            beta_den), min=0.0))
     s = d + beta * state['s']
-    s = torch.where(torch.sum(s * g) >= 0, d, s)
+    s = torch.where(ps(torch.sum(s * g)) >= 0, d, s)
 
-    s_norm = torch.sqrt(torch.sum(s * s))
+    s_norm = torch.sqrt(ps(torch.sum(s * s)))
     alpha_default = (spec.initial_stepsize / torch.clamp(s_norm, min=1e-30)
                      if spec.normalize_alpha else
                      torch.full_like(s_norm, spec.initial_stepsize))
@@ -211,7 +232,7 @@ def cg_step(loss_obj_fn, obj, g, f0, state, spec: CGSpec = CGSpec()):
     alpha0 = torch.where(a_sug > 0, a_sug, alpha_default)
 
     newx, newf, alpha, count = _armijo_search(loss_obj_fn, obj, s, g, f0,
-                                              alpha0, spec)
+                                              alpha0, spec, psum)
     suggested = alpha if count == 2 else spec.optimism * alpha
     new_state = {'s': s, 'g_old': g,
                  'alpha_suggested': suggested.to(torch.float32),

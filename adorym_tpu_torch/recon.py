@@ -99,8 +99,21 @@ accumulate there, and each slab's full-depth gradient is made from the
 binned gradient's rows just before the slab's update, so the object is
 never whole on the device.  Per-batch losses stay on the device until the
 epoch ends (``run_epochs`` fetches them one epoch late); only a batch that
-writes a checkpoint or an intermediate dump visits the host.  Meshes and
-orbax checkpoints raise ``NotImplementedError``.
+writes a checkpoint or an intermediate dump visits the host.  Orbax
+checkpoints raise ``NotImplementedError``.
+
+Under a device mesh (``mesh=``, :mod:`.parallel`) each rank holds its y
+slab of the object, of its optimizer state and of the support; every rank
+runs the same program.  Grid-row tables take the structured mesh paths
+(:mod:`.recon_mesh`): per angle, or immediate.  Everything else takes the
+generic path: each rank runs its share of every batch over 'dp' (the
+whole batch where ``data_axis`` does not divide it), the model reads the
+object through the halo gather where the geometry allows it
+(:func:`.parallel.halo.padded_window_gather`), else through a counted
+all-gather of the slabs, the regularizers act on the slabs (sums over
+'op', TV's one-row halo), and the gradients and losses are summed over
+'dp'.  Rank 0 writes the outputs and checkpoints, which hold the whole
+object under the same keys as a single-device run.
 """
 
 from __future__ import annotations
@@ -116,6 +129,7 @@ import torch
 
 from . import convert
 from . import offload as off_lib
+from . import recon_mesh as mc_lib
 from .config import ReconConfig
 from .io import checkpoint as ckpt_lib
 from .io import fastloader as fl_mod
@@ -132,6 +146,9 @@ from .ops.rotate import (rotate, rotate_adjoint, rotate_adjoint_taps,
 from .optim import optimizers as opt_lib
 from .optim import params as param_lib
 from .optim import second_order as so
+from .parallel import halo as halo_lib
+from .parallel.comm import flat_all_reduce
+from .parallel.mesh import dp_share, gather_obj, shard_batch
 from .utils import profiling as _prof
 from .utils.initialize import initialize_object, initialize_probe
 
@@ -184,9 +201,9 @@ def rol_active(cfg: ReconConfig) -> bool:
             and not cfg.refine.tilt_active)
 
 
-def _check_slice(cfg: ReconConfig):
-    """Raise for configurations outside the ported paths: device meshes
-    and orbax checkpoints."""
+def _check_slice(cfg: ReconConfig, mesh=None):
+    """Raise for configurations outside the ported paths (orbax
+    checkpoints) and for a mesh that does not match ``cfg.parallel``."""
     geo, t, p = cfg.geometry, cfg.train, cfg.parallel
     todo = []
     if t.update_scheme not in ('immediate', 'per angle'):
@@ -201,8 +218,20 @@ def _check_slice(cfg: ReconConfig):
                              f'{getattr(t, knob)!r}')
     if cfg.refine.tilt_active and geo.two_d_mode:
         raise NotImplementedError('tilt is not implemented for two_d_mode')
-    if p.data_axis > 1 or p.object_axis > 1:
-        todo.append('device meshes (ROADMAP A, multi-GPU and out-of-core)')
+    if mesh is None and (p.data_axis > 1 or p.object_axis > 1):
+        raise ValueError(
+            f'device meshes: cfg.parallel asks for data_axis={p.data_axis}, '
+            f'object_axis={p.object_axis}; pass mesh=parallel.make_mesh('
+            'cfg.parallel) on every rank')
+    if mesh is not None and (mesh.n_dp, mesh.n_op) != (p.data_axis,
+                                                       p.object_axis):
+        raise ValueError(f'device meshes: the mesh is {mesh.n_dp} x '
+                         f'{mesh.n_op}, cfg.parallel asks for '
+                         f'{p.data_axis} x {p.object_axis}')
+    if mesh is not None and geo.obj_size[0] % p.object_axis:
+        raise ValueError(f'device meshes: the object y extent '
+                         f'{geo.obj_size[0]} does not split into '
+                         f'object_axis={p.object_axis} slabs')
     if cfg.io.use_orbax:
         todo.append("orbax checkpoints (a JAX library's format; the port "
                     'writes the npz form)')
@@ -296,7 +325,9 @@ class Reconstructor:
     ``data``: the measured magnitudes ``[n_theta, n_pos, h, w]``, an array
     or a :class:`~.io.fastloader.FastLoader` (whose rows stay on the host).
     ``device``: where it runs; ``None`` means CUDA and raises when there
-    is none."""
+    is none (under a mesh, the mesh's device).  ``mesh``: this rank's
+    :class:`~.parallel.mesh.Mesh` (every rank builds its Reconstructor with
+    the same arguments), None for one device."""
 
     def __init__(self, cfg: ReconConfig, *, data,
                  probe_pos: np.ndarray, theta_ls: Optional[np.ndarray] = None,
@@ -306,9 +337,15 @@ class Reconstructor:
                  finite_support_mask: Optional[np.ndarray] = None,
                  reg_list=None, output_folder: Optional[str] = None,
                  aux_init: Optional[Dict[str, Any]] = None, model=None,
-                 external_algorithm: Optional[str] = None, device=None):
+                 external_algorithm: Optional[str] = None, device=None,
+                 mesh=None):
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
+        # Only rank 0 of a mesh writes files.
+        self._writer = mesh is None or mesh.rank == 0
         if external_algorithm not in (None, 'ctf'):
             raise ValueError("external_algorithm must be None or 'ctf', got "
                              f'{external_algorithm!r}')
@@ -342,7 +379,7 @@ class Reconstructor:
                         and (self._rol or geo.two_d_mode)
                         and self.expand_indices is None)
         self._accum = accum and not self._angles
-        _check_slice(cfg)
+        _check_slice(cfg, mesh)
         if isinstance(data, fl_mod.FastLoader):
             self.loader, self.data = data, None
             data_shape = data.shape
@@ -436,7 +473,7 @@ class Reconstructor:
         # the view rotation (not tilt) inside the loop, one batch an
         # update.
         band_ok = (t.update_scheme == 'immediate' and not self._rol
-                   and self._rowgrid_stride is not None
+                   and self._rowgrid_stride is not None and mesh is None
                    and not geo.two_d_mode and not cfg.refine.tilt_active
                    and not self.second_order
                    and self.external_algorithm is None)
@@ -456,8 +493,9 @@ class Reconstructor:
         # else it differentiates each chunk through the model's predict on
         # the whole rotated object.  Patches move binned in z only at
         # patch granularity (the band step's always are).
-        self._patch_mode = (self._rowgrid_stride is not None
-                            or (t.patch_grad and self.model is ptycho_model))
+        self._patch_mode = mesh is None and (
+            self._rowgrid_stride is not None
+            or (t.patch_grad and self.model is ptycho_model))
         self._prebin = self._patch_mode and _band_prebin(cfg)
         nz_patch = geo.obj_size[2]
         if self._prebin:
@@ -495,6 +533,7 @@ class Reconstructor:
                           or (cfg.train.fused_multislice == 'auto'
                               and dev.type == 'cuda')))
         bufs = 6 + 2 * cfg.train.n_probe_modes if kernel_db else 6
+        self._chunk_bufs = bufs
         self._fuse_g = 1
         if self._angles:
             self._fuse_g = (int(max(1, min(64, avail // max(
@@ -510,7 +549,8 @@ class Reconstructor:
         ws_bytes = 6 * obj_budget + bufs * patch_bytes * self._fuse_g
         # The dataset lives on the device where it fits beside the working
         # set; else (and from a loader) its rows are staged from the host.
-        self._data_dev_ok = (self.data is not None and data_nbytes
+        self._data_dev_ok = (mesh is None and self.data is not None
+                             and data_nbytes
                              <= (hbm - _prof.data_headroom_bytes(hbm))
                              - ws_bytes)
         # Chunks of whole grid rows of one complete 2D grid take the grid
@@ -534,12 +574,14 @@ class Reconstructor:
             m = np.asarray(finite_support_mask, np.float32)
             m = np.broadcast_to(m.reshape(m.shape + (1,) * (3 - m.ndim)),
                                 tuple(geo.obj_size))
-            self.finite_support_mask = torch.as_tensor(m.copy(), device=dev)
+            self.finite_support_mask = torch.as_tensor(
+                self._own_rows(m).copy(), device=dev)
         self.reg_list = (list(reg_list) if reg_list is not None
                          else build_regularizers(cfg))
         self._needs_weight_l1 = any(
             isinstance(r, regs.ReweightedL1Regularizer) for r in self.reg_list)
-        self.weight_l1 = (torch.ones(self.params['obj'].shape, device=dev)
+        self.weight_l1 = (torch.ones(self._own_rows(self.params['obj']).shape,
+                                     device=dev)
                           if self._needs_weight_l1 else None)
         # The per-angle streaming rotation: with the prebin hoist and the
         # -theta gradient rotate-back, the object is rotated and binned y
@@ -565,16 +607,28 @@ class Reconstructor:
                      else self.second_order and t.optimize_object)
         self._off_state = bool(par.offload_optimizer_state and has_state)
         self._off_slabbed = (self._off_state and 'obj' in self.specs
-                             and par.offload_slabs > 1)
+                             and par.offload_slabs > 1
+                             and (mesh is None or mesh.n_op == 1))
         self._slab_keys = self._slab_ranges = None
         if self._off_slabbed:
             self._slab_keys, self._slab_ranges = off_lib.slab_ranges(
                 geo.obj_size[0], par.offload_slabs)
         want_obj_off = par.offload_object
         if want_obj_off == 'auto':
-            want_obj_off = (self._off_slabbed and obj_bytes
-                            > _prof.obj_offload_auto_bytes(hbm))
+            if mesh is not None:
+                # Each rank holds obj / object_axis: the same boundary on
+                # the rank's share.
+                want_obj_off = (self._off_state and obj_bytes / mesh.n_op
+                                > _prof.obj_offload_auto_bytes(hbm))
+            else:
+                want_obj_off = (self._off_slabbed and obj_bytes
+                                > _prof.obj_offload_auto_bytes(hbm))
         self._obj_offloaded = False
+        # Under a mesh each rank keeps its own slab on the host, on the
+        # per-angle mesh path's conditions (resolved below).
+        want_obj_off_mesh = False
+        if want_obj_off and mesh is not None:
+            want_obj_off_mesh, want_obj_off = par.offload_object, False
         if want_obj_off:
             problems = []
             if not self._off_slabbed:
@@ -607,6 +661,15 @@ class Reconstructor:
             self._obj_offloaded = not problems
         self._arena = off_lib.HostArena(dev)
         self._mover = off_lib.HostMover(dev)
+        # -- the mesh: structured paths, the generic path's object reads ---
+        self._mc = self._mci = None
+        self._mc_decline_reasons: List[str] = []
+        self._gather_fn = None
+        self._dp_split = False
+        self._obj_off_mesh = False
+        self._shard = None
+        if mesh is not None:
+            self._setup_mesh(want_obj_off_mesh)
         self.i_opt_batch = 0      # optimizer step counter
         self.global_batch = 0     # epoch*n_batch + i_batch, for update gates
         self.loss_history: List[float] = []
@@ -628,22 +691,150 @@ class Reconstructor:
         self._start_batch = 0
         restored_obj_state = None
         if output_folder is not None:
-            os.makedirs(output_folder, exist_ok=True)
-            if cfg.io.save_stdout:
+            if self._writer:
+                os.makedirs(output_folder, exist_ok=True)
+            if cfg.io.save_stdout and self._writer:
                 # Tee the progress lines to a timestamped file; asking for
                 # the tee turns the lines on.
                 ts = time.strftime('%Y%m%d_%H%M%S')
                 self._stdout_f = open(
                     os.path.join(output_folder, f'stdout_{ts}.txt'), 'a')
                 self.verbose = True
-            out_lib.write_summary(cfg, output_folder)
+            if self._writer:
+                out_lib.write_summary(cfg, output_folder)
             if cfg.io.use_checkpoint:
                 restored_obj_state = self._restore(
                     os.path.join(output_folder, 'checkpoint'))
-            self._logger = out_lib.LossLogger(
-                output_folder,
-                append=self._start_epoch > 0 or self._start_batch > 0)
+            if self._writer:
+                self._logger = out_lib.LossLogger(
+                    output_folder,
+                    append=self._start_epoch > 0 or self._start_batch > 0)
         self._place_object(restored_obj_state)
+
+    # -- the mesh ------------------------------------------------------------
+    def _setup_mesh(self, want_obj_off_mesh):
+        """The mesh's layouts: the structured per-angle or immediate path
+        (with the JAX package's decline reasons), the object kept on the
+        host by slab under the per-angle path (``offload_object``), and the
+        generic path's data split and object reads."""
+        cfg = self.cfg
+        geo = cfg.geometry
+        mesh = self.mesh
+        self._mc = mc_lib.build_mc_layout(self)
+        if self._mc is None and cfg.train.update_scheme == 'immediate':
+            # The per-angle layout's scheme reason is no decline of this
+            # path.
+            self._mc_decline_reasons = []
+            self._mci = mc_lib.build_mc_imm_layout(self)
+        if want_obj_off_mesh:
+            problems = []
+            if self._mc is None:
+                problems.append(
+                    'the mesh patch-granular fast path ('
+                    + ('; '.join(self._mc_decline_reasons) or 'geometry')
+                    + ')')
+            elif not self._mc['prebin']:
+                problems.append('prebin (delta_beta, binning>1)')
+            if self.reg_list or self._needs_weight_l1:
+                problems.append('no regularizers')
+            if not self._off_state:
+                problems.append('offload_optimizer_state')
+            if problems and want_obj_off_mesh is True:
+                raise ValueError('offload_object under a mesh requires: '
+                                 + '; '.join(problems))
+            self._obj_off_mesh = not problems
+        if self._mc is None and self._mci is None and mesh.n_op > 1:
+            why = '; '.join(self._mc_decline_reasons) or 'geometry'
+            warnings.warn('mesh patch-granular fast path declined '
+                          f'({why}); running the generic mesh path')
+        self._dp_split = (mesh.n_dp > 1 and cfg.train.minibatch_size
+                          % mesh.n_dp == 0)
+        self._shard = halo_lib.SlabShard(mesh) if mesh.n_op > 1 else None
+        gw = getattr(self.model, 'gather_window', None)
+        use = cfg.parallel.use_halo_gather
+        if (mesh.n_op > 1 and use and not cfg.refine.tilt_active
+                and (self.model is ptycho_model or gw is not None)):
+            window_y = gw(cfg)[0] if gw is not None else geo.probe_size[0]
+            if halo_lib.padded_geometry(geo.obj_size[0], self.pad_arr,
+                                        window_y, mesh.n_op):
+                ut = cfg.train.unknown_type
+                self._gather_fn = (
+                    lambda o, pad, pos, win: halo_lib.padded_window_gather(
+                        o, pad, pos, win, ut, mesh))
+            elif use is True:
+                warnings.warn('use_halo_gather requested but geometry does '
+                              'not satisfy its constraints; falling back to '
+                              'a full-object all-gather for the patch '
+                              'gather')
+
+    def _own_rows(self, x):
+        """This rank's y slab of a whole-object array (``x`` itself off a
+        mesh or without an object split)."""
+        if self.mesh is None or self.mesh.n_op == 1:
+            return x
+        st, sz = self.mesh.slab(int(x.shape[0]))
+        return x[st:st + sz]
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole object (or a slab-shaped leaf) from the ranks' slabs;
+        every rank calls it."""
+        if self.mesh is None or self.mesh.n_op == 1:
+            return t
+        return gather_obj(t.to(self.device), self.mesh)
+
+    def _obj_up(self) -> torch.Tensor:
+        """The object on the device (this rank's slab, from its host block
+        where the mesh keeps it there)."""
+        if self._obj_off_mesh:
+            self._mover.wait()
+            self.params['obj'] = self._mover.up(self._obj_host)
+        return self.params['obj']
+
+    def _obj_down(self):
+        """The updated slab back into its host block (mesh object
+        offload)."""
+        if self._obj_off_mesh:
+            self._mover.down(self._obj_host, self.params['obj'])
+            self.params['obj'] = self._obj_host
+
+    def _predict(self, params, batch, cfg, **kw):
+        """The model's ``predict``; under a mesh with an object split the
+        object is this rank's slab, read through the halo gather where the
+        geometry allows it, else gathered whole."""
+        if self.mesh is not None and self.mesh.n_op > 1:
+            if self._gather_fn is not None:
+                return self.model.predict(params, batch, cfg, self.pad_arr,
+                                          gather_fn=self._gather_fn, **kw)
+            params = {**params, 'obj': halo_lib.all_gather_obj(
+                params['obj'], self.mesh)}
+        return self.model.predict(params, batch, cfg, self.pad_arr, **kw)
+
+    def _dp_weight(self) -> float:
+        """The weight of this rank's share of a batch loss: its share's
+        mean, and the regularizers (the same on every rank), count
+        ``1/data_axis`` where the batch splits, so that the sum over 'dp'
+        is the batch's loss."""
+        return 1.0 / self.mesh.n_dp if self._dp_split else 1.0
+
+    def _share(self, batch, measured):
+        """This rank's dp share of a batch dict and its measured rows (the
+        rows of every distance block for the multi-distance model)."""
+        if not self._dp_split:
+            return batch, measured
+        if self.expand_indices is None:
+            return shard_batch(batch, measured, self.mesh)
+        n = len(batch['ind_batch'])
+        sl = dp_share(n, self.mesh)
+        batch, _ = shard_batch(batch, measured, self.mesh)
+        rows = measured.reshape((-1, n) + tuple(measured.shape[1:]))
+        return batch, rows[:, sl].reshape((-1,) + tuple(measured.shape[1:]))
+
+    def _dp_sum(self, tensors):
+        """Sum a list of tensors over 'dp' (one collective) where batches
+        split; else as they are."""
+        if not self._dp_split:
+            return list(tensors)
+        return flat_all_reduce(self.mesh.comm, tensors, ('dp',))
 
     def _restore(self, folder: str):
         """Continue from the checkpoint in ``folder``, written by either
@@ -671,7 +862,8 @@ class Reconstructor:
         mask = ck['extra'].get('finite_support_mask')
         if mask is not None and self.finite_support_mask is not None:
             self.finite_support_mask = torch.as_tensor(
-                np.asarray(mask, np.float32), device=self.device)
+                self._own_rows(np.asarray(mask, np.float32)).copy(),
+                device=self.device)
         return ck['opt_state'].get('obj')
 
     def _place_object(self, restored_state=None):
@@ -681,8 +873,14 @@ class Reconstructor:
         slab.  An offloaded state is never made on the device."""
         t = self.cfg.train
         arena = self._arena
-        obj = self.params['obj']                # on the host
-        if self._obj_offloaded:
+        obj = self._own_rows(self.params['obj'])        # on the host
+        if restored_state is not None and self.mesh is not None:
+            restored_state = {n: self._own_rows(a) if a.dim() else a
+                              for n, a in restored_state.items()}
+        if self._obj_off_mesh:
+            self._obj_host = arena.copy_of(obj)
+            self.params['obj'] = self._obj_host
+        elif self._obj_offloaded:
             self.params['obj'] = off_lib.slab_views(
                 arena.copy_of(obj), self._slab_keys, self._slab_ranges)
         else:
@@ -815,7 +1013,7 @@ class Reconstructor:
                 and not geo.pure_projection and geo.slice_pos_cm_ls is None)
 
     def _patch_grads(self, sub, i_theta, theta, inds, measured, zm, groups,
-                     w=None):
+                     w=None, spot_w=None, mb=None, prebin=None):
         """Forward model and loss of the patches ``sub`` (z-major when
         ``zm``) of the spots ``inds`` against ``measured``, and the
         gradient of the sum of the ``groups`` minibatches' mean losses,
@@ -824,7 +1022,11 @@ class Reconstructor:
         auxiliary refinables).  Returns ``(losses [groups], g_sub, {name:
         grad})``; ``g_sub`` is in the scatter layout ``[N, py, px, zb, 2]``
         (for z-major patches, a view of the z-major gradient, which the
-        scatter kernels read in place)."""
+        scatter kernels read in place).  The mesh paths weight spots
+        instead (``spot_w [N]``, each group's sum over ``mb``: a rank's
+        part of a batch's mean) and say whether the patches are binned in
+        z (``prebin``)."""
+        prebin = self._prebin if prebin is None else prebin
         cfg = self.cfg
         aux_names = [k for k in self.specs if k != 'obj']
         sub.requires_grad_(True)
@@ -834,12 +1036,15 @@ class Reconstructor:
                  'ind_batch': np.asarray(inds).reshape(-1)}
         with torch.enable_grad():
             pred = ptycho_model.predict_from_patches(
-                aux, batch, sub, cfg, prebinned_z=self._prebin, zmajor=zm)
+                aux, batch, sub, cfg, prebinned_z=prebin, zmajor=zm)
             per_item = model_base.mismatch_loss(
                 pred, measured, cfg.loss.loss_function_type,
                 cfg.loss.raw_data_type, cfg.loss.poisson_multiplier,
                 self.beamstop_mask, per_item=True)
-            per_batch = per_item.reshape(groups, -1).mean(1)
+            if spot_w is not None:
+                per_batch = (per_item * spot_w).reshape(groups, -1).sum(1) / mb
+            else:
+                per_batch = per_item.reshape(groups, -1).mean(1)
             total = per_batch.sum() if w is None else (per_batch * w).sum()
             grads = torch.autograd.grad(total,
                                         [sub] + [aux[k] for k in aux_names])
@@ -1023,20 +1228,32 @@ class Reconstructor:
 
     # -- regularizers and the support ------------------------------------
     @staticmethod
-    def _weight_l1_refresh(obj):
+    def _weight_l1_refresh(obj, sh=None):
         """Reweighted-L1 weights ``max(obj) / (|obj| + 1e-4 mean(obj))``;
-        ones until the object is first nonzero."""
-        denom = torch.abs(obj) + 1e-4 * torch.mean(obj)
-        w = torch.where(denom > 0, torch.max(obj) / denom,
-                        torch.ones_like(obj))
+        ones until the object is first nonzero.  Under a mesh (``sh``, the
+        slab's :class:`~.parallel.halo.SlabShard`) the max and the mean are
+        the whole object's."""
+        if sh is None:
+            mean, mx = torch.mean(obj), torch.max(obj)
+        else:
+            mean = sh.sum(torch.sum(obj).detach()) / (obj.numel() * sh.n)
+            mx = sh.max(torch.max(obj))
+        denom = torch.abs(obj) + 1e-4 * mean
+        w = torch.where(denom > 0, mx / denom, torch.ones_like(obj))
         return torch.nan_to_num(w, nan=1.0, posinf=1.0)
+
+    def _regularization(self, obj):
+        """The regularizers' value at ``obj`` (this rank's slab under a
+        mesh: the whole object's value on every rank)."""
+        return regs.total_regularization(self.reg_list, obj,
+                                         weight_l1=self.weight_l1,
+                                         shard=self._shard)
 
     def _reg_value_and_grad(self, obj):
         """The regularizers' value and gradient at ``obj``, by autograd."""
         o = obj.detach().requires_grad_(True)
         with torch.enable_grad():
-            rv = regs.total_regularization(self.reg_list, o,
-                                           weight_l1=self.weight_l1)
+            rv = self._regularization(o)
             if not torch.is_tensor(rv):        # every weight zero
                 return torch.zeros((), device=o.device), torch.zeros_like(o)
             g, = torch.autograd.grad(rv, o)
@@ -1164,17 +1381,29 @@ class Reconstructor:
         real batch, differentiated in the object (in the rotated frame, as
         the patch-granular branch's accumulator is) and every other refined
         leaf.  Returns ``(per-batch losses [g], {name: grad})``; each loss
-        carries the regularizers' value."""
+        carries the regularizers' value.  Under a mesh each rank runs its
+        dp share of every batch and the sums go over 'dp'."""
         cfg = self.cfg
         names = ['obj'] + [k for k in self.specs if k != 'obj']
         params = {k: v.detach().requires_grad_(k in self.specs)
                   for k, v in self.params.items()}
         params['obj'] = obj_rot.detach().requires_grad_(True)
+        inds = np.asarray(inds)
+        if self._dp_split:
+            g = len(w)
+            mb = len(inds) // g
+            sl = dp_share(mb, self.mesh)
+            idx = (np.arange(g)[:, None] * mb
+                   + np.arange(sl.start, sl.stop)).reshape(-1)
+            inds, pos = inds[idx], pos[idx]
+            measured = measured[torch.as_tensor(idx,
+                                                device=measured.device)]
+        f = self._dp_weight()
         batch = {'i_theta': i_theta, 'theta': theta, 'pos_batch': pos,
-                 'ind_batch': np.asarray(inds)}
+                 'ind_batch': inds}
         w_dev = torch.as_tensor(w, device=obj_rot.device)
         with torch.enable_grad():
-            pred = self.model.predict(params, batch, cfg, self.pad_arr)
+            pred = self._predict(params, batch, cfg)
             if self.transform_measured is not None:
                 measured = self.transform_measured(params, batch, measured,
                                                    cfg)
@@ -1182,19 +1411,19 @@ class Reconstructor:
                 pred, measured, cfg.loss.loss_function_type,
                 cfg.loss.raw_data_type, cfg.loss.poisson_multiplier,
                 self.beamstop_mask, per_item=True)
-            per_batch = per_item.reshape(len(w), -1).mean(1)
+            per_batch = per_item.reshape(len(w), -1).mean(1) * f
             total = (per_batch * w_dev).sum()
             rv = 0.0
             if self.reg_list:
-                rv = regs.total_regularization(self.reg_list, params['obj'],
-                                               weight_l1=self.weight_l1)
-                total = total + w_dev.sum() * rv
+                rv = self._regularization(params['obj'])
+                total = total + w_dev.sum() * rv * f
             grads = torch.autograd.grad(total, [params[k] for k in names],
                                         allow_unused=True)
-        per_batch = per_batch.detach() + (rv.detach() if torch.is_tensor(rv)
-                                          else rv)
-        return per_batch, {k: torch.zeros_like(params[k]) if g is None else g
-                           for k, g in zip(names, grads)}
+        grads = [torch.zeros_like(params[k]) if g is None else g
+                 for k, g in zip(names, grads)]
+        per_batch, *grads = self._dp_sum([per_batch.detach()] + grads)
+        per_batch = per_batch + (rv.detach() if torch.is_tensor(rv) else rv)
+        return per_batch, dict(zip(names, grads))
 
     @torch.no_grad()
     def step_band(self, i_theta: int, inds, measured) -> torch.Tensor:
@@ -1257,13 +1486,21 @@ class Reconstructor:
         ``predict`` (against the measured data as the model's
         ``transform_measured`` registers them) plus the regularizers."""
         cfg = self._model_cfg
-        pred = self.model.predict(params, batch, cfg, self.pad_arr)
+        pred = self._predict(params, batch, cfg)
         if self.transform_measured is not None:
             measured = self.transform_measured(params, batch, measured, cfg)
         loss = model_base.mismatch_loss(
             pred, measured, cfg.loss.loss_function_type,
             cfg.loss.raw_data_type, cfg.loss.poisson_multiplier,
             self.beamstop_mask)
+        if self.mesh is not None:
+            # This rank's share of the batch's loss (the sum over 'dp' is
+            # the batch's).
+            f = self._dp_weight()
+            loss = loss * f
+            if self.reg_list:
+                loss = loss + self._regularization(params['obj']) * f
+            return loss
         if self.reg_list:
             loss = loss + regs.total_regularization(
                 self.reg_list, params['obj'], weight_l1=self.weight_l1)
@@ -1284,14 +1521,15 @@ class Reconstructor:
                   for k, v in self.params.items()}
         if obj is not None:
             params['obj'] = obj.detach().requires_grad_('obj' in names)
-        batch = self._batch(i_theta, inds)
+        batch, measured = self._share(self._batch(i_theta, inds), measured)
         with torch.enable_grad():
             loss = self.loss_fn(params, batch, measured)
             grads = torch.autograd.grad(loss, [params[k] for k in names],
                                         allow_unused=True)
-        return loss.detach(), {
-            k: torch.zeros_like(params[k]) if g is None else g
-            for k, g in zip(names, grads)}
+        grads = [torch.zeros_like(params[k]) if g is None else g
+                 for k, g in zip(names, grads)]
+        loss, *grads = self._dp_sum([loss.detach()] + grads)
+        return loss, dict(zip(names, grads))
 
     def _batch(self, i_theta: int, inds) -> Dict[str, Any]:
         """The model's batch dict for the spots ``inds`` of angle
@@ -1318,16 +1556,30 @@ class Reconstructor:
                                           self.global_batch)
         if t.optimize_object:
             old = self.params
-            batch = self._batch(i_theta, inds)
+            # Under a mesh: this rank's dp share, losses and curvature
+            # products summed over 'dp', the object's dot products over
+            # 'op' (its slabs).
+            batch, measured = self._share(self._batch(i_theta, inds),
+                                          measured)
             state = (self._obj_state_up() if self._off_state
                      else self.opt_state['obj'])
+            f = 1.0 if self.mesh is None else self._dp_weight()
+
+            def dp_sum(x):
+                return self._dp_sum([x])[0]
+
+            psum = None
+            if self._shard is not None:
+                psum = self._shard.sum
 
             def loss_obj_fn(o):
-                return self.loss_fn({**old, 'obj': o}, batch, measured)
+                return dp_sum(self.loss_fn({**old, 'obj': o}, batch,
+                                           measured))
 
             if t.optimizer == 'cg':
                 obj, state, _ = so.cg_step(loss_obj_fn, old['obj'],
-                                           grads['obj'], loss, state)
+                                           grads['obj'], loss, state,
+                                           psum=psum)
             else:
                 mcfg = self._model_cfg
                 meas = measured
@@ -1336,17 +1588,17 @@ class Reconstructor:
                                                    mcfg)
 
                 def pred_fn(o):
-                    return self.model.predict({**old, 'obj': o}, batch,
-                                              mcfg, self.pad_arr)
+                    return self._predict({**old, 'obj': o}, batch, mcfg)
 
                 def loss_pred_fn(pred):
                     return model_base.mismatch_loss(
                         pred, meas, cfg.loss.loss_function_type,
                         cfg.loss.raw_data_type, cfg.loss.poisson_multiplier,
-                        self.beamstop_mask)
+                        self.beamstop_mask) * f
 
                 obj, state, _ = so.curveball_step(
-                    pred_fn, loss_pred_fn, loss_obj_fn, old['obj'], state)
+                    pred_fn, loss_pred_fn, loss_obj_fn, old['obj'], state,
+                    reduce=dp_sum if self._dp_split else None, psum=psum)
             params['obj'] = obj
             self.opt_state['obj'] = (self._obj_state_down(state)
                                      if self._off_state else state)
@@ -1374,7 +1626,7 @@ class Reconstructor:
             kappa=kappa, prj_affine_ls=self.params.get('prj_affine_ls'),
             device=self.device)
         obj = self.params['obj'].clone()
-        obj[..., 0] = phase[..., None]
+        obj[..., 0] = self._own_rows(phase)[..., None]
         self.params['obj'] = obj
 
     @torch.no_grad()
@@ -1438,29 +1690,44 @@ class Reconstructor:
         batches and the support shrinks every ``shrink_cycle``, both on
         the device.  Checkpoints fall on batches; one in the middle of an
         accumulation does not hold the partial sum, so a resume starts a
-        new one (as the JAX package's does).  Returns the per-batch
-        losses, on the device."""
+        new one (as the JAX package's does).  On a mesh whose immediate
+        layout holds the epoch's rows (:func:`.recon_mesh.mc_imm_ok`),
+        each batch is :func:`.recon_mesh.mc_imm_step`, fed from the
+        layout's own tables.  Returns the per-batch losses, on the
+        device."""
         t = self.cfg.train
-        rows = [inds if self.expand_indices is None
-                else self.expand_indices(inds, self.n_pos, self.cfg)
-                for _, inds in batches]
         n_b = len(batches)
-        stager = self.stager()
-        if stager.resident:
-            inds_dev = torch.as_tensor(np.stack(rows), device=self.device)
-            data = stager.dataset()
-            feed = None
-        else:
-            feed = stager.feed([(b[0], r) for b, r in zip(batches, rows)])
+        mesh_rows = mc_lib.mc_imm_ok(self, batches)
+        feed = data = None
+        if not mesh_rows:
+            rows = [inds if self.expand_indices is None
+                    else self.expand_indices(inds, self.n_pos, self.cfg)
+                    for _, inds in batches]
+            stager = self.stager()
+            if stager.resident:
+                inds_dev = torch.as_tensor(np.stack(rows),
+                                           device=self.device)
+                data = stager.dataset()
+            else:
+                feed = stager.feed([(b[0], r) for b, r in zip(batches,
+                                                              rows)])
         acc: Dict[str, Any] = {}
         losses = []
         for i_batch in range(skip, n_b):
             i_theta, inds = batches[i_batch]
             if self._needs_weight_l1 and i_batch % WEIGHT_L1_INTERVAL == 0:
-                self.weight_l1 = self._weight_l1_refresh(self.params['obj'])
-            measured = (data[i_theta][inds_dev[i_batch]] if feed is None
-                        else feed.take(i_batch))
-            if self._band:
+                self.weight_l1 = self._weight_l1_refresh(self.params['obj'],
+                                                        self._shard)
+            if mesh_rows:
+                measured = None
+            elif feed is None:
+                measured = data[i_theta][inds_dev[i_batch]]
+            else:
+                measured = feed.take(i_batch)
+            if mesh_rows:
+                losses.append(mc_lib.mc_imm_step(
+                    self, i_theta, int(inds[0]) // self._mci['mb']))
+            elif self._band:
                 losses.append(self.step_band(i_theta, inds, measured))
             elif self.second_order:
                 losses.append(self.second_order_step(i_theta, inds,
@@ -1497,8 +1764,10 @@ class Reconstructor:
         shrinks when the epoch's batch count crossed a multiple of
         ``shrink_cycle``; the next angle's rows are requested once the
         step is queued, so a host-staged angle moves while the one before
-        it computes.  Returns ``(losses on the device, the index of the
-        first batch run)``."""
+        it computes.  On a mesh with a per-angle layout each angle is
+        :func:`.recon_mesh.mc_angle_step`, fed from the layout's own
+        tables.  Returns ``(losses on the device, the index of the first
+        batch run)``."""
         t = self.cfg.train
         groups = self._group_batches(batches)
         n_b_epoch = len(batches)
@@ -1507,16 +1776,23 @@ class Reconstructor:
             done += len(groups.pop(0)[1])
         first = done
         losses = []
-        stager = self.stager()
-        nxt_rows = self._angle_rows(*groups[0]) if groups else None
+        mesh_rows = self._mc is not None
+        stager = None if mesh_rows else self.stager()
+        nxt_rows = (self._angle_rows(*groups[0])
+                    if groups and not mesh_rows else None)
         for j, (i_theta, inds_list) in enumerate(groups):
             if self._needs_weight_l1:
-                self.weight_l1 = self._weight_l1_refresh(self.params['obj'])
-            measured = stager.take(nxt_rows)
-            losses.append(self.angle_step(i_theta, inds_list, measured))
-            del measured
-            if j + 1 < len(groups):
-                nxt_rows = self._angle_rows(*groups[j + 1])
+                self.weight_l1 = self._weight_l1_refresh(self._obj_up(),
+                                                         self._shard)
+            if mesh_rows:
+                losses.append(mc_lib.mc_angle_step(self, i_theta,
+                                                   len(inds_list)))
+            else:
+                measured = stager.take(nxt_rows)
+                losses.append(self.angle_step(i_theta, inds_list, measured))
+                del measured
+                if j + 1 < len(groups):
+                    nxt_rows = self._angle_rows(*groups[j + 1])
             self._apply_external_algorithm()
             prev, done = done, done + len(inds_list)
             if (self.finite_support_mask is not None
@@ -1544,8 +1820,12 @@ class Reconstructor:
                 self._save_intermediate(i_epoch, i_batch)
             if io.store_checkpoint and ckpt_due:
                 self.save_checkpoint(*nxt)
-        if (io.t_max_min is not None
-                and (time.time() - self._t_start) / 60 > io.t_max_min):
+        over = (io.t_max_min is not None
+                and (time.time() - self._t_start) / 60 > io.t_max_min)
+        if io.t_max_min is not None and self.mesh is not None:
+            # Every rank stops at the same batch.
+            over = self.mesh.comm.any(over)
+        if over:
             if self.output_folder is not None:
                 self.save_checkpoint(*nxt)
             self.stop_requested = True
@@ -1594,7 +1874,7 @@ class Reconstructor:
                     self._logger.log(i_epoch, b, float(loss))
         mean_loss = float(np.mean(losses))
         self.loss_history.append(mean_loss)
-        if self.verbose:
+        if self.verbose and self._writer:
             n_patterns = len(losses) * self.cfg.train.minibatch_size
             dt = self.timers.total.get(timer, 0.0) or 1e-9
             mem = _prof.device_memory_stats(self.device)
@@ -1673,10 +1953,12 @@ class Reconstructor:
                 if prev > 0 and (prev - loss) / abs(prev) < t.crit_conv_rate:
                     break
         if self.output_folder is not None:
-            out_lib.output_object(self.obj, self.output_folder,
-                                  t.unknown_type)
-            out_lib.output_probe(self.params['probe'].cpu().numpy(),
-                                 self.output_folder)
+            obj = self.obj
+            if self._writer:
+                out_lib.output_object(obj, self.output_folder,
+                                      t.unknown_type)
+                out_lib.output_probe(self.params['probe'].cpu().numpy(),
+                                     self.output_folder)
             if io.store_checkpoint and not self.stop_requested:
                 self.save_checkpoint(i_epoch + 1, 0)
         return self.results()
@@ -1700,7 +1982,10 @@ class Reconstructor:
             suffix = f'_{i_epoch}'
         else:
             suffix = f'_{i_epoch}_{i_batch}'
-        out_lib.output_object(self.obj, inter, self.cfg.train.unknown_type,
+        obj = self.obj
+        if not self._writer:
+            return
+        out_lib.output_object(obj, inter, self.cfg.train.unknown_type,
                               name_suffix=suffix)
         out_lib.output_probe(self.params['probe'].cpu().numpy(), inter,
                              name_suffix=suffix)
@@ -1719,16 +2004,29 @@ class Reconstructor:
         warning says so."""
         t0 = time.time()
         self._mover.sync()
-        params, state = convert.params_to_numpy(self.params, self.opt_state)
-        extra = {'i_opt_batch': np.asarray(self.i_opt_batch),
-                 'global_batch': np.asarray(self.global_batch)}
-        if (self.finite_support_mask is not None
-                and self.cfg.train.shrink_cycle is not None):
-            extra['finite_support_mask'] = (
-                self.finite_support_mask.cpu().numpy())
-        path = ckpt_lib.save_checkpoint(
-            os.path.join(self.output_folder, 'checkpoint'), params, state,
-            i_epoch, i_batch, extra=extra)
+        p_all, st_all = self.params, self.opt_state
+        mask = self.finite_support_mask
+        if self.mesh is not None and self.mesh.n_op > 1:
+            # The whole object, its state and its support from the slabs;
+            # rank 0 writes them under a single device's keys.
+            slab_shape = tuple(self.params['obj'].shape)
+            p_all = {**p_all, 'obj': self._gather_rows(p_all['obj'])}
+            if 'obj' in st_all:
+                st_all = {**st_all, 'obj': {
+                    n: (self._gather_rows(a) if tuple(a.shape) == slab_shape
+                        else a) for n, a in st_all['obj'].items()}}
+            if mask is not None:
+                mask = self._gather_rows(mask)
+        path = os.path.join(self.output_folder, 'checkpoint')
+        if self._writer:
+            params, state = convert.params_to_numpy(p_all, st_all)
+            extra = {'i_opt_batch': np.asarray(self.i_opt_batch),
+                     'global_batch': np.asarray(self.global_batch)}
+            if (mask is not None
+                    and self.cfg.train.shrink_cycle is not None):
+                extra['finite_support_mask'] = mask.cpu().numpy()
+            path = ckpt_lib.save_checkpoint(path, params, state, i_epoch,
+                                            i_batch, extra=extra)
         self._ckpt_seconds += time.time() - t0
         self._ckpt_count += 1
         if (not self._ckpt_warned and self._ckpt_seconds > 60
@@ -1742,8 +2040,8 @@ class Reconstructor:
         return path
 
     def results(self) -> Dict[str, Any]:
-        """The parameters as numpy arrays (the object whole) and the
-        per-epoch loss history."""
+        """The parameters as numpy arrays (the object whole; under a mesh
+        every rank calls it) and the per-epoch loss history."""
         out = {k: self.obj if k == 'obj' else v.detach().cpu().numpy()
                for k, v in self.params.items()}
         out['loss_history'] = np.asarray(self.loss_history)
@@ -1752,12 +2050,14 @@ class Reconstructor:
     @property
     def obj(self) -> np.ndarray:
         """The object ``[y, x, z, 2]`` as a host array (an offloaded one
-        joined from its slabs once their copies down are done)."""
+        joined from its slabs once their copies down are done; under a
+        mesh gathered from the ranks' slabs, so every rank calls it)."""
         obj = self.params['obj']
         if isinstance(obj, dict):
             self._mover.sync()
             return np.concatenate([obj[k].numpy() for k in self._slab_keys])
-        return obj.detach().cpu().numpy()
+        self._mover.sync()
+        return self._gather_rows(obj.detach()).cpu().numpy()
 
     @property
     def probe(self) -> np.ndarray:

@@ -64,13 +64,30 @@ def device_memory_stats(device=None) -> Optional[Dict[str, float]]:
 #: Capacity assumed off the card (the JAX package's CPU default).
 DEFAULT_DEVICE_BYTES = 16e9
 
+#: How many ranks of a mesh share this process's card (set when the
+#: process joins a process group, :mod:`..parallel.bootstrap`).
+_RANKS_PER_DEVICE = {'n': 1}
+
+
+def set_ranks_per_device(n: int):
+    """Record that ``n`` ranks share this process's card: each then
+    budgets ``1/n`` of its memory."""
+    _RANKS_PER_DEVICE['n'] = max(1, int(n))
+
+
+def ranks_per_device() -> int:
+    return _RANKS_PER_DEVICE['n']
+
 
 def hbm_limit_bytes(device=None) -> float:
-    """Memory capacity in bytes of ``device`` (a CUDA card's total memory;
-    :data:`DEFAULT_DEVICE_BYTES` for the CPU)."""
+    """Memory capacity in bytes of ``device`` for this process: a CUDA
+    card's total memory over the ranks that share it; for the CPU
+    :data:`DEFAULT_DEVICE_BYTES` (per rank, as on the JAX package's virtual
+    CPU devices)."""
     device = torch.device('cpu' if device is None else device)
     if device.type == 'cuda':
-        return float(torch.cuda.get_device_properties(device).total_memory)
+        return float(torch.cuda.get_device_properties(device).total_memory
+                     ) / _RANKS_PER_DEVICE['n']
     return DEFAULT_DEVICE_BYTES
 
 

@@ -169,7 +169,33 @@ Phases (any failure raises and exits nonzero):
      resident budget holds it), 50x50 spots at stride 24, minibatch 50,
      one warmup and one timed angle, K1f, K1b and K2 (or K6) launched;
   11e. ``run_epochs(3)`` against three ``run_epoch`` calls on the
-     immediate flagship: equal losses, the wall time of each.
+     immediate flagship: equal losses, the wall time of each;
+  12. device meshes, as gloo ranks that share the one card (started by
+     this script; NCCL refuses two ranks on one card): which collectives
+     gloo takes on CUDA tensors, then
+  12a. the per-angle flagship (2 angles, f32) on the mesh path at
+     (dp, op) = (2, 1), (1, 2) and (2, 2), against the one-rank run on the
+     card: every grid row's loss within 1e-5 relative, the first update's
+     object gradient, assembled from the ranks' slabs, within 1e-5 of its
+     largest value; at (2, 2) also under GD at rate 0 (the object stays
+     at its start), both angles' gradients;
+  12b. the immediate flagship at (2, 2), one epoch, against the one-rank
+     run (the same checks; at rate 0, one angle, the gradients of its
+     first row, its first band across the slab boundary and its last);
+  12c. BASELINE #5 (``demos/multislice_ptycho_256_theta.py``: 256^3,
+     24x24 spots, minibatch 24) through ``reconstruct_ptychography(
+     distribution_mode='distributed_object', parallel_object_axis=2)``
+     with random data, 2 angles, one epoch;
+  12d. 12a at (2, 2) with Adam's moments on the host, bit-equal to 12a's
+     resident mesh run;
+  12e. ``sharded_patch_gather`` and its VJP at the flagship's binned
+     padded object and 529 windows, against the dense gather.
+     Each run prints the backend and ranks a card, each rank's K1f, K1b,
+     K6 and K2 launches, peak memory, collectives by kind (count, bytes,
+     seconds) and patterns/s (wiring on one shared card, not scaling).
+     Then K1 and K6 at the shapes 12a (2, 2) and 12b give them (a rank's
+     chunk of 17 row slots of 12 spots; 6 spots of a row into the band),
+     against their plain versions, with those runs' launches.
 Phase 3 also holds K1 under ``beta = kappa delta`` and in -z (the
 branches of ``multislice_propagate`` that phase 8 adds), K6 on the rows
 of a per-angle chunk's z-major gradient [32, 2, 529, 72, 72] read in
@@ -189,6 +215,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -261,15 +288,18 @@ def flagship_positions():
 
 # -- phase 3 -----------------------------------------------------------------
 
-def check_multislice(dtype, tol_fwd, tol_bwd, M=1, N=529):
+def check_multislice(dtype, tol_fwd, tol_bwd, M=1, N=529, path=None,
+                     label=''):
     """K1 forward and backward against the plain version at one flagship
     gradient chunk: S=32 binned steps, N patches of 72x72, M probe modes
     (M=1 on the delta_beta flagship, 3 on the binned multi-mode one; N=529,
     a whole angle, on the per-angle paths, and N=23, one grid row, on the
-    immediate one).  The shape takes K1's FFT route (72 = 8 x 9), which the
-    main path runs; the dense route (the folded step mats), forced, is held
-    against the same plain version with the same tolerances and timed
-    beside it in turns (fft, dense, dense, fft)."""
+    immediate one; ``path`` and ``label`` name another path that gives K1
+    N patches, a mesh rank's).  The shape takes K1's FFT route (72 = 8 x
+    9), which the main path runs; the dense route (the folded step mats),
+    forced, is held against the same plain version with the same
+    tolerances and timed beside it in turns (fft, dense, dense, fft); at
+    the flagships' shapes the FFT route must be the faster."""
     from adorym_tpu_torch.ops import cuda_multislice as cm
     from adorym_tpu_torch.ops import propagate as prop
     S, n = 32, 72
@@ -298,7 +328,8 @@ def check_multislice(dtype, tol_fwd, tol_bwd, M=1, N=529):
             out, (d, w), g, retain_graph=True))
 
     tag = str(dtype).split('.')[-1]
-    modes = (f' M={M}' if M > 1 else '') + (f' N={N}' if N != 529 else '')
+    modes = ((f' M={M}' if M > 1 else '') + (f' N={N}' if N != 529 else '')
+             + label)
     route = cm.k1_route(n, n)
     if route != 'fft':
         raise AssertionError(f'K1 takes the {route} route at {n}x{n}')
@@ -349,7 +380,7 @@ def check_multislice(dtype, tol_fwd, tol_bwd, M=1, N=529):
     log(f'K1{modes} {tag}: forward fft route {ms_f:.3f} ms, dense route '
         f'{dense_f:.3f} ms; backward fft route {ms_b:.3f} ms, dense route '
         f'{dense_b:.3f} ms')
-    if not (ms_f < dense_f and ms_b < dense_b):
+    if not label and not (ms_f < dense_f and ms_b < dense_b):
         raise AssertionError(f'K1{modes} {tag}: the FFT route is not faster '
                              'than the dense route at the flagship shape')
     isz = db.element_size()
@@ -358,8 +389,8 @@ def check_multislice(dtype, tol_fwd, tol_bwd, M=1, N=529):
     b_b, by_b = bound(cm.bytes_moved(S, M, N, n, n, isz, backward=True),
                       cm.flops(S, M, N, n, n, backward=True))
     src = 'adorym_tpu_torch/csrc/multislice_db_stored.cu'
-    path = ('immediate' if N != 529 else 'delta_beta' if M == 1
-            else 'multimode_binned')
+    path = path or ('immediate' if N != 529 else 'delta_beta' if M == 1
+                    else 'multimode_binned')
     recs = [
         record(f'K1f multislice_db_stored forward{modes} ({tag})', src,
                'adorym_tpu/ops/pallas_multislice.py:353', e_fwd, r_fwd,
@@ -1113,31 +1144,47 @@ def check_fused_multislice(tol_fwd, tol_bwd, M=1):
 def device_ms(fn, reps):
     """Device time a call of ``fn`` (every kernel and memory operation it
     runs on the card), over ``reps`` calls after a warmup call, without
-    the host's pace: torch.profiler's device time, or where the profiler
-    reports none (it lost a window's events once in this script), CUDA
-    events around the replay of a CUDA graph that captured ``reps`` calls.
-    Returns ``(ms, 'profiler' or 'graph')``."""
+    the host's pace: torch.profiler's device time, asked twice (it has
+    lost a window's events in this script); where it reports none both
+    times, CUDA events around the replay of a CUDA graph that captured
+    ``reps`` calls; where ``fn`` cannot be captured, CUDA events around
+    ``reps`` calls (the host's pace where a call costs more than its
+    kernels).  Returns ``(ms, how)``, ``how`` 'profiler', 'graph' or
+    'events'."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if str(getattr(e, 'device_type', '')).endswith('CUDA'))
-    if total > 0:
-        return total / 1e3 / reps, 'profiler'
-    log('device_ms: the profiler reported no device time; timing a CUDA '
-        'graph of the calls instead')
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if str(getattr(e, 'device_type', '')).endswith('CUDA'))
+        if total > 0:
+            return total / 1e3 / reps, 'profiler'
+    log('device_ms: the profiler reported no device time twice; timing a '
+        'CUDA graph of the calls instead')
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as e:
+        log(f'device_ms: the calls cannot be captured ({e}); timing them '
+            'with CUDA events')
+        del graph
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps, 'events'
+    graph.replay()
+    torch.cuda.synchronize()
     start.record()
     graph.replay()
     end.record()
@@ -3462,12 +3509,15 @@ def run_9f():
     n = FLAGSHIP['n_obj']
     g = torch.randn((n, n, n // 8, 2), device='cuda', generator=gen)
 
+    # The angles on the card, so that a CUDA graph can capture the calls.
+    th, nth = torch.tensor([0.7, -0.7], device='cuda')
+
     def exact():
         return rotate_adjoint(torch.repeat_interleave(g, 8, dim=2)[:, :, :n],
-                              0.7)
+                              th)
 
     def interp():
-        return rotate_expanded_from_binned_z(g, -0.7, 8, n)
+        return rotate_expanded_from_binned_z(g, nth, 8, n)
     ms = {'exact': device_ms(exact, 5)[0], 'interp': device_ms(interp, 5)[0]}
     log(f"9f rotate-back an angle at [256, 256, 32, 2]: exact (repeat + "
         f"transpose) {ms['exact']:.3f} ms, interp (fused gather) "
@@ -3778,6 +3828,17 @@ def check_tangents(dev='cuda'):
         far = (fay, fax.transpose(0, 1))
         out['tangent ms'] = time_ms(lambda: cm.multislice_tangent(
             t, dt, rec, dwave, h, far), 10)
+        # Its bound: t, dt, the records, the incident wave's tangent, the
+        # step kernel and the far-field mats read once, the exit wave's
+        # tangent written once; two FFTs a step and the far field's two
+        # matmuls a patch (complex, 8 real operations a multiply-add).
+        tb = sum(x.numel() * x.element_size()
+                 for x in (t, dt, rec, dwave, h) + far) + \
+            dwave.numel() * dwave.element_size()
+        tf = (2 * (S - 1) * N * 5 * n * n * np.log2(n * n)
+              + N * 2 * 8 * n ** 3)
+        out['tangent bound ms'] = bound(tb, tf)[0]
+        out['tangent bytes'] = float(tb)
         out['plain forward mode ms'] = time_ms(plain_k1, 5)
         if not rel < 1e-5:
             raise AssertionError(f'K1 jvp against the plain scan: {rel:.3e}')
@@ -4543,6 +4604,454 @@ def slice16_runs(work, kernels, res_9e):
     return res
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+#: Ranks of phase 12's meshes; they share the one card through gloo.
+P12_SHAPES = {'12a (2, 1)': (2, 1), '12a (1, 2)': (1, 2),
+              '12a (2, 2)': (2, 2)}
+
+
+def p12_gloo_cuda():
+    """Which of gloo's collectives for CUDA tensors (the documented two,
+    ``all_reduce`` and ``broadcast``) run on a small tensor of
+    ``cuda:0``.  Point-to-point sends are not tried: gloo hands a CUDA
+    tensor's device pointer to its socket and the process aborts
+    (``writev ... Bad address``), so :mod:`adorym_tpu_torch.parallel.comm`
+    stages ring shifts and all-gathers through page-locked host
+    buffers."""
+    import torch.distributed as dist
+    t = torch.ones(4, device='cuda:0')
+    out = {}
+    for name, fn in (('all_reduce', lambda: dist.all_reduce(t.clone())),
+                     ('broadcast', lambda: dist.broadcast(t.clone(), 0))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = 'ok'
+        except Exception as e:                           # noqa: BLE001
+            out[name] = f'refused: {type(e).__name__}: {str(e)[:80]}'
+    return out
+
+
+def p12_config(kind, dp=1, op=1, offload=False, train=None):
+    """The f32 flagship of ``kind`` on a ``dp x op`` mesh; ``train``
+    overrides its training keywords (12a and 12b's GD runs)."""
+    import dataclasses
+    import adorym_tpu_torch as pt
+    cfg = flagship_config(False, kind)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, **(train or {})))
+    return dataclasses.replace(cfg, parallel=pt.ParallelConfig(
+        data_axis=dp, object_axis=op, offload_optimizer_state=offload))
+
+
+def p12_inputs(n_theta):
+    from adorym_tpu_torch.utils.initialize import initialize_object
+    data, pos, theta = flagship_data(n_theta)
+    return dict(data=data, probe_pos=pos, theta_ls=theta,
+                obj_init=initialize_object((FLAGSHIP['n_obj'],) * 3, seed=0))
+
+
+def p12_updates(rec, kind):
+    """The updates whose whole object gradient phase 12 compares with the
+    one-rank run's: on the per-angle path every angle's, on the immediate
+    one the epoch's first, the first whose band crosses the middle row
+    (the slab boundary at op = 2) and the last.  Counted in the batches
+    ``run_epoch(0)`` makes."""
+    if kind != 'immediate':
+        return set(range(rec.n_theta))
+    batches = rec.make_batches(np.random.default_rng(rec.cfg.train.seed))
+    py = rec.cfg.geometry.probe_size[0]
+    mid = rec.cfg.geometry.obj_size[0] // 2
+    y0 = [float(rec.probe_pos[inds[0], 0]) for _, inds in batches]
+    cross = next(i for i, y in enumerate(y0) if y < mid < y + py)
+    return {0, cross, len(batches) - 1}
+
+
+def p12_hook(rec, keep, mesh=None):
+    """Keep the object gradient that each update in ``keep`` (numbered
+    from 0 in the run) hands the optimizer, as f32 numpy: the whole object
+    on one rank, the rank's y slab on a mesh (on the ranks of dp = 0 only;
+    the sum over 'dp' made the others' the same).  Returns the dict it
+    fills."""
+    grads = {}
+    step = rec.apply_step
+    n = [0]
+
+    def hooked(g, *args, **kw):
+        if n[0] in keep and (mesh is None or mesh.dp == 0):
+            grads[n[0]] = g['obj'].detach().float().cpu().numpy()
+        n[0] += 1
+        return step(g, *args, **kw)
+    rec.apply_step = hooked
+    return grads
+
+
+def p12_shapes(rec, kind):
+    """What K1 and K6 take on this rank's mesh path: K1's patches a
+    launch, K6's spots a grid row, rows a chunk and accumulator."""
+    if kind == 'immediate':
+        m = rec._mci
+        return dict(N=m['mpp'], cols=m['mpp'], rows=1,
+                    acc=(m['py'], m['X'] + m['px0'] + m['px1'], m['nzb'], 2))
+    m = rec._mc
+    return dict(N=m['g_rows'] * m['mp'], cols=m['mp'], rows=m['g_rows'],
+                acc=(m['S_p'] + m['py'], m['X'] + m['px0'] + m['px1'],
+                     m['nzb'], 2))
+
+
+def p12_rank(kind, dp, op, n_theta, offload=False, train=None):
+    """One rank of a phase-12 flagship mesh run, one epoch."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.parallel.mesh import make_mesh
+    cfg = p12_config(kind, dp, op, offload, train)
+    mesh = make_mesh(cfg.parallel, device='cuda:0')
+    rec = pt.Reconstructor(cfg, mesh=mesh, **p12_inputs(n_theta))
+    path = rec._mc if kind == 'delta_beta' else rec._mci
+    if path is None:
+        raise AssertionError(f'{kind} ({dp}, {op}): the mesh path declined: '
+                             f'{rec._mc_decline_reasons}')
+    if offload and not rec._off_state:
+        raise AssertionError('12d: the moments are not offloaded')
+    grads = ({} if offload
+             else p12_hook(rec, p12_updates(rec, kind), mesh))
+    out = p12_drive(rec, mesh, n_theta * rec.n_pos)
+    out.update(grads=grads, shapes=p12_shapes(rec, kind))
+    return out
+
+
+def p12_drive(rec, mesh, n_patterns):
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    mesh.comm.reset()
+    rows = []
+    t0 = time.perf_counter()
+    losses = [rec.run_epoch(0, callback=lambda e, b, l: rows.append(l))]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    summary = mesh.comm.summary()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    obj = rec.obj
+    return {'rank': mesh.rank, 'coord': (mesh.dp, mesh.op),
+            'backend': mesh.comm.backend, 'losses': losses,
+            'row_losses': rows, 'wall': wall,
+            'patterns_s': n_patterns / wall, 'peak_gb': peak,
+            'launches': {k: launches[k] for k in ('K1_FWD', 'K1_BWD', 'K6',
+                                                  'K2')},
+            'comm': summary, 'obj': obj if mesh.rank == 0 else None}
+
+
+def p12_single(kind, n_theta, train=None):
+    """The one-rank run on the card, one epoch: per-row losses, the
+    gradients of :func:`p12_updates`, the object, peak memory."""
+    import gc
+    import adorym_tpu_torch as pt
+    rec = pt.Reconstructor(p12_config(kind, train=train),
+                           **p12_inputs(n_theta))
+    grads = p12_hook(rec, p12_updates(rec, kind))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rows = []
+    t0 = time.perf_counter()
+    losses = [rec.run_epoch(0, callback=lambda e, b, l: rows.append(l))]
+    torch.cuda.synchronize()
+    out = {'losses': losses, 'row_losses': rows, 'grads': grads,
+           'wall': time.perf_counter() - t0,
+           'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+           'obj': rec.obj, 'launches': launch_counts()}
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p12_report(tag, outs):
+    """Print a mesh run's ranks; returns the ranks' launches summed."""
+    o0 = outs[0]
+    world = len(outs)
+    log(f'{tag}: backend {o0["backend"]}, {world} ranks, {world} a card '
+        f'({CARD})')
+    total = {}
+    for o in outs:
+        comm = '; '.join(f"{k} {v['count']}x {v['bytes'] / 1e6:.2f} MB "
+                         f"{v['seconds']:.3f} s" for k, v in
+                         sorted(o['comm'].items()))
+        log(f"  rank {o['rank']} {o['coord']}: launches {o['launches']}, "
+            f"peak {o['peak_gb']:.2f} GB, {o['patterns_s']:.1f} patterns/s "
+            '(wiring on one shared card, not scaling); collectives: '
+            f'{comm}')
+        for k, v in o['launches'].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def p12_check(tag, mesh_out, single, hold_all, tol=1e-5):
+    """The mesh run against the one-rank run: every grid row's loss at
+    rtol ``tol``, and the updates of :func:`p12_updates`, each one's
+    object gradient assembled from the op ranks' slabs, within ``tol`` of
+    the one-rank gradient's largest value (f32 sums in other orders).
+    ``hold_all`` (the runs at rate 0, whose object stays at its start):
+    every such update is held; else (Adam at the flagship's rate) the
+    first alone, the only one that starts from the same object in both
+    runs, and the others' differences are printed."""
+    got = np.asarray(mesh_out[0]['row_losses'])
+    want = np.asarray(single['row_losses'])
+    if got.shape != want.shape:
+        raise AssertionError(f'{tag}: {got.shape} row losses against '
+                             f'{want.shape}')
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    slabs = sorted((o for o in mesh_out if o['coord'][0] == 0),
+                   key=lambda o: o['coord'][1])
+    g_rel = {}
+    for u, g1 in sorted(single['grads'].items()):
+        g = np.concatenate([o['grads'][u] for o in slabs], 0)
+        if g.shape != g1.shape:
+            raise AssertionError(f'{tag}: update {u} gradient {g.shape} '
+                                 f'against {g1.shape}')
+        g_rel[u] = float(np.max(np.abs(g - g1)) / np.max(np.abs(g1)))
+    held = g_rel if hold_all else {0: g_rel[0]}
+    log(f'{tag}: {len(got)} row losses against one rank, max rel '
+        f'{rel:.2e} (tol {tol}); object gradient of updates '
+        f'{sorted(g_rel)}: max |diff| / max |g| '
+        f'{[f"{v:.2e}" for v in g_rel.values()]} (tol {tol}, held at '
+        f'updates {sorted(held)})')
+    if rel > tol or max(held.values()) > tol:
+        raise AssertionError(f'{tag}: disagrees with the one-rank run')
+    return rel, g_rel
+
+
+def p12_gather_rank(seed=0):
+    """12e on one rank: the flagship's padded, binned object [260, 264,
+    32, 2] split over 'op', 529 windows of 72^2."""
+    from adorym_tpu_torch.config import ParallelConfig
+    from adorym_tpu_torch.ops.patches import extract_patches
+    from adorym_tpu_torch.parallel import halo
+    from adorym_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(ParallelConfig(data_axis=2, object_axis=2),
+                     device='cuda:0')
+    g = torch.Generator(device='cuda:0').manual_seed(seed)
+    Y, X, Z = 260, 264, 32
+    obj = torch.rand((Y, X, Z, 2), device='cuda:0', generator=g)
+    pos = flagship_positions().astype(np.int64) + 4
+    st, sz = mesh.slab(Y)
+    sl = obj[st:st + sz].clone().requires_grad_(True)
+    mesh.comm.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = halo.sharded_patch_gather(sl, pos, (72, 72), mesh)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    w = torch.rand(got.shape, device='cuda:0', generator=g)
+    t0 = time.perf_counter()
+    (got * w).sum().backward()
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0
+    o = obj.clone().requires_grad_(True)
+    ref = extract_patches(o, pos, (72, 72))
+    (ref * w).sum().backward()
+    fwd = float((got.detach() - ref.detach()).abs().max())
+    vjp = float((sl.grad - o.grad[st:st + sz]).abs().max())
+    return {'rank': mesh.rank, 'fwd_err': fwd, 'vjp_err': vjp,
+            'vjp_scale': float(o.grad.abs().max()), 'fwd_s': t_fwd,
+            'bwd_s': t_bwd, 'comm': mesh.comm.summary(),
+            'host_copies': len(mesh.comm.host_copies),
+            'peak_gb': torch.cuda.max_memory_allocated() / 1e9}
+
+
+def p12_baseline5_rank(work):
+    """12c on one rank: BASELINE #5's reconstruction through
+    ``reconstruct_ptychography`` on a distributed object (op = 2), random
+    data for 2 angles, one epoch."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.io import data as io_data
+    import torch.distributed as dist
+    n, pn = 256, 72
+    grid = (n - pn) // 8 + 1
+    xs = np.arange(grid) * 8 + (n - (grid - 1) * 8 - pn) // 2
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(float)
+    n_theta = 2
+    data = np.random.default_rng(5).random((n_theta, len(pos), pn, pn),
+                                           dtype=np.float32)
+    theta = np.linspace(0, 2 * np.pi, n_theta, endpoint=False)
+    ds = io_data.ArrayDataset(data, theta=theta, probe_pos_px=pos,
+                              energy_ev=5000.0, psize_cm=1e-7)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = pt.reconstruct_ptychography(
+        fname='data_cone_256.h5', save_path=str(work),
+        output_folder='recon_cone256_mesh', obj_size=(n, n, n), n_epochs=1,
+        learning_rate=1e-7, energy_ev=5000.0, psize_cm=1e-7,
+        minibatch_size=grid, binning=8, free_prop_cm='inf',
+        probe_type='gaussian', probe_mag_sigma=12, probe_phase_sigma=12,
+        probe_phase_max=0.4, optimizer='adam', rotate_out_of_loop=True,
+        update_scheme='per angle', use_checkpoint=False,
+        n_batch_per_checkpoint=grid * 30,
+        distribution_mode='distributed_object', parallel_object_axis=2,
+        dataset=ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    return {'rank': dist.get_rank(), 'wall': wall,
+            'loss_history': res['loss_history'].tolist(),
+            'shape': tuple(res['obj'].shape),
+            'finite': bool(np.all(np.isfinite(res['obj']))),
+            'launches': {k: launches[k] for k in ('K1_FWD', 'K1_BWD', 'K6',
+                                                  'K2')},
+            'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+            'patterns_s': n_theta * len(pos) / wall}
+
+
+def p12_kernels(shapes_a, shapes_b):
+    """K1 and K6 at the shapes phase 12's mesh paths give them, each held
+    against its plain version as at the flagships' shapes: 12a's per-angle
+    chunk on a rank of the (2, 2) mesh (K1 at its rows times its share of
+    a row's spots; K6 on each row of the chunk's z-major gradient, read in
+    place, into the rank's slab accumulator) and 12b's share of an
+    immediate row (K1 and K6 at ``mb / 4`` spots, K6 into the band)."""
+    recs = []
+    for tag, sh in (('12a', shapes_a), ('12b', shapes_b)):
+        path = 'mesh' + tag
+        recs += check_multislice(torch.float32, 1e-4, 1e-3, N=sh['N'],
+                                 path=path, label=f' mesh {tag}')
+        acc = sh['acc']
+        if (sh['rows'] - 1) * 8 + 72 > acc[0] or (
+                (sh['cols'] - 1) * 8 + 72 > acc[1]):
+            raise AssertionError(f'K6 {tag}: rows of {sh} do not fit')
+        gen = torch.Generator(device='cuda').manual_seed(71)
+        cot = torch.randn((acc[2], 2, sh['N'], 72, 72), device='cuda',
+                          generator=gen).permute(2, 3, 4, 0, 1)
+        acc0 = torch.randn(acc, device='cuda', generator=gen)
+        recs += check_k6(f"K6 scatter_rowgrid mesh {tag} rows of "
+                         f"{sh['cols']} (float32)", cot, acc0, sh['rows'],
+                         path, 10, in_place=sh['rows'] > 1)
+        del cot, acc0
+        torch.cuda.empty_cache()
+    return recs
+
+
+def slice17_runs(work, kernels):
+    """Phase 12: meshes as gloo ranks on the one card, 12a-12e; then K1
+    and K6 at the shapes 12a (2, 2) and 12b gave them, whose records take
+    those runs' launches on rank 0."""
+    import gc
+    from adorym_tpu_torch.parallel.launch import RankPool
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    n_theta = 2
+    single = p12_single('delta_beta', n_theta)
+    single_imm = p12_single('immediate', n_theta)
+    log(f"12: one rank on the card: per angle {single['losses']} peak "
+        f"{single['peak_gb']:.2f} GB; immediate {single_imm['losses']} "
+        f"peak {single_imm['peak_gb']:.2f} GB; {CARD}")
+    # GD at rate 0: every update's gradient at the starting object, held
+    # at each recorded update (12a's two angles; 12b's one angle, 23
+    # updates).
+    gd0 = dict(optimizer='gd', learning_rate=0.0)
+    single_gd = p12_single('delta_beta', n_theta, gd0)
+    single_imm_gd = p12_single('immediate', 1, gd0)
+    res = {}
+    with RankPool(2, 'cuda:0', threads=2) as pool2:
+        log(f'12: gloo on CUDA tensors: {pool2.run(p12_gloo_cuda)[0]}')
+        for tag in ('12a (2, 1)', '12a (1, 2)'):
+            dp, op = P12_SHAPES[tag]
+            out = pool2.run(p12_rank, 'delta_beta', dp, op, n_theta)
+            p12_report(tag, out)
+            p12_check(tag, out, single, False)
+            if op == 2 and max(o['peak_gb'] for o in out) >= single[
+                    'peak_gb']:
+                raise AssertionError(f'{tag}: a rank peaks above the one-'
+                                     'rank run')
+            res[tag] = out
+        out = pool2.run(p12_baseline5_rank, str(work))
+        o0 = out[0]
+        log(f"12c BASELINE #5 distributed object (op = 2): losses "
+            f"{o0['loss_history']}, object {o0['shape']}, launches "
+            f"{[o['launches'] for o in out]}, peaks "
+            f"{[round(o['peak_gb'], 2) for o in out]} GB, "
+            f"{o0['patterns_s']:.1f} patterns/s (wiring on one shared card, "
+            f"not scaling); {CARD}")
+        if not (o0['finite'] and o0['shape'] == (256, 256, 256, 2)
+                and np.all(np.isfinite(o0['loss_history']))
+                and all(o['launches']['K6'] > 0 and o['launches']['K2'] == 0
+                        for o in out)):
+            raise AssertionError('12c: BASELINE #5 on the mesh failed')
+    stamp('phase 12a-12c (two ranks)')
+    with RankPool(4, 'cuda:0', threads=2) as pool4:
+        tag = '12a (2, 2)'
+        out = pool4.run(p12_rank, 'delta_beta', 2, 2, n_theta)
+        p12_report(tag, out)
+        p12_check(tag, out, single, False)
+        res[tag] = out
+        out = pool4.run(p12_rank, 'delta_beta', 2, 2, n_theta, train=gd0)
+        p12_report('12a (2, 2) gradients (GD at rate 0)', out)
+        p12_check('12a (2, 2) gradients (GD at rate 0)', out, single_gd,
+                  True)
+        out = pool4.run(p12_rank, 'immediate', 2, 2, n_theta)
+        p12_report('12b immediate (2, 2)', out)
+        p12_check('12b immediate (2, 2)', out, single_imm, False)
+        res['12b'] = out
+        out = pool4.run(p12_rank, 'immediate', 2, 2, 1, train=gd0)
+        tag_b = '12b immediate (2, 2) gradients (GD at rate 0, one angle)'
+        p12_report(tag_b, out)
+        p12_check(tag_b, out, single_imm_gd, True)
+        out = pool4.run(p12_rank, 'delta_beta', 2, 2, n_theta, True)
+        p12_report('12d (2, 2) moments on the host', out)
+        same = np.array_equal(out[0]['obj'], res[tag][0]['obj']) and (
+            out[0]['row_losses'] == res[tag][0]['row_losses'])
+        log(f'12d: offloaded mesh run bit-equal to the resident one: {same}')
+        if not same:
+            raise AssertionError('12d: the offloaded mesh run differs')
+        g = pool4.run(p12_gather_rank)
+        for o in g:
+            log(f"12e rank {o['rank']}: forward max |diff| {o['fwd_err']:.1e}"
+                f", VJP {o['vjp_err']:.1e} (of {o['vjp_scale']:.2f}), "
+                f"{o['fwd_s'] * 1e3:.1f} ms forward, {o['bwd_s'] * 1e3:.1f} "
+                f"ms backward, host copies {o['host_copies']}, collectives "
+                f"{o['comm']}; {CARD}")
+            if o['fwd_err'] != 0 or o['vjp_err'] > 1e-5 * o['vjp_scale']:
+                raise AssertionError('12e: the halo gather disagrees')
+    log(f'phase 12 runs: {time.perf_counter() - t_phase:.1f} s; {CARD}')
+    del single, single_imm, single_gd, single_imm_gd
+    for o in res.values():
+        for r in o:
+            r['grads'] = None
+    recs = p12_kernels(res[tag][0]['shapes'], res['12b'][0]['shapes'])
+    for k in recs:
+        run = res[tag] if k['path'] == 'mesh12a' else res['12b']
+        k['launches'] = run[0]['launches'][k['counter']]
+    kernels += recs
+    log(f'phase 12: {time.perf_counter() - t_phase:.1f} s; {CARD}')
+    stamp('phase 12')
+    return res
+
+
+def child_processes():
+    """The command lines of this process's live children."""
+    me, out = str(os.getpid()), []
+    for d in os.listdir('/proc'):
+        try:
+            with open(f'/proc/{d}/stat') as f:
+                stat = f.read()
+            with open(f'/proc/{d}/cmdline') as f:
+                cmd = f.read().replace('\0', ' ').strip()
+        except (OSError, ValueError):
+            continue
+        # The parent's pid is the second field after the command's ')'.
+        fields = stat.rsplit(')', 1)[-1].split()
+        if fields[1] == me and fields[0] != 'Z':
+            out.append(cmd[:120])
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -4714,6 +5223,15 @@ def main():
         slice15_runs(work)
         stamp('phase 10')
         slice16_runs(work, kernels, res14['9e'])
+        try:
+            slice17_runs(work, kernels)
+        finally:
+            # Phase 12's fork server and resource tracker outlive its pools.
+            from adorym_tpu_torch.parallel import launch
+            launch.shutdown()
+        left = child_processes()
+        if left:
+            raise AssertionError(f'phase 12 left processes running: {left}')
     angle_rate, angle_peak = run_per_angle_regularized()
     stamp('phase 6c')
     log(f"phase 6: immediate with checkpoints "

@@ -279,20 +279,22 @@ def test_adhesin_configuration_matches_jax(tmp_path):
     (dict(update_using_external_algorithm='foo'), ValueError,
      'external_algorithm'),
     (dict(forward_model='multidist'), NotImplementedError, 'A.5'),
-    (dict(parallel_data_axis=2), NotImplementedError, 'A.7'),
+    (dict(parallel_data_axis=2), RuntimeError, 'process group'),
     (dict(distribution_mode='shared_file', parallel_data_axis=2),
-     NotImplementedError, 'A.7'),
-    (dict(parallel_object_axis=2), NotImplementedError, 'A.7'),
+     RuntimeError, 'process group'),
+    (dict(parallel_object_axis=2), RuntimeError, 'process group'),
     (dict(use_orbax=True), NotImplementedError, 'orbax'),
-    (dict(optimizer='curveball', parallel_data_axis=2), NotImplementedError,
-     'A.7'),
+    (dict(optimizer='curveball', parallel_data_axis=2), RuntimeError,
+     'process group'),
     (dict(optimizer='cg', distribution_mode='shared_file', use_orbax=True),
      NotImplementedError, 'orbax')])
 def test_unported_branches_raise(data_file, over, exc, match):
-    """What the port leaves out (A.5's models by name, A.7's meshes, with
-    ``distribution_mode='shared_file'`` too, and orbax) raises
-    NotImplementedError naming it, the second-order optimizers included; an auxiliary leaf given a second-order kind and
-    an unknown external algorithm raise ValueError, as in the JAX
+    """What the port leaves out (A.5's models by name and orbax) raises
+    NotImplementedError naming it, the second-order optimizers included;
+    a mesh (``parallel_*_axis``, with ``distribution_mode='shared_file'``
+    too) outside a process group raises RuntimeError (no silent
+    one-device run); an auxiliary leaf given a second-order kind and an
+    unknown external algorithm raise ValueError, as in the JAX
     package."""
     params = reference_style_params(data_file, output_folder=None,
                                     n_epochs=1, device='cpu', **over)

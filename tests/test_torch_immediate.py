@@ -371,12 +371,11 @@ def test_default_train_config_runs_the_band_step():
 
 @pytest.mark.parametrize('kw,exc,match', [
     (dict(train=dict(optimizer='curveball'), parallel=dict(data_axis=2)),
-     NotImplementedError, 'device meshes'),
-    (dict(parallel=dict(data_axis=2)), NotImplementedError, 'device meshes'),
-    (dict(parallel=dict(object_axis=2)), NotImplementedError,
-     'device meshes'),
+     ValueError, 'device meshes'),
+    (dict(parallel=dict(data_axis=2)), ValueError, 'device meshes'),
+    (dict(parallel=dict(object_axis=2)), ValueError, 'device meshes'),
     (dict(parallel=dict(offload_optimizer_state=True, data_axis=2)),
-     NotImplementedError, 'device meshes'),
+     ValueError, 'device meshes'),
     (dict(train=dict(optimizer='cg'),
           parallel=dict(offload_optimizer_state=True, offload_object=True)),
      ValueError, 'a first-order object optimizer'),
@@ -384,10 +383,12 @@ def test_default_train_config_runs_the_band_step():
     (dict(parallel=dict(offload_object=True)), ValueError,
      "update_scheme='per angle' with rotate_out_of_loop")])
 def test_unported_immediate_configs_raise(kw, exc, match):
-    """What the immediate scheme still leaves out raises, naming its
-    ROADMAP item, under the second-order optimizers too: meshes (with
-    offload too) and orbax; object offload, which needs the per-angle
-    path, raises the JAX package's ``ValueError``."""
+    """What the immediate scheme leaves out raises, under the
+    second-order optimizers too: orbax, naming its ROADMAP item; a config
+    that asks for a mesh (with offload too) without one (no process
+    group, no ``mesh=``) raises ValueError rather than run on one device;
+    object offload, which needs the per-angle path, raises the JAX
+    package's ``ValueError``."""
     args = _setup()
     cfg = pt.ReconConfig(
         geometry=pt.Geometry(**args[0]),

@@ -288,7 +288,8 @@ def test_multidist_trajectory(case):
 def test_multidist_per_angle_and_ctf_raise():
     """The per-angle scheme of the multi-distance model takes the
     accumulate-then-update loop and the CTF forward algorithm constructs,
-    as in the JAX package; a device mesh still raises (ROADMAP A.7)."""
+    as in the JAX package; a config that asks for a device mesh without
+    one (no process group) raises."""
     obj, probe, data = _holo_data()
     for train in (dict(update_scheme='per angle', rotate_out_of_loop=True),
                   dict(forward_algorithm='ctf')):
@@ -299,7 +300,7 @@ def test_multidist_per_angle_and_ctf_raise():
                                probe_pos=np.array([[0., 0.]]), model=tmd,
                                device='cpu')
         assert rec._accum == ('update_scheme' in train)
-    with pytest.raises(NotImplementedError, match='multi-GPU'):
+    with pytest.raises(ValueError, match='device meshes'):
         pt.Reconstructor(cfg.replace(parallel=pt.ParallelConfig(data_axis=2)),
                          data=data, probe_pos=np.array([[0., 0.]]),
                          model=tmd, device='cpu')

@@ -10,8 +10,9 @@ elementwise, a slab's rows are the whole's rows).  Against the JAX package
 trajectories are held under momentum (GD with a velocity, the first-order
 optimizer with state that is linear in the gradient; plain GD has no state
 to offload) at rtol 1e-5, from a start away from zero.  The mesh case of
-``tests/test_offload.py`` waits for meshes (ROADMAP A.7 (b)); its orbax
-round trips are npz round trips here.
+``tests/test_offload.py`` runs on gloo ranks in
+``tests/test_torch_mesh_offload.py``; its orbax round trips are npz round
+trips here.
 """
 
 import dataclasses
@@ -161,13 +162,16 @@ def test_offloaded_momentum_trajectory_matches_jax(scheme, rol):
 
 
 def test_offload_with_mesh_raises():
-    """Offload under a device mesh (the JAX test's sharded moments) waits
-    for meshes (ROADMAP A.7 (b))."""
+    """Offload under a device mesh needs the mesh: the JAX test's
+    configuration without a process group (no ``mesh=``) raises rather
+    than run on one device.  The sharded moments themselves are held in
+    ``tests/test_torch_mesh_offload.py::test_offload_with_sharded_object``
+    on gloo ranks."""
     cfg, obj_true, probe, pos, theta_ls, data = _problem(
         update_scheme='per angle', rol=True)
     cfg = dataclasses.replace(cfg, parallel=pt.ParallelConfig(
         data_axis=4, object_axis=2, offload_optimizer_state=True))
-    with pytest.raises(NotImplementedError, match='device meshes'):
+    with pytest.raises(ValueError, match='device meshes'):
         pt.Reconstructor(cfg, data=data, device='cpu',
                          **_kw(pos, probe, theta_ls, np.zeros_like(obj_true)))
 

@@ -7,7 +7,8 @@ and against the port's resident run on the same numpy inputs.
 The offloaded run equals the resident run bit for bit (rotation acts in
 each y plane, Adam elementwise).  Against the JAX package trajectories are
 held under momentum at rtol 1e-5.  The mesh cases of
-``tests/test_offload_object.py`` wait for meshes (ROADMAP A.7 (b)).
+``tests/test_offload_object.py`` run on gloo ranks in
+``tests/test_torch_mesh_offload.py``.
 """
 
 import dataclasses as dc

@@ -159,16 +159,17 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize('section,kw,exc,match', [
     ('parallel', dict(offload_optimizer_state=True, data_axis=2),
-     NotImplementedError, 'device meshes'),
-    ('parallel', dict(data_axis=2), NotImplementedError, 'device meshes'),
+     ValueError, 'device meshes'),
+    ('parallel', dict(data_axis=2), ValueError, 'device meshes'),
     ('io', dict(use_orbax=True), NotImplementedError, 'orbax'),
-    ('parallel', dict(object_axis=2), NotImplementedError, 'device meshes'),
+    ('parallel', dict(object_axis=2), ValueError, 'device meshes'),
     ('parallel', dict(offload_object=True), ValueError,
      'offload_object requires: offload_optimizer_state')])
 def test_unported_configs_raise(section, kw, exc, match):
-    """What the port still leaves out (ROADMAP A.7 (b)) raises on the
-    per-angle path: meshes (with offload too) and orbax; and object
-    offload without offloaded moments raises the JAX package's
+    """What the per-angle path refuses: orbax (not ported); a config
+    that asks for a mesh (with offload too) without one (no process
+    group, no ``mesh=``), a ValueError rather than a one-device run; and
+    object offload without offloaded moments, the JAX package's
     ``ValueError``."""
     data, pos, theta, obj0 = _setup()
     cfg = _cfg(pt)

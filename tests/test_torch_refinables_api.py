@@ -226,8 +226,10 @@ def test_distribution_mode_on_one_device(tmp_path, mode, match):
                                        parallel_data_axis=2),
                                   dict(parallel_object_axis=2)])
 def test_shared_file_and_meshes_raise(tmp_path, over):
-    """Meshes raise naming A.7, with ``distribution_mode='shared_file'``
-    too (which runs on one device since the out-of-core slice)."""
+    """A mesh outside a process group raises (no silent one-device run),
+    with ``distribution_mode='shared_file'`` too (which runs on one device
+    since the out-of-core slice); meshes themselves run on gloo ranks in
+    ``tests/test_torch_mesh_*.py``."""
     params = _small_file(tmp_path)
-    with pytest.raises(NotImplementedError, match=r'A\.7'):
+    with pytest.raises(RuntimeError, match='process group'):
         pt.reconstruct_ptychography(**params, **over)
