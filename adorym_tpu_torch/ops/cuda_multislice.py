@@ -76,9 +76,12 @@ K1_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0, 'global': 0}
 #: K4 launches (forward and backward) by route, counted beside
 #: ``K4_FWD.launches`` and ``K4_BWD.launches``.
 K4_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0, 'global': 0}
-#: K4 keeps no records, so it has no forward-mode rule yet.
+#: K4 keeps no records, so it has no forward-mode rule yet; the plain
+#: FFT scan (``fused_multislice='off'``) has one, on the card too.
 K4_NO_TANGENT = ('forward mode through the invertible multislice (K4), '
-                 'which keeps no records: ROADMAP B.16, a tangent kernel')
+                 'which keeps no records: ROADMAP B.16, a tangent kernel; '
+                 "TrainConfig(fused_multislice='off') runs the plain FFT "
+                 'scan, which has forward mode')
 #: The largest radix of the FFT route's two stages (``csrc`` kMaxRadix).
 MAX_RADIX = 9
 

@@ -113,6 +113,27 @@ def obj_offload_auto_bytes(hbm: float) -> float:
     return 0.95 * (hbm - xla_reserve_bytes(hbm)) / 3
 
 
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """Capture a ``torch.profiler`` trace of the block (host ops, and the
+    card's kernels where CUDA is available) and write it to ``log_dir`` as
+    a Chrome trace (``trace_<pid>_<time>.json``, viewable in
+    chrome://tracing or Perfetto); a no-op at ``None``
+    (``adorym_tpu/utils/profiling.py:94``)."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f'trace_{os.getpid()}_{time.strftime("%Y%m%d_%H%M%S")}.json'))
+
+
 def host_memory_rss_mb() -> Optional[float]:
     """The process's resident host memory in MB (the reference's CPU
     memory probe); None where ``/proc`` is not there."""

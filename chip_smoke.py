@@ -195,7 +195,24 @@ Phases (any failure raises and exits nonzero):
      seconds) and patterns/s (wiring on one shared card, not scaling).
      Then K1 and K6 at the shapes 12a (2, 2) and 12b give them (a rank's
      chunk of 17 row slots of 12 spots; 6 spots of a row into the band),
-     against their plain versions, with those runs' launches.
+     against their plain versions, with those runs' launches;
+  13. the port's demos and user tools (``adorym_tpu_torch/demos``,
+     ``adorym_tpu_torch/tools``) on the card, each demo through its
+     ``main`` with its data simulated on the card (no h5py there):
+  13a. BASELINE #5, the cone demo at full width (256^3, 20 angles of
+     24x24 72^2 patterns, binning 8, per angle, 2 epochs): the simulation's
+     seconds, each epoch's loss and patterns/s, peak memory, the phantom
+     correlation and K1f/K1b/K2's launches an angle; held: the loss falls,
+     one K1 pair and one K2 a gradient chunk, and the first angle's loss
+     within 1e-4 of the same angle's on the CPU from the same data and
+     start;
+  13b. the seven demos at the sizes and epoch counts of
+     ``tests/test_demos.py`` (the cone demo at scale 4), each held to that
+     file's threshold, with its wall, patterns/s and kernels launched;
+  13c. the tools' computations against the CPU: the ER probe retrieval
+     (with ``tests/test_tools.py``'s assertions), the multi-distance CTF
+     retrieval, the affine warp and the registration, and
+     ``profiler_trace`` recording the card's kernels.
 Phase 3 also holds K1 under ``beta = kappa delta`` and in -z (the
 branches of ``multislice_propagate`` that phase 8 adds), K6 on the rows
 of a per-angle chunk's z-major gradient [32, 2, 529, 72, 72] read in
@@ -214,6 +231,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -896,11 +914,14 @@ K2_CASES = ((64, True, 'delta_beta', 1), (64, False, None, 1),
             (512, False, 'real_imag', 4), (512, True, 'multimode', 6))
 
 
-def check_grid_scatter(dtype, C, zmajor, path, seed):
+def check_grid_scatter(dtype, C, zmajor, path, seed, rows=23, size=260,
+                       label=''):
     """K2 against its plain version at one flagship chunk: 529 patch
     cotangents on a 23x23 grid at stride 8 into the padded accumulator
-    [260, 260, C/2, 2].  z-major: the multislice kernel's gradient [C/2, 2,
-    529, 72, 72] viewed as [529, 72, 72, C/2, 2], which the kernel reads in
+    [260, 260, C/2, 2] (``rows`` x ``rows`` into [``size``, ``size``,
+    C/2, 2] where ``label`` names another path's chunk).  z-major: the
+    multislice kernel's gradient [C/2, 2, 529, 72, 72] viewed as [529, 72,
+    72, C/2, 2], which the kernel reads in
     place (delta_beta, multi-mode); patch-major: contiguous [529, 72, 72,
     C/2, 2] (the layout autograd gives the grid gather's patches on the
     real_imag path; at C = 64 on no path).  The wrapper's instantiation
@@ -912,7 +933,7 @@ def check_grid_scatter(dtype, C, zmajor, path, seed):
     never called by the port)."""
     from adorym_tpu_torch.ops import cuda_scatter_grid as csg
     dev = torch.device('cuda')
-    rows, s, n, zb = 23, 8, 72, C // 2
+    s, n, zb = 8, 72, C // 2
     gen = torch.Generator(device=dev).manual_seed(seed)
     if zmajor:
         cot = torch.randn((zb, 2, rows * rows, n, n), device=dev,
@@ -922,7 +943,7 @@ def check_grid_scatter(dtype, C, zmajor, path, seed):
     else:
         cot = torch.randn((rows * rows, n, n, zb, 2), device=dev,
                           generator=gen).to(dtype)
-    acc0 = torch.randn((260, 260, zb, 2), device=dev, generator=gen)
+    acc0 = torch.randn((size, size, zb, 2), device=dev, generator=gen)
     routes = csg.K2_ROUTE_LAUNCHES
     r0 = dict(routes)
     got = csg.scatter_grid2d_add(acc0.clone(), cot, 0, 0, s, rows)
@@ -936,7 +957,7 @@ def check_grid_scatter(dtype, C, zmajor, path, seed):
     torch.cuda.synchronize()
     tag = str(dtype).split('.')[-1]
     layout = 'z-major' if zmajor else 'patch-major'
-    name = f'K2 C={C} {layout} {tag}'
+    name = f'K2 C={C} {layout}{label} {tag}'
     if took != {'vec': 1, 'scalar': 0}:
         raise AssertionError(f'{name}: instantiations launched {took}, '
                              'expected the vector one')
@@ -972,7 +993,7 @@ def check_grid_scatter(dtype, C, zmajor, path, seed):
                   float(cot.numel()))
     log(f'{name}: {inst} {ms:.4f} ms, scalar {ms_s:.4f} ms, bound {b:.4f} '
         f'ms ({100 * b / ms:.1f}%), F.fold {lib:.4f} ms')
-    rec = record(f'K2 grid_scatter C={C} {layout} ({tag})',
+    rec = record(f'K2 grid_scatter C={C} {layout}{label} ({tag})',
                  'adorym_tpu_torch/csrc/grid_scatter.cu',
                  'adorym_tpu/ops/pallas_scatter_grid.py:44', err, rel, tol,
                  ms, plain, b, by, lib, 'K2', path)
@@ -5034,6 +5055,383 @@ def slice17_runs(work, kernels):
     return res
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+@contextlib.contextmanager
+def api_spy():
+    """While the block runs, the package's ``simulate`` and
+    ``reconstruct_ptychography`` (the names the port's demos call) and the
+    API's ``Reconstructor`` record each call; a ``reconstruct_ptychography``
+    call sets the launch counts to 0 just before it runs and reads them
+    just after.  Yields ``{'simulate': [seconds, ...], 'recon': [{'s',
+    'results', 'launches', 'peak_gb'}, ...], 'recs': [(reconstructor,
+    kwargs), ...]}``; every argument passes through unchanged."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch import api
+    spy = {'simulate': [], 'recon': [], 'recs': []}
+    orig_sim, orig_recon = pt.simulate, pt.reconstruct_ptychography
+    orig_rec = api.Reconstructor
+
+    def simulate(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_sim(*args, **kwargs)
+        spy['simulate'].append(time.perf_counter() - t0)
+        return out
+
+    def reconstruct(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = orig_recon(*args, **kwargs)
+        torch.cuda.synchronize()
+        spy['recon'].append({'s': time.perf_counter() - t0, 'results': res,
+                             'launches': launch_counts(),
+                             'peak_gb': torch.cuda.max_memory_allocated()
+                             / 1e9, 'kwargs': kwargs})
+        return res
+
+    class Recording(orig_rec):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            spy['recs'].append((self, dict(kwargs, cfg=args[0])))
+
+    pt.simulate, pt.reconstruct_ptychography = simulate, reconstruct
+    api.Reconstructor = Recording
+    try:
+        yield spy
+    finally:
+        pt.simulate, pt.reconstruct_ptychography = orig_sim, orig_recon
+        api.Reconstructor = orig_rec
+
+
+def port_demo(name):
+    import importlib
+    return importlib.import_module(f'adorym_tpu_torch.demos.{name}')
+
+
+def epoch_ends(out_dir):
+    """Each epoch's end on the loss log's clock (``convergence/
+    loss_rank_0.txt``, seconds since the Reconstructor opened it) and the
+    per-batch losses, in logged order."""
+    rows = np.genfromtxt(Path(out_dir) / 'convergence' / 'loss_rank_0.txt',
+                         delimiter=',', names=True)
+    eps = np.atleast_1d(rows['i_epoch']).astype(int)
+    ends = [float(np.atleast_1d(rows['time'])[eps == e].max())
+            for e in np.unique(eps)]
+    return ends, np.atleast_1d(rows['loss'])
+
+
+def run_13a(work, n_theta=20, n_epochs=2, scale=1):
+    """Phase 13a: BASELINE #5, the cone demo (``adorym_tpu_torch/demos/
+    multislice_ptycho_256_theta.py``) at full width through its ``main``:
+    a 256^3 cone, 20 angles of 24x24 72^2 patterns, binning 8, Adam at
+    lr 1e-7, per angle with the rotation out of the loop, 2 epochs, its
+    data simulated on the card (no h5py there: an ArrayDataset).  Held: the
+    second epoch's loss below the first; K1f, K1b and K2 once a gradient
+    chunk (the flagship's launches, ROADMAP "the main path"); the first
+    angle's loss (the mean of its 23 row losses, all taken before its
+    update) within 1e-4 relative of the same angle's on the CPU, from the
+    same data and initial object and probe (the CPU's ``angle_step`` on a
+    Reconstructor built with the card run's arguments)."""
+    import adorym_tpu_torch as pt
+    demo = port_demo('multislice_ptycho_256_theta')
+    data = work / 'cone_256' / f'data_cone_{256 // scale}.h5'
+    with api_spy() as spy:
+        corr = demo.main(n_theta=n_theta, n_epochs=n_epochs, data=str(data),
+                         scale=scale, output_folder='recon_13a')
+    (rec, kw), = spy['recs']
+    call, = spy['recon']
+    res, launches = call['results'], call['launches']
+    losses = list(res['loss_history'])
+    n_pat = rec.n_theta * rec.n_pos
+    ends, batch_losses = epoch_ends(data.parent / 'recon_13a')
+    rates = [n_pat / (b - a) for a, b in zip([0.0] + ends[:-1], ends)]
+    per_angle = {k: launches[k] / (n_theta * n_epochs)
+                 for k in ('K1_FWD', 'K1_BWD', 'K2', 'K6')}
+    want = expect_chunk_launches(rec, launches, n_theta * n_epochs, '13a')
+    # The first angle of the first epoch and its rows, as the run drew
+    # them; its losses on the CPU before the update.
+    groups = rec._group_batches(rec.make_batches(
+        np.random.default_rng(rec.cfg.train.seed)))
+    i_theta, inds_list = groups[0]
+    card = batch_losses[:len(inds_list)]
+    t0 = time.perf_counter()
+    cpu_kw = {k: v for k, v in kw.items()
+              if k not in ('cfg', 'device', 'output_folder', 'mesh')}
+    cpu = pt.Reconstructor(kw['cfg'], device='cpu', **cpu_kw)
+    cpu_losses = cpu.angle_step(i_theta, inds_list).detach().double().numpy()
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    rel = abs(card.mean() - cpu_losses.mean()) / abs(cpu_losses.mean())
+    rel_rows = np.abs(card - cpu_losses) / np.abs(cpu_losses)
+    log(f'13a BASELINE #5 demo ({rec.cfg.geometry.obj_size} cone, '
+        f'{n_theta} angles x {rec.n_pos} patterns of '
+        f'{rec.cfg.geometry.probe_size}, binning {rec.cfg.geometry.binning}, '
+        f'per angle, {n_epochs} epochs): simulate '
+        f'{spy["simulate"][0]:.2f} s on the card; epoch losses {losses}; '
+        f'patterns/s by epoch {rates} (the first with the Reconstructor '
+        f'set-up, the second with a checkpoint); call wall {call["s"]:.2f} s; peak device '
+        f'memory {call["peak_gb"]:.2f} GB; phantom delta correlation '
+        f'{corr:.4f}; launches an angle {per_angle} (expected {want} over '
+        f'the run); first angle ({i_theta}) loss {card.mean()!r} on the '
+        f'card, {cpu_losses.mean()!r} on the CPU (rel {rel:.2e}, rows up '
+        f'to {rel_rows.max():.2e}; CPU {cpu_s:.1f} s); {CARD}')
+    if not (np.all(np.isfinite(losses)) and losses[1] < losses[0]):
+        raise AssertionError(f'13a: the loss did not fall: {losses}')
+    if not rel < 1e-4:
+        raise AssertionError(f'13a: card and CPU first-angle losses differ '
+                             f'by {rel:.2e}')
+    geo = rec.cfg.geometry
+    rows = int(round(np.sqrt(rec.n_pos)))
+    return {'corr': corr, 'losses': losses, 'rates': rates,
+            'peak_gb': call['peak_gb'], 'sim_s': spy['simulate'][0],
+            'per_angle': per_angle, 'rel': rel, 'launches': launches,
+            'n_pos': rec.n_pos, 'rows': rows,
+            'size': geo.obj_size[0] + int(np.sum(rec.pad_arr[0])),
+            'channels': 2 * (geo.obj_size[2] // geo.binning)}
+
+
+def _into(mod, work):
+    """A 2-D demo's data file and outputs under ``work``, as
+    ``tests/test_demos.py`` points them."""
+    if hasattr(mod, 'DATA_DIR'):
+        mod.DATA_DIR = str(work)
+    if hasattr(mod, 'DATA'):
+        mod.DATA = str(work / os.path.basename(mod.DATA))
+
+
+#: Phase 13b: each demo at the size and epoch count of
+#: ``tests/test_demos.py`` and that file's threshold (the phase
+#: correlation; the probe demo's phase and probe correlations; the
+#: position-correction demo's refined positions nearer the truth than the
+#: nominal grid).
+DEMOS_13B = [
+    ('2d_ptychography_experimental_data',
+     dict(n_epochs=30, output_folder='recon_ci'), 0.45),
+    ('2d_multidist_holography_w_affine',
+     dict(n_epochs=150, output_folder='recon_ci'), 0.6),
+    ('2d_ptychography_w_probe_optimization',
+     dict(n_epochs=400, output_folder='recon_ci'), (0.9, 0.9)),
+    ('2d_multidist_holography_w_position_correction',
+     dict(n_epochs=150, output_folder='recon_ci'), 0.85),
+    ('2d_ptychography_position_correction', {}, None),
+    ('multislice_tomography_64',
+     dict(n_epochs=10, n_theta=12, output_folder='recon_ci',
+          data='d64.h5'), 0.25),
+    ('multislice_ptycho_256_theta',
+     dict(n_theta=8, n_epochs=12, scale=4, data='cone.h5',
+          output_folder='recon_ci'), 0.3),
+]
+
+
+def run_13b(work):
+    """Phase 13b: the seven demos through their ``main`` on the card
+    (:data:`DEMOS_13B`), each with its data simulated on the card; the 2-D
+    ones launch no multislice kernel (one slice), the tomography demo K1
+    (the generic step), the cone demo K1 and K2 once a gradient chunk.
+    Returns {demo: (value, wall s, patterns/s)}."""
+    import gc
+    out = {}
+    for name, kwargs, threshold in DEMOS_13B:
+        # The peak of each demo's own run (the last run's Reconstructor
+        # sits in reference cycles until collected).
+        gc.collect()
+        torch.cuda.empty_cache()
+        mod = port_demo(name)
+        d = work / f'13b_{name}'
+        d.mkdir()
+        kwargs = dict(kwargs)
+        if 'data' in kwargs:
+            kwargs['data'] = str(d / kwargs['data'])
+        saved = {k: getattr(mod, k) for k in ('DATA', 'DATA_DIR')
+                 if hasattr(mod, k)}
+        _into(mod, d)
+        t0 = time.perf_counter()
+        try:
+            with api_spy() as spy:
+                value = mod.main(**kwargs)
+        finally:
+            for k, v in saved.items():
+                setattr(mod, k, v)
+        wall = time.perf_counter() - t0
+        (rec, _), = spy['recs']
+        call, = spy['recon']
+        res, launches = call['results'], call['launches']
+        n_epochs = len(res['loss_history'])
+        rate = rec.n_theta * rec.n_pos * n_epochs / call['s']
+        ran = {k: v for k, v in launches.items() if v}
+        if name == '2d_ptychography_position_correction':
+            nominal, true, _ = mod.problem()
+            err = true - nominal
+            err = err - err.mean(0)
+            before = float(np.abs(err).mean())
+            after = float(np.abs(res['probe_pos_correction'][0]
+                                 - err).mean())
+            value = (before, after)
+            ok = after < before
+        elif isinstance(threshold, tuple):
+            ok = all(v > t for v, t in zip(value, threshold))
+        else:
+            ok = value > threshold
+        if name.startswith('2d'):
+            ok = ok and not ran
+        elif name == 'multislice_tomography_64':
+            ok = ok and launches['K1_FWD'] > 0 and launches['K1_BWD'] > 0
+        else:
+            expect_chunk_launches(rec, launches, rec.n_theta * n_epochs,
+                                  f'13b {name}')
+        what = ('residual px (nominal, refined)' if threshold is None
+                else 'correlation')
+        log(f'13b {name}: {what} {value} (threshold {threshold}); '
+            f'{n_epochs} epochs, losses '
+            f'{res["loss_history"][0]:.6e} -> {res["loss_history"][-1]:.6e}; '
+            f'wall {wall:.2f} s (reconstruction {call["s"]:.2f} s, simulate '
+            f'{sum(spy["simulate"]):.2f} s); {rate:.1f} patterns/s; peak '
+            f'{call["peak_gb"]:.3f} GB; kernels launched {ran}; {CARD}')
+        if not (ok and np.all(np.isfinite(res['loss_history']))):
+            raise AssertionError(f'13b {name}: {value} against {threshold}, '
+                                 f'launches {ran}')
+        out[name] = (value, wall, rate)
+    return out
+
+
+def run_13c(work):
+    """Phase 13c: the user tools' computations on the card against the
+    CPU: ``retrieve_probe`` (the ER loop) on ``tests/test_tools.py``'s
+    disk, 300 epochs with that test's two assertions, and at 10 epochs
+    against the CPU (1e-5 of the largest magnitude: ER on a hard-edged
+    disk is chaotic, the CPU test's reason); the multi-distance CTF
+    retrieval on BASELINE #4's holograms (1e-5); the affine-warp and the
+    registration tools on TIFF folders (1e-5 of the largest value, the
+    shifts equal); ``profiler_trace`` writing a trace with the card's
+    kernels."""
+    from adorym_tpu_torch.conventional import multidistance_ctf
+    from adorym_tpu_torch.io.output import read_tiff, write_tiff
+    from adorym_tpu_torch.tools import (affine_transform_images as aff,
+                                        initialize_probe_er as er,
+                                        register_multidistance_data as reg)
+    from adorym_tpu_torch.utils.profiling import profiler_trace
+    n = 32
+    yy, xx = np.mgrid[:n, :n] - (n - 1) / 2
+    disk = (np.hypot(yy, xx) <= 6).astype(np.complex64)
+    dp = np.abs(np.fft.fftshift(np.fft.fft2(disk)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probe, mse = er.retrieve_probe(dp, mask_radius=8, n_epochs=300)
+    er_s = time.perf_counter() - t0
+    inside = np.hypot(yy, xx) <= 8
+    e_in = np.sum(np.abs(probe[inside]) ** 2)
+    e_out = np.sum(np.abs(probe[~inside]) ** 2)
+    ok_er = mse < 0.3 * np.mean(dp ** 2) and e_in > 5 * e_out
+    a, ma = er.retrieve_probe(dp, 8, n_epochs=10)
+    b, mb = er.retrieve_probe(dp, 8, n_epochs=10, device='cpu')
+    er_err = np.abs(a - b).max() / np.abs(b).max()
+    er_mse = abs(ma - mb) / abs(mb)
+
+    holo, _ = holo_dataset()
+    prj = holo.all_magnitudes()[0]          # the holograms' intensities
+    ctf = {}
+    for dev in ('cuda', 'cpu'):
+        t0 = time.perf_counter()
+        ctf[dev] = multidistance_ctf(prj, HOLO['dists'], HOLO['energy_ev'],
+                                     HOLO['psize_cm'],
+                                     device=dev).cpu().numpy()
+        ctf[dev + '_s'] = time.perf_counter() - t0
+    ctf_err = np.abs(ctf['cuda'] - ctf['cpu']).max() / np.abs(
+        ctf['cpu']).max()
+
+    rng = np.random.default_rng(6)
+    from scipy.ndimage import gaussian_filter, shift as nd_shift
+    base = gaussian_filter(rng.random((128, 128)), 2).astype(np.float32)
+    src = work / '13c_imgs'
+    src.mkdir()
+    shifts_true = [np.zeros(2), np.array([2.0, -3.0]), np.array([-1.3, 0.6])]
+    for t in range(2):
+        for d, s in enumerate(shifts_true):
+            write_tiff(nd_shift(base + 0.1 * t, -s, order=1, mode='wrap'),
+                       str(src / f'data_{t:04d}_{d:02d}.tiff'))
+    mats = np.concatenate([np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]),
+                           np.array([[1.01, 0.02, 0.05],
+                                     [-0.01, 0.99, -0.03]]),
+                           np.array([[0.98, 0.0, -0.1],
+                                     [0.01, 1.02, 0.08]])])
+    np.savetxt(work / '13c_mats.txt', mats)
+    outs, reg_shifts = {}, {}
+    for dev in ('cuda', 'cpu'):
+        outs['aff_' + dev] = aff.apply_affines(
+            str(src), str(work / '13c_mats.txt'), str(work / f'13c_aff_{dev}'),
+            'data', device=dev)
+        copy = work / f'13c_reg_{dev}'
+        import shutil
+        shutil.copytree(src, copy)
+        outs['reg_' + dev], reg_shifts[dev] = reg.register_folder(
+            str(copy), 'data', device=dev)
+
+    def folder_err(a, b):
+        return max(np.abs(read_tiff(os.path.join(a, f))
+                          - read_tiff(os.path.join(b, f))).max()
+                   / np.abs(read_tiff(os.path.join(b, f))).max()
+                   for f in sorted(os.listdir(b)))
+    aff_err = folder_err(outs['aff_cuda'], outs['aff_cpu'])
+    reg_err = folder_err(outs['reg_cuda'], outs['reg_cpu'])
+    same_shifts = np.array_equal(np.asarray(reg_shifts['cuda']),
+                                 np.asarray(reg_shifts['cpu']))
+    trace_dir = work / '13c_trace'
+    with profiler_trace(str(trace_dir)):
+        er.retrieve_probe(dp, 8, n_epochs=2)
+        torch.cuda.synchronize()
+    trace = json.loads(next(trace_dir.glob('trace_*.json')).read_text())
+    kernels_traced = any(e.get('cat') == 'kernel'
+                         for e in trace.get('traceEvents', []))
+    log(f'13c tools on the card against the CPU: retrieve_probe 300 epochs '
+        f'{er_s:.2f} s, mse {mse:.4e} (< 0.3 mean dp^2 '
+        f'{0.3 * np.mean(dp ** 2):.4e}), energy in/out {e_in / e_out:.1f} '
+        f'(> 5); at 10 epochs probe {er_err:.2e}, mse {er_mse:.2e} rel; '
+        f'CTF retrieval {ctf_err:.2e} of the largest magnitude ('
+        f'{ctf["cuda_s"] * 1e3:.1f} ms on the card, {ctf["cpu_s"] * 1e3:.1f}'
+        f' on the CPU); affine warp {aff_err:.2e}; registration images '
+        f'{reg_err:.2e}, shifts {reg_shifts["cuda"]} equal: {same_shifts}; '
+        f'profiler_trace with the card\'s kernels: {kernels_traced}; {CARD}')
+    if not (ok_er and er_err <= 1e-5 and er_mse <= 1e-5 and ctf_err <= 1e-5
+            and aff_err <= 1e-5 and reg_err <= 1e-5 and same_shifts
+            and kernels_traced):
+        raise AssertionError('13c: a tool disagrees with the CPU')
+
+
+def slice18_runs(work, kernels):
+    """Phase 13: the port's demos and user tools on the card (13a-13c);
+    then K1 and K2 at the shapes 13a gave them (the cone demo's 24x24
+    grid: K1 at 576 patches, K2 of 24 rows into the unpadded 256^2
+    object), whose records take 13a's launches."""
+    t_phase = time.perf_counter()
+    res = run_13a(work)
+    stamp('phase 13a')
+    if res['n_pos'] != res['rows'] ** 2 or res['channels'] != 64:
+        raise AssertionError(f'13a: an unexpected chunk {res}')
+    label = f' {res["rows"]}x{res["rows"]} grid, 13a cone demo'
+    recs = check_multislice(torch.float32, 1e-4, 1e-3, N=res['n_pos'],
+                            path='13a', label=f' ({label.strip()})')
+    recs += check_grid_scatter(torch.float32, 64, True, '13a', 1,
+                               rows=res['rows'], size=res['size'],
+                               label=label)
+    torch.cuda.empty_cache()
+    for k in recs:
+        k['launches'] = res['launches'][k['counter']]
+        log(f"{k['name']}: kernel_ms {k['kernel_ms']:.4f} plain_ms "
+            f"{k['plain_ms']:.4f} bound_ms {k['bound_ms']:.4f} "
+            f"({k['bound_by']}) launches {k['launches']} (13a's run)")
+    kernels += recs
+    stamp('phase 13a kernels')
+    run_13b(work)
+    stamp('phase 13b')
+    run_13c(work)
+    log(f'phase 13: {time.perf_counter() - t_phase:.1f} s; {CARD}')
+    stamp('phase 13')
+    return res
+
+
 def child_processes():
     """The command lines of this process's live children."""
     me, out = str(os.getpid()), []
@@ -5232,6 +5630,7 @@ def main():
         left = child_processes()
         if left:
             raise AssertionError(f'phase 12 left processes running: {left}')
+        slice18_runs(work, kernels)
     angle_rate, angle_peak = run_per_angle_regularized()
     stamp('phase 6c')
     log(f"phase 6: immediate with checkpoints "

@@ -1204,31 +1204,97 @@ def test_epie_cuda_matches_cpu(cuda):
     assert _rel(res[0][1].cpu(), res[1][1]) < 1e-4
 
 
-@pytest.mark.parametrize('optimizer', ['cg', 'curveball'])
-def test_second_order_cuda_matches_cpu(cuda, optimizer):
-    """CG and Curveball on a small 3-D delta_beta run (the immediate
-    scheme, K1 on its FFT route): the per-epoch losses on the card
-    within 1e-4 of the CPU's; Curveball's batches run the tangent."""
+def _second_order_problem(optimizer):
+    """The small 3-D delta_beta problem of the second-order card test: a
+    24^3 smooth phantom (delta up to 1e-3, beta 3e-5), a 16^2 Gaussian
+    probe on a 4x4 grid at stride 4, two angles, binning 2 (K1 on its FFT
+    route), minibatch 4 (the immediate scheme); the data simulated by the
+    port on the CPU from the phantom, the object starting at half of it."""
     import adorym_tpu_torch as pt
+    from scipy.ndimage import gaussian_filter
+    from adorym_tpu_torch.utils.initialize import initialize_probe
     rng = np.random.default_rng(0)
+    vol = gaussian_filter(rng.random((24, 24, 24)), 3)
+    vol = (vol - vol.min()) / np.ptp(vol)
+    obj_true = np.stack([vol * 1e-3, vol * 3e-5], -1).astype(np.float32)
+    probe = initialize_probe((16, 16), 'gaussian', energy_ev=5000.0,
+                             psize_cm=1e-7, probe_mag_sigma=4,
+                             probe_phase_sigma=4, probe_phase_max=0.3)
     xs = np.arange(4) * 4
     yy, xx = np.meshgrid(xs, xs, indexing='ij')
     pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
-    data = rng.random((2, 16, 16, 16)).astype(np.float32)
-    obj0 = (rng.random((24, 24, 24, 2)) * 1e-3).astype(np.float32)
-    cfg = pt.ReconConfig(
-        geometry=pt.Geometry(obj_size=(24, 24, 24), probe_size=(16, 16),
-                             free_prop_cm='inf', binning=2),
-        train=pt.TrainConfig(minibatch_size=4, optimizer=optimizer))
+    theta = np.linspace(0, np.pi, 2)
+    geo = pt.Geometry(obj_size=(24, 24, 24), probe_size=(16, 16),
+                      free_prop_cm='inf', binning=2)
+    data = pt.simulate(pt.ReconConfig(geometry=geo), obj_true, probe, pos,
+                       theta, device='cpu')
+    cfg = pt.ReconConfig(geometry=geo, train=pt.TrainConfig(
+        minibatch_size=4, optimizer=optimizer))
+    return cfg, dict(data=np.asarray(data), probe_pos=pos, theta_ls=theta,
+                     probe_init=probe, obj_init=obj_true * 0.5)
+
+
+@pytest.mark.parametrize('optimizer', ['cg', 'curveball'])
+def test_second_order_cuda_matches_cpu(cuda, optimizer):
+    """CG and Curveball on a small 3-D delta_beta run (the immediate
+    scheme, K1 on its FFT route) on data simulated from a phantom
+    (:func:`_second_order_problem`): the per-epoch losses on the card
+    within 1e-4 of the CPU's; Curveball's batches run the tangent.  The
+    CPU half runs on one intra-op thread, so its reductions repeat bit
+    for bit."""
+    import adorym_tpu_torch as pt
+    cfg, kw = _second_order_problem(optimizer)
     losses = {}
     n0 = cm.TANGENT_LAUNCHES['K1']
+    threads = torch.get_num_threads()
     for dev in ('cuda', 'cpu'):
-        rec = pt.Reconstructor(cfg, data=data, probe_pos=pos,
-                               theta_ls=np.linspace(0, np.pi, 2),
-                               obj_init=obj0.copy(), device=dev)
-        losses[dev] = [rec.run_epoch(e) for e in range(2)]
+        if dev == 'cpu':
+            torch.set_num_threads(1)
+        try:
+            rec = pt.Reconstructor(cfg, device=dev,
+                                   **dict(kw, obj_init=kw['obj_init'].copy()))
+            losses[dev] = [rec.run_epoch(e) for e in range(2)]
+        finally:
+            torch.set_num_threads(threads)
     assert cm.TANGENT_LAUNCHES['K1'] - n0 == (32 if optimizer == 'curveball'
                                               else 0)
+    assert np.all(np.isfinite(losses['cpu'])), losses
+    np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-4)
+
+
+def test_curveball_at_k4_sizes_runs_with_fused_off(cuda, monkeypatch):
+    """Curveball where K1's records would pass the card's budget (the
+    stored/invertible switch forced, as ``tests/test_torch_multimode.py``
+    forces it): under ``fused_multislice='auto'`` the batch reaches K4,
+    which has no forward mode, and raises naming
+    ``fused_multislice='off'``; under ``'off'`` the plain FFT scan takes
+    forward mode on the card, launches no multislice kernel and no
+    tangent, and its epoch's loss is the CPU's within 1e-4."""
+    import adorym_tpu_torch as pt
+    cfg, kw = _second_order_problem('curveball')
+    monkeypatch.setattr(prop, '_db_stored_max_bytes', lambda device: 0)
+    rec = pt.Reconstructor(cfg, device='cuda', **dict(
+        kw, obj_init=kw['obj_init'].copy()))
+    with pytest.raises(NotImplementedError, match="fused_multislice='off'"):
+        rec.run_epoch(0)
+    off = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                fused_multislice='off'))
+    launches = (cm.K4_FWD.launches, cm.K1_FWD.launches,
+                dict(cm.TANGENT_LAUNCHES))
+    losses = {}
+    threads = torch.get_num_threads()
+    for dev in ('cuda', 'cpu'):
+        if dev == 'cpu':
+            torch.set_num_threads(1)
+        try:
+            rec = pt.Reconstructor(off, device=dev, **dict(
+                kw, obj_init=kw['obj_init'].copy()))
+            losses[dev] = rec.run_epoch(0)
+        finally:
+            torch.set_num_threads(threads)
+    assert (cm.K4_FWD.launches, cm.K1_FWD.launches,
+            dict(cm.TANGENT_LAUNCHES)) == launches
+    assert np.isfinite(losses['cuda'])
     np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-4)
 
 

@@ -601,6 +601,29 @@ def test_curveball_on_k4_raises(monkeypatch):
         rec.run_epoch(0)
 
 
+def test_curveball_on_k4_names_fused_off(monkeypatch):
+    """At K4's sizes (the stored/invertible switch forced) Curveball's
+    error names ``fused_multislice='off'``, and that configuration runs:
+    the plain FFT scan takes forward mode (``tests/test_torch_cuda.py::
+    test_curveball_at_k4_sizes_runs_with_fused_off`` holds it on the
+    card)."""
+    kw, data, pos, theta, obj0 = _problem('3d_delta_beta')
+    monkeypatch.setattr(tprop, '_db_stored_max_bytes', lambda device: 0)
+    losses = {}
+    for fused in ('on', 'off'):
+        rec = pt.Reconstructor(_cfg(pt, 'curveball', fused_multislice=fused,
+                                    **kw), data=data, probe_pos=pos,
+                               theta_ls=theta, obj_init=obj0.copy(),
+                               device='cpu')
+        if fused == 'on':
+            with pytest.raises(NotImplementedError,
+                               match="fused_multislice='off'"):
+                rec.run_epoch(0)
+        else:
+            losses[fused] = rec.run_epoch(0)
+    assert np.isfinite(losses['off'])
+
+
 # -- scipy bridge ------------------------------------------------------------
 
 def test_scipy_bridge_newton_cg():
