@@ -40,10 +40,15 @@ second-order optimizer (:mod:`.optim.second_order`);
 the host and, past the device's budget where the run qualifies, the
 object too (``offload_optimizer_state=True``, ``offload_object='auto'``).
 
-Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: model families passed by name (``forward_model`` other than ``'auto'`` or a
-module), and orbax checkpoints (a JAX library's format).  Reference
-keywords that have no meaning here are ignored; unknown ones warn.
+``use_orbax=True`` writes the sharded checkpoint form (``checkpoint/dcp/``
+through ``torch.distributed.checkpoint``, each rank its own slab, nothing
+gathered) in place of the npz form, and a resume reads either form; a JAX
+orbax folder raises, naming its converter (``tools/orbax_to_npz.py``).
+
+Not ported, raising ``NotImplementedError`` that names its ROADMAP item:
+model families passed by name (``forward_model`` other than ``'auto'`` or
+a module).  Reference keywords that have no meaning here are ignored;
+unknown ones warn.
 """
 
 from __future__ import annotations

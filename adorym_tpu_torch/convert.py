@@ -9,7 +9,9 @@ conversion is a change of array type and device.  Under slab offload
 either package keeps the object and its moments as y slabs (``{'s00':
 ..., 's01': ...}``); they convert to and from whole arrays.  The optimizer
 step counts are the Reconstructor's ``i_opt_batch`` and ``global_batch``,
-plain ints in both packages and in a checkpoint's ``extra``."""
+plain ints in both packages and in a checkpoint's ``extra``.
+:func:`load_checkpoint` reads either checkpoint form of the port (npz or
+sharded) into a run's state, whole or by a range of object rows."""
 
 from __future__ import annotations
 
@@ -90,24 +92,30 @@ def params_to_numpy(params: Dict[str, torch.Tensor],
 
 
 def load_checkpoint(folder: str, device='cuda', host_obj: bool = False,
-                    host_obj_state: bool = False
+                    host_obj_state: bool = False,
+                    rows: Optional[Tuple[int, int]] = None
                     ) -> Optional[Dict[str, Any]]:
     """The checkpoint in ``folder`` (``<output_folder>/checkpoint``),
-    written by either package, slabbed or not, as the port's run state:
+    written by either package, in the npz or the sharded form, slabbed or
+    not, as the port's run state:
     ``params`` and ``opt_state`` as tensors on ``device`` (the object and
     its state as whole arrays, on the host under ``host_obj`` /
     ``host_obj_state``), the NEXT ``(i_epoch,
     i_batch)`` to run, the step counts ``i_opt_batch`` and
     ``global_batch``, and ``extra`` (the remaining numpy entries, e.g. a
-    shrink-wrapped support mask); None when there is none."""
-    restored = ckpt_lib.restore_checkpoint(folder)
+    shrink-wrapped support mask); None when there is none.
+    ``rows=(y0, y1)``: the object, its object-shaped state and the support
+    mask come back as those rows alone (of the sharded form, only the
+    slabs that overlap them are read)."""
+    restored = ckpt_lib.restore_checkpoint(folder, rows=rows)
     if restored is None:
         return None
     params_np, state_np, i_epoch, i_batch, extra = restored
     params, state = params_from_jax(params_np, state_np, device=device,
                                     host_obj=host_obj,
                                     host_obj_state=host_obj_state)
-    extra = dict(extra)
+    extra = {k: ckpt_lib.deslab(v) for k, v in extra.items()}
+    extra.pop('obj_slab_rows', None)
     return {'params': params, 'opt_state': state,
             'i_epoch': int(i_epoch), 'i_batch': int(i_batch),
             'i_opt_batch': int(extra.pop('i_opt_batch', 0)),

@@ -17,6 +17,11 @@ compute stream after every download (before host blocks are read again),
 :meth:`HostMover.sync` the host (before it reads them).  The stager copies
 host-staged rows on its own stream; the compute stream waits on each copy's
 event.
+
+A sharded checkpoint takes the object and its state slab by slab as they
+lie (:func:`checkpoint_slabs`, :func:`slabs_of`): a host slab is written
+from its block's memory, a device slab is brought down on its own, and no
+whole array is made.
 """
 
 from __future__ import annotations
@@ -121,6 +126,32 @@ def slab_ranges(ny: int, k: int) -> Tuple[List[str], List[Tuple[int, int]]]:
 def slab_views(whole: torch.Tensor, keys, ranges) -> Dict[str, torch.Tensor]:
     """Views of ``whole``'s y slabs, by key."""
     return {key: whole[st:st + sz] for key, (st, sz) in zip(keys, ranges)}
+
+
+def checkpoint_slabs(ny: int, n_op: int, op: int, k: int):
+    """The y slabs of a sharded checkpoint of an object of ``ny`` rows
+    split into ``n_op`` rank slabs, each rank's rows cut into ``k`` slabs
+    by :func:`slab_ranges` (the offload slabs of an offloaded object).
+    Returns ``(table, mine)``: every slab's rows ``[y0, y1)`` of the whole
+    object, ``[n_slabs, 2]`` in y order (slab ``i`` is keyed
+    ``s{i:02d}``), and rank ``op``'s slabs as ``(key, start, size)``
+    within its own rows."""
+    own = ny // n_op
+    local = slab_ranges(own, k)[1]
+    table = np.asarray([(o * own + st, o * own + st + sz)
+                        for o in range(n_op) for st, sz in local], np.int64)
+    mine = [(f's{op * len(local) + i:02d}', st, sz)
+            for i, (st, sz) in enumerate(local)]
+    return table, mine
+
+
+def slabs_of(v, mine) -> Dict[str, torch.Tensor]:
+    """``v``'s checkpoint slabs by key (``mine`` from
+    :func:`checkpoint_slabs`): a slab dict's own tensors (host blocks
+    under offload), else views of ``v``'s rows; nothing is copied."""
+    if isinstance(v, dict):
+        return {key: v[key] for key, _, _ in mine}
+    return {key: v[st:st + sz] for key, st, sz in mine}
 
 
 class _Slot:

@@ -4,8 +4,10 @@ The JAX package runs its meshes as one program over many devices and lets
 GSPMD and ``shard_map`` place the ``psum``s and ``ppermute``s.  The port
 runs one process a device, so every collective is written out here: sums
 over the data axis, the object axis or both, the ring shift of the object
-axis (the ``ppermute`` of a ring), and the all-gather of the object's y
-slabs.
+axis (the ``ppermute`` of a ring), the all-gather of the object's y
+slabs, and the barriers of a sharded checkpoint's commit.  The
+collectives that ``torch.distributed.checkpoint`` runs itself are counted
+by call (:meth:`Comm.note`), not by bytes.
 
 Every call is recorded by kind, axis, shape and bytes in
 :attr:`Comm.records`, with the seconds it took (host clock, including the
@@ -232,6 +234,27 @@ class Comm:
             out = self._from_host(out, t)
         self._record('all_gather', axes, out, t0)
         return out
+
+    def barrier(self, failed: bool = False) -> bool:
+        """Wait for every rank of the world (a step of a sharded
+        checkpoint's commit) and return whether any rank passed
+        ``failed``, so that a step that failed on one rank raises on all.
+        A max over one flag; recorded as its own kind, ``barrier``."""
+        t0 = time.perf_counter()
+        dev = self.device if self.backend == 'nccl' else 'cpu'
+        t = torch.tensor([1.0 if failed else 0.0], device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        out = bool(t.item() > 0)
+        self._record('barrier', ('dp', 'op'), t, t0)
+        return out
+
+    def note(self, kind: str, seconds: float):
+        """Record a call of another library that runs its own collectives
+        over the world's group (``dcp_save``: the plan exchange of
+        ``torch.distributed.checkpoint``): its count and seconds; its
+        bytes, metadata-sized, are not measured and recorded as 0."""
+        self.records.append(dict(kind=kind, axis='dp+op', shape=(),
+                                 bytes=0, seconds=seconds))
 
     def any(self, flag: bool) -> bool:
         """Whether ``flag`` holds on any rank (a host decision, such as a

@@ -99,8 +99,11 @@ accumulate there, and each slab's full-depth gradient is made from the
 binned gradient's rows just before the slab's update, so the object is
 never whole on the device.  Per-batch losses stay on the device until the
 epoch ends (``run_epochs`` fetches them one epoch late); only a batch that
-writes a checkpoint or an intermediate dump visits the host.  Orbax
-checkpoints raise ``NotImplementedError``.
+writes a checkpoint or an intermediate dump visits the host.
+``use_orbax=True`` writes the sharded checkpoint form
+(:func:`.io.checkpoint.save_sharded`, ``torch.distributed.checkpoint``):
+every slab of the object and of its state is written as it lies, by the
+rank that holds it.
 
 Under a device mesh (``mesh=``, :mod:`.parallel`) each rank holds its y
 slab of the object, of its optimizer state and of the support; every rank
@@ -112,8 +115,11 @@ object through the halo gather where the geometry allows it
 (:func:`.parallel.halo.padded_window_gather`), else through a counted
 all-gather of the slabs, the regularizers act on the slabs (sums over
 'op', TV's one-row halo), and the gradients and losses are summed over
-'dp'.  Rank 0 writes the outputs and checkpoints, which hold the whole
-object under the same keys as a single-device run.
+'dp'.  Rank 0 writes the outputs and the npz checkpoints, which hold the
+whole object under the same keys as a single-device run; under
+``use_orbax`` each rank of dp = 0 writes its own slab (no all-gather) and
+rank 0 the rest.  A resume on a mesh reads only the rank's rows, from a
+checkpoint of either form written at any mesh shape or on one device.
 """
 
 from __future__ import annotations
@@ -202,10 +208,9 @@ def rol_active(cfg: ReconConfig) -> bool:
 
 
 def _check_slice(cfg: ReconConfig, mesh=None):
-    """Raise for configurations outside the ported paths (orbax
-    checkpoints) and for a mesh that does not match ``cfg.parallel``."""
+    """Raise for configurations outside the ported paths and for a mesh
+    that does not match ``cfg.parallel``."""
     geo, t, p = cfg.geometry, cfg.train, cfg.parallel
-    todo = []
     if t.update_scheme not in ('immediate', 'per angle'):
         raise ValueError("update_scheme must be 'immediate' or 'per angle', "
                          f'got {t.update_scheme!r}')
@@ -232,11 +237,6 @@ def _check_slice(cfg: ReconConfig, mesh=None):
         raise ValueError(f'device meshes: the object y extent '
                          f'{geo.obj_size[0]} does not split into '
                          f'object_axis={p.object_axis} slabs')
-    if cfg.io.use_orbax:
-        todo.append("orbax checkpoints (a JAX library's format; the port "
-                    'writes the npz form)')
-    if todo:
-        raise NotImplementedError('not ported yet: ' + '; '.join(todo))
 
 
 def _band_prebin(cfg) -> bool:
@@ -689,6 +689,7 @@ class Reconstructor:
         self._stdout_f = None
         self._start_epoch = 0
         self._start_batch = 0
+        self._restored = False
         restored_obj_state = None
         if output_folder is not None:
             if self._writer:
@@ -842,17 +843,24 @@ class Reconstructor:
         the NEXT (epoch, batch) to run, and the shrink-wrapped support mask
         where the checkpoint holds one.  The object (and, under offload,
         its state) stays on the host for :meth:`_place_object`, which
-        splits it for this run's configuration.  Returns the object's
-        restored state, or None."""
+        splits it for this run's configuration.  Under a mesh with an
+        object split only the rank's rows are read (and kept).  Returns
+        the object's restored state, or None."""
+        rows = None
+        if self.mesh is not None and self.mesh.n_op > 1:
+            st, sz = self.mesh.slab(self.cfg.geometry.obj_size[0])
+            rows = (st, st + sz)
         ck = convert.load_checkpoint(folder, device=self.device,
                                      host_obj=True,
-                                     host_obj_state=self._off_state)
+                                     host_obj_state=self._off_state,
+                                     rows=rows)
         if ck is None:
             if self.cfg.io.force_to_use_checkpoint:
                 raise FileNotFoundError(
                     'force_to_use_checkpoint set but no checkpoint found')
             return None
         self.params = ck['params']
+        self._restored = True
         # A GD leaf has no state and so no entry in the file.
         self.opt_state = {k: ck['opt_state'].get(k, v)
                           for k, v in self.opt_state.items()}
@@ -862,21 +870,20 @@ class Reconstructor:
         mask = ck['extra'].get('finite_support_mask')
         if mask is not None and self.finite_support_mask is not None:
             self.finite_support_mask = torch.as_tensor(
-                self._own_rows(np.asarray(mask, np.float32)).copy(),
-                device=self.device)
+                np.asarray(mask, np.float32).copy(), device=self.device)
         return ck['opt_state'].get('obj')
 
     def _place_object(self, restored_state=None):
         """Put the object and its optimizer state (``restored_state``, or a
         fresh one) where the run keeps them: on the device, or in host
         blocks (page-locked on a card), in y slabs where offloaded slab by
-        slab.  An offloaded state is never made on the device."""
+        slab.  An offloaded state is never made on the device.  A restored
+        object and state are already this rank's rows."""
         t = self.cfg.train
         arena = self._arena
-        obj = self._own_rows(self.params['obj'])        # on the host
-        if restored_state is not None and self.mesh is not None:
-            restored_state = {n: self._own_rows(a) if a.dim() else a
-                              for n, a in restored_state.items()}
+        obj = self.params['obj']                        # on the host
+        if not self._restored:
+            obj = self._own_rows(obj)
         if self._obj_off_mesh:
             self._obj_host = arena.copy_of(obj)
             self.params['obj'] = self._obj_host
@@ -1994,16 +2001,42 @@ class Reconstructor:
              if k != 'obj'}, list(self.specs), inter, i_epoch, i_batch)
 
     def save_checkpoint(self, i_epoch: int, i_batch: int) -> str:
-        """Write ``checkpoint/checkpoint.npz`` naming ``(i_epoch,
-        i_batch)``, the NEXT batch to run: the parameters, the optimizer
-        state, the step counts and, under shrink-wrap, the support mask;
-        offloaded y slabs as slabs (``params/obj/s00``, ``state/obj/m/s00``,
-        ..., the JAX package's keys), once their copies down are done.
-        Each one moves the whole state to the host; once checkpoints have
-        taken more than half of the run's wall time (and a minute), a
-        warning says so."""
+        """Write a checkpoint naming ``(i_epoch, i_batch)``, the NEXT batch
+        to run: the parameters, the optimizer state, the step counts and,
+        under shrink-wrap, the support mask, once the offloaded slabs'
+        copies down are done; every rank of a mesh calls it.  The npz form
+        (``checkpoint/checkpoint.npz``) holds offloaded y slabs as slabs
+        (``params/obj/s00``, ``state/obj/m/s00``, ..., the JAX package's
+        keys) and, under a mesh, the object gathered from the ranks'
+        slabs, written by rank 0.  Under ``use_orbax`` the sharded form
+        (``checkpoint/dcp/``, :meth:`_save_sharded`) gathers nothing.
+        Once checkpoints have taken more than half of the run's wall time
+        (and a minute), a warning says so."""
         t0 = time.time()
         self._mover.sync()
+        path = os.path.join(self.output_folder, 'checkpoint')
+        if self.cfg.io.use_orbax:
+            path = self._save_sharded(path, i_epoch, i_batch)
+        else:
+            path = self._save_npz(path, i_epoch, i_batch)
+        self._ckpt_seconds += time.time() - t0
+        self._ckpt_count += 1
+        if (not self._ckpt_warned and self._ckpt_seconds > 60
+                and self._ckpt_seconds > 0.5 * (time.time() - self._t_start)):
+            warnings.warn(
+                'checkpointing has taken more than half the wall time '
+                f'({self._ckpt_seconds:.0f} s): raise n_batch_per_checkpoint '
+                'or set store_checkpoint=False (each checkpoint moves the '
+                'parameters and the optimizer state to the host)')
+            self._ckpt_warned = True
+        return path
+
+    def _ckpt_extra(self):
+        """The counters every checkpoint holds under ``extra``."""
+        return {'i_opt_batch': np.asarray(self.i_opt_batch),
+                'global_batch': np.asarray(self.global_batch)}
+
+    def _save_npz(self, path: str, i_epoch: int, i_batch: int) -> str:
         p_all, st_all = self.params, self.opt_state
         mask = self.finite_support_mask
         if self.mesh is not None and self.mesh.n_op > 1:
@@ -2017,27 +2050,60 @@ class Reconstructor:
                         else a) for n, a in st_all['obj'].items()}}
             if mask is not None:
                 mask = self._gather_rows(mask)
-        path = os.path.join(self.output_folder, 'checkpoint')
-        if self._writer:
-            params, state = convert.params_to_numpy(p_all, st_all)
-            extra = {'i_opt_batch': np.asarray(self.i_opt_batch),
-                     'global_batch': np.asarray(self.global_batch)}
-            if (mask is not None
+        if not self._writer:
+            return path
+        params, state = convert.params_to_numpy(p_all, st_all)
+        extra = self._ckpt_extra()
+        if mask is not None and self.cfg.train.shrink_cycle is not None:
+            extra['finite_support_mask'] = mask.cpu().numpy()
+        out = ckpt_lib.save_checkpoint(path, params, state, i_epoch,
+                                       i_batch, extra=extra)
+        # A sharded form left by an earlier run with use_orbax is read
+        # first on restore: it would shadow this newer checkpoint.
+        ckpt_lib.drop_sharded(path)
+        return out
+
+    def _save_sharded(self, path: str, i_epoch: int, i_batch: int) -> str:
+        """The sharded form: each rank of dp = 0 writes its rows of the
+        object, of its object-shaped state and of the support mask in
+        ``offload_slabs`` y slabs (an offloaded object's own slabs, from
+        their host blocks; 'dp' holds replicas, of which one is written),
+        rank 0 the other leaves, the counters and the slab table; nothing
+        is gathered."""
+        mesh = self.mesh
+        n_op, op = (1, 0) if mesh is None else (mesh.n_op, mesh.op)
+        table, mine = off_lib.checkpoint_slabs(
+            self.cfg.geometry.obj_size[0], n_op, op,
+            self.cfg.parallel.offload_slabs)
+        obj = self.params['obj']
+        own = None if isinstance(obj, dict) else tuple(obj.shape)
+
+        def slabbed(k, a):
+            return k == 'obj' and (isinstance(a, dict)
+                                   or tuple(a.shape) == own)
+        items = {}
+        if mesh is None or mesh.dp == 0:
+            leaves = {'params/obj': obj}
+            leaves.update({f'state/obj/{n}': a for n, a in
+                           self.opt_state.get('obj', {}).items()
+                           if slabbed('obj', a)})
+            if (self.finite_support_mask is not None
                     and self.cfg.train.shrink_cycle is not None):
-                extra['finite_support_mask'] = mask.cpu().numpy()
-            path = ckpt_lib.save_checkpoint(path, params, state, i_epoch,
-                                            i_batch, extra=extra)
-        self._ckpt_seconds += time.time() - t0
-        self._ckpt_count += 1
-        if (not self._ckpt_warned and self._ckpt_seconds > 60
-                and self._ckpt_seconds > 0.5 * (time.time() - self._t_start)):
-            warnings.warn(
-                'checkpointing has taken more than half the wall time '
-                f'({self._ckpt_seconds:.0f} s): raise n_batch_per_checkpoint '
-                'or set store_checkpoint=False (each checkpoint moves the '
-                'parameters and the optimizer state to the host)')
-            self._ckpt_warned = True
-        return path
+                leaves['extra/finite_support_mask'] = self.finite_support_mask
+            for name, v in leaves.items():
+                for key, a in off_lib.slabs_of(v, mine).items():
+                    items[f'{name}/{key}'] = a
+        extra = None
+        if self._writer:
+            items.update({f'params/{k}': v for k, v in self.params.items()
+                          if k != 'obj'})
+            items.update({f'state/{k}/{n}': a
+                          for k, st in self.opt_state.items()
+                          for n, a in st.items() if not slabbed(k, a)})
+            extra = {**self._ckpt_extra(), 'obj_slab_rows': table}
+        return ckpt_lib.save_sharded(path, items, i_epoch, i_batch,
+                                     extra=extra,
+                                     comm=None if mesh is None else mesh.comm)
 
     def results(self) -> Dict[str, Any]:
         """The parameters as numpy arrays (the object whole; under a mesh

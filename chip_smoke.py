@@ -213,6 +213,23 @@ Phases (any failure raises and exits nonzero):
      (with ``tests/test_tools.py``'s assertions), the multi-distance CTF
      retrieval, the affine warp and the registration, and
      ``profiler_trace`` recording the card's kernels.
+  14. sharded checkpoints (``use_orbax=True``, ``torch.distributed.
+     checkpoint``): the write rate of the output folder's disk (1 GB,
+     fsync), then
+  14a. the per-angle flagship (4 angles, f32) with a checkpoint after each
+     angle, in the sharded and in the npz form: seconds a checkpoint,
+     bytes written, K1f, K1b and K2 launched; a resume from the sharded
+     checkpoint after angle 2, its row losses and object within 1e-6 of
+     the uninterrupted run's;
+  14b. 12a's flagship at (2, 2) (gloo ranks on the card): each rank's
+     bytes written and all-gather bytes during the sharded checkpoint
+     (none) beside the npz form's, K1 and K6 launched; the checkpoint
+     restored onto (1, 2) and onto one rank, each resumed epoch within
+     1e-5 of the uninterrupted (2, 2) run's;
+  14c. a 512^3 object and its moments on the host: seconds a sharded
+     checkpoint beside bytes / the disk's rate, the host's RSS before and
+     during the write (growth under half the object), a resume equal to
+     the uninterrupted run (1e-6).
 Phase 3 also holds K1 under ``beta = kappa delta`` and in -z (the
 branches of ``multislice_propagate`` that phase 8 adds), K6 on the rows
 of a per-angle chunk's z-major gradient [32, 2, 529, 72, 72] read in
@@ -5432,6 +5449,408 @@ def slice18_runs(work, kernels):
     return res
 
 
+# -- phase 14 ----------------------------------------------------------------
+
+#: Phase 14c's object edge: 512^3 keeps 1.07 GB of object and 2.15 GB of
+#: Adam moments in host blocks, written to disk slab by slab.
+P14C_N = 512
+
+
+def disk_write_rate(folder, gb=1.0):
+    """The write rate of ``folder``'s disk, GB/s: ``gb`` GB of random bytes
+    written in 16 blocks, then ``os.fsync``, timed to the fsync's end (the
+    file is removed)."""
+    block = os.urandom(int(gb * 1e9) // 16)
+    path = Path(folder) / 'disk_rate.bin'
+    t0 = time.perf_counter()
+    with open(path, 'wb') as f:
+        for _ in range(16):
+            f.write(block)
+        f.flush()
+        os.fsync(f.fileno())
+    s = time.perf_counter() - t0
+    path.unlink()
+    return 16 * len(block) / s / 1e9
+
+
+def dir_bytes(path):
+    """The bytes of the files under ``path`` (a file's own size)."""
+    path = Path(path)
+    if path.is_file():
+        return path.stat().st_size
+    return sum(p.stat().st_size for p in path.rglob('*') if p.is_file())
+
+
+def timed_saves(rec, on_save=None):
+    """Time each ``rec.save_checkpoint`` call (host clock; the write ends
+    with the data on the host and on disk); ``on_save(n)`` runs after the
+    ``n``-th.  Returns the list the seconds go into."""
+    seconds = []
+    save = rec.save_checkpoint
+
+    def timed(i_epoch, i_batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(i_epoch, i_batch)
+        seconds.append(time.perf_counter() - t0)
+        if on_save is not None:
+            on_save(len(seconds))
+        return path
+    rec.save_checkpoint = timed
+    return seconds
+
+
+def run_14a(work):
+    """Phase 14a: the per-angle flagship (4 angles, f32) with a checkpoint
+    at the end of each angle, in the sharded form and in the npz form, one
+    epoch each: seconds a checkpoint and bytes written; then a resume from
+    the sharded checkpoint after angle 2 (copied aside when it was
+    written), whose row losses and object equal the uninterrupted run's
+    (1e-6 relative); K1f, K1b and K2 launched once an angle."""
+    import shutil
+    import adorym_tpu_torch as pt
+    f = FLAGSHIP
+    t0 = time.perf_counter()
+    import torch.distributed.checkpoint  # noqa: F401
+    log(f'14a: import torch.distributed.checkpoint '
+        f'{time.perf_counter() - t0:.3f} s (outside the checkpoints)')
+    data, pos, theta = flagship_data()
+    obj0 = np.zeros((f['n_obj'],) * 3 + (2,), np.float32)
+    base = flagship_config(False, 'delta_beta')
+    kw = dict(data=data, probe_pos=pos, theta_ls=theta, obj_init=obj0)
+    res = {}
+    snap = work / '14a_after_angle_2'
+    for form in ('sharded', 'npz'):
+        out = work / f'14a_{form}'
+        cfg = base.replace(io=pt.IOConfig(
+            use_orbax=form == 'sharded', n_batch_per_checkpoint=f['mb']))
+        rec = pt.Reconstructor(cfg, output_folder=str(out), **kw)
+
+        def keep(n, out=out, form=form):
+            if form == 'sharded' and n == 2:
+                shutil.copytree(out / 'checkpoint', snap / 'checkpoint')
+        seconds = timed_saves(rec, keep)
+        reset_counts()
+        rows = []
+        t0 = time.perf_counter()
+        loss = rec.run_epoch(0, callback=lambda e, b, l: rows.append(l))
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        ck = out / 'checkpoint'
+        nbytes = dir_bytes(ck / 'dcp' if form == 'sharded'
+                           else ck / 'checkpoint.npz')
+        res[form] = dict(seconds=seconds, bytes=nbytes, loss=loss,
+                         wall=wall, rows=rows, obj=rec.obj,
+                         launches={k: launches[k] for k in
+                                   ('K1_FWD', 'K1_BWD', 'K2', 'K6')})
+        log(f"14a per-angle flagship f32, {form} checkpoints after each "
+            f"angle: {[round(s, 4) for s in seconds]} s (median "
+            f"{statistics.median(seconds):.4f} s), {nbytes / 1e9:.4f} GB a "
+            f"checkpoint, epoch {wall:.3f} s, loss {loss}, launches "
+            f"{res[form]['launches']}; {CARD}")
+        want = {'K1_FWD': f['n_theta'], 'K1_BWD': f['n_theta'],
+                'K2': f['n_theta'], 'K6': 0}
+        if res[form]['launches'] != want or len(seconds) != f['n_theta']:
+            raise AssertionError(f'14a {form}: launches '
+                                 f"{res[form]['launches']}, {len(seconds)} "
+                                 'checkpoints')
+        del rec
+        torch.cuda.empty_cache()
+    if res['sharded']['rows'] != res['npz']['rows']:
+        log('14a: the two forms\' runs differ in their row losses (the '
+            'card\'s sums in other orders)')
+    rec = pt.Reconstructor(base.replace(io=pt.IOConfig(
+        use_orbax=True, n_batch_per_checkpoint=10_000)),
+        output_folder=str(snap), **kw)
+    skip = 2 * len(pos) // f['mb']
+    if (rec._start_epoch, rec._start_batch) != (0, skip):
+        raise AssertionError(f'14a: resumed at ({rec._start_epoch}, '
+                             f'{rec._start_batch}), not (0, {skip})')
+    rows = []
+    rec.run_epoch(0, callback=lambda e, b, l: rows.append(l))
+    want = np.asarray(res['sharded']['rows'][skip:])
+    rel = float(np.max(np.abs(np.asarray(rows) - want) / np.abs(want)))
+    ref = res['sharded']['obj']
+    err = float(np.max(np.abs(rec.obj - ref)) / np.max(np.abs(ref)))
+    res['resume'] = dict(rel=rel, obj_err=err, n_rows=len(rows))
+    log(f'14a resume from the checkpoint after angle 2: {len(rows)} row '
+        f'losses against the uninterrupted run, max rel {rel:.3e}; object '
+        f'{err:.3e} of its largest value (tol 1e-6)')
+    if len(rows) != len(want) or rel > 1e-6 or err > 1e-6:
+        raise AssertionError('14a: the resume differs from the '
+                             'uninterrupted run')
+    del rec
+    for v in res.values():
+        v.pop('obj', None)
+    torch.cuda.empty_cache()
+    return res
+
+
+def p14_config(dp, op):
+    """12a's per-angle flagship (f32, 2 angles) on a ``dp x op`` mesh (one
+    rank at (1, 1)), checkpointing in the sharded form."""
+    import dataclasses
+    import adorym_tpu_torch as pt
+    cfg = p12_config('delta_beta', dp, op)
+    return dataclasses.replace(cfg, io=pt.IOConfig(
+        use_orbax=True, n_batch_per_checkpoint=10_000))
+
+
+def p14_write_rank(folder):
+    """14b on one rank of (2, 2): one epoch, then the sharded checkpoint
+    and the npz form of the same state, each timed with the collectives
+    it issued; then the uninterrupted second epoch."""
+    import torch.distributed.checkpoint  # noqa: F401  (not in the timing)
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.parallel.mesh import make_mesh
+    cfg = p14_config(2, 2)
+    mesh = make_mesh(cfg.parallel, device='cuda:0')
+    rec = pt.Reconstructor(cfg, mesh=mesh, output_folder=folder,
+                           **p12_inputs(2))
+    reset_counts()
+    rec.run_epoch(0)
+    launches = launch_counts()
+    out = {'rank': mesh.rank, 'coord': (mesh.dp, mesh.op),
+           'launches': {k: launches[k] for k in ('K1_FWD', 'K1_BWD', 'K6',
+                                                 'K2')}}
+    # The npz form goes to a folder of its own: an npz checkpoint removes
+    # the sharded form beside it, which the restores below read.
+    ck = os.path.join(folder, 'checkpoint')
+    ck_npz = os.path.join(folder, 'npz_form')
+    for form, save in (('sharded', lambda: rec.save_checkpoint(1, 0)),
+                       ('npz', lambda: rec._save_npz(ck_npz, 1, 0))):
+        torch.cuda.synchronize()
+        mesh.comm.reset()
+        t0 = time.perf_counter()
+        save()
+        out[form] = {'seconds': time.perf_counter() - t0,
+                     'comm': mesh.comm.summary()}
+    out['sharded']['bytes'] = sum(
+        p.stat().st_size for p in Path(ck, 'dcp').glob(
+            f'__{mesh.rank}_*.distcp'))
+    out['npz']['bytes'] = (os.path.getsize(os.path.join(ck_npz,
+                                                        'checkpoint.npz'))
+                           if mesh.rank == 0 else 0)
+    rows = []
+    rec.run_epoch(1, callback=lambda e, b, l: rows.append(l))
+    out['rows'] = rows
+    return out
+
+
+def p14_resume_rank(folder, dp, op):
+    """A ``dp x op`` rank of 14b's restores from ``folder``'s (2, 2)
+    checkpoint: the second epoch's row losses and the rows this rank
+    holds."""
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.parallel.mesh import make_mesh
+    cfg = p14_config(dp, op)
+    mesh = make_mesh(cfg.parallel, device='cuda:0')
+    rec = pt.Reconstructor(cfg, mesh=mesh, output_folder=folder,
+                           **p12_inputs(2))
+    start = rec._start_epoch
+    rows = []
+    rec.run_epoch(1, callback=lambda e, b, l: rows.append(l))
+    return {'rank': mesh.rank, 'start': start, 'rows': rows,
+            'slab': tuple(rec.params['obj'].shape)}
+
+
+def p14_one_rank(folder):
+    """14b's restore on one rank (no process group) from ``folder``'s
+    (2, 2) checkpoint: the second epoch's row losses."""
+    import adorym_tpu_torch as pt
+    rec = pt.Reconstructor(p14_config(1, 1), output_folder=folder,
+                           **p12_inputs(2))
+    start = rec._start_epoch
+    rows = []
+    rec.run_epoch(1, callback=lambda e, b, l: rows.append(l))
+    del rec
+    torch.cuda.empty_cache()
+    return {'start': start, 'rows': rows}
+
+
+def p14_rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f'14b: {got.shape} row losses against '
+                             f'{want.shape}')
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def run_14b(work):
+    """Phase 14b: 12a's per-angle flagship at (2, 2) as gloo ranks on the
+    card with ``use_orbax=True``: each rank's bytes written and the
+    all-gather bytes during the sharded checkpoint (none) beside the npz
+    form's; the checkpoint restored onto (1, 2) and onto one rank, each
+    resumed epoch's row losses within 1e-5 of the uninterrupted (2, 2)
+    run's; K1 and K6 launched.  Returns the (2, 2) ranks' results."""
+    from adorym_tpu_torch.parallel.launch import RankPool
+    folder = str(work / '14b')
+    with RankPool(4, 'cuda:0', threads=2) as pool4:
+        out = pool4.run(p14_write_rank, folder)
+    for o in out:
+        gathered = {form: sum(v['bytes'] for k, v in o[form]['comm'].items()
+                              if k.startswith('all_gather'))
+                    for form in ('sharded', 'npz')}
+        o['all_gather_bytes'] = gathered
+        log(f"14b rank {o['rank']} {o['coord']}: sharded checkpoint "
+            f"{o['sharded']['seconds']:.4f} s, {o['sharded']['bytes'] / 1e6:.2f}"
+            f" MB written, all-gather {gathered['sharded']} bytes, "
+            f"collectives {o['sharded']['comm']}; npz form "
+            f"{o['npz']['seconds']:.4f} s, {o['npz']['bytes'] / 1e6:.2f} MB "
+            f"written, all-gather {gathered['npz'] / 1e6:.2f} MB; launches "
+            f"{o['launches']} (wiring on one shared card, not scaling); "
+            f'{CARD}')
+        if gathered['sharded'] != 0 or gathered['npz'] == 0:
+            raise AssertionError(f'14b: all-gather bytes {gathered}')
+        if o['launches']['K1_FWD'] == 0 or o['launches']['K6'] == 0:
+            raise AssertionError(f"14b: launches {o['launches']}")
+        dp0 = o['coord'][0] == 0
+        if (o['sharded']['bytes'] > 0) != dp0:
+            raise AssertionError(f'14b: rank {o["rank"]} wrote '
+                                 f"{o['sharded']['bytes']} bytes")
+    res = {'write': out}
+    with RankPool(2, 'cuda:0', threads=2) as pool2:
+        got = pool2.run(p14_resume_rank, folder, 1, 2)
+    one = p14_one_rank(folder)
+    res['(1, 2)'] = p14_rel(got[0]['rows'], out[0]['rows'])
+    res['one rank'] = p14_rel(one['rows'], out[0]['rows'])
+    log(f"14b restores of the (2, 2) checkpoint, their second epoch against "
+        f"the uninterrupted (2, 2) run's: onto (1, 2) (slabs "
+        f"{[g['slab'] for g in got]}, start epoch {got[0]['start']}) max rel "
+        f"{res['(1, 2)']:.3e}; onto one rank (start epoch {one['start']}) "
+        f"{res['one rank']:.3e} (tol 1e-5)")
+    if (got[0]['start'] != 1 or one['start'] != 1
+            or max(res['(1, 2)'], res['one rank']) > 1e-5):
+        raise AssertionError('14b: a restore differs from its uninterrupted '
+                             'run')
+    return res
+
+
+def run_14c(work, rate, n=P14C_N, s=24, k=19):
+    """Phase 14c: a 512^3 object with its Adam moments on the host (8
+    slabs), one angle of 19x19 spots at stride 24 (minibatch 19), with
+    ``use_orbax=True``: two epochs, then a timed sharded checkpoint with
+    the host's RSS sampled during the write (no whole-array copy: its
+    growth stays under one object), beside bytes / the disk's rate; then
+    the uninterrupted third epoch against a resume from the checkpoint
+    (loss and object within 1e-6 relative)."""
+    import threading
+    import adorym_tpu_torch as pt
+    from adorym_tpu_torch.utils.profiling import host_memory_rss_mb
+    f = FLAGSHIP
+    xs = 8 + s * np.arange(k)
+    yy, xx = np.meshgrid(xs, xs, indexing='ij')
+    pos = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float64)
+    data = np.random.default_rng(0).random((1, len(pos), f['n_probe'],
+                                            f['n_probe']), dtype=np.float32)
+    cfg = table_config(n=n, minibatch_size=k).replace(
+        parallel=pt.ParallelConfig(offload_optimizer_state=True,
+                                   offload_slabs=8, offload_object=True),
+        io=pt.IOConfig(use_orbax=True, n_batch_per_checkpoint=10_000))
+    kw = dict(data=data, probe_pos=pos, theta_ls=np.zeros(1),
+              probe_init=probe_modes(f['n_probe'], 1))
+    folder = work / '14c'
+    rec = pt.Reconstructor(cfg, output_folder=str(folder),
+                           obj_init=np.zeros((n, n, n, 2), np.float32), **kw)
+    if not rec._obj_offloaded:
+        raise AssertionError('14c: object offload did not engage')
+    reset_counts()
+    losses = [rec.run_epoch(ep) for ep in (0, 1)]
+    launches = launch_counts()
+    rss = []
+    done = threading.Event()
+
+    def sample():
+        while not done.is_set():
+            rss.append(host_memory_rss_mb())
+            time.sleep(0.005)
+    rss0 = host_memory_rss_mb()
+    th = threading.Thread(target=sample)
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        rec.save_checkpoint(2, 0)
+    finally:
+        write_s = time.perf_counter() - t0
+        done.set()
+        th.join()
+    nbytes = dir_bytes(folder / 'checkpoint' / 'dcp')
+    obj_bytes = n ** 3 * 8
+    growth = (max(rss) - rss0) * 2 ** 20 / 1e9
+    loss_u = rec.run_epoch(2)
+    obj_u = rec.obj
+    del rec
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = pt.Reconstructor(cfg, output_folder=str(folder),
+                           obj_init=np.zeros((n, n, n, 2), np.float32), **kw)
+    start = rec._start_epoch
+    loss_r = rec.run_epoch(2)
+    rel = abs(loss_r - loss_u) / abs(loss_u)
+    err = float(np.max(np.abs(rec.obj - obj_u)) / np.max(np.abs(obj_u)))
+    res = dict(seconds=write_s, bytes=nbytes, bound_s=nbytes / (rate * 1e9),
+               rss_before_gb=rss0 * 2 ** 20 / 1e9,
+               rss_peak_gb=max(rss) * 2 ** 20 / 1e9, rss_growth_gb=growth,
+               samples=len(rss), losses=losses + [loss_u], rel=rel,
+               obj_err=err, start=start,
+               launches={k_: launches[k_] for k_ in ('K1_FWD', 'K1_BWD',
+                                                     'K2', 'K6')})
+    log(f"14c {n}^3 object and moments on the host ({obj_bytes / 1e9:.2f} + "
+        f"{2 * obj_bytes / 1e9:.2f} GB), one angle of {k}x{k} spots: sharded "
+        f"checkpoint {write_s:.3f} s for {nbytes / 1e9:.3f} GB, against "
+        f"bytes / disk rate {res['bound_s']:.3f} s ({rate:.3f} GB/s); host "
+        f"RSS {res['rss_before_gb']:.2f} GB before the write, peak "
+        f"{res['rss_peak_gb']:.2f} GB during it ({len(rss)} samples, growth "
+        f"{growth:.3f} GB); losses {res['losses']}; resumed at epoch {start}"
+        f": loss {loss_r} (rel {rel:.3e}), object {err:.3e} of its largest "
+        f"value (tol 1e-6); launches {res['launches']}; {CARD}")
+    if start != 2 or rel > 1e-6 or err > 1e-6:
+        raise AssertionError('14c: the resume differs')
+    if growth > 0.5 * obj_bytes / 1e9:
+        raise AssertionError(f'14c: the write grew RSS by {growth:.2f} GB')
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def slice19_runs(work, kernels):
+    """Phase 14: the output folder's disk rate, then 14a-14c.  The K1 and
+    K2 records of the per-angle f32 path take 14a's launches, and the K1
+    and K6 records of 12a's mesh shapes take 14b's (2, 2) rank 0's, as
+    ``phase14_launches``."""
+    t_phase = time.perf_counter()
+    rate = disk_write_rate(work)
+    log(f'14: disk write rate of the output folder {rate:.3f} GB/s (1 GB, '
+        f'fsync; {CARD})')
+    res = {'disk_gb_s': rate, '14a': run_14a(work)}
+    stamp('phase 14a')
+    res['14b'] = run_14b(work)
+    stamp('phase 14b')
+    res['14c'] = run_14c(work, rate)
+    stamp('phase 14c')
+    a = res['14a']['sharded']['launches']
+    b = res['14b']['write'][0]['launches']
+    for k in kernels:
+        if k['path'] == 'delta_beta' and k['name'].endswith('(float32)'):
+            if k['counter'] in a:
+                k['phase14_launches'] = a[k['counter']]
+        elif k['path'] == 'mesh12a' and k['counter'] in b:
+            k['phase14_launches'] = b[k['counter']]
+    sh, npz = res['14a']['sharded'], res['14a']['npz']
+    log(f"phase 14: 14a {statistics.median(sh['seconds']):.4f} s a sharded "
+        f"checkpoint, {statistics.median(npz['seconds']):.4f} s an npz one "
+        f"({sh['bytes'] / 1e9:.4f} / {npz['bytes'] / 1e9:.4f} GB); 14b "
+        f"all-gather bytes {res['14b']['write'][0]['all_gather_bytes']}; "
+        f"14c {res['14c']['seconds']:.3f} s (bytes / disk rate "
+        f"{res['14c']['bound_s']:.3f} s), RSS growth "
+        f"{res['14c']['rss_growth_gb']:.3f} GB; "
+        f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
+    stamp('phase 14')
+    return res
+
+
 def child_processes():
     """The command lines of this process's live children."""
     me, out = str(os.getpid()), []
@@ -5447,6 +5866,21 @@ def child_processes():
         fields = stat.rsplit(')', 1)[-1].split()
         if fields[1] == me and fields[0] != 'Z':
             out.append(cmd[:120])
+    return out
+
+
+def pools_stopped(label, phase, *args):
+    """``phase(*args)``, a phase that opens ``RankPool``s; then the fork
+    server and the resource tracker, which outlive every pool, stopped,
+    and a failure if a child process of this script is still alive."""
+    from adorym_tpu_torch.parallel import launch
+    try:
+        out = phase(*args)
+    finally:
+        launch.shutdown()
+    left = child_processes()
+    if left:
+        raise AssertionError(f'{label} left processes running: {left}')
     return out
 
 
@@ -5621,16 +6055,9 @@ def main():
         slice15_runs(work)
         stamp('phase 10')
         slice16_runs(work, kernels, res14['9e'])
-        try:
-            slice17_runs(work, kernels)
-        finally:
-            # Phase 12's fork server and resource tracker outlive its pools.
-            from adorym_tpu_torch.parallel import launch
-            launch.shutdown()
-        left = child_processes()
-        if left:
-            raise AssertionError(f'phase 12 left processes running: {left}')
+        pools_stopped('phase 12', slice17_runs, work, kernels)
         slice18_runs(work, kernels)
+        pools_stopped('phase 14', slice19_runs, work, kernels)
     angle_rate, angle_peak = run_per_angle_regularized()
     stamp('phase 6c')
     log(f"phase 6: immediate with checkpoints "

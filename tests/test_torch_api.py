@@ -283,13 +283,10 @@ def test_adhesin_configuration_matches_jax(tmp_path):
     (dict(distribution_mode='shared_file', parallel_data_axis=2),
      RuntimeError, 'process group'),
     (dict(parallel_object_axis=2), RuntimeError, 'process group'),
-    (dict(use_orbax=True), NotImplementedError, 'orbax'),
     (dict(optimizer='curveball', parallel_data_axis=2), RuntimeError,
-     'process group'),
-    (dict(optimizer='cg', distribution_mode='shared_file', use_orbax=True),
-     NotImplementedError, 'orbax')])
+     'process group')])
 def test_unported_branches_raise(data_file, over, exc, match):
-    """What the port leaves out (A.5's models by name and orbax) raises
+    """What the port leaves out (A.5's models by name) raises
     NotImplementedError naming it, the second-order optimizers included;
     a mesh (``parallel_*_axis``, with ``distribution_mode='shared_file'``
     too) outside a process group raises RuntimeError (no silent
@@ -300,6 +297,24 @@ def test_unported_branches_raise(data_file, over, exc, match):
                                     n_epochs=1, device='cpu', **over)
     with pytest.raises(exc, match=match):
         pt.reconstruct_ptychography(**params)
+
+
+@pytest.mark.parametrize('over', [
+    dict(use_orbax=True),
+    dict(optimizer='cg', distribution_mode='shared_file', use_orbax=True)],
+    ids=['orbax', 'orbax_cg_shared_file'])
+def test_orbax_runs_and_writes_sharded_checkpoint(data_file, tmp_path, over):
+    """``use_orbax=True`` runs through ``reconstruct_ptychography``, with a
+    second-order optimizer and offloaded state too, and writes the sharded
+    checkpoint form (``checkpoint/dcp/``) instead of the npz form."""
+    params = reference_style_params(data_file,
+                                    output_folder=str(tmp_path / 'out'),
+                                    n_epochs=1, device='cpu', **over)
+    res = pt.reconstruct_ptychography(**params)
+    assert np.all(np.isfinite(res['loss_history']))
+    ck = tmp_path / 'out' / 'checkpoint'
+    assert (ck / 'dcp' / '.metadata').is_file()
+    assert not (ck / 'checkpoint.npz').exists()
 
 
 def test_unknown_kwarg_warns_and_default_device_is_cuda(data_file,

@@ -379,13 +379,11 @@ def test_default_train_config_runs_the_band_step():
     (dict(train=dict(optimizer='cg'),
           parallel=dict(offload_optimizer_state=True, offload_object=True)),
      ValueError, 'a first-order object optimizer'),
-    (dict(io=dict(use_orbax=True)), NotImplementedError, 'orbax'),
     (dict(parallel=dict(offload_object=True)), ValueError,
      "update_scheme='per angle' with rotate_out_of_loop")])
 def test_unported_immediate_configs_raise(kw, exc, match):
-    """What the immediate scheme leaves out raises, under the
-    second-order optimizers too: orbax, naming its ROADMAP item; a config
-    that asks for a mesh (with offload too) without one (no process
+    """What the immediate scheme refuses, under the second-order
+    optimizers too: a config that asks for a mesh (with offload too) without one (no process
     group, no ``mesh=``) raises ValueError rather than run on one device;
     object offload, which needs the per-angle path, raises the JAX
     package's ``ValueError``."""
@@ -400,6 +398,23 @@ def test_unported_immediate_configs_raise(kw, exc, match):
     with pytest.raises(exc, match=match):
         pt.Reconstructor(cfg, data=args[5], probe_pos=args[3],
                          theta_ls=args[4], obj_init=args[1], device='cpu')
+
+
+@pytest.mark.parametrize('train', [{}], ids=['orbax'])
+def test_orbax_immediate_runs_and_writes_sharded_checkpoint(tmp_path, train):
+    """``use_orbax=True`` on the immediate scheme: the band step runs and
+    its checkpoint is the sharded form (``checkpoint/dcp/``)."""
+    args = _setup()
+    cfg = pt.ReconConfig(geometry=pt.Geometry(**args[0]),
+                         train=pt.TrainConfig(minibatch_size=3, **train),
+                         io=pt.IOConfig(use_orbax=True))
+    rec = pt.Reconstructor(cfg, data=args[5], probe_pos=args[3],
+                           theta_ls=args[4], obj_init=args[1], device='cpu',
+                           output_folder=str(tmp_path))
+    assert rec._band and np.isfinite(rec.run_epoch(0))
+    rec.save_checkpoint(1, 0)
+    assert (tmp_path / 'checkpoint' / 'dcp' / '.metadata').is_file()
+    assert not (tmp_path / 'checkpoint' / 'checkpoint.npz').exists()
 
 
 def test_convert_carries_immediate_state_across():

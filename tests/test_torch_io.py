@@ -385,15 +385,27 @@ def test_checkpoint_round_trip_across_packages(tmp_path, writer):
                                   state['obj']['m'].astype(np.float32))
 
 
-def test_checkpoint_orbax_raises(tmp_path):
+@pytest.mark.parametrize('io', [dict(use_orbax=True)], ids=['orbax'])
+def test_checkpoint_orbax_writes_sharded_form(tmp_path, io):
+    """A Reconstructor under ``use_orbax=True`` builds, runs and writes the
+    sharded form (``checkpoint/dcp/``), which it resumes from."""
     cfg = pt.ReconConfig(geometry=pt.Geometry(obj_size=(4, 4, 4),
                                               probe_size=(2, 2)),
-                         io=pt.IOConfig(use_orbax=True))
-    with pytest.raises(NotImplementedError, match='orbax'):
-        pt.Reconstructor(cfg, data=np.zeros((1, 1, 2, 2)),
-                         probe_pos=np.zeros((1, 2)), device='cpu')
+                         io=pt.IOConfig(**io))
+    kw = dict(data=np.ones((1, 1, 2, 2)), probe_pos=np.zeros((1, 2)),
+              device='cpu', output_folder=str(tmp_path))
+    rec = pt.Reconstructor(cfg, **kw)
+    assert np.isfinite(rec.run_epoch(0))
+    rec.save_checkpoint(1, 0)
+    assert (tmp_path / 'checkpoint' / 'dcp' / '.metadata').is_file()
+    assert pt.Reconstructor(cfg, **kw)._start_epoch == 1
+
+
+def test_checkpoint_orbax_raises(tmp_path):
+    """A JAX orbax folder (tensorstore's format) raises, naming the
+    converter."""
     (tmp_path / 'orbax').mkdir()
-    with pytest.raises(NotImplementedError, match='orbax'):
+    with pytest.raises(NotImplementedError, match='orbax_to_npz'):
         tckpt.restore_checkpoint(str(tmp_path))
     assert tckpt.restore_checkpoint(str(tmp_path / 'none')) is None
 

@@ -396,3 +396,77 @@ def auto_mesh_case(object_axis):
     mesh, pcfg = auto_mesh(object_axis, device='cpu')
     return {'axes': (pcfg.data_axis, pcfg.object_axis),
             'coord': (mesh.dp, mesh.op)}
+
+
+def sharded_write_case(cfg, kw, folder, n_epochs):
+    """``n_epochs`` epochs of a mesh run with an output folder, then one
+    ``save_checkpoint(n_epochs, 0)``: the losses (rank 0), and every
+    rank's collectives during the write alone and its slab's rows."""
+    mesh = _mesh(cfg)
+    rec = pt.Reconstructor(cfg, mesh=mesh, device='cpu',
+                           output_folder=folder, **kw)
+    losses = [rec.run_epoch(ep) for ep in range(n_epochs)]
+    mesh.comm.reset()
+    rec.save_checkpoint(n_epochs, 0)
+    st, sz = mesh.slab(cfg.geometry.obj_size[0])
+    return {'rank': mesh.rank, 'coord': (mesh.dp, mesh.op),
+            'losses': losses, 'comm': _comm_out(mesh),
+            'rows': (st, st + sz), 'mc': rec._mc is not None}
+
+
+def resume_case(cfg, kw, folder, n_epochs):
+    """A mesh run that resumes from ``folder``'s checkpoint and runs
+    ``n_epochs`` epochs: its start, its losses and the whole object (rank
+    0); and what ``convert.load_checkpoint`` and
+    ``checkpoint.restore_sharded`` return for this rank's rows."""
+    from adorym_tpu_torch import convert
+    from adorym_tpu_torch.io import checkpoint as ckpt_lib
+    mesh = _mesh(cfg)
+    st, sz = mesh.slab(cfg.geometry.obj_size[0])
+    ckpt = f'{folder}/checkpoint'
+    ck = convert.load_checkpoint(ckpt, device='cpu', host_obj=True,
+                                 host_obj_state=True, rows=(st, st + sz))
+    sharded = ckpt_lib.restore_sharded(ckpt, rows=(st, st + sz))
+    rec = pt.Reconstructor(cfg, mesh=mesh, device='cpu',
+                           output_folder=folder, **kw)
+    start = rec._start_epoch
+    losses = [rec.run_epoch(ep) for ep in range(start, start + n_epochs)]
+    out = {'rank': mesh.rank, 'coord': (mesh.dp, mesh.op), 'start': start,
+           'losses': losses, 'rows': (st, st + sz),
+           'loaded_obj': tuple(ck['params']['obj'].shape),
+           'loaded_state': {n: tuple(a.shape) for n, a in
+                            ck['opt_state'].get('obj', {}).items()},
+           'read_slabs': (None if sharded is None
+                          else sorted(sharded[0]['obj'])),
+           'obj': rec.results()['obj']}
+    if mesh.rank != 0:
+        out.pop('obj')
+    return out
+
+
+def failed_step_case(cfg, kw, folder, step):
+    """A sharded ``save_checkpoint`` in which rank 0's ``step`` of the
+    commit (``_prepare`` or ``_commit``, which only rank 0 runs) raises:
+    each rank's error, whether a ``dcp/`` was committed, and the epoch a
+    second, working save then commits."""
+    from adorym_tpu_torch.io import checkpoint as ckpt_lib
+    mesh = _mesh(cfg)
+    rec = pt.Reconstructor(cfg, mesh=mesh, device='cpu',
+                           output_folder=folder, **kw)
+    real = getattr(ckpt_lib, step)
+
+    def fail(*args):
+        raise OSError(f'{step} failed')
+    setattr(ckpt_lib, step, fail)
+    try:
+        rec.save_checkpoint(1, 0)
+        err = None
+    except Exception as e:                              # noqa: BLE001
+        err = f'{type(e).__name__}: {e}'
+    finally:
+        setattr(ckpt_lib, step, real)
+    ckpt = f'{folder}/checkpoint'
+    committed = ckpt_lib.sharded_path(ckpt) is not None
+    rec.save_checkpoint(2, 0)
+    return {'rank': mesh.rank, 'error': err, 'committed': committed,
+            'then': ckpt_lib.restore_checkpoint(ckpt)[2]}

@@ -161,13 +161,11 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     ('parallel', dict(offload_optimizer_state=True, data_axis=2),
      ValueError, 'device meshes'),
     ('parallel', dict(data_axis=2), ValueError, 'device meshes'),
-    ('io', dict(use_orbax=True), NotImplementedError, 'orbax'),
     ('parallel', dict(object_axis=2), ValueError, 'device meshes'),
     ('parallel', dict(offload_object=True), ValueError,
      'offload_object requires: offload_optimizer_state')])
 def test_unported_configs_raise(section, kw, exc, match):
-    """What the per-angle path refuses: orbax (not ported); a config
-    that asks for a mesh (with offload too) without one (no process
+    """What the per-angle path refuses: a config that asks for a mesh (with offload too) without one (no process
     group, no ``mesh=``), a ValueError rather than a one-device run; and
     object offload without offloaded moments, the JAX package's
     ``ValueError``."""
@@ -178,6 +176,25 @@ def test_unported_configs_raise(section, kw, exc, match):
     with pytest.raises(exc, match=match):
         pt.Reconstructor(cfg, data=data, probe_pos=pos, obj_init=obj0,
                          device='cpu')
+
+
+@pytest.mark.parametrize('section,kw', [('io', dict(use_orbax=True))],
+                         ids=['orbax'])
+def test_orbax_per_angle_runs_and_writes_sharded_checkpoint(tmp_path, section,
+                                                            kw):
+    """``use_orbax=True`` on the per-angle path: the epoch runs and its
+    checkpoint is the sharded form (``checkpoint/dcp/``)."""
+    data, pos, theta, obj0 = _setup()
+    cfg = _cfg(pt)
+    cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section),
+                                                      **kw)})
+    rec = pt.Reconstructor(cfg, data=data, probe_pos=pos, theta_ls=theta,
+                           obj_init=obj0, device='cpu',
+                           output_folder=str(tmp_path))
+    assert rec._angles and np.isfinite(rec.run_epoch(0))
+    rec.save_checkpoint(1, 0)
+    assert (tmp_path / 'checkpoint' / 'dcp' / '.metadata').is_file()
+    assert not (tmp_path / 'checkpoint' / 'checkpoint.npz').exists()
 
 
 def test_non_grid_scan_raises():

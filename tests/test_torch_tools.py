@@ -458,6 +458,100 @@ def test_profiler_trace_writes_a_trace(tmp_path):
     assert 'aten::mm' in traces[0].read_text()
 
 
+# -- the checkpoint converters ------------------------------------------------
+def _gd_problem():
+    """``tests/test_offload.py``'s problem at 16^3 under GD, the port's
+    config, and the JAX package's config of the same sections, both
+    checkpointing with ``use_orbax``."""
+    import dataclasses
+    import adorym_tpu.config as jcfg
+    import adorym_tpu_torch as pt
+    from test_torch_offload import _kw, _problem
+    cfg, obj_true, probe, pos, theta_ls, data = _problem(pt, 'gd', n=16)
+    io = dict(store_checkpoint=True, use_checkpoint=True, use_orbax=True,
+              n_batch_per_checkpoint=10_000)
+    tc = dataclasses.replace(cfg, io=pt.IOConfig(**io))
+    jc = jcfg.ReconConfig(
+        geometry=jcfg.Geometry(**dataclasses.asdict(cfg.geometry)),
+        train=jcfg.TrainConfig(**dataclasses.asdict(cfg.train)),
+        io=jcfg.IOConfig(**io))
+    kw = dict(data=data, **_kw(pos, probe, theta_ls, obj_true * 0.5))
+    return tc, jc, kw
+
+
+def _two_epochs_then_save(rec):
+    for ep in range(2):
+        rec.run_epoch(ep)
+    rec.save_checkpoint(2, 0)
+
+
+def _jax_resume(jc, kw, folder):
+    """The JAX package's resume from ``folder`` and its epochs 2 and 3 (a
+    GD run gets its empty object state back first: the JAX package's
+    restored state lacks it, ROADMAP C)."""
+    from adorym_tpu.recon import Reconstructor
+    rec = Reconstructor(jc, output_folder=folder, **kw)
+    assert rec._start_epoch == 2
+    for k in rec.specs:
+        rec.opt_state.setdefault(k, {})
+    for ep in (2, 3):
+        rec.run_epoch(ep)
+    return np.asarray(rec.params['obj'])
+
+
+def _port_resume(tc, kw, folder):
+    import adorym_tpu_torch as pt
+    rec = pt.Reconstructor(tc, device='cpu', output_folder=folder, **kw)
+    assert rec._start_epoch == 2
+    for ep in (2, 3):
+        rec.run_epoch(ep)
+    return rec.obj
+
+
+def _close_obj(a, b, rtol=1e-5):
+    assert np.abs(a - b).max() <= rtol * np.abs(b).max()
+
+
+def test_convert_checkpoint_port_to_jax(tmp_path):
+    """A port sharded checkpoint, converted to the npz form, resumes in the
+    JAX package; under GD its trajectory equals the port's own resume
+    (1e-5 of the object's largest value)."""
+    import dataclasses
+    import adorym_tpu.config as jcfg
+    import adorym_tpu_torch as pt
+    tc, jc, kw = _gd_problem()
+    folder = str(tmp_path / 'port')
+    _two_epochs_then_save(pt.Reconstructor(tc, device='cpu',
+                                           output_folder=folder, **kw))
+    ck = tmp_path / 'port' / 'checkpoint'
+    assert (ck / 'dcp').is_dir() and not (ck / 'checkpoint.npz').exists()
+    _tool('convert_checkpoint').main([str(ck)])
+    with np.load(ck / 'checkpoint.npz') as z:
+        assert 'params/obj' in z.files and 'extra/obj_slab_rows' not in z.files
+    jc = dataclasses.replace(jc, io=dataclasses.replace(jc.io,
+                                                        use_orbax=False))
+    got = _jax_resume(jc, kw, folder)
+    _close_obj(_port_resume(tc, kw, folder), got)
+
+
+def test_orbax_to_npz_jax_to_port(tmp_path, monkeypatch):
+    """A JAX orbax checkpoint, converted by ``tools/orbax_to_npz.py``,
+    resumes in the port (which refuses the orbax folder itself); under GD
+    its trajectory equals the JAX package's own orbax resume (1e-5)."""
+    from adorym_tpu.recon import Reconstructor
+    from adorym_tpu_torch.io import checkpoint as tckpt
+    tc, jc, kw = _gd_problem()
+    folder = str(tmp_path / 'jax')
+    _two_epochs_then_save(Reconstructor(jc, output_folder=folder, **kw))
+    ck = tmp_path / 'jax' / 'checkpoint'
+    with pytest.raises(NotImplementedError, match='orbax_to_npz'):
+        tckpt.restore_checkpoint(str(ck))
+    want = _jax_resume(jc, kw, folder)
+    _run_jax_main(monkeypatch, 'orbax_to_npz', [str(ck)])
+    assert (ck / 'checkpoint.npz').is_file() and (ck / 'orbax').is_dir()
+    _close_obj(_port_resume(tc, kw, folder), want)
+
+
 # -- no port module reaches the JAX package ---------------------------------
 def test_demos_and_tools_import_without_jax():
     """Every module under ``adorym_tpu_torch/demos/`` and
