@@ -680,7 +680,6 @@ class Reconstructor:
         self._ckpt_seconds = 0.0
         self._ckpt_count = 0
         self._ckpt_warned = False
-        self.timers = _prof.Timers()
         self.verbose = False
 
         # -- outputs, checkpoints and resume (only with an output folder) --
@@ -1077,50 +1076,57 @@ class Reconstructor:
         g = w_all.shape[1]
         mb = cfg.train.minibatch_size
         full_grid = g == self._grid_scatter_rows
-        w_dev = torch.as_tensor(w_all, device=obj_pad.device)
+        with _prof.span('stage'):
+            w_dev = torch.as_tensor(w_all, device=obj_pad.device)
         zm = self._zmajor()
-        # run_bfloat16: extract from a bf16 copy (the same values the
-        # model would cast to); the accumulator stays f32.
-        obj_ex = (obj_pad.to(torch.bfloat16) if cfg.train.run_bfloat16
-                  else obj_pad)
-        obj_zx = obj_ex.permute(2, 3, 0, 1).contiguous() if zm else None
+        with _prof.span('layout'):
+            # run_bfloat16: extract from a bf16 copy (the same values the
+            # model would cast to); the accumulator stays f32.
+            obj_ex = (obj_pad.to(torch.bfloat16) if cfg.train.run_bfloat16
+                      else obj_pad)
+            obj_zx = obj_ex.permute(2, 3, 0, 1).contiguous() if zm else None
+            acc_obj = torch.zeros_like(obj_pad)
+            acc_aux = {k: torch.zeros_like(self.params[k])
+                       for k in self.specs if k != 'obj'}
         pad_off = np.asarray([self.pad_arr[0][0], self.pad_arr[1][0]])
-        acc_obj = torch.zeros_like(obj_pad)
-        acc_aux = {k: torch.zeros_like(self.params[k]) for k in self.specs
-                   if k != 'obj'}
         losses = []
         for c in range(pos_all.shape[0]):
-            pos_int = np.round(pos_all[c]).astype(np.int64) + pad_off
-            if zm:
-                sub = patch_ops.extract_patches_zmajor(obj_zx, pos_int,
-                                                       geo.probe_size)
-            elif full_grid:
-                # Whole rows of the complete grid: the grid gather (the
-                # exact transpose of the grid scatter below).
-                sub = patch_ops.extract_grid2d_best(
-                    obj_ex, pos_int[0, 0], pos_int[0, 1],
-                    self._rowgrid_stride, g, mb, geo.probe_size)
-            else:
-                sub = patch_ops.extract_patches(obj_ex, pos_int,
-                                                geo.probe_size)
-            per_batch, g_sub, g_aux = self._patch_grads(
-                sub, i_theta, theta, inds_all[c], measured_all[c], zm, g,
-                w_dev[c])
-            if full_grid:
-                scatter_grid2d_add(
-                    acc_obj, g_sub, pos_int[0, 0], pos_int[0, 1],
-                    self._rowgrid_stride, g)
-            elif self._rowgrid_stride is not None:
-                for r in range(g):
-                    scatter_rowgrid_add_kernel(
-                        acc_obj, g_sub[r * mb:(r + 1) * mb],
-                        pos_int[r * mb, 0], pos_int[r * mb, 1],
-                        self._rowgrid_stride)
-            else:
-                patch_ops.scatter_patches_add(acc_obj, g_sub, pos_int)
-            for k, gk in g_aux.items():
-                acc_aux[k] += gk
-            losses.append(per_batch)
+            with _prof.span('chunk'):
+                pos_int = np.round(pos_all[c]).astype(np.int64) + pad_off
+                with _prof.span('extract'):
+                    if zm:
+                        sub = patch_ops.extract_patches_zmajor(
+                            obj_zx, pos_int, geo.probe_size)
+                    elif full_grid:
+                        # Whole rows of the complete grid: the grid gather
+                        # (the exact transpose of the grid scatter below).
+                        sub = patch_ops.extract_grid2d_best(
+                            obj_ex, pos_int[0, 0], pos_int[0, 1],
+                            self._rowgrid_stride, g, mb, geo.probe_size)
+                    else:
+                        sub = patch_ops.extract_patches(obj_ex, pos_int,
+                                                        geo.probe_size)
+                with _prof.span('model'):
+                    per_batch, g_sub, g_aux = self._patch_grads(
+                        sub, i_theta, theta, inds_all[c], measured_all[c],
+                        zm, g, w_dev[c])
+                with _prof.span('scatter'):
+                    if full_grid:
+                        scatter_grid2d_add(
+                            acc_obj, g_sub, pos_int[0, 0], pos_int[0, 1],
+                            self._rowgrid_stride, g)
+                    elif self._rowgrid_stride is not None:
+                        for r in range(g):
+                            scatter_rowgrid_add_kernel(
+                                acc_obj, g_sub[r * mb:(r + 1) * mb],
+                                pos_int[r * mb, 0], pos_int[r * mb, 1],
+                                self._rowgrid_stride)
+                    else:
+                        patch_ops.scatter_patches_add(acc_obj, g_sub,
+                                                      pos_int)
+                for k, gk in g_aux.items():
+                    acc_aux[k] += gk
+                losses.append(per_batch)
         return acc_obj, acc_aux, torch.stack(losses)
 
     def _first_order_update(self, grads, i_opt_batch: int,
@@ -1298,25 +1304,30 @@ class Reconstructor:
         t = cfg.train
         rotates = not geo.two_d_mode
         theta = float(self.theta_ls[i_theta])
-        inds, pos, w, n_b = self._stage_angle(i_theta, inds_list)
-        if measured is None:
-            measured = self.stager().rows(i_theta, inds)
+        with _prof.span('stage'):
+            inds, pos, w, n_b = self._stage_angle(i_theta, inds_list)
+            if measured is None:
+                measured = self.stager().rows(i_theta, inds)
         method = t.interpolation
         obj = self.params['obj']
         stream = self._stream_rot or self._obj_offloaded
         obj_rot = None
-        if not stream:
-            obj_rot = rotate(obj, theta, method=method) if rotates else obj
+        with _prof.span('rotate'):
+            if not stream:
+                obj_rot = (rotate(obj, theta, method=method) if rotates
+                           else obj)
+            if self._patch_mode:
+                if stream:
+                    obj_pad = patch_ops.pad_object(
+                        self._rotate_and_bin(theta), self.pad_arr,
+                        t.unknown_type)
+                else:
+                    obj_pad = patch_ops.pad_object(obj_rot, self.pad_arr,
+                                                   t.unknown_type)
+                    if self._prebin:
+                        obj_pad = prop.bin_z_sum(obj_pad, geo.binning,
+                                                 axis=2)
         if self._patch_mode:
-            if stream:
-                obj_pad = patch_ops.pad_object(
-                    self._rotate_and_bin(theta), self.pad_arr,
-                    t.unknown_type)
-            else:
-                obj_pad = patch_ops.pad_object(obj_rot, self.pad_arr,
-                                               t.unknown_type)
-                if self._prebin:
-                    obj_pad = prop.bin_z_sum(obj_pad, geo.binning, axis=2)
             if not self.reg_list:
                 obj_rot = None
             acc_obj, grads, losses = self.patch_accum(
@@ -1330,53 +1341,60 @@ class Reconstructor:
                           and not self.reg_list and not t.exact_grad_rotation
                           and rotates)
             if self._prebin and not stream and not fused_back:
-                g_rot = torch.repeat_interleave(
-                    g_rot, geo.binning, dim=2)[:, :, :geo.obj_size[2]]
+                with _prof.span('rotate_back'):
+                    g_rot = torch.repeat_interleave(
+                        g_rot, geo.binning, dim=2)[:, :, :geo.obj_size[2]]
             if self.reg_list:
-                rv, g_reg = self._reg_value_and_grad(obj_rot)
-                g_rot = g_rot + float(w.sum()) * g_reg
-                losses = losses + rv
+                with _prof.span('reg'):
+                    rv, g_reg = self._reg_value_and_grad(obj_rot)
+                    g_rot = g_rot + float(w.sum()) * g_reg
+                    losses = losses + rv
         else:
             losses, grads = [], None
             for c in range(inds.shape[0]):
-                per_batch, gc = self._chunk_grads(
-                    obj_rot, i_theta, theta, inds[c], pos[c], measured[c],
-                    w[c])
-                losses.append(per_batch)
-                if grads is None:
-                    grads = gc
-                else:
-                    for k, gk in gc.items():
-                        grads[k].add_(gk)
+                with _prof.span('chunk'):
+                    per_batch, gc = self._chunk_grads(
+                        obj_rot, i_theta, theta, inds[c], pos[c],
+                        measured[c], w[c])
+                    losses.append(per_batch)
+                    if grads is None:
+                        grads = gc
+                    else:
+                        for k, gk in gc.items():
+                            grads[k].add_(gk)
             losses = torch.stack(losses)
             g_rot = grads.pop('obj')
             fused_back = False
         del obj_rot, measured
         slab_grad = None
-        if not rotates:
-            g_obj = g_rot
-        elif stream and self._off_slabbed:
-            # Each slab's full-depth gradient just before its update, from
-            # the binned gradient's rows (rotation acts in each y plane).
-            g_obj = None
+        with _prof.span('rotate_back'):
+            if not rotates:
+                g_obj = g_rot
+            elif stream and self._off_slabbed:
+                # Each slab's full-depth gradient just before its update,
+                # from the binned gradient's rows (rotation acts in each y
+                # plane): the rotate-back runs inside the update.
+                g_obj = None
 
-            def slab_grad(st, sz):
-                return rotate_expanded_from_binned_z(
-                    g_rot[st:st + sz], -theta, geo.binning, geo.obj_size[2],
+                def slab_grad(st, sz):
+                    return rotate_expanded_from_binned_z(
+                        g_rot[st:st + sz], -theta, geo.binning,
+                        geo.obj_size[2], method=method)
+            elif stream or fused_back:
+                # The binned gradient expanded in z inside the
+                # rotate-back's gather, in y chunks at the streaming sizes.
+                g_obj = rotate_expanded_from_binned_z(
+                    g_rot, -theta, geo.binning, geo.obj_size[2],
                     method=method)
-        elif stream or fused_back:
-            # The binned gradient expanded in z inside the rotate-back's
-            # gather, in y chunks at the streaming sizes.
-            g_obj = rotate_expanded_from_binned_z(
-                g_rot, -theta, geo.binning, geo.obj_size[2], method=method)
-        elif t.exact_grad_rotation:
-            g_obj = rotate_adjoint(g_rot, theta, method=method)
-        else:
-            g_obj = rotate(g_rot, -theta, method=method)
-        if slab_grad is None:
-            del g_rot
-        self.apply_step({**grads, 'obj': g_obj}, self.i_opt_batch,
-                        self.global_batch, obj_slab_grad=slab_grad)
+            elif t.exact_grad_rotation:
+                g_obj = rotate_adjoint(g_rot, theta, method=method)
+            else:
+                g_obj = rotate(g_rot, -theta, method=method)
+            if slab_grad is None:
+                del g_rot
+        with _prof.span('update'):
+            self.apply_step({**grads, 'obj': g_obj}, self.i_opt_batch,
+                            self.global_batch, obj_slab_grad=slab_grad)
         self.i_opt_batch += 1
         self.global_batch += len(inds_list)
         return losses.reshape(-1)[:n_b]
@@ -1732,17 +1750,21 @@ class Reconstructor:
             else:
                 measured = feed.take(i_batch)
             if mesh_rows:
-                losses.append(mc_lib.mc_imm_step(
-                    self, i_theta, int(inds[0]) // self._mci['mb']))
+                with _prof.span('mesh_step'):
+                    losses.append(mc_lib.mc_imm_step(
+                        self, i_theta, int(inds[0]) // self._mci['mb']))
             elif self._band:
-                losses.append(self.step_band(i_theta, inds, measured))
+                with _prof.span('step_band'):
+                    losses.append(self.step_band(i_theta, inds, measured))
             elif self.second_order:
-                losses.append(self.second_order_step(i_theta, inds,
-                                                     measured))
+                with _prof.span('second_order_step'):
+                    losses.append(self.second_order_step(i_theta, inds,
+                                                         measured))
             else:
                 last = i_batch + 1 == n_b or batches[i_batch + 1][0] != i_theta
-                losses.append(self.accum_step(acc, i_theta, inds, measured,
-                                              last))
+                with _prof.span('accum_step'):
+                    losses.append(self.accum_step(acc, i_theta, inds,
+                                                  measured, last))
             if feed is not None:
                 feed.ahead(i_batch + 1)
             if not self._accum:
@@ -1785,32 +1807,40 @@ class Reconstructor:
         losses = []
         mesh_rows = self._mc is not None
         stager = None if mesh_rows else self.stager()
-        nxt_rows = (self._angle_rows(*groups[0])
-                    if groups and not mesh_rows else None)
+        with _prof.span('stage'):
+            nxt_rows = (self._angle_rows(*groups[0])
+                        if groups and not mesh_rows else None)
         for j, (i_theta, inds_list) in enumerate(groups):
-            if self._needs_weight_l1:
-                self.weight_l1 = self._weight_l1_refresh(self._obj_up(),
-                                                         self._shard)
-            if mesh_rows:
-                losses.append(mc_lib.mc_angle_step(self, i_theta,
-                                                   len(inds_list)))
-            else:
-                measured = stager.take(nxt_rows)
-                losses.append(self.angle_step(i_theta, inds_list, measured))
-                del measured
-                if j + 1 < len(groups):
-                    nxt_rows = self._angle_rows(*groups[j + 1])
-            self._apply_external_algorithm()
-            prev, done = done, done + len(inds_list)
-            if (self.finite_support_mask is not None
-                    and t.shrink_cycle is not None
-                    and done // t.shrink_cycle > prev // t.shrink_cycle):
-                self._shrink()
-            nxt = (i_epoch + 1, 0) if done == n_b_epoch else (i_epoch, done)
-            every = max(1, self.cfg.io.n_batch_per_checkpoint
-                        // max(1, len(inds_list)))
-            self._host_visits(i_epoch, done - 1, nxt,
-                              self.i_opt_batch % every == 0)
+            with _prof.span('angle'):
+                if self._needs_weight_l1:
+                    with _prof.span('reg'):
+                        self.weight_l1 = self._weight_l1_refresh(
+                            self._obj_up(), self._shard)
+                if mesh_rows:
+                    with _prof.span('mesh_step'):
+                        losses.append(mc_lib.mc_angle_step(self, i_theta,
+                                                           len(inds_list)))
+                else:
+                    with _prof.span('stage'):
+                        measured = stager.take(nxt_rows)
+                    losses.append(self.angle_step(i_theta, inds_list,
+                                                  measured))
+                    del measured
+                    if j + 1 < len(groups):
+                        with _prof.span('stage'):
+                            nxt_rows = self._angle_rows(*groups[j + 1])
+                self._apply_external_algorithm()
+                prev, done = done, done + len(inds_list)
+                if (self.finite_support_mask is not None
+                        and t.shrink_cycle is not None
+                        and done // t.shrink_cycle > prev // t.shrink_cycle):
+                    self._shrink()
+                nxt = ((i_epoch + 1, 0) if done == n_b_epoch
+                       else (i_epoch, done))
+                every = max(1, self.cfg.io.n_batch_per_checkpoint
+                            // max(1, len(inds_list)))
+                self._host_visits(i_epoch, done - 1, nxt,
+                                  self.i_opt_batch % every == 0)
             if self.stop_requested:
                 break
         return torch.cat(losses), first
@@ -1859,20 +1889,26 @@ class Reconstructor:
         if i_epoch == self._start_epoch and self._start_batch:
             skip = min(self._start_batch, len(batches))
             self._start_batch = 0
-        timer = 'angle_step' if self._angles else 'train_step'
-        with self.timers.time(timer):
+        t0 = time.perf_counter()
+        with _prof.span('epoch', label=i_epoch) as sp:
             if self._angles:
                 losses, first = self.angles_epoch(batches, i_epoch, skip)
             else:
                 losses, first = self.epoch_fused(batches, i_epoch, skip), skip
-        return i_epoch, losses, first, timer
+        traced = None if sp is None else sp.epoch
+        return i_epoch, losses, first, time.perf_counter() - t0, traced
 
     def _epoch_finish(self, pending, callback=None) -> float:
         """Fetch a dispatched epoch's losses (the epoch's one blocking
-        copy), log them and return their mean."""
-        i_epoch, losses, first, timer = pending
-        with self.timers.time(timer):
+        copy), log them and return their mean.  The verbose line's rate
+        is over the host wall of the epoch's dispatch and of its fetch;
+        an epoch traced (:mod:`.utils.profiling`) adds its spans an
+        angle."""
+        i_epoch, losses, first, wall, traced = pending
+        t0 = time.perf_counter()
+        with _prof.span('epoch.fetch', traced):
             losses = losses.double().cpu().numpy()
+        wall += time.perf_counter() - t0
         if callback is not None or self._logger is not None:
             for b, loss in enumerate(losses, start=first):
                 if callback is not None:
@@ -1883,14 +1919,14 @@ class Reconstructor:
         self.loss_history.append(mean_loss)
         if self.verbose and self._writer:
             n_patterns = len(losses) * self.cfg.train.minibatch_size
-            dt = self.timers.total.get(timer, 0.0) or 1e-9
             mem = _prof.device_memory_stats(self.device)
             mem_s = (f"; device memory {mem['bytes_in_use_mb']:.0f}/"
                      f"{mem['peak_bytes_mb']:.0f} MB peak" if mem else '')
+            spans_s = ('' if traced is None
+                       else f'; {_prof.REGISTRY.summary(traced)}')
             self._print(f'[epoch {i_epoch}] loss={mean_loss:.4e} '
-                        f'{n_patterns / dt:.1f} patterns/s; '
-                        f'{self.timers.summary()}{mem_s}')
-            self.timers.reset()
+                        f'{n_patterns / max(wall, 1e-9):.1f} patterns/s'
+                        f'{spans_s}{mem_s}')
         return mean_loss
 
     def run_epochs(self, n_epochs: int, start_epoch: Optional[int] = None,
