@@ -3,8 +3,9 @@
 // the slice transmission, the shared-memory complex matmul and the folded
 // propagation, the FFT step propagation of K1 and K4 (fft_propagate) and
 // of K5, whose transfer function need not be separable (fft_propagate2d),
-// the forward sweep K1 and K4 run, and the deterministic cross-mode sum of
-// their backward sweeps.
+// the forward sweep K1 runs (and K4 on its dense and global routes), and
+// the deterministic cross-mode sum of their backward sweeps (K4b's FFT
+// route has its own, k4_mode_sum in multislice_db.cu).
 //
 // Layouts (row-major): db [S, 2, N, P] (slot 0 delta, slot 1 beta, P =
 // ny*nx); waves [M, N, P] complex; records [S, M, N, P] complex pairs of T;
@@ -739,7 +740,7 @@ __device__ __forceinline__ void fft_propagate2d(float2* w, float2* scr,
 // The forward sweep of one (patch, mode) block: per step the modulation
 // (recording the entering wave in T when kRecords), then the folded step
 // propagation, or at the last step the far-field mats when given.  kFft
-// (the FFT route of K1f and K4f) takes each step through fft_propagate
+// (the FFT route of K1f) takes each step through fft_propagate
 // instead, with ay and bx the step's vectors hy/ny and hx/nx; the far field
 // stays the dense product in the mat slots.  On that route the record
 // stores are plain stores issued in the modulation loop, before the step's
@@ -883,28 +884,40 @@ __device__ void cross_mode_sum(float2* part, const T* d, const T* b, T* gd,
   cluster.sync();
 }
 
-// Launches `kernel` over N*M blocks: plainly at M = 1, else as clusters of
-// the M blocks of one patch.  Returns the CUDA error code.
-template <typename... KArgs, typename... Args>
-int launch(void (*kernel)(KArgs...), int N, int M, size_t smem,
-           bool cluster, cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+// The launch of N*M blocks of `threads` with `smem` bytes of dynamic shared
+// memory: plain at M = 1 or without `cluster`, else as clusters of the M
+// blocks of one patch, the cluster's attribute held in `attr`.
+inline cudaLaunchConfig_t launch_config(int N, int M, int threads,
+                                        size_t smem, bool cluster,
+                                        cudaStream_t stream,
+                                        cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)N * (unsigned)M);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3((unsigned)threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   if (cluster && M > 1) {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = (unsigned)M;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = (unsigned)M;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
   }
+  return cfg;
+}
+
+// Launches `kernel` over N*M blocks of `threads` (launch_config).  Returns
+// the CUDA error code.
+template <typename... KArgs, typename... Args>
+int launch(void (*kernel)(KArgs...), int N, int M, size_t smem,
+           bool cluster, int threads, cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      launch_config(N, M, threads, smem, cluster, stream, attr);
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -192,7 +192,8 @@ int launch_fwd(int route, const void* db, const void* w0, const void* ay,
                   &fwd_kernel<T, true, false, true>, &kernel, &smem)) {
     return (int)cudaErrorInvalidValue;
   }
-  return launch(kernel, N, M, smem, false, stream, static_cast<const T*>(db),
+  return launch(kernel, N, M, smem, false, kThreads, stream,
+                static_cast<const T*>(db),
                 static_cast<const float2*>(w0),
                 static_cast<const float2*>(ay), static_cast<const float2*>(bx),
                 static_cast<const float2*>(fay),
@@ -215,7 +216,8 @@ int launch_bwd(int route, const void* db, const void* rec, const void* g,
                   &smem)) {
     return (int)cudaErrorInvalidValue;
   }
-  return launch(kernel, N, M, smem, true, stream, static_cast<const T*>(db),
+  return launch(kernel, N, M, smem, true, kThreads, stream,
+                static_cast<const T*>(db),
                 static_cast<const T*>(rec), static_cast<const float2*>(g),
                 static_cast<const float2*>(ay), static_cast<const float2*>(bx),
                 static_cast<const float2*>(fay),

@@ -491,7 +491,8 @@ extern "C" int k5_fwd(int route, const void* t, const void* w0,
                 &kernel, &smem)) {
     return (int)cudaErrorInvalidValue;
   }
-  return launch(kernel, N, M, smem, false, st, static_cast<const float2*>(t),
+  return launch(kernel, N, M, smem, false, kThreads, st,
+                static_cast<const float2*>(t),
                 static_cast<const float2*>(w0), static_cast<const float2*>(h),
                 static_cast<float2*>(out), static_cast<float2*>(rec), S, M, N,
                 ny, nx);
@@ -520,7 +521,8 @@ extern "C" int k5_bwd(int route, const void* t, const void* rec,
                 &kernel, &smem)) {
     return (int)cudaErrorInvalidValue;
   }
-  return launch(kernel, N, M, smem, true, st, static_cast<const float2*>(t),
+  return launch(kernel, N, M, smem, true, kThreads, st,
+                static_cast<const float2*>(t),
                 static_cast<const float2*>(rec), static_cast<const float2*>(g),
                 static_cast<const float2*>(h), static_cast<float2*>(gt),
                 static_cast<float2*>(gw), S, M, N, ny, nx);

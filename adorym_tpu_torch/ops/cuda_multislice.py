@@ -48,7 +48,7 @@ import math
 
 import torch
 
-from ..utils.cuda_build import Kernel, ptr
+from ..utils.cuda_build import Kernel, library, ptr
 from .fourier import dft_matrix, fft2, ifft2
 
 #: Dynamic shared memory one block may use on Hopper (227 KB).
@@ -76,6 +76,12 @@ K1_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0, 'global': 0}
 #: K4 launches (forward and backward) by route, counted beside
 #: ``K4_FWD.launches`` and ``K4_BWD.launches``.
 K4_ROUTE_LAUNCHES = {'dense': 0, 'fft': 0, 'global': 0}
+#: Resident blocks an SM of each K4 launch shape, ``'K4f|K4b.<route>.<dtype>
+#: .M<modes>.<ny>x<nx>'`` -> blocks, from the card's occupancy calculator
+#: (``k4_blocks_per_sm`` in ``csrc/multislice_db.cu``; at M > 1 the
+#: backward's resident clusters times M over the SMs), asked once a shape on
+#: the host at the shape's first launch, beside ``K4_ROUTE_LAUNCHES``.
+K4_BLOCKS_PER_SM = {}
 #: K4 keeps no records, so it has no forward-mode rule yet; the plain
 #: FFT scan (``fused_multislice='off'``) has one, on the card too.
 K4_NO_TANGENT = ('forward mode through the invertible multislice (K4), '
@@ -116,11 +122,11 @@ def fft_radix(n):
     return 0
 
 
-def _step_route(ny, nx, planes):
+def _step_route(ny, nx, planes, kernel):
     if (fft_radix(ny) and fft_radix(nx)
-            and smem_bytes(ny, nx, planes, 'fft') <= MAX_SMEM_BYTES):
+            and smem_bytes(ny, nx, planes, 'fft', kernel) <= MAX_SMEM_BYTES):
         return 'fft'
-    if smem_bytes(ny, nx, planes, 'dense') <= MAX_SMEM_BYTES:
+    if smem_bytes(ny, nx, planes, 'dense', kernel) <= MAX_SMEM_BYTES:
         return 'dense'
     return 'global'
 
@@ -131,14 +137,15 @@ def k1_route(ny, nx):
     FFT route's padding and table, else ``'dense'`` when the dense route's
     two planes and folded mats fit, else ``'global'`` (88^2 and larger
     without the split)."""
-    return _step_route(ny, nx, 2)
+    return _step_route(ny, nx, 2, 'K1')
 
 
 def k4_route(ny, nx):
-    """K4's route for ``ny x nx`` planes: as :func:`k1_route`, with the
-    backward's three-plane block (``'global'`` from 80^2 without the
-    split)."""
-    return _step_route(ny, nx, 3)
+    """K4's route for ``ny x nx`` planes: as :func:`k1_route`, sized by
+    K4's larger block, the backward's three planes (``'global'`` from 80^2
+    without the split; K4f's FFT-route block is less than half of
+    it)."""
+    return _step_route(ny, nx, 3, 'K4')
 
 
 def fft_step_vectors(kernel):
@@ -391,17 +398,25 @@ def fft_slot_elems(planes, ny, nx):
     return max(ny * ny + nx * nx, steps)
 
 
-def smem_bytes(ny, nx, planes=2, route='dense'):
-    """Dynamic shared memory of one kernel block: ``planes`` complex
-    planes (2 in K1 and K4f, the wave and a scratch plane; 3 in K4b, which
-    adds the rebuilt wave) and the two per-axis matrices.  The FFT route
-    pads the planes' rows to an odd length, takes the slot region of
-    :func:`fft_slot_elems`, and adds the step vectors and both axes' roots
-    of unity (``msdb::fft_smem_bytes``).  The global route takes none: its
-    planes lie in :func:`workspace`."""
+def smem_bytes(ny, nx, planes=2, route='dense', kernel='K1'):
+    """Dynamic shared memory of one block of ``kernel`` (``'K1'`` or
+    ``'K4'``): ``planes`` complex planes (2 in K1 and K4f, the wave and a
+    scratch plane; 3 in K4b, which adds the rebuilt wave) and the two
+    per-axis matrices.  The FFT route pads the planes' rows to an odd
+    length, takes the slot region of :func:`fft_slot_elems`, and adds the
+    step vectors and both axes' roots of unity (``msdb::fft_smem_bytes``);
+    there K4f (``'K4'``, 2 planes) keeps no slot region: it reads the
+    step's db planes through L2, so its block is the two padded planes and
+    the table (``fwd_fft_smem_bytes`` in ``csrc/multislice_db.cu``), and
+    two fit an SM.  The global route takes none: its planes lie in
+    :func:`workspace`."""
+    if kernel not in ('K1', 'K4'):
+        raise ValueError(f"kernel must be 'K1' or 'K4', got {kernel!r}")
     if route == 'global':
         return 0
     if route == 'fft':
+        if kernel == 'K4' and planes == 2:
+            return 8 * (2 * ny * (nx | 1) + 2 * (ny + nx))
         return 8 * (planes * ny * (nx | 1) + fft_slot_elems(planes, ny, nx)
                     + 2 * (ny + nx))
     return 8 * (planes * ny * nx + ny * ny + nx * nx)
@@ -415,6 +430,32 @@ def workspace(route, planes, m, n, ny, nx, device):
         return None
     return torch.empty((m * n * planes, ny, nx), dtype=torch.complex64,
                        device=device)
+
+
+def k4_blocks_per_sm(backward, dtype, route, m, ny, nx):
+    """Resident blocks an SM of K4f (``backward`` False) or K4b launched
+    on ``route`` with ``m`` modes of ``ny x nx`` planes in ``dtype``, from
+    the card's occupancy calculator, asked once a shape (no launch, no
+    synchronisation) and kept in :data:`K4_BLOCKS_PER_SM`."""
+    key = (f"{'K4b' if backward else 'K4f'}.{route}."
+           f"{str(dtype).rsplit('.', 1)[-1]}.M{m}.{ny}x{nx}")
+    got = K4_BLOCKS_PER_SM.get(key)
+    if got is None:
+        out = ctypes.c_float()
+        err = _k4_occupancy()(int(backward), _dtype_code(dtype),
+                              STEP_ROUTES[route], m, ny, nx,
+                              ctypes.byref(out))
+        if err:
+            raise RuntimeError(f'k4_blocks_per_sm failed: CUDA error {err}')
+        got = K4_BLOCKS_PER_SM[key] = out.value
+    return got
+
+
+def _k4_occupancy():
+    fn = library('multislice_db.cu').k4_blocks_per_sm
+    fn.argtypes = [_I] * 6 + [ctypes.POINTER(_F)]
+    fn.restype = _I
+    return fn
 
 
 def _dtype_code(dtype):
@@ -511,6 +552,7 @@ class MultisliceDb(torch.autograd.Function):
                ptr(out), n_steps, m, n, ny, nx, -k1, -s * k1,
                ptr(workspace(route, 2, m, n, ny, nx, db.device)))
         K4_ROUTE_LAUNCHES[route] += 1
+        k4_blocks_per_sm(False, db.dtype, route, m, ny, nx)
         ctx.save_for_backward(db, out)
         ctx.mats = mats
         ctx.k1, ctx.s = k1, s
@@ -541,10 +583,12 @@ class MultisliceDb(torch.autograd.Function):
                -k1, -s * k1, s * k1,
                ptr(workspace(route, 3, m, n, ny, nx, db.device)))
         K4_ROUTE_LAUNCHES[route] += 1
+        k4_blocks_per_sm(True, db.dtype, route, m, ny, nx)
         return gdb, gw, None, None, None
 
 
-def _check_cuda_operands(db, wave, kernel, planes, route='dense'):
+def _check_cuda_operands(db, wave, kernel, planes, route='dense',
+                         pair='K1'):
     if db.dim() != 5 or db.shape[1] != 2:
         raise ValueError(f'db must be [S, 2, N, ny, nx], got {tuple(db.shape)}')
     _dtype_code(db.dtype)
@@ -562,7 +606,7 @@ def _check_cuda_operands(db, wave, kernel, planes, route='dense'):
         raise ValueError(f'multislice kernels take at most {MAX_MODES} probe '
                          f'modes (one cluster block each), got '
                          f'{wave.shape[0]}')
-    need = smem_bytes(ny, nx, planes, route)
+    need = smem_bytes(ny, nx, planes, route, pair)
     if need > MAX_SMEM_BYTES:
         raise ValueError(
             f'multislice kernel needs {need} bytes of shared memory at '
@@ -634,7 +678,7 @@ def multislice_db_packed(db, wave, kernel, k1, s, fay=None, fax=None,
                                    faxi)
     _check_far_field(fay, fax, fayi, faxi)
     route = k4_route(*db.shape[-2:])
-    _check_cuda_operands(db, wave, kernel, 3, route)
+    _check_cuda_operands(db, wave, kernel, 3, route, 'K4')
     return MultisliceDb.apply(db.contiguous(), wave.contiguous(),
                               prop_mats(kernel, fay, fax, fayi, faxi, route),
                               float(k1), float(s))

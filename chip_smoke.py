@@ -659,7 +659,7 @@ def check_invertible(dtype):
     plain_b = time_ms(bwd_p, 2)
     log(f'K4 {tag}: forward fft route {ms_f:.3f} ms, dense route '
         f'{dense_f:.3f} ms; backward fft route {ms_b:.3f} ms, dense route '
-        f'{dense_b:.3f} ms')
+        f'{dense_b:.3f} ms; resident blocks an SM {cm.K4_BLOCKS_PER_SM}')
     if not (ms_f < dense_f and ms_b < dense_b):
         raise AssertionError(f'K4 {tag}: the FFT route is not faster than '
                              'the dense route at the flagship shape')

@@ -244,6 +244,35 @@ def test_invertible_kernel_matches_plain(cuda, dtype, M, final, shape):
     assert _rel(gw_k, gw_s) < 1e-4
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('M', [1, 5])
+def test_invertible_fft_route_two_forward_blocks_an_sm(cuda, dtype, M):
+    """K4 on its FFT route at 72^2 over more blocks than the card holds at
+    once (61 patches) and 24 steps, against its plain version at
+    test_invertible_kernel_matches_plain's tolerances: the forward runs two
+    blocks an SM, each stepping its plane through a scratch plane, and the
+    backward one (at M = 5 in clusters of five), as the resident-blocks
+    counter reads."""
+    S, N, n = 24, 61, 72
+    db, wave, h, _, g = _multislice_inputs(S, M, N, n, n, dtype, True, cuda,
+                                           seed=7)
+    db = db * 0.1   # physical absorption for the rebuilt waves
+    inv = prop.final_prop_mats((n, n), (1.0, 1.0), 0.1, 'inf', device=cuda)
+    assert cm.k4_route(n, n) == 'fft'
+    out_k, gdb_k, gw_k = _run(cm.multislice_db_packed, db, wave, h, inv, g)
+    out_p, gdb_p, gw_p = _run(cm.multislice_db_plain, db, wave, h, inv, g)
+    torch.cuda.synchronize()
+    assert _rel(out_k, out_p) < 1e-4
+    assert _rel(gw_k, gw_p) < 1e-4
+    if dtype == torch.float32:
+        assert _rel(gdb_k, gdb_p) < 1e-4
+    else:
+        assert _bf16_ulps(gdb_k, gdb_p) <= 2
+    tag = str(dtype).rsplit('.', 1)[-1]
+    assert cm.K4_BLOCKS_PER_SM[f'K4f.fft.{tag}.M{M}.72x72'] == 2
+    assert 0 < cm.K4_BLOCKS_PER_SM[f'K4b.fft.{tag}.M{M}.72x72'] <= 1
+
+
 @pytest.mark.parametrize('channel_major', [False, True])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('rows,cols,py,px,s,trail', [

@@ -120,16 +120,37 @@ def test_k4_route(ny, nx, route):
 
 
 def test_fft_route_shared_memory():
-    """K4's blocks at 72^2 on the FFT route: planes of 72 rows of 73, the
-    table (hy, hx, two root tables), and the mat slots' region, which in
-    the backward holds the rebuilt wave's scratch plane and the next
-    step's f32 db planes (72 x 73 + 72 x 72 elements) during the steps."""
-    assert cm.smem_bytes(72, 72, 2, 'fft') == 8 * (2 * 72 * 73 + 2 * 72 * 72
-                                                  + 4 * 72) == 169344
-    assert cm.smem_bytes(72, 72, 3, 'fft') == 8 * (3 * 72 * 73 + 72 * 73
-                                                  + 72 * 72 + 4 * 72) == 211968
-    assert cm.smem_bytes(72, 72, 3, 'fft') <= cm.MAX_SMEM_BYTES
-    assert cm.smem_bytes(72, 72, 3) == 207360
+    """K4's blocks at 72^2 on the FFT route: planes of 72 rows of 73 and
+    the table (hy, hx, two root tables).  The forward holds its plane and
+    a scratch plane (it reads the step's db planes through L2); the
+    backward's mat slots' region holds the rebuilt wave's scratch plane and
+    the next step's f32 db planes (72 x 73 + 72 x 72 elements) during the
+    steps."""
+    assert cm.smem_bytes(72, 72, 2, 'fft', 'K4') == 8 * (
+        2 * 72 * 73 + 4 * 72) == 86400
+    assert cm.smem_bytes(72, 72, 3, 'fft', 'K4') == 8 * (
+        3 * 72 * 73 + 72 * 73 + 72 * 72 + 4 * 72) == 211968
+    assert cm.smem_bytes(72, 72, 3, 'fft', 'K4') <= cm.MAX_SMEM_BYTES
+    assert cm.smem_bytes(72, 72, 3, kernel='K4') == 207360
+    with pytest.raises(ValueError, match='kernel'):
+        cm.smem_bytes(72, 72, 2, 'fft', 'K5')
+
+
+def test_k4_forward_fits_two_blocks_an_sm():
+    """At 72^2 two K4f blocks (each with the 1 KB the card reserves a
+    block) share an SM's 233,472 bytes of shared memory; K1f's block of the
+    same route, and K4b's, fit once.  Two fit at every shape of K4's FFT
+    route."""
+    def fit(b):
+        return 233472 // (b + 1024)
+    assert fit(cm.smem_bytes(72, 72, 2, 'fft', 'K4')) == 2
+    assert fit(cm.smem_bytes(72, 72, 2, 'fft', 'K1')) == 1
+    assert fit(cm.smem_bytes(72, 72, 3, 'fft', 'K4')) == 1
+    shapes = [(ny, nx) for ny in range(4, 97) for nx in range(4, 97)
+              if cm.k4_route(ny, nx) == 'fft']
+    assert (72, 72) in shapes and (12, 20) in shapes
+    for ny, nx in shapes:
+        assert fit(cm.smem_bytes(ny, nx, 2, 'fft', 'K4')) >= 2
 
 
 def test_fft_step_vectors_fold_the_step():
@@ -260,8 +281,8 @@ def test_k1_route(ny, nx, route):
 
 
 def test_k1_fft_route_shared_memory():
-    """K1's FFT-route block is K4f's, 169,344 bytes at 72^2: two planes of
-    72 rows of 73, the slot region and the table.  At every shape the
+    """K1's FFT-route block, 169,344 bytes at 72^2: two planes of 72 rows
+    of 73, the slot region and the table.  At every shape the
     route takes, the slot region holds the step's f32 db pair and its f32
     record plane (2 ny nx <= ny^2 + nx^2) for the backward."""
     assert cm.smem_bytes(72, 72, 2, 'fft') == 169344

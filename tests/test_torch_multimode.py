@@ -188,7 +188,36 @@ def test_k4_bound_counts():
     assert b_bwd == pytest.approx(11.43e9, rel=1e-3)
     assert f_fwd / 67e12 > b_fwd / 3.35e12
     assert f_bwd / 67e12 > b_bwd / 3.35e12
-    assert cm.smem_bytes(72, 72, 3) == 207360 <= cm.MAX_SMEM_BYTES
+    assert cm.smem_bytes(72, 72, 3, kernel='K4') == 207360 <= (
+        cm.MAX_SMEM_BYTES)
+
+
+def test_k4_slice_cotangent_from_the_modulated_wave():
+    """K4b's FFT route forms the slice's cotangent at M = 5 as sum_m a_m v_m,
+    from the wave v before its division by t: (sum_m a_m w_m) t with w = v
+    (1/t), to f32 rounding (each side within a few f32 ulps of the float64
+    product), at physical absorption and at k1 b = 1."""
+    rng = np.random.default_rng(3)
+    shape = (5, 7, 72, 72)
+
+    def cplx():
+        return torch.complex(*(torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)) for _ in range(2)))
+
+    for hi in (1e-3, 4e-2):
+        db = torch.from_numpy(np.stack([
+            rng.uniform(0, 1e-2, shape[1:]),
+            rng.uniform(0, hi, shape[1:])]).astype(np.float32))
+        a, v = cplx(), cplx()
+        t, t_inv = cm._modulator_and_inverse(db, K1, S_SIGN)
+        new = (a * v).sum(0)
+        old = (a * (v * t_inv)).sum(0) * t
+        truth = (a.to(torch.complex128) * v.to(torch.complex128)).sum(0)
+        top = float(truth.abs().max())
+        ulp = float(np.spacing(np.float32(top)))
+        assert float((new - old).abs().max()) < 8 * ulp
+        assert float((new - truth).abs().max()) < 4 * ulp
+        assert float((old - truth).abs().max()) < 8 * ulp
 
 
 # -- the stored/invertible switch -------------------------------------------

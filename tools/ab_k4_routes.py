@@ -3,17 +3,21 @@ multislice_db.cu``) and K1 (``multislice_db_stored.cu``) on their FFT and
 dense step routes, for one or more copies of the kernel sources, on one
 CUDA card.
 
-    python tools/ab_k4_routes.py [CSRC_DIR ...] [--sass k1,k4 PARENT_CSRC]
+    python tools/ab_k4_routes.py [CSRC_DIR ...] [--sass k1,k4,k5 PARENT_CSRC]
                                  [--kernels k4,k1]
 
 Each ``CSRC_DIR`` holds a copy of ``adorym_tpu_torch/csrc`` (default: the
 checkout's own); each is built with nvcc into ``build/ab_k4_routes/`` (its
 registers and spills printed), and its entry points are timed by CUDA
-events on both routes, the sources in turns (forward order, then
-reversed), f32 with the Fraunhofer far field:
+events on the FFT route, beside the first copy's dense route, in turns
+(forward order, then reversed), f32 with the Fraunhofer far field:
 
-  k4  ``k4_fwd``/``k4_bwd`` at the multi-mode flagship chunk (S=256 steps,
-      M=3 modes, N=529 patches of 72x72);
+  k4  ``k4_fwd``/``k4_bwd`` at the launch shape of the benchmark cell
+      ``cone256_mm.per_angle`` (S=256 steps, M=5 modes, N=460 patches of
+      72x72: each of an angle's two gradient chunks of 20 grid rows, the
+      second padded to 20 from 3 rows, i.e. N=69), at N=69, and at the
+      multi-mode flagship chunk (M=3, N=529), with each copy's resident
+      blocks an SM on the FFT route;
   k1  ``k1_fwd``/``k1_bwd`` at the delta_beta flagship chunk (S=32, M=1)
       with N=529 and N=528 patches (529 blocks are 4 full rounds of 132
       SMs and one block more), and at M=3 (the binned multi-mode chunk).
@@ -21,8 +25,11 @@ reversed), f32 with the Fraunhofer far field:
 Every version's FFT-route outputs are held against the first version's
 dense route.  With ``--sass``, the SASS of each named kernel's source built
 from the checkout is compared, function by function, with the one built
-from ``PARENT_CSRC``; ``--kernels ''`` then skips the timing.  Prints the
-card's name and power limit first.
+from ``PARENT_CSRC`` (k5: ``multislice_fused.cu``); ``--kernels ''`` then
+skips the timing.  Prints the card's name, power limit and SM clock first.
+
+Resident blocks an SM come from the copy's ``k4_blocks_per_sm`` entry
+point; a copy without one prints none.
 """
 
 import argparse
@@ -44,6 +51,7 @@ from adorym_tpu_torch.utils import cuda_build  # noqa: E402
 OUT = REPO / 'build' / 'ab_k4_routes'
 _F, _I, _P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 SOURCES = {'k4': 'multislice_db.cu', 'k1': 'multislice_db_stored.cu'}
+SASS_SOURCES = dict(SOURCES, k5='multislice_fused.cu')
 #: The entry points' signatures since the global route (a workspace
 #: pointer before the stream; copies of ``csrc`` from before it lack it).
 ARGTYPES = {
@@ -72,13 +80,11 @@ def build(dirs, kernels):
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(log)
-        for fn, regs in re.findall(r"entry function '(\w+)'.*?Used (\d+) "
-                                   r"registers", log, re.S):
-            kind = 'fwd' if 'fwd_kernel' in fn else 'bwd'
-            print(f'{dirs[i]}: {k} {kind} {fn[-40:]} {regs} registers',
-                  flush=True)
-        print(f'{dirs[i]}: {k} spills', sorted(set(re.findall(
-            r'(\d+) bytes spill stores', log))), flush=True)
+        for fn, stack, spill, regs in re.findall(
+                r"entry function '(\w+)'.*?(\d+) bytes stack frame, (\d+) "
+                r"bytes spill stores.*?Used (\d+) registers", log, re.S):
+            print(f'{dirs[i]}: {k} {demangle(fn)}: {regs} registers, '
+                  f'{stack} bytes stack, {spill} bytes spilled', flush=True)
         lib = ctypes.CDLL(str(OUT / f'{k}_{i}.so'))
         for sym in (f'{k}_fwd', f'{k}_bwd'):
             getattr(lib, sym).argtypes = ARGTYPES[sym]
@@ -86,9 +92,22 @@ def build(dirs, kernels):
     return libs
 
 
+def demangle(name):
+    """The kernel's name and template arguments, without its parameters
+    and the anonymous namespace's hash."""
+    filt = Path(cuda_build.nvcc()).parent / 'cu++filt'
+    try:
+        name = subprocess.run([str(filt), name], capture_output=True,
+                              text=True, timeout=60).stdout.strip() or name
+    except OSError:
+        return name
+    return re.sub(r'\(.*$', '', name.replace('(anonymous namespace)::', ''))
+
+
 def sass(cubin):
     """Function -> SASS lines, the function names without the anonymous
-    namespace's hash."""
+    namespace's hash, the lines without their address (whose width, and so
+    the lines' padding, follows the cubin's size)."""
     text = subprocess.run([str(Path(cuda_build.nvcc()).parent / 'cuobjdump'),
                            '-sass', str(cubin)],
                           capture_output=True, text=True, check=True).stdout
@@ -99,7 +118,8 @@ def sass(cubin):
             cur = re.sub(r'_GLOBAL__N__\w+?_\d+_', '', m.group(1))
             funcs[cur] = []
         elif cur and '/*' in line:
-            funcs[cur].append(re.sub(r'/\*[0-9a-f]{4}\*/', '', line).strip())
+            funcs[cur].append(' '.join(
+                re.sub(r'/\*[0-9a-f]{4,}\*/', '', line).split()))
     return funcs
 
 
@@ -110,7 +130,8 @@ def compare_sass(kernel, parent):
     procs = []
     for tag, d in (('parent', Path(parent)), ('this', cuda_build.CSRC)):
         cubins[tag] = OUT / f'{kernel}_{tag}.cubin'
-        procs.append(nvcc(d / SOURCES[kernel], cubins[tag], '-cubin'))
+        procs.append(nvcc(d / SASS_SOURCES[kernel], cubins[tag],
+                          '-cubin'))
     for p in procs:
         log, _ = p.communicate()
         if p.returncode:
@@ -121,6 +142,29 @@ def compare_sass(kernel, parent):
         print(f'{kernel.upper()} SASS {name[:70]}: '
               f"{'identical' if same else 'DIFFERS'} "
               f'({len(old.get(name, []))} / {len(new.get(name, []))} lines)',
+              flush=True)
+
+
+def blocks_per_sm(libs, dirs, modes=(1, 3, 5)):
+    """Prints each copy's resident K4f and K4b blocks an SM on the FFT
+    route at 72x72, f32."""
+    for i, d in enumerate(dirs):
+        lib = libs.get((i, 'k4'))
+        if lib is None:
+            continue
+        if not hasattr(lib, 'k4_blocks_per_sm'):
+            print(f'{d}: no k4_blocks_per_sm entry point', flush=True)
+            continue
+        fn = lib.k4_blocks_per_sm
+        fn.argtypes = [_I] * 6 + [ctypes.POINTER(_F)]
+        got = {}
+        for bwd in (0, 1):
+            for m in modes:
+                out = _F()
+                assert fn(bwd, 0, cm.STEP_ROUTES['fft'], m, 72, 72,
+                          ctypes.byref(out)) == 0
+                got[f"{'K4b' if bwd else 'K4f'} M={m}"] = round(out.value, 4)
+        print(f'{d}: K4 resident blocks an SM (fft, 72x72, f32) {got}',
               flush=True)
 
 
@@ -206,14 +250,15 @@ def rel(a, b):
 
 
 #: (kernel, S, M, N, repetitions) of each timed case.
-CASES = {'k4': [('k4', 256, 3, 529, 3)],
+CASES = {'k4': [('k4', 256, 5, 460, 3), ('k4', 256, 5, 69, 3),
+                ('k4', 256, 3, 529, 3)],
          'k1': [('k1', 32, 1, 529, 10), ('k1', 32, 1, 528, 10),
                 ('k1', 32, 3, 529, 5)]}
 
 
 def run_case(libs, dirs, kernel, S, M, N, reps):
     ops = operands(S, M, N, records=kernel == 'k1')
-    runs = [(i, r) for i in range(len(dirs)) for r in ('fft', 'dense')]
+    runs = [(0, 'dense')] + [(i, 'fft') for i in range(len(dirs))]
     eps, outs = {}, []
     for i, r in runs:
         eps[(i, r)] = entries(libs[(i, kernel)], kernel, r, ops, outs)
@@ -249,14 +294,17 @@ def main():
     if not torch.cuda.is_available():
         print('ab_k4_routes: no CUDA device', file=sys.stderr)
         return 2
-    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, timeout=60).stdout.strip(), flush=True)
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit,'
+                          'clocks.sm,clocks.max.sm', '--format=csv,noheader'],
+                         capture_output=True, text=True,
+                         timeout=60).stdout.strip(), flush=True)
     kernels = [k for k in args.kernels.split(',') if k]
     libs = build(args.dirs, kernels)
     if args.sass:
         for kernel in args.sass[0].split(','):
             compare_sass(kernel, args.sass[1])
+    if 'k4' in kernels:
+        blocks_per_sm(libs, args.dirs)
     for k in kernels:
         for case in CASES[k]:
             run_case(libs, args.dirs, *case)
