@@ -11,7 +11,9 @@ cell's own size, as a run's set-up does, and needs no measured window.
         --seeds 1-12 --modes sound,control --out calib.json
 
 Prints one line a reading and writes them all to ``--out``.  Not run by
-the benchmark's runs.
+the benchmark's runs.  A mesh cell's readings are taken on its ranks
+(``mesh.calibrate``: the program once a seed and mode, the reference once
+a seed), where ``exchange`` (no halo between the ranks) is a fault too.
 """
 
 import time
@@ -79,13 +81,22 @@ def main(argv=None) -> int:
     p.add_argument('--out', default=None)
     args = p.parse_args(argv)
     import torch
-    from benchmark import harness
+    from benchmark import harness, mesh
     cell = harness.load_cell(args.workload, ROOT)
     if not torch.cuda.is_available():
         print('no CUDA device', file=sys.stderr)
         return 3
     print(f'card: {harness.power_limit()}', flush=True)
     rows = []
+    if mesh.parallel(cell) is not None:
+        code, rows = mesh.calibrate(cell, seeds(args.seeds),
+                                    args.modes.split(','), time.time())
+        for row in rows:
+            print(json.dumps(row), flush=True)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(rows, indent=1))
+        return code
     for mode in args.modes.split(','):
         for s in seeds(args.seeds):
             t = time.perf_counter()

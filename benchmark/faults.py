@@ -4,8 +4,12 @@ out (the mean taken over the rest), an answer altered where it is
 produced (the first pattern's predicted magnitudes of each gradient chunk
 1% high), and a stale cache (each rotation kept by its angle and never
 refreshed: right on an angle's first visit, the state of that visit
-after).  Used by ``calibrate.py`` on the card and by the CPU tests; the
-benchmark's own runs plant nothing."""
+after).  On a mesh (``MESH_KINDS``) also: the exchange between the ranks
+left out (each ring shift of the object axis hands back zeros, so a
+window that crosses into the next slab sees vacuum there), and one rank's
+slab altered (the rank at object-axis 1 never updates).  Used by
+``calibrate.py`` on the card and by the CPU tests; the benchmark's own
+runs plant nothing."""
 
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import contextlib
 import torch
 
 KINDS = ('unchanged', 'half', 'alter', 'stale')
+MESH_KINDS = ('exchange', 'slab')
 
 
 @contextlib.contextmanager
@@ -53,6 +58,20 @@ def planted(kind: str):
             if key not in kept:
                 kept[key] = orig(vol, theta, *args, **kwargs)
             return kept[key]
+    elif kind == 'exchange':
+        from adorym_tpu_torch.parallel.comm import Comm
+        owner, name = Comm, 'ring_shift'
+
+        def fault(self, t, *args, **kwargs):
+            return torch.zeros_like(t)
+    elif kind == 'slab':
+        owner, name = recon.Reconstructor, 'apply_step'
+        orig = recon.Reconstructor.apply_step
+
+        def fault(self, *args, **kwargs):
+            if self.mesh is None or self.mesh.op != 1:
+                return orig(self, *args, **kwargs)
+            return None
     else:
         raise ValueError(f'unknown fault {kind!r}')
     saved = owner.__dict__[name]

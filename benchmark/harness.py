@@ -89,12 +89,17 @@ def load_cell(name: str, root: Path, bench: Path = BENCH) -> Cell:
                 bench=bench)
 
 
-def load_reader(path: Path) -> Callable:
+def load_module(path: Path):
+    """A metric's reader file as a module."""
     spec = importlib.util.spec_from_file_location(
         f'bench_reader_{path.stem}', path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(path: Path) -> Callable:
+    return load_module(path).read
 
 
 class Spans:
@@ -203,6 +208,15 @@ def reset_to_start(rec, su: 'Setup') -> None:
     rec.global_batch = 0
 
 
+def k4_blocks_per_sm() -> dict:
+    """The port's record of K4's resident blocks an SM by launch shape
+    (``ops/cuda_multislice.K4_BLOCKS_PER_SM``), for the route line; empty
+    where no K4 launched, None in a version without it."""
+    from adorym_tpu_torch.ops import cuda_multislice
+    got = getattr(cuda_multislice, 'K4_BLOCKS_PER_SM', None)
+    return None if got is None else {str(k): v for k, v in got.items()}
+
+
 def device_info(device) -> dict:
     if device.type == 'cuda':
         return {'platform': 'gpu', 'kind': torch.cuda.get_device_name(device),
@@ -301,6 +315,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     route = {k: getattr(rec, k, None) for k in
              ('_grid_scatter_rows', '_fuse_g', '_rowgrid_stride',
               '_data_dev_ok', '_prebin', '_stream_rot')}
+    route['K4_BLOCKS_PER_SM'] = k4_blocks_per_sm()
     err(f'route {json.dumps(route, default=str)}')
     setup_s = time.perf_counter() - t0
 

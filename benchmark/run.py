@@ -1,4 +1,4 @@
-"""Run one cell of the benchmark of adorym_tpu_torch on one NVIDIA card.
+"""Run one cell of the benchmark of adorym_tpu_torch on its NVIDIA cards.
 
     python3 benchmark/run.py --workload cone256_db.per_angle --seed 1 \
         --seconds 10 --trace 0
@@ -9,7 +9,8 @@ cell's end-to-end metrics, or with ``--trace 1`` its per-layer ones),
 ``device`` and, last, ``check`` (each number the comparison holds to its
 limit, which also end standard error).  Exits nonzero with no result
 when there is no CUDA card (or fewer than the cell asks for), and when
-JAX or the JAX package is loaded.
+JAX or the JAX package is loaded.  A cell whose traffic has a
+``parallel`` object runs on one rank a card (``mesh.py``).
 """
 
 import time
@@ -49,7 +50,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     import torch
-    from benchmark import guard, harness
+    from benchmark import guard, harness, mesh
     cell = harness.load_cell(args.workload, ROOT)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         print(f'{args.workload}: needs {cell.chips} CUDA device(s); '
@@ -57,6 +58,12 @@ def main(argv=None) -> int:
         return 3
     print(f'card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, '
           f'CUDA {torch.version.cuda}', file=sys.stderr, flush=True)
+    if mesh.parallel(cell) is not None:
+        print(f'cards: {torch.cuda.device_count()}; power: '
+              f'{harness.power_limit()}', file=sys.stderr, flush=True)
+        wall0 = time.time() - (time.perf_counter() - T0)
+        return mesh.main(cell, args.seed, args.seconds, bool(args.trace),
+                         wall0)
     try:
         result = harness.run_cell(
             cell, args.seed, args.seconds, bool(args.trace), 'cuda:0', T0,

@@ -7,7 +7,7 @@ from pathlib import Path
 
 import pytest
 
-from benchmark import harness
+from benchmark import harness, mesh
 
 REPO = Path(__file__).resolve().parents[2]
 SPEC = json.loads((REPO / 'BENCHMARK.json').read_text())
@@ -61,7 +61,8 @@ def test_every_config_is_used_and_its_file_is_under_paths():
 @pytest.mark.parametrize('cell', CELLS)
 def test_cell_resolves_to_its_files(cell):
     c = harness.load_cell(cell, REPO)
-    assert c.chips == 1
+    par = mesh.parallel(c)
+    assert c.chips == (1 if par is None else mesh.world_of(c))
     bench = REPO / 'benchmark'
     assert (bench / 'traffic' / f"{c.traffic['name']}.json").exists()
     assert set(c.limits) == {'loss_gap', 'grad_gap', 'change_gap'}
