@@ -31,8 +31,6 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from .reference import ptycho
-
 GRAD_FLOOR = 1e-3
 NUMBERS = ('loss_gap', 'grad_gap', 'change_gap')
 
@@ -65,12 +63,12 @@ def numbers(prog: dict, ref: dict) -> Dict[str, float]:
 
 def program_side(steps: List[dict], obj0, probe0, leaves) -> dict:
     """The program's numbers from the recorded steps: each step's losses,
-    the first gradient from Adam's first moment, the change after the
-    last recorded step."""
+    the first gradient as read from Adam's first moment, the change after
+    the last recorded step."""
     first, last = steps[0], steps[-1]
     p0 = {'obj': obj0, 'probe': probe0}
     return {'losses': [s['losses'] for s in steps],
-            'grad1': {k: first['m'][k] / (1 - ptycho.ADAM_B1) for k in leaves},
+            'grad1': {k: first['grad1'][k] for k in leaves},
             'change': {k: last['params'][k] - p0[k] for k in leaves}}
 
 

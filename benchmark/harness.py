@@ -8,7 +8,22 @@ Everything that belongs to one configuration, mix or metric is a file
 found by name under the benchmark's folder:
 
 * ``configs/<config>.json`` (the ``file`` of the configuration's entry in
-  ``BENCHMARK.json``), ``traffic/<traffic>.json``;
+  ``BENCHMARK.json``), ``traffic/<traffic>.json``; the configuration's
+  ``object_init`` is read by ``inputs.make`` and its ``settings`` by
+  :func:`reconstructor_config`;
+* ``reference/<name>.py``, ``<name>`` the configuration's ``"reference"``
+  (``ptycho`` where it names none): the plain reference that judges the
+  cell, loaded as the readers are, a module with
+  - ``follow(cfg, obj0, probe0, steps, positions, precision)``: its run
+    from ``(obj0, probe0)`` through ``steps`` (each ``{'theta',
+    'batches', 'measured'}``) in ``precision``, ``'f32'`` or the
+    control's ``'tf32'`` (its matmuls' operands rounded to TF32); returns
+    ``{'losses': [each step's per-minibatch losses], 'grad1': {leaf: the
+    first step's gradient}, 'change': {leaf: the change after the last
+    step}, 'seconds': [each step's]}``;
+  - ``leaf_names(cfg)``: the leaves it refines (``'obj'`` first);
+  - ``ADAM_B1``: the first moment's decay of the Adam it follows, by
+    which the program's first gradient is read from its Adam state;
 * ``limits/<cell>.json``: the comparison's limits of the cell;
 * ``end_to_end/<metric>.py`` and ``metrics/<metric>.py``: each a reader
   ``read(ctx)`` that returns the metric or None (nothing to read), and a
@@ -27,6 +42,7 @@ import gc
 import importlib.util
 import json
 import math
+import re
 import sys
 import time
 import types
@@ -38,7 +54,6 @@ import torch
 
 from . import check, guard, inputs as inputs_lib, trace, work
 from .work import multislice as _multislice  # noqa: F401 (work.multislice)
-from .reference import ptycho as ref_lib
 
 BENCH = Path(__file__).resolve().parent
 #: Steps the reference follows; the warm-up takes at least this many.
@@ -47,6 +62,9 @@ N_CHECK = 3
 #: ``run_epoch`` the window calls, stopped by the program's own stop flag.
 N_WARM = 6
 WINDOW_SPAN = 'bench.epoch'
+#: The reference of a configuration that names none.
+DEFAULT_REFERENCE = 'ptycho'
+REFERENCE_NAME = re.compile(r'[A-Za-z0-9_]+')
 
 
 @dataclasses.dataclass
@@ -59,6 +77,7 @@ class Cell:
     per_layer: List[dict]
     limits: Dict[str, float]
     bench: Path
+    reference: Path              # reference/<name>.py
 
 
 def _entry(items, name, what):
@@ -86,13 +105,27 @@ def load_cell(name: str, root: Path, bench: Path = BENCH) -> Cell:
                             if _applies(m, name)],
                 per_layer=[m for m in spec['per_layer'] if _applies(m, name)],
                 limits=check.load_limits(bench / 'limits' / f'{name}.json'),
-                bench=bench)
+                bench=bench,
+                reference=reference_path(config, bench, c['file']))
 
 
-def load_module(path: Path):
-    """A metric's reader file as a module."""
+def reference_path(config: dict, bench: Path, file: str) -> Path:
+    """``bench/reference/<name>.py`` of the configuration's ``"reference"``
+    (``file``: the configuration's file, for the message)."""
+    name = config.get('reference', DEFAULT_REFERENCE)
+    if not isinstance(name, str) or not REFERENCE_NAME.fullmatch(name):
+        raise ValueError(f'{file}: "reference" {name!r} is not a module name '
+                         f'([A-Za-z0-9_]+) of {bench / "reference"}')
+    path = bench / 'reference' / f'{name}.py'
+    if not path.is_file():
+        raise ValueError(f'{file}: "reference" {name!r}: there is no {path}')
+    return path
+
+
+def load_module(path: Path, prefix: str = 'bench_reader'):
+    """A metric's reader file (or a reference) as a module."""
     spec = importlib.util.spec_from_file_location(
-        f'bench_reader_{path.stem}', path)
+        f'{prefix}_{path.stem}', path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -126,36 +159,61 @@ class Spans:
 
 
 def reconstructor_config(cell: Cell, seed: int):
+    """The Reconstructor's configuration: the fields below from the
+    configuration's flat keys, the traffic's minibatch and the seed, then
+    each key of the configuration's ``settings`` (``{"geometry": {...},
+    "train": {...}, "refine": {...}}``) on its group's dataclass.  A
+    setting that the dataclass lacks, or that is one of the fields below,
+    fails."""
     import adorym_tpu_torch as pt
     c, t = cell.config, cell.traffic
-    return pt.ReconConfig(
-        geometry=pt.Geometry(obj_size=tuple(c['obj_size']),
-                             probe_size=tuple(c['probe_size']),
-                             energy_ev=c['energy_ev'], psize_cm=c['psize_cm'],
-                             free_prop_cm=c['free_prop_cm'],
-                             binning=c['binning']),
-        train=pt.TrainConfig(minibatch_size=t['minibatch_size'],
-                             learning_rate=c['learning_rate'],
-                             optimizer=c['optimizer'],
-                             rotate_out_of_loop=c['rotate_out_of_loop'],
-                             update_scheme=c['update_scheme'],
-                             unknown_type=c['unknown_type'],
-                             n_probe_modes=c['n_probe_modes'],
-                             seed=int(seed) % (2 ** 32)),
-        refine=pt.RefineConfig(
+    groups = {
+        'geometry': (pt.Geometry, dict(
+            obj_size=tuple(c['obj_size']), probe_size=tuple(c['probe_size']),
+            energy_ev=c['energy_ev'], psize_cm=c['psize_cm'],
+            free_prop_cm=c['free_prop_cm'], binning=c['binning'])),
+        'train': (pt.TrainConfig, dict(
+            minibatch_size=t['minibatch_size'],
+            learning_rate=c['learning_rate'], optimizer=c['optimizer'],
+            rotate_out_of_loop=c['rotate_out_of_loop'],
+            update_scheme=c['update_scheme'], unknown_type=c['unknown_type'],
+            n_probe_modes=c['n_probe_modes'], seed=int(seed) % (2 ** 32))),
+        'refine': (pt.RefineConfig, dict(
             optimize_probe=c['optimize_probe'],
-            probe_learning_rate=c.get('probe_learning_rate', 1e-3)))
+            probe_learning_rate=c.get('probe_learning_rate', 1e-3))),
+    }
+    settings = c.get('settings', {})
+    where = f"configuration {c.get('name')!r}: settings"
+    for g in settings:
+        if g not in groups:
+            raise ValueError(f'{where}.{g}: no such group (geometry, train, '
+                             'refine)')
+    built = {}
+    for g, (cls, flat) in groups.items():
+        own = settings.get(g, {})
+        fields = {f.name for f in dataclasses.fields(cls)}
+        for k in own:
+            if k not in fields:
+                raise ValueError(f'{where}.{g}.{k}: {cls.__name__} has no '
+                                 f'field {k!r}')
+            if k in flat:
+                raise ValueError(f'{where}.{g}.{k}: set from the '
+                                 "configuration's flat keys, the traffic "
+                                 'or the seed; give it there alone')
+        built[g] = cls(**flat, **own)
+    return pt.ReconConfig(**built)
 
 
 class StepRecorder:
     """Stands in for the Reconstructor's ``angle_step`` through the warm-up:
     runs it, keeps each step's angle and minibatches, the first
-    ``n_check`` steps' losses, Adam's first moment after the first step and
-    the parameters after the last checked one, and raises the program's
-    stop flag after ``n_warm`` steps."""
+    ``n_check`` steps' losses, the first gradient as the optimizer got it
+    (Adam's first moment after the first step over ``1 - b1``) and the
+    parameters after the last checked one, and raises the program's stop
+    flag after ``n_warm`` steps."""
 
-    def __init__(self, rec, leaves, n_check: int, n_warm: int):
-        self.rec, self.leaves = rec, leaves
+    def __init__(self, rec, leaves, b1: float, n_check: int, n_warm: int):
+        self.rec, self.leaves, self.b1 = rec, leaves, b1
         self.n_check, self.n_warm = n_check, n_warm
         self.orig = rec.angle_step
         self.steps: List[dict] = []
@@ -168,8 +226,8 @@ class StepRecorder:
         if k < self.n_check:
             st['losses'] = out.detach().double().cpu()
             if k == 0:
-                st['m'] = {n: rec.opt_state[n]['m'].detach().cpu()
-                           for n in self.leaves}
+                st['grad1'] = {n: rec.opt_state[n]['m'].detach().cpu()
+                               / (1 - self.b1) for n in self.leaves}
             if k == self.n_check - 1:
                 st['params'] = {n: rec.params[n].detach().cpu()
                                 for n in self.leaves}
@@ -179,11 +237,12 @@ class StepRecorder:
         return out
 
 
-def record_steps(rec, leaves, n_steps: int, i_epoch: int = 0) -> List[dict]:
+def record_steps(rec, leaves, b1: float, n_steps: int,
+                 i_epoch: int = 0) -> List[dict]:
     """The first ``n_steps`` angle steps of the program's epoch
     ``i_epoch``, through its own ``run_epoch``, stopped by its own stop
     flag; returns what :class:`StepRecorder` kept of them."""
-    recorder = StepRecorder(rec, leaves, N_CHECK, n_steps)
+    recorder = StepRecorder(rec, leaves, b1, N_CHECK, n_steps)
     rec.angle_step = recorder
     try:
         rec.run_epoch(i_epoch)
@@ -250,6 +309,7 @@ class Setup:
     theta: np.ndarray
     data: np.ndarray             # the measured magnitudes, on the host
     leaves: List[str]
+    ref: types.ModuleType        # the cell's reference (reference/<name>.py)
 
 
 def set_up(cell: Cell, seed: int, device, spans: Spans,
@@ -260,6 +320,9 @@ def set_up(cell: Cell, seed: int, device, spans: Spans,
     device = torch.device(device)
     with spans('setup.imports'):
         import adorym_tpu_torch  # noqa: F401
+        ref = load_module(cell.reference, 'bench_reference')
+    # A wrong setting fails here, before any input is made.
+    rcfg = reconstructor_config(cell, seed)
     with spans('setup.inputs'):
         inp = inputs_lib.make(c, t, seed, device)
         data_host = inp.data.cpu().numpy()
@@ -268,17 +331,16 @@ def set_up(cell: Cell, seed: int, device, spans: Spans,
         _sync(device)
     with spans('setup.reconstructor'):
         from adorym_tpu_torch.recon import Reconstructor
-        rec = Reconstructor(reconstructor_config(cell, seed),
-                            data=data_host, probe_pos=inp.positions,
+        rec = Reconstructor(rcfg, data=data_host, probe_pos=inp.positions,
                             theta_ls=inp.theta, obj_init=obj0.numpy(),
                             probe_init=probe0.numpy(), device=device)
-    leaves = ref_lib.leaf_names(c)
+    leaves = ref.leaf_names(c)
     with spans('setup.warmup'):
-        steps = record_steps(rec, leaves, n_warm)[:N_CHECK]
+        steps = record_steps(rec, leaves, ref.ADAM_B1, n_warm)[:N_CHECK]
         _sync(device)
     return Setup(rec=rec, steps=steps, obj0=obj0, probe0=probe0,
                  positions=inp.positions, theta=inp.theta, data=data_host,
-                 leaves=leaves)
+                 leaves=leaves, ref=ref)
 
 
 def _profile(device, host_ops: bool):
@@ -391,7 +453,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     # -- window left it ------------------------------------------------
     with spans('after_window'):
         reset_to_start(rec, su)
-        after = record_steps(rec, su.leaves, N_CHECK, next_epoch)[:N_CHECK]
+        after = record_steps(rec, su.leaves, su.ref.ADAM_B1, N_CHECK,
+                             next_epoch)[:N_CHECK]
         _sync(device)
 
     # -- the comparison, once the program's state is freed ---------------
@@ -482,6 +545,6 @@ def follow_reference(cell: Cell, su: Setup, device, precision: str = 'f32',
                   'measured': torch.from_numpy(su.data[s['i_theta']])
                   .to(device)}
                  for s in (su.steps if steps is None else steps)]
-    return ref_lib.follow(cell.config, su.obj0.to(device),
-                          su.probe0.to(device), ref_steps, su.positions,
-                          precision)
+    return su.ref.follow(cell.config, su.obj0.to(device),
+                         su.probe0.to(device), ref_steps, su.positions,
+                         precision)

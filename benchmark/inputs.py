@@ -18,7 +18,7 @@ import torch
 @dataclasses.dataclass
 class Inputs:
     data: torch.Tensor          # [n_theta, n_pos, py, px] f32 magnitudes
-    obj: torch.Tensor           # [y, x, z, 2] f32 (delta, beta)
+    obj: torch.Tensor           # [y, x, z, 2] f32 (delta, beta or re, im)
     probe: torch.Tensor         # [n_modes, py, px, 2] f32 (real, imag)
     positions: np.ndarray       # [n_pos, 2] float64, (y, x) pixels
     theta: np.ndarray           # [n_theta] float32 radians
@@ -58,9 +58,39 @@ def gaussian_probe(config: dict, device) -> torch.Tensor:
                        -1).float()
 
 
+#: The two forms of ``object_init``: each channel's mean and sigma, or the
+#: delta_beta object's by name.
+BY_CHANNEL = ('means', 'sigmas')
+DELTA_BETA = ('delta_mean', 'delta_sigma', 'beta_mean', 'beta_sigma')
+
+
+def object_start(config: dict):
+    """``(means, sigmas)`` of the object's two channels from the
+    configuration's ``object_init``: ``{"means": [m0, m1], "sigmas": [s0,
+    s1]}`` (a real_imag vacuum start: means ``[1, 0]``, sigmas ``[0,
+    0]``), or ``delta_mean``, ``delta_sigma``, ``beta_mean`` and
+    ``beta_sigma``; any other set of keys fails."""
+    o = config['object_init']
+    if set(o) == set(BY_CHANNEL):
+        means, sigmas = list(o['means']), list(o['sigmas'])
+        if len(means) != 2 or len(sigmas) != 2:
+            raise ValueError(f"configuration {config.get('name')!r}: "
+                             'object_init means and sigmas take two '
+                             'channels each')
+    elif set(o) == set(DELTA_BETA):
+        means = [o['delta_mean'], o['beta_mean']]
+        sigmas = [o['delta_sigma'], o['beta_sigma']]
+    else:
+        raise ValueError(f"configuration {config.get('name')!r}: "
+                         f'object_init has keys {sorted(o)}; it takes '
+                         f'{list(BY_CHANNEL)} or {list(DELTA_BETA)}')
+    return [float(m) for m in means], [float(s) for s in sigmas]
+
+
 def make(config: dict, traffic: dict, seed: int, device) -> Inputs:
     """Every input of one run from ``seed``; the same seed gives the same
     inputs."""
+    means, sigmas = object_start(config)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (2 ** 63))
     pos = positions(traffic)
@@ -72,11 +102,10 @@ def make(config: dict, traffic: dict, seed: int, device) -> Inputs:
                       device=device)
     if d['low'] != 0.0 or d['high'] != 1.0:
         data.mul_(d['high'] - d['low']).add_(d['low'])
-    o = config['object_init']
     obj = torch.randn(tuple(config['obj_size']) + (2,), generator=gen,
                       device=device)
-    obj[..., 0].mul_(o['delta_sigma']).add_(o['delta_mean'])
-    obj[..., 1].mul_(o['beta_sigma']).add_(o['beta_mean'])
+    for ch in range(2):
+        obj[..., ch].mul_(sigmas[ch]).add_(means[ch])
     p = config['probe']
     base = gaussian_probe(config, device)
     weights = p['mode_weights']

@@ -31,7 +31,8 @@ A rank runs what ``harness.run_cell`` runs, with these differences:
   (``reference/rows.py``) follows, on each rank, the rows of its own slab
   from the starting object over the rows its steps read, and each
   minibatch's loss is reported by the rank holding the first row of its
-  window.
+  window.  The row form exists for ``reference/ptycho.py`` alone: a
+  configuration that names another reference is refused.
 """
 
 from __future__ import annotations
@@ -53,7 +54,6 @@ import numpy as np
 import torch
 
 from . import check, faults, guard, harness, inputs as inputs_lib, trace, work
-from .reference import ptycho as ref_lib
 from .reference import rows as rows_lib
 
 #: A run's ranks are ended past this many seconds (a first run in a
@@ -66,6 +66,18 @@ GROUP_TIMEOUT_S = 150.0
 def parallel(cell) -> Optional[dict]:
     """The cell's ``parallel`` object, or None for a one-card cell."""
     return cell.traffic.get('parallel')
+
+
+def check_reference(cell) -> None:
+    """Refuse a cell whose configuration names a reference other than
+    ``ptycho``: the ranks follow rows with ``reference/rows.py``, which is
+    ``ptycho``'s row form."""
+    if cell.reference.stem != harness.DEFAULT_REFERENCE:
+        raise ValueError(
+            f"configuration {cell.config.get('name')!r}: \"reference\" "
+            f'{cell.reference.stem!r} ({cell.reference}): the mesh path '
+            'follows rows with reference/rows.py, the row form of ptycho '
+            'alone')
 
 
 def world_of(cell) -> int:
@@ -199,7 +211,8 @@ def _gather(obj) -> list:
 # -- set-up ----------------------------------------------------------------
 
 def reconstructor_config(cell, seed: int):
-    """``harness.reconstructor_config`` with the cell's mesh."""
+    """``harness.reconstructor_config`` (its ``settings`` too) with the
+    cell's mesh."""
     import adorym_tpu_torch as pt
     p = parallel(cell)
     return harness.reconstructor_config(cell, seed).replace(
@@ -230,8 +243,8 @@ class MeshRecorder:
     first gradient as the optimizer got it and of the change after the
     last checked step, and raises the stop flag after ``n_warm`` steps."""
 
-    def __init__(self, orig, obj0, n_check: int, n_warm: int):
-        self.orig, self.obj0 = orig, obj0
+    def __init__(self, orig, obj0, b1: float, n_check: int, n_warm: int):
+        self.orig, self.obj0, self.b1 = orig, obj0, b1
         self.n_check, self.n_warm = n_check, n_warm
         self.steps: List[dict] = []
 
@@ -243,7 +256,7 @@ class MeshRecorder:
             st['losses'] = out.detach().double().cpu()
             if k == 0:
                 st['grad1_sq'] = _sum_sq(rec.opt_state['obj']['m'],
-                                         divisor=1 - ref_lib.ADAM_B1)
+                                         divisor=1 - self.b1)
             if k == self.n_check - 1:
                 st['change_sq'] = _sum_sq(rec.params['obj'], self.obj0)
         self.steps.append(st)
@@ -252,13 +265,14 @@ class MeshRecorder:
         return out
 
 
-def record_steps(rec, obj0, n_steps: int, i_epoch: int = 0) -> List[dict]:
+def record_steps(rec, obj0, b1: float, n_steps: int,
+                 i_epoch: int = 0) -> List[dict]:
     """The first ``n_steps`` angle steps of the program's epoch
     ``i_epoch`` on this rank, through its own ``run_epoch``, stopped by its
     own stop flag; returns what :class:`MeshRecorder` kept of them."""
     from adorym_tpu_torch import recon_mesh
     orig = recon_mesh.mc_angle_step
-    recorder = MeshRecorder(orig, obj0, harness.N_CHECK, n_steps)
+    recorder = MeshRecorder(orig, obj0, b1, harness.N_CHECK, n_steps)
     recon_mesh.mc_angle_step = recorder
     try:
         rec.run_epoch(i_epoch)
@@ -278,6 +292,7 @@ class Setup:
     theta: np.ndarray
     rows: tuple                  # this rank's object rows [a, b)
     leaves: List[str]            # the refined leaves: the object
+    ref: types.ModuleType        # reference/ptycho.py
 
 
 def set_up(cell, seed: int, mesh, spans, n_warm: int = harness.N_WARM
@@ -289,6 +304,9 @@ def set_up(cell, seed: int, mesh, spans, n_warm: int = harness.N_WARM
     device = mesh.device
     with spans('setup.imports'):
         from adorym_tpu_torch.recon import Reconstructor
+        ref = harness.load_module(cell.reference, 'bench_reference')
+    # A wrong setting fails here, before any input is made.
+    rcfg = reconstructor_config(cell, seed)
     with spans('setup.inputs'):
         inp = inputs_lib.make(c, t, seed, device)
         a, n = mesh.slab(int(c['obj_size'][0]))
@@ -301,8 +319,8 @@ def set_up(cell, seed: int, mesh, spans, n_warm: int = harness.N_WARM
         del inp
         harness._sync(device)
     with spans('setup.reconstructor'):
-        rec = Reconstructor(reconstructor_config(cell, seed),
-                            data=data_host, probe_pos=inputs_lib.positions(t),
+        rec = Reconstructor(rcfg, data=data_host,
+                            probe_pos=inputs_lib.positions(t),
                             theta_ls=inputs_lib.angles(c), obj_init=obj_init,
                             probe_init=probe0.numpy(), device=device,
                             mesh=mesh)
@@ -311,12 +329,13 @@ def set_up(cell, seed: int, mesh, spans, n_warm: int = harness.N_WARM
         raise RuntimeError('the mesh cell does not take the per-angle mesh '
                            f'path: {rec._mc_decline_reasons}')
     with spans('setup.warmup'):
-        steps = record_steps(rec, obj0, n_warm)[:harness.N_CHECK]
+        steps = record_steps(rec, obj0, ref.ADAM_B1,
+                             n_warm)[:harness.N_CHECK]
         harness._sync(device)
     return Setup(rec=rec, steps=steps, obj0=obj0, probe0=probe0,
                  positions=inputs_lib.positions(t),
                  theta=inputs_lib.angles(c), rows=(a, a + n),
-                 leaves=ref_lib.leaf_names(c))
+                 leaves=ref.leaf_names(c), ref=ref)
 
 
 # -- the comparison --------------------------------------------------------
@@ -351,8 +370,8 @@ def follow_reference(cell, su: Setup, seed: int, steps: List[dict], comm,
     c, t = cell.config, cell.traffic
     dev = comm.device
     batches = scan_batches(t)
-    iy, _, pads = ref_lib.windows(su.positions, c['probe_size'],
-                                  c['obj_size'][:2])
+    iy, _, pads = su.ref.windows(su.positions, c['probe_size'],
+                                 c['obj_size'][:2])
     wins = [rows_lib.batch_rows(iy, pads[0][0], b) for b in batches]
     cone = rows_lib.cones([wins] * len(steps), su.rows,
                           int(c['obj_size'][0]))[0]
@@ -526,7 +545,7 @@ def run_rank(cell, seed: int, seconds: float, traced: bool, mesh,
     # -- checked steps again after the window ------------------------------
     with spans('after_window'):
         harness.reset_to_start(rec, su)
-        after = record_steps(rec, su.obj0, harness.N_CHECK,
+        after = record_steps(rec, su.obj0, su.ref.ADAM_B1, harness.N_CHECK,
                              next_epoch)[:harness.N_CHECK]
         harness._sync(device)
 
@@ -601,6 +620,7 @@ def main(cell, seed: int, seconds: float, traced: bool, wall0: float,
     lines (last on standard error) and the result's line, and return 0;
     or return nonzero with no result."""
     err = err or (lambda *a: print(*a, file=sys.stderr, flush=True))
+    check_reference(cell)
     p = parallel(cell)
     world = world_of(cell)
     if world != cell.chips:
@@ -652,7 +672,8 @@ def _calibrate_target(rank, world, port, t0, send, cell, seeds, modes,
                 a = time.perf_counter()
                 with faults.planted(mode):
                     harness.reset_to_start(su.rec, su)
-                    steps = record_steps(su.rec, su.obj0, harness.N_CHECK)
+                    steps = record_steps(su.rec, su.obj0, su.ref.ADAM_B1,
+                                         harness.N_CHECK)
                 if [s['i_theta'] for s in steps] != [
                         s['i_theta'] for s in su.steps]:
                     raise RuntimeError(f'{mode} changed the angles')
@@ -691,6 +712,7 @@ def calibrate(cell, seeds: List[int], modes: List[str], wall0: float,
     set-up, each planted fault through the same program from its start,
     the reference once, and the control (the reference at TF32), all
     against that reference.  Returns ``(code, rows)``."""
+    check_reference(cell)
     p = parallel(cell)
     world = world_of(cell)
     backend = backend or p['backend']

@@ -1,7 +1,8 @@
 """A copy of the benchmark takes a new configuration, mix, cell, end-to-end
 metric and per-layer metric from added files and BENCHMARK.json entries
-alone (the tiny cells of ``data/`` are themselves added that way), and a
-run's last line has the contract's shape."""
+alone (the tiny cells of ``data/`` are themselves added that way), a
+configuration's own reference module, object start and Reconstructor
+setting too, and a run's last line has the contract's shape."""
 
 import json
 import shutil
@@ -11,7 +12,56 @@ import pytest
 
 from benchmark import harness
 
-from conftest import REPO, add_tiny
+from conftest import DATA, REPO, add_tiny
+
+#: Configurations added with a reference module of their own: the tiny
+#: delta_beta cone's physics under another module's name, its start in the
+#: per-channel form and one Reconstructor setting.
+NAMED = {'tiny_named': 'ptycho_alias', 'tiny_judged': 'ptycho_doubled'}
+REFERENCES = {
+    'ptycho_alias': (
+        '"""The ptycho reference under another name."""\n'
+        'from benchmark.reference.ptycho import *  # noqa: F401,F403\n'),
+    'ptycho_doubled': (
+        '"""The ptycho reference with each loss doubled."""\n'
+        'from benchmark.reference import ptycho\n'
+        'from benchmark.reference.ptycho import *  # noqa: F401,F403\n'
+        '\n\n'
+        'def follow(*args, **kwargs):\n'
+        '    out = ptycho.follow(*args, **kwargs)\n'
+        "    out['losses'] = [2 * v for v in out['losses']]\n"
+        '    return out\n'),
+}
+SETTING = ('train', 'max_nepochs', 7)
+
+
+def add_named(root, spec):
+    """The ``NAMED`` configurations, their reference modules and limits as
+    files of ``root/benchmark``, and their cells on ``tiny_grid`` in
+    ``spec``, each joining the metrics of ``tiny_db.tiny_grid``."""
+    bench = root / 'benchmark'
+    for mod, text in REFERENCES.items():
+        (bench / 'reference' / f'{mod}.py').write_text(text)
+    base = json.loads((DATA / 'tiny_db.json').read_text())
+    o = base.pop('object_init')
+    group, key, value = SETTING
+    for name, mod in NAMED.items():
+        cfg = dict(base, name=name, reference=mod,
+                   object_init={'means': [o['delta_mean'], o['beta_mean']],
+                                'sigmas': [o['delta_sigma'], o['beta_sigma']]},
+                   settings={group: {key: value}})
+        (bench / 'configs' / f'{name}.json').write_text(json.dumps(cfg))
+        shutil.copy(DATA / 'tiny_db.tiny_grid.limits.json',
+                    bench / 'limits' / f'{name}.tiny_grid.json')
+        spec['configs'].append({'name': name, 'source': 'test',
+                                'reduced': [], 'why': 'test',
+                                'file': f'benchmark/configs/{name}.json'})
+        spec['workloads'].append({'name': f'{name}.tiny_grid', 'config': name,
+                                  'traffic': 'tiny_grid', 'chips': 1,
+                                  'why': 'test'})
+        for m in spec['end_to_end'] + spec['per_layer']:
+            if 'tiny_db.tiny_grid' in m.get('workloads', []):
+                m['workloads'].append(f'{name}.tiny_grid')
 
 
 @pytest.fixture(scope='module')
@@ -28,6 +78,7 @@ def extended(tmp_path_factory):
     (bench / 'end_to_end' / 'window_wall_s.py').write_text(
         'def read(ctx):\n    return ctx.window_wall_s\n')
     spec = json.loads((root / 'BENCHMARK.json').read_text())
+    add_named(root, spec)
     spec['per_layer'].append({
         'name': 'angles_traced', 'unit': 'angles', 'better': 'higher',
         'source': 'program_counter', 'layer': 'run driver',
@@ -80,3 +131,28 @@ def test_last_line_shape(extended):
         for when in ('', '.after_window')}
     for v in back['check'].values():
         assert set(v) == {'value', 'limit'}
+
+
+def test_named_reference_object_start_and_setting_from_files(extended):
+    cell = harness.load_cell('tiny_named.tiny_grid', extended,
+                             extended / 'benchmark')
+    assert cell.reference == (extended / 'benchmark' / 'reference'
+                              / 'ptycho_alias.py')
+    group, key, value = SETTING
+    cfg = harness.reconstructor_config(cell, 5)
+    assert getattr(getattr(cfg, group), key) == value
+    r = run(extended, 'tiny_named.tiny_grid', False)
+    assert r['correct'] is True, r['check']
+
+
+def test_the_named_reference_judges(extended):
+    """The same cell judged by a module whose losses are twice the
+    reference's fails by ``loss_gap`` alone: |L - 2L| / 2L = 1/2."""
+    r = run(extended, 'tiny_judged.tiny_grid', False)
+    assert r['correct'] is False
+    judged = r['check']
+    for n, v in judged.items():
+        if n.split('.')[0] == 'loss_gap':
+            assert abs(v['value'] - 0.5) < 1e-3, (n, v)
+        else:
+            assert v['value'] <= v['limit'], (n, v)
